@@ -1,0 +1,67 @@
+"""Parameters between the JAX package and the port.
+
+The JAX parameter pytree (``MoDAModel.init``) and its checkpoint layout
+(``/``-joined keys, moda_tpu/train/ckpt.py) name every leaf the way the
+port's ``named_parameters()`` does with "." for "/", and Dense kernels are
+[in, out] on both sides, so no leaf is transposed. Arrays cross as numpy.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, Mapping
+
+import numpy as np
+import torch
+
+
+def flatten(tree: Mapping[str, Any], prefix: str = "") -> Dict[str, np.ndarray]:
+    """Nested dict -> {"a/b/c": numpy array} (the checkpoint npz layout)."""
+    out: Dict[str, np.ndarray] = {}
+    for k, v in tree.items():
+        if isinstance(v, Mapping):
+            out.update(flatten(v, f"{prefix}{k}/"))
+        else:
+            out[prefix + k] = np.asarray(v)
+    return out
+
+
+def unflatten(flat: Mapping[str, np.ndarray]) -> Dict[str, Any]:
+    tree: Dict[str, Any] = {}
+    for k, v in flat.items():
+        parts = k.split("/")
+        node = tree
+        for p in parts[:-1]:
+            node = node.setdefault(p, {})
+        node[parts[-1]] = v
+    return tree
+
+
+def load_params(model: torch.nn.Module, params: Mapping[str, Any], strict: bool = True):
+    """Copy a JAX parameter tree (nested or "/"-flattened) into ``model``.
+    strict: every parameter of the model must be present with its shape."""
+    flat = flatten(params)
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            key = name.replace(".", "/")
+            if key not in flat:
+                if strict:
+                    raise KeyError(f"{key} missing from the JAX parameters")
+                continue
+            v = flat[key]
+            if tuple(v.shape) != tuple(p.shape):
+                raise ValueError(f"{key}: JAX shape {v.shape} != port shape {tuple(p.shape)}")
+            p.copy_(torch.as_tensor(np.array(v), dtype=p.dtype))
+
+
+def export_params(model: torch.nn.Module) -> Dict[str, Any]:
+    """The model's parameters as the JAX package's nested numpy tree."""
+    return unflatten({n.replace(".", "/"): p.detach().cpu().numpy()
+                      for n, p in model.named_parameters()})
+
+
+def load_mvars(model, mvars) -> None:
+    """Copy the JAX ModelVars (any object with the same field names, or a
+    dict) into ``model.mvars``."""
+    for f in ("near_far", "alpha", "obj_bound", "vis_min", "vis_len", "beta_is_active"):
+        v = mvars[f] if isinstance(mvars, Mapping) else getattr(mvars, f)
+        setattr(model.mvars, f, torch.as_tensor(np.asarray(v), dtype=torch.float32,
+                                                device=model.device))
