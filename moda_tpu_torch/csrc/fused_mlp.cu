@@ -33,6 +33,15 @@
 //   No atomics: results are deterministic run to run.
 //   Bound: tensor-core operations (~3x the forward's) plus the A/D scratch
 //   traffic (~2 x 14 KB per point for the trunk + feature launch).
+// K1s/K2s (the activation-stash mode, MODA_PALLAS_STASH=1; the stash route
+//   of the same two pallas_calls, moda_tpu/ops/fused_mlp.py:315-338,
+//   :565-570, :597-650): K1s also writes every layer's bf16 input activation
+//   to the A stacks that K2's dW GEMM reads, and K2s's block kernel then
+//   skips the input load and the recomputed forward: the ReLU masks already
+//   come from the A stacks, and a sigmoid head's output is rederived from
+//   the stashed last hidden layer with one product. The stack is held from
+//   the forward to the backward (~7.2 KB per point for the trunk + feature
+//   launch) instead of being rewritten; K2s moves no more bytes than K2.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -72,6 +81,7 @@ struct NetDesc {
 struct FusedDesc {
   int n, s, c, f, in_x, xp, ct, ctp, cd, cdp, nnets;
   int need_dx, need_dt, need_dwin;
+  int stashed;  // K1s: write the A stacks; K2s: read them, skip the recompute
   int hw, outw, accw_f, accw_b, dsw, total_bias, total_w;
   int npad, nblocks, grid, nsplit, chunk;
   const float* x;        // [N][c] raw points (f > 0) or [N][in_x]
@@ -357,7 +367,12 @@ __global__ void __launch_bounds__(NTHREADS) fmlp_fwd_kernel(const __grid_constan
   const int row0 = blockIdx.x * BM_F;
   load_inputs<BM_F>(d, row0, s);
   __syncthreads();
-  for (int n = 0; n < d.nnets; ++n) net_forward<BM_F, false, true>(d, d.nets[n], row0, s);
+  for (int n = 0; n < d.nnets; ++n) {
+    if (d.stashed)
+      net_forward<BM_F, true, true>(d, d.nets[n], row0, s);  // K1s
+    else
+      net_forward<BM_F, false, true>(d, d.nets[n], row0, s);
+  }
 }
 
 // -------------------------------------------------------------------- K2
@@ -497,6 +512,29 @@ __device__ void net_backward(const FusedDesc& d, const NetDesc& nd, int row0, co
   }
 }
 
+// K2s: a sigmoid head's output from the stashed last hidden layer, with the
+// same product, bias and sigmoid as net_forward, so it is bit-identical to
+// the recomputed one. Other heads need nothing from the forward.
+__device__ void rgb_from_stash(const FusedDesc& d, const NetDesc& nd, int row0, const Smem& s) {
+  const LayerDesc& Lr = nd.layers[nd.D + 3];
+  const int k8 = Lr.kin / 8, accw = s.lacc;
+  for (int i = threadIdx.x; i < BM_B * k8; i += NTHREADS) {
+    const int r = i / k8, k = (i % k8) * 8;
+    *reinterpret_cast<uint4*>(s.h0 + r * s.lh + k) =
+        *reinterpret_cast<const uint4*>(Lr.a + (size_t)(row0 + r) * Lr.kin + k);
+  }
+  __syncthreads();
+  const Seg sg = Seg{s.h0, s.lh, Lr.kin, Lr.wt, Lr.kin};
+  block_gemm<BM_B>(&sg, 1, Lr.nout, s.acc, accw);
+  __syncthreads();
+  for (int e = threadIdx.x; e < BM_B * nd.out_pad; e += NTHREADS) {
+    const int r = e / nd.out_pad, j = e % nd.out_pad;
+    const float v = s.acc[r * accw + j] + d.bias[Lr.bias_off + j];
+    s.outs[r * d.outw + j] = 1.0f / (1.0f + expf(-v));
+  }
+  __syncthreads();
+}
+
 // per-ray sums of a per-point code gradient into its ray slots
 __device__ void code_slots(const FusedDesc& d, int blk, const float* src, int ld, int off,
                            int width, float* part) {
@@ -522,12 +560,15 @@ __global__ void __launch_bounds__(NTHREADS) fmlp_bwd_kernel(const __grid_constan
   for (int i = threadIdx.x; i < fc2; i += NTHREADS) s.wacc[i] = 0.0f;
   for (int blk = blockIdx.x; blk < d.nblocks; blk += gridDim.x) {
     const int row0 = blk * BM_B;
-    load_inputs<BM_B>(d, row0, s);
+    if (!d.stashed) load_inputs<BM_B>(d, row0, s);
     for (int i = threadIdx.x; i < BM_B * dtw; i += NTHREADS) s.dt[i] = 0.0f;
     for (int i = threadIdx.x; i < BM_B * d.cdp; i += NTHREADS) s.dcd[i] = 0.0f;
     __syncthreads();
     for (int n = 0; n < d.nnets; ++n) {
-      net_forward<BM_B, true, false>(d, d.nets[n], row0, s);
+      if (!d.stashed)
+        net_forward<BM_B, true, false>(d, d.nets[n], row0, s);
+      else if (d.nets[n].sigmoid)
+        rgb_from_stash(d, d.nets[n], row0, s);  // K2s
       net_backward(d, d.nets[n], row0, s);
     }
     if (d.ct) code_slots(d, blk, s.dt, dtw, d.xp, d.ctp, d.part_ct);

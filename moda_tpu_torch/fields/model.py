@@ -6,6 +6,8 @@ are the optimizer groups of the JAX package's parameter pytree
 non-optimized device state. The ``apply_*`` methods route the NeRF MLPs
 through the fused CUDA kernels when the tensors are on CUDA and
 ``cfg.use_pallas`` is set, and through the plain fp32 version otherwise.
+Their ``site`` argument names the call site in the kernels' launch
+counters.
 """
 from __future__ import annotations
 
@@ -48,7 +50,7 @@ class ModelVars:
 
 
 def _later(what: str):
-    raise NotImplementedError(f"{what} is not on the init-stage path; it is ported in a "
+    raise NotImplementedError(f"{what} is not on the init/ft1/ft2 path; it is ported in a "
                               "later slice of moda_tpu_torch")
 
 
@@ -60,8 +62,7 @@ class MoDAModel(nn.Module):
         card by default; pass device="cpu" to build on the CPU."""
         super().__init__()
         dev = resolve_device(device)
-        for flag, what in ((cfg.use_unc, "use_unc (uncertainty MLP, active sampling)"),
-                           (cfg.flowbw, "flowbw"), (cfg.nerf_dis, "nerf_dis"),
+        for flag, what in ((cfg.flowbw, "flowbw"), (cfg.nerf_dis, "nerf_dis"),
                            (cfg.ft_cse, "ft_cse")):
             if flag:
                 _later(what)
@@ -86,6 +87,11 @@ class MoDAModel(nn.Module):
         if cfg.nerf_vis:
             self.nerf_vis = nets.NeRFMLP(D=5, W=64, in_channels_xyz=IN_XYZ, in_channels_dir=0,
                                          out_channels=1, raw_feat=True)
+        if cfg.use_unc:
+            # the video code rides on the dir branch
+            self.nerf_unc = nets.NeRFMLP(D=8, W=256, in_channels_xyz=IN_XYZ,
+                                         in_channels_dir=VID_DIM, out_channels=1, raw_feat=True)
+            self.vid_code = nets.EmbedCode(num=self.num_vid, dim=VID_DIM)
         self.bones = nn.Parameter(SK.generate_bones(cfg.num_bones, cfg.num_bones, 0.0))
         # scale bookkeeping: near/far starts at [0, 6]; obj_scale maps the
         # scene to a bound of ~0.3
@@ -148,7 +154,7 @@ class MoDAModel(nn.Module):
         return positional_embed(d, 4, alpha=alpha)
 
     def _fused(self, specs, x, code_trunk=None, code_dir=None, need_dx=True,
-               embed_raw=False, embed_alpha=None):
+               embed_raw=False, embed_alpha=None, site=None):
         kernel = self.cfg.use_pallas and x.is_cuda
         S = x.shape[1] if (x.dim() == 3 and (code_trunk is not None or
                                              code_dir is not None)) else 1
@@ -160,10 +166,10 @@ class MoDAModel(nn.Module):
                               samples_per_ray=S, need_dx=need_dx, embed_freqs=ef,
                               embed_window=ew,
                               compute_dtype=torch.bfloat16 if kernel else torch.float32,
-                              kernel=kernel)
+                              kernel=kernel, site=site)
 
     def _apply_mlp(self, mod: nets.NeRFMLP, x, sigma_only=False, code_trunk=None,
-                   code_dir=None, need_dx=True, embed_raw=False, embed_alpha=None):
+                   code_dir=None, need_dx=True, embed_raw=False, embed_alpha=None, site=None):
         """Kernel route for CUDA tensors under cfg.use_pallas, plain fp32
         otherwise. sigma_only (eikonal, shape init) always stays on the
         module's plain forward: it needs grad-of-grad, which the kernel's
@@ -174,28 +180,43 @@ class MoDAModel(nn.Module):
             return mod(x, sigma_only=True)
         return self._fused([(mod, code_trunk is not None, code_dir is not None)], x,
                            code_trunk=code_trunk, code_dir=code_dir, need_dx=need_dx,
-                           embed_raw=embed_raw, embed_alpha=embed_alpha)[0]
+                           embed_raw=embed_raw, embed_alpha=embed_alpha, site=site)[0]
 
     def apply_coarse(self, x, sigma_only=False, code_dir=None, embed_raw=False,
-                     embed_alpha=None):
+                     embed_alpha=None, site=None):
         return self._apply_mlp(self.nerf_coarse, x, sigma_only=sigma_only, code_dir=code_dir,
-                               embed_raw=embed_raw, embed_alpha=embed_alpha)
+                               embed_raw=embed_raw, embed_alpha=embed_alpha, site=site)
 
-    def apply_feat(self, x, need_dx=True, embed_raw=False, embed_alpha=None):
+    def apply_feat(self, x, need_dx=True, embed_raw=False, embed_alpha=None, site=None):
         return self._apply_mlp(self.nerf_feat, x, need_dx=need_dx, embed_raw=embed_raw,
-                               embed_alpha=embed_alpha)
+                               embed_alpha=embed_alpha, site=site)
 
-    def apply_coarse_feat(self, x, code_dir=None, embed_raw=False, embed_alpha=None):
+    def apply_coarse_feat(self, x, code_dir=None, embed_raw=False, embed_alpha=None,
+                          site=None):
         """Coarse rgb/sigma and the CSE feature head at the same points in
         one fused launch. Returns (coarse [.., 4], feat [.., NUM_FEAT])."""
         out, feat = self._fused([(self.nerf_coarse, False, code_dir is not None),
                                  (self.nerf_feat, False, False)], x, code_dir=code_dir,
-                                embed_raw=embed_raw, embed_alpha=embed_alpha)
+                                embed_raw=embed_raw, embed_alpha=embed_alpha, site=site)
         return out, feat
 
-    def apply_vis(self, x, need_dx=True, embed_raw=False, embed_alpha=None):
+    def apply_vis(self, x, need_dx=True, embed_raw=False, embed_alpha=None, site=None):
         return self._apply_mlp(self.nerf_vis, x, need_dx=need_dx, embed_raw=embed_raw,
-                               embed_alpha=embed_alpha)
+                               embed_alpha=embed_alpha, site=site)
+
+    def apply_unc(self, xyt_code, code_dir=None, embed_raw=False, embed_alpha=None,
+                  site=None):
+        """Uncertainty MLP. The video code belongs on the dir branch: either
+        concatenated per point after the embedded xyt (the legacy layout of
+        the candidate scores) or as a separate per-ray code_dir."""
+        return self._apply_mlp(self.nerf_unc, xyt_code, code_dir=code_dir, embed_raw=embed_raw,
+                               embed_alpha=embed_alpha, site=site)
+
+    def apply_skin(self, x, code_trunk=None, embed_raw=False, embed_alpha=None, site=None):
+        """Delta-skin MLP: per-point logits over the bones, with a per-ray
+        trunk code (the frame's pose code or the rest-pose code)."""
+        return self._apply_mlp(self.nerf_skin, x, code_trunk=code_trunk, embed_raw=embed_raw,
+                               embed_alpha=embed_alpha, site=site)
 
     def apply_pose_code(self, fid):
         return self.pose_code(fid)
@@ -205,6 +226,9 @@ class MoDAModel(nn.Module):
 
     def apply_appearance_code(self, fid):
         return self.appearance_code(fid)
+
+    def apply_vid_code(self, vid):
+        return self.vid_code(vid)
 
     def apply_rest_pose_code(self, idx):
         return self.rest_pose_code(idx)

@@ -18,7 +18,14 @@ Routes:
   tensor goes through ``fused_mlp_plain``.
 - ``fused_mlp_plain`` is the same function in plain PyTorch, in fp32 or in
   a bf16 mode that rounds every product operand to bf16 and multiplies in
-  fp32, like the kernel.
+  fp32, like the kernel. A stash changes no value, so it is also the plain
+  version of K1s/K2s.
+
+Modes: rematerialization is the default, as in the JAX package. With
+MODA_PALLAS_STASH=1 (the variable the JAX package's ``_stash`` reads) a
+forward under grad launches K1s, which keeps every layer's bf16 input
+activation for the backward, and the backward launches K2s, which reads them
+instead of recomputing the forward.
 """
 from __future__ import annotations
 
@@ -34,10 +41,27 @@ from typing import Optional, Sequence, Tuple
 
 import torch
 
-# kernel launches made through the wrapper since the last reset, in all and
-# by the nets of the launch ("D8W256+D5W128")
-launches = {"fwd": 0, "bwd": 0}
-launches_by_nets = collections.Counter()
+# kernel launches made through the wrapper since the last reset, in all
+# (K1, K2, K1s, K2s) and by call site and nets ("bwd:skin_bw:D5W64o25c128")
+launches = {"fwd": 0, "bwd": 0, "fwd_stash": 0, "bwd_stash": 0}
+launches_by_call = collections.Counter()
+
+
+def reset_launches():
+    for k in launches:
+        launches[k] = 0
+    launches_by_call.clear()
+
+
+def _count(kind: str, site: Optional[str], nets: str):
+    launches[kind] += 1
+    launches_by_call[f"{kind}:{site}:{nets}" if site else f"{kind}:{nets}"] += 1
+
+
+def stash_enabled() -> bool:
+    """MODA_PALLAS_STASH=1 switches both packages to the activation stash
+    (moda_tpu/ops/fused_mlp.py::_stash reads the same variable)."""
+    return os.environ.get("MODA_PALLAS_STASH") == "1"
 
 BM_F, BM_B = 64, 32  # rows per block of the forward / backward kernels
 MAXNETS, MAXLAYERS = 2, 12
@@ -229,7 +253,7 @@ class _NetDesc(ctypes.Structure):
 class _FusedDesc(ctypes.Structure):
     _fields_ = [(n, ctypes.c_int) for n in (
         "n", "s", "c", "f", "in_x", "xp", "ct", "ctp", "cd", "cdp", "nnets",
-        "need_dx", "need_dt", "need_dwin", "hw", "outw", "accw_f", "accw_b", "dsw",
+        "need_dx", "need_dt", "need_dwin", "stashed", "hw", "outw", "accw_f", "accw_b", "dsw",
         "total_bias", "total_w", "npad", "nblocks", "grid", "nsplit", "chunk")] + [
         (n, ctypes.c_void_p) for n in (
             "x", "ct_code", "cd_code", "win", "bias", "dx", "part_b", "part_win",
@@ -353,11 +377,41 @@ def _offsets(widths):
 
 
 def _nets_key(lay: "_Layout") -> str:
-    return "+".join(f"D{n['arch'].D}W{n['W']}" for n in lay.nets)
+    """Depth, width, output width and trunk-code width of each net of a
+    launch ("D5W64o25c128" is the skin MLP, "D5W64o1" the visibility MLP)."""
+    return "+".join(f"D{n['arch'].D}W{n['W']}o{n['out_ch']}" +
+                    (f"c{n['arch'].ct}" if n["arch"].ct else "") for n in lay.nets)
 
 
 def _ptr(t: Optional[torch.Tensor]) -> Optional[int]:
     return None if t is None else t.data_ptr()
+
+
+def _alloc_stacks(lay: _Layout, rows: int, which: str, dev):
+    """One bf16 buffer for the per-layer scratch stacks of a launch: with "a"
+    in ``which`` every layer's input activation [rows, kin] (the sigma head
+    reads the final layer's), with "d" every layer's pre-activation gradient
+    [rows, nout]; 256-byte aligned. Returns (buffer, per net and layer the
+    (A, D) addresses, None where not allocated)."""
+    size, plan = 0, []
+    for net in lay.nets:
+        D, offs = net["arch"].D, []
+        for li, L in enumerate(net["layers"]):
+            a_off = d_off = None
+            if "a" in which and li != D:
+                a_off = size
+                size += (rows * L["kin"] + 127) // 128 * 128
+            if "d" in which:
+                d_off = size
+                size += (rows * L["nout"] + 127) // 128 * 128
+            offs.append([a_off, d_off])
+        if "a" in which:
+            offs[D][0] = offs[D + 1][0]
+        plan.append(offs)
+    buf = torch.empty(size, dtype=torch.bfloat16, device=dev)
+    base = buf.data_ptr()
+    return buf, [[tuple(None if o is None else base + 2 * o for o in od) for od in offs]
+                 for offs in plan]
 
 
 def _check_inputs(x, ct_code, cd_code, win, archs):
@@ -377,8 +431,11 @@ def _check_inputs(x, ct_code, cd_code, win, archs):
 
 
 class _FusedMLP(torch.autograd.Function):
+    """K1 (K1s when ``stash``) forward; K2 (K2s when the forward stashed)
+    backward. ``site`` names the call site in the launch counters."""
+
     @staticmethod
-    def forward(ctx, x, ct_code, cd_code, win, archs, *weights):
+    def forward(ctx, x, ct_code, cd_code, win, archs, stash, site, *weights):
         _check_inputs(x, ct_code, cd_code, win, archs)
         lib = build_library()
         x = x.contiguous()
@@ -395,12 +452,22 @@ class _FusedMLP(torch.autograd.Function):
             x.data_ptr(), _ptr(ct_code), _ptr(cd_code), _ptr(win))
         for i, o in enumerate(outs):
             desc.nets[i].out = o.data_ptr()
+        # K1s: the A stacks, one row per point of every forward block (the
+        # backward's 32-row blocks cover no more rows than that)
+        acts = aptrs = None
+        if stash and n:
+            acts, ptrs = _alloc_stacks(lay, (n + BM_F - 1) // BM_F * BM_F, "a", x.device)
+            aptrs = [[a for a, _ in net] for net in ptrs]
+            for i, net in enumerate(aptrs):
+                for li, a in enumerate(net):
+                    desc.nets[i].layers[li].a = a
+            desc.stashed = 1
         if n:
             stream = torch.cuda.current_stream(x.device).cuda_stream
             _check(lib, lib.moda_fmlp_forward(ctypes.byref(desc), stream), "fused MLP forward")
-            launches["fwd"] += 1
-            launches_by_nets["fwd:" + _nets_key(lay)] += 1
-        ctx.archs, ctx.lay = archs, lay
+            _count("fwd_stash" if acts is not None else "fwd", site, _nets_key(lay))
+        ctx.archs, ctx.lay, ctx.site = archs, lay, site
+        ctx.stashed, ctx.acts, ctx.aptrs = acts is not None, acts, aptrs
         ctx.save_for_backward(x, ct_code, cd_code, win)
         ctx.weight_shapes = [w.shape for w in weights]
         return tuple(outs)
@@ -425,27 +492,19 @@ class _FusedMLP(torch.autograd.Function):
         # persistent CTAs: as many as stay resident at once
         grid = max(1, min(nblocks, lib.moda_fmlp_num_sms() *
                           lib.moda_fmlp_bwd_blocks_per_sm(ctypes.byref(desc))))
-        # A/D scratch stacks, one buffer, 256-byte aligned offsets
-        sizes, plan = 0, []
-        for net in lay.nets:
-            D, rows = net["arch"].D, []
-            for li, L in enumerate(net["layers"]):
-                a_off = None if li == D else sizes  # sigma reads the final's A
-                if a_off is not None:
-                    sizes += (npad * L["kin"] + 127) // 128 * 128
-                d_off = sizes
-                sizes += (npad * L["nout"] + 127) // 128 * 128
-                rows.append([a_off, d_off])
-            rows[D][0] = rows[D + 1][0]
-            plan.append(rows)
-        scratch = torch.empty(sizes, dtype=torch.bfloat16, device=dev)
-        base = scratch.data_ptr()
+        # scratch stacks: D always; A too unless K1s kept them (K2s)
+        acts, ctx.acts = ctx.acts, None  # released once this backward is queued
+        if ctx.stashed and acts is None:
+            raise RuntimeError("the stashed activations were used by an earlier backward")
+        scratch, ptrs = _alloc_stacks(lay, npad, "d" if ctx.stashed else "ad", dev)
         for i, net in enumerate(lay.nets):
             nd = desc.nets[i]
             nd.g = gs[i].data_ptr()
             for li in range(len(net["layers"])):
-                nd.layers[li].a = base + 2 * plan[i][li][0]
-                nd.layers[li].d = base + 2 * plan[i][li][1]
+                a, d = ptrs[i][li]
+                nd.layers[li].a = ctx.aptrs[i][li] if ctx.stashed else a
+                nd.layers[li].d = d
+        desc.stashed = int(ctx.stashed)
         rows_slot = min(S, BM_B)
         nslots = nblocks * (BM_B // rows_slot)
         bpr = max(S // BM_B, 1)
@@ -499,8 +558,8 @@ class _FusedMLP(torch.autograd.Function):
             ctypes.byref(desc), ctypes.byref(dw), dw_all.data_ptr(), db_all.data_ptr(),
             dwin.data_ptr(), dct.data_ptr(), dcd.data_ptr(), R, bpr, stream),
             "fused MLP backward")
-        launches["bwd"] += 1
-        launches_by_nets["bwd:" + _nets_key(lay)] += 1
+        _count("bwd_stash" if ctx.stashed else "bwd", ctx.site, _nets_key(lay))
+        del acts, scratch  # their last use is queued on this stream
         dws = []
         for net in lay.nets:
             a = net["arch"]
@@ -518,12 +577,14 @@ class _FusedMLP(torch.autograd.Function):
         g_cd = dcd[:, :lay.cd] if cd_code is not None else None
         g_win = dwin[:fc2].reshape(1, -1) if need_dwin else None
         g_x = dx if need_dx else (torch.zeros_like(x) if ctx.needs_input_grad[0] else None)
-        return (g_x, g_ct, g_cd, g_win, None, *dws)
+        return (g_x, g_ct, g_cd, g_win, None, None, None, *dws)
 
 
 def fused_mlp(x, ct_code, cd_code, win, weights, archs: Sequence[Arch],
-              compute_dtype=torch.bfloat16) -> Tuple[torch.Tensor, ...]:
-    """The wrapper: CUDA tensors launch K1 (and K2 in the backward); CPU
+              compute_dtype=torch.bfloat16, site: Optional[str] = None
+              ) -> Tuple[torch.Tensor, ...]:
+    """The wrapper: CUDA tensors launch K1 (and K2 in the backward), or K1s
+    and K2s under MODA_PALLAS_STASH=1 when a gradient will be taken; CPU
     tensors take ``fused_mlp_plain``."""
     if not x.is_cuda:
         return fused_mlp_plain(x, ct_code, cd_code, win, weights, archs, compute_dtype)
@@ -531,20 +592,26 @@ def fused_mlp(x, ct_code, cd_code, win, weights, archs: Sequence[Arch],
         raise NotImplementedError("the fused CUDA kernel computes in bf16 only")
     if win is not None:
         win = win.reshape(1, -1)
-    return _FusedMLP.apply(x, ct_code, cd_code, win, tuple(archs), *weights)
+    stash = stash_enabled() and torch.is_grad_enabled() and any(
+        t is not None and t.requires_grad for t in (x, ct_code, cd_code, win, *weights))
+    return _FusedMLP.apply(x, ct_code, cd_code, win, tuple(archs), stash, site, *weights)
 
 
 def nerf_mlp_fused(nets, x: torch.Tensor, *, code_trunk=None, code_dir=None,
                    samples_per_ray: int = 1, need_dx: bool = True, embed_freqs: int = 0,
-                   embed_window=None, compute_dtype=torch.float32, kernel: bool = False):
+                   embed_window=None, compute_dtype=torch.float32, kernel: bool = False,
+                   site: Optional[str] = None):
     """Evaluate one or more NeRFMLPs on the same per-point input in one
     fused launch (nerf_mlp_pallas_multi of the JAX package).
 
     nets: list of (NeRFMLP module, use_ct, use_cd). x [..., C]: raw points
     when embed_freqs > 0 (embedded in the launch), else embedded inputs.
-    code_trunk / code_dir [R, c]: per-ray codes, rows of x = R * S.
+    code_trunk / code_dir [R, c]: per-ray codes, rows of x = R * S. One net
+    with a dir branch and no code_dir takes the legacy layout of
+    nerf_mlp_pallas: its dir input rides in x's last columns, per point.
     kernel=True routes through ``fused_mlp`` (the CUDA kernels for CUDA
-    tensors); otherwise ``fused_mlp_plain`` in compute_dtype."""
+    tensors); otherwise ``fused_mlp_plain`` in compute_dtype. ``site``
+    names the call site in the launch counters."""
     lead = x.shape[:-1]
     n = 1
     for s in lead:
@@ -557,6 +624,15 @@ def nerf_mlp_fused(nets, x: torch.Tensor, *, code_trunk=None, code_dir=None,
         code_trunk = code_trunk.reshape(-1, ct)
     if code_dir is not None:
         code_dir = code_dir.reshape(-1, cd)
+    elif len(nets) == 1 and nets[0][0].in_channels_dir > 0:
+        # legacy layout (fused_mlp.py:780-785): dir columns per point in x
+        mod = nets[0][0]
+        if code_trunk is not None or S != 1:
+            raise ValueError("a per-point dir input needs S = 1 and no trunk code")
+        code_dir = x2[:, mod.in_channels_xyz:mod.in_channels_xyz + mod.in_channels_dir]
+        x2 = x2[:, :mod.in_channels_xyz]
+        cd = mod.in_channels_dir
+        nets = [(mod, nets[0][1], True)]
     emb, win, in_x = None, None, x2.shape[-1]
     if embed_freqs > 0:
         C = x2.shape[-1]
@@ -574,6 +650,10 @@ def nerf_mlp_fused(nets, x: torch.Tensor, *, code_trunk=None, code_dir=None,
         archs.append(Arch(mod.D, in_x, ct_i, cd_i, tuple(mod.skips), S, need_dx=need_dx,
                           sigmoid=not mod.raw_feat, emb=emb, drop_sigma=mod.raw_feat))
         weights += mod.flat_weights()
-    route = fused_mlp if kernel else fused_mlp_plain
-    outs = route(x2, code_trunk, code_dir, win, weights, tuple(archs), compute_dtype)
+    if kernel:
+        outs = fused_mlp(x2, code_trunk, code_dir, win, weights, tuple(archs), compute_dtype,
+                         site=site)
+    else:
+        outs = fused_mlp_plain(x2, code_trunk, code_dir, win, weights, tuple(archs),
+                               compute_dtype)
     return [o.reshape(lead + (o.shape[-1],)) for o in outs]

@@ -1,4 +1,5 @@
-"""Loss assembly: counterpart of moda_tpu/render/losses.py (init-stage terms).
+"""Loss assembly: counterpart of moda_tpu/render/losses.py (the terms of the
+init, ft1 and ft2 stages).
 
   extras = {
     "loss_select":  scalar (0: flow-only warmup, 1: all losses),
@@ -79,8 +80,8 @@ def total_loss(model, rendered: Dict[str, torch.Tensor], rays: Dict[str, torch.T
                generator: Optional[torch.Generator] = None
                ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     cfg = model.cfg
-    if cfg.freeze_coarse or cfg.s3im_loss or cfg.use_unc:
-        raise NotImplementedError("freeze_coarse / s3im / unc loss terms are ported in a "
+    if cfg.freeze_coarse or cfg.s3im_loss:
+        raise NotImplementedError("freeze_coarse / s3im loss terms are ported in a "
                                   "later slice of moda_tpu_torch")
     aux: Dict[str, torch.Tensor] = {}
     sil_at_samp = rays["sil_at_samp"]
@@ -90,7 +91,8 @@ def total_loss(model, rendered: Dict[str, torch.Tensor], rays: Dict[str, torch.T
     keep = 1.0 if invalid_mask is None else invalid_mask
     sil_coarse = rendered["sil_coarse"].detach()
 
-    img_loss = cfg.img_wt * rendered["img_loss_samp"] * keep
+    img_loss_samp = cfg.img_wt * rendered["img_loss_samp"] * keep
+    img_loss = img_loss_samp
     if cfg.rm_novp:
         img_loss = img_loss * sil_coarse
     img_loss = masked_mean(img_loss, sil_at_samp > 0)
@@ -172,6 +174,13 @@ def total_loss(model, rendered: Dict[str, torch.Tensor], rays: Dict[str, torch.T
         vis_loss = 0.01 * rendered["vis_loss"].mean()
         total = total + vis_loss
         aux["visibility_loss"] = vis_loss
+
+    if cfg.use_unc and "unc_pred" in rendered:
+        # the uncertainty head regresses this step's masked photometric error
+        unc_rgb = (sil_at_samp[..., 0] * img_loss_samp.mean(-1)).detach()
+        unc_loss = ((unc_rgb - rendered["unc_pred"][..., 0]) ** 2).mean()
+        aux["unc_loss"] = unc_loss
+        total = total + unc_loss
 
     aux["skin_scale"] = model.skin_aux[0].detach()
     aux["skin_const"] = model.skin_aux[1].detach()

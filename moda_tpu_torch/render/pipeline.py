@@ -4,10 +4,16 @@ Ray bundles are dicts of tensors leading with [R]. Random draws: where the
 JAX code splits a PRNG key, these functions take a ``draws`` dict holding
 the draw itself (so a test can pass the numbers the JAX path made) and
 otherwise draw from a ``torch.Generator``:
-  "z_u"        [R, S] uniform [0, 1)   stratified depth jitter
+  "z_u"        [R, S0] uniform [0, 1)   stratified depth jitter (S0 = S, or
+               S / 2 with the fine pass)
+  "pdf_u"      [R, S / 2] uniform [0, 1)   fine-pass importance samples
+  "symm_u"     [R, S, 1] uniform [0, 1)   symm_shape mirror mask (< 0.5)
   "grid_noise" [G^3, 3] standard normal feat-match grid jitter
   "vis_neg"    [R, S, 3] uniform [-1, 1) visibility negatives (x bound)
   "sigma_noise" [R, S] standard normal (used only when cfg.noise_std > 0)
+The fine pass's no-grad coarse pass reads its own "symm_u" and
+"sigma_noise" ([R, S / 2, ...]) under the names "coarse_symm_u" and
+"coarse_sigma_noise".
 """
 from __future__ import annotations
 
@@ -32,7 +38,7 @@ def draw(draws: Optional[Draws], name: str, shape, generator: Optional[torch.Gen
     if draws is not None and name in draws:
         return draws[name].to(device)
     gdev = generator.device if generator is not None else device
-    if name == "z_u":
+    if name.endswith("_u"):
         t = torch.rand(shape, generator=generator, device=gdev)
     elif name == "vis_neg":
         t = torch.rand(shape, generator=generator, device=gdev) * 2.0 - 1.0
@@ -59,22 +65,21 @@ def vrender_flo(weights, xyz_target, xys, img_size: int):
     return flo, valid
 
 
-def _no_dskin(use_dskin: bool):
-    if use_dskin:
-        raise NotImplementedError("the delta-skin MLP (use_dskin) is ported in a later slice "
-                                  "of moda_tpu_torch")
-
-
-def _backward_warp(model, rays, xyz, alpha, use_dskin=False):
-    """Frame -> canonical via NeuDBS (or LBS) backward skinning."""
-    _no_dskin(use_dskin)
+def _backward_warp(model, rays, xyz, alpha, use_dskin=False, site=None):
+    """Frame -> canonical via NeuDBS (or LBS) backward skinning; with
+    use_dskin the delta-skin MLP (the frame's pose code as per-ray trunk
+    code) adds to the skinning logits."""
     cfg = model.cfg
     bones_rst, bone_rts_fw = rays["bones_rst"], rays["bone_rts"]
     if cfg.neudbs:
         bones_dfm = SK.bone_transform_dq(bones_rst, bone_rts_fw)
     else:
         bones_dfm = SK.bone_transform_rts(bones_rst, bone_rts_fw)
-    skin_bw = SK.skinning_weights(bones_dfm, xyz, None, model.skin_aux[0])
+    dskin = None
+    if cfg.nerf_skin and use_dskin:
+        dskin = model.apply_skin(xyz, code_trunk=rays["time_embedded"], embed_raw=True,
+                                 embed_alpha=alpha, site=site)
+    skin_bw = SK.skinning_weights(bones_dfm, xyz, dskin, model.skin_aux[0])
     if cfg.neudbs:
         xyz_c, _ = SK.neu_dbs(bones_rst, bone_rts_fw, skin_bw, xyz, backward=True)
     else:
@@ -82,12 +87,17 @@ def _backward_warp(model, rays, xyz, alpha, use_dskin=False):
     return xyz_c, skin_bw
 
 
-def _forward_warp(model, rays, xyz_c, bone_rts, alpha, use_dskin=False):
-    """Canonical -> frame with forward skinning (skin at rest pose)."""
-    _no_dskin(use_dskin)
+def _forward_warp(model, rays, xyz_c, bone_rts, alpha, use_dskin=False, site=None):
+    """Canonical -> frame with forward skinning (skin at rest pose; the
+    delta-skin MLP reads the rest-pose code)."""
     cfg = model.cfg
     bones_rst = rays["bones_rst"]
-    skin_fw = SK.skinning_weights(bones_rst, xyz_c, None, model.skin_aux[0])
+    dskin = None
+    if cfg.nerf_skin and use_dskin:
+        rest = rays["rest_pose_code"]
+        dskin = model.apply_skin(xyz_c, code_trunk=rest.expand(xyz_c.shape[0], rest.shape[-1]),
+                                 embed_raw=True, embed_alpha=alpha, site=site)
+    skin_fw = SK.skinning_weights(bones_rst, xyz_c, dskin, model.skin_aux[0])
     if cfg.neudbs:
         xyz_f, _ = SK.neu_dbs(bones_rst, bone_rts, skin_fw, xyz_c, backward=False)
     else:
@@ -105,7 +115,7 @@ def _project_with_rtk_vec(xyz, rtk_vec):
 
 
 def _inference(model, rays, xyz, dir_, dir_embedded, z_vals, cfg, draws=None,
-               generator=None):
+               generator=None, site=None):
     """Coarse and feature MLPs at the samples, then VolSDF compositing."""
     S = xyz.shape[1]
     alpha = rays.get("embed_alpha", None)
@@ -113,9 +123,10 @@ def _inference(model, rays, xyz, dir_, dir_embedded, z_vals, cfg, draws=None,
     code_dir = torch.cat(parts, -1)
     if cfg.use_embed:
         out, feat = model.apply_coarse_feat(xyz, code_dir=code_dir, embed_raw=True,
-                                            embed_alpha=alpha)
+                                            embed_alpha=alpha, site=site)
     else:
-        out = model.apply_coarse(xyz, code_dir=code_dir, embed_raw=True, embed_alpha=alpha)
+        out = model.apply_coarse(xyz, code_dir=code_dir, embed_raw=True, embed_alpha=alpha,
+                                 site=site)
         feat = torch.zeros_like(out[..., :3])
     rgbs = out[..., :3]
     sigmas_raw = out[..., 3]
@@ -148,7 +159,8 @@ def feat_match(model, feats, bound, grid_size, use_ot, is_training, embed_alpha=
         grid = grid + draw(draws, "grid_noise", grid.shape, generator, grid.device) * \
             bound[None, :] * 0.05
     # the grid carries no gradient: need_dx=False skips the input gradient
-    vol_feat = model.apply_feat(grid, need_dx=False, embed_raw=True, embed_alpha=embed_alpha)
+    vol_feat = model.apply_feat(grid, need_dx=False, embed_raw=True, embed_alpha=embed_alpha,
+                                site="feat_grid")
     vol_feat = vol_feat / torch.clamp(torch.linalg.norm(vol_feat, dim=-1, keepdim=True), min=1e-9)
     cost = feats @ vol_feat.T
     if use_ot:
@@ -189,7 +201,8 @@ def kp_reproj(model, rays, pts_pred, to_target: bool, embed_alpha=None, use_dski
     """Forward-warp canonical points into the (target) frame and project."""
     xyz = pts_pred[:, None, :]
     bone_rts = rays["bone_rts_target"] if to_target else rays["bone_rts"]
-    xyz, _ = _forward_warp(model, rays, xyz, bone_rts, embed_alpha, use_dskin=use_dskin)
+    xyz, _ = _forward_warp(model, rays, xyz, bone_rts, embed_alpha, use_dskin=use_dskin,
+                           site="skin_reproj")
     rtk_vec = rays["rtk_vec_target"] if to_target else rays["rtk_vec"]
     return _project_with_rtk_vec(xyz, rtk_vec)
 
@@ -204,7 +217,7 @@ def visibility_loss(model, xyz_pos, w_pos, bound, alpha=None, draws=None, genera
     # inputs carry no gradient: need_dx=False; negatives and positives in
     # one launch
     vis_both = model.apply_vis(torch.cat([xyz_neg, xyz_pos], 0), need_dx=False,
-                               embed_raw=True, embed_alpha=alpha)[..., 0]
+                               embed_raw=True, embed_alpha=alpha, site="vis")[..., 0]
     vis_neg, vis_pos = vis_both[:R], vis_both[R:]
     loss_neg = -Fn.logsigmoid(-vis_neg).sum(-1) * 0.1 / S
     loss_pos = -(Fn.logsigmoid(vis_pos) * w_pos).sum(-1) / S
@@ -213,35 +226,46 @@ def visibility_loss(model, xyz_pos, w_pos, bound, alpha=None, draws=None, genera
 
 def inference_deform(model, rays, xyz_sampled, z_vals, cfg, fine_iter=True,
                      use_dskin=False, draws=None, generator=None):
-    """Deform + render + per-sample losses."""
-    for flag, what in ((cfg.symm_shape, "symm_shape"), (cfg.s3im_loss, "s3im_loss"),
-                       (not fine_iter, "the no-grad coarse pass (use_fine)")):
-        if flag:
-            raise NotImplementedError(f"{what} is ported in a later slice of moda_tpu_torch")
+    """Deform + render + per-sample losses. fine_iter=False (the fine
+    pass's coarse pass) returns after compositing."""
+    if cfg.s3im_loss:
+        raise NotImplementedError("s3im_loss is ported in a later slice of moda_tpu_torch")
     result: Dict[str, torch.Tensor] = {}
     alpha = rays.get("embed_alpha", None)
-    xyz_canonical, _ = _backward_warp(model, rays, xyz_sampled, alpha, use_dskin=use_dskin)
-    xyz_cyc, skin_fw = _forward_warp(model, rays, xyz_canonical, rays["bone_rts"], alpha,
-                                     use_dskin=use_dskin)
-    frame_cyc_dis = Q.safe_norm(xyz_sampled - xyz_cyc)
-    xyz_coarse_target = xyz_sampled
-    if cfg.dist_corresp:
-        if cfg.neudbs:
-            xyz_coarse_target, _ = SK.neu_dbs(rays["bones_rst"], rays["bone_rts_target"],
+    tag = "" if fine_iter else "_coarse"
+    xyz_canonical, _ = _backward_warp(model, rays, xyz_sampled, alpha, use_dskin=use_dskin,
+                                      site="skin_bw" + tag)
+    if fine_iter:
+        xyz_cyc, skin_fw = _forward_warp(model, rays, xyz_canonical, rays["bone_rts"], alpha,
+                                         use_dskin=use_dskin, site="skin_fw")
+        frame_cyc_dis = Q.safe_norm(xyz_sampled - xyz_cyc)
+        xyz_coarse_target = xyz_sampled
+        if cfg.dist_corresp:
+            if cfg.neudbs:
+                xyz_coarse_target, _ = SK.neu_dbs(rays["bones_rst"], rays["bone_rts_target"],
+                                                  skin_fw, xyz_canonical, backward=False)
+            else:
+                xyz_coarse_target, _ = SK.lbs(rays["bones_rst"], rays["bone_rts_target"],
                                               skin_fw, xyz_canonical, backward=False)
-        else:
-            xyz_coarse_target, _ = SK.lbs(rays["bones_rst"], rays["bone_rts_target"],
-                                          skin_fw, xyz_canonical, backward=False)
+
+    xyz_input = xyz_canonical
+    if cfg.symm_shape:
+        # rigid-shape symmetrization: mirror x at a random half of the samples
+        x = xyz_canonical[..., :1]
+        u = draw(draws, "symm_u", x.shape, generator, x.device)
+        xyz_input = torch.cat([torch.where(u < 0.5, -x, x), xyz_canonical[..., 1:3]], -1)
 
     rgb, feat_rnd, depth_rnd, weights, vis_coarse = _inference(
-        model, rays, xyz_canonical, rays["rays_d"], rays["dir_embedded"], z_vals, cfg,
-        draws=draws, generator=generator)
+        model, rays, xyz_input, rays["rays_d"], rays["dir_embedded"], z_vals, cfg,
+        draws=draws, generator=generator, site="trunk_feat" + tag)
     sil = weights[:, :-1].sum(-1)
     result["img_coarse"] = rgb
     result["depth_rnd"] = depth_rnd[..., None]
     result["sil_coarse"] = sil[..., None]
     if cfg.use_embed:
         result["feat_rnd"] = feat_rnd / torch.clamp(Q.safe_norm(feat_rnd, keepdims=True), min=1e-9)
+    if not fine_iter:
+        return result, weights
     result["xyz_canonical_vis"] = xyz_canonical
     if cfg.use_corresp and not cfg.dist_corresp:
         pts_target = kp_reproj(model, rays, compute_pts_exp(weights, xyz_canonical),
@@ -278,6 +302,10 @@ def inference_deform(model, rays, xyz_sampled, z_vals, cfg, fine_iter=True,
             flo_valid = torch.ones_like(flo[..., :1])
         result["flo_coarse"] = flo
         result["flo_valid"] = flo_valid
+    if cfg.use_unc and "xysn" in rays:
+        xyt = torch.cat([rays["xysn"], rays["ts"]], -1)
+        result["unc_pred"] = model.apply_unc(xyt, code_dir=rays["vid_code"], embed_raw=True,
+                                             embed_alpha=alpha, site="unc_pred")
     if "img_at_samp" in rays:
         img_at_samp = rays["img_at_samp"]
         sil_at_samp = rays["sil_at_samp"]
@@ -315,10 +343,8 @@ def render_rays(model, rays: RayDict, n_samples: int, use_fine: bool = False,
                 fine_iter: bool = True, perturb: Optional[float] = None,
                 use_dskin: bool = False, draws: Optional[Draws] = None,
                 generator: Optional[torch.Generator] = None) -> Dict[str, torch.Tensor]:
-    """Sample depths and render the init-stage (coarse-only) bundle."""
-    if use_fine:
-        raise NotImplementedError("the fine importance pass (use_fine) is ported in a later "
-                                  "slice of moda_tpu_torch")
+    """Sample depths, with use_fine resample half of them by importance from
+    a no-grad coarse pass, and render."""
     cfg = model.cfg
     perturb = cfg.perturb if perturb is None else perturb
     rays = dict(rays)
@@ -326,9 +352,23 @@ def render_rays(model, rays: RayDict, n_samples: int, use_fine: bool = False,
     d_norm = d / torch.clamp(torch.linalg.norm(d, dim=-1, keepdim=True), min=1e-9)
     rays["dir_embedded"] = model.embed_dir(d_norm, rays.get("embed_alpha"))
     R = d.shape[0]
-    u = draw(draws, "z_u", (R, n_samples), generator, d.device) if perturb > 0 else None
-    z_vals = SP.stratified_zvals(rays["near"], rays["far"], n_samples, u=u, perturb=perturb)
+    n_coarse = n_samples // 2 if use_fine else n_samples
+    u = draw(draws, "z_u", (R, n_coarse), generator, d.device) if perturb > 0 else None
+    z_vals = SP.stratified_zvals(rays["near"], rays["far"], n_coarse, u=u, perturb=perturb)
     xyz = rays["rays_o"][:, None, :] + rays["rays_d"][:, None, :] * z_vals[..., None]
+    if use_fine:
+        coarse_draws = {k[len("coarse_"):]: v for k, v in (draws or {}).items()
+                        if k.startswith("coarse_")}
+        with torch.no_grad():
+            _, w_coarse = inference_deform(model, rays, xyz, z_vals, cfg, fine_iter=False,
+                                           use_dskin=use_dskin, draws=coarse_draws,
+                                           generator=generator)
+        z_mid = 0.5 * (z_vals[:, :-1] + z_vals[:, 1:])
+        det = perturb == 0
+        u_pdf = None if det else draw(draws, "pdf_u", (R, n_coarse), generator, d.device)
+        z_fine = SP.sample_pdf(z_mid, w_coarse[:, 1:-1], n_coarse, u=u_pdf, det=det)
+        z_vals = torch.sort(torch.cat([z_vals, z_fine], -1), -1).values
+        xyz = rays["rays_o"][:, None, :] + rays["rays_d"][:, None, :] * z_vals[..., None]
     result, _ = inference_deform(model, rays, xyz, z_vals, cfg, fine_iter=fine_iter,
                                  use_dskin=use_dskin, draws=draws, generator=generator)
     return result

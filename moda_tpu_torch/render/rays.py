@@ -2,8 +2,16 @@
 
 Batch layout ("frame-pair batch"): arrays lead with [2B] where entry b
 pairs with b+B. Rays are flat [R] with ray i of the first half paired
-with ray i + R/2. Uniform pixel sampling only; uncertainty-guided active
-sampling belongs to a later slice.
+with ray i + R/2. With active sampling, R = 2B * (nsample + nsample_active):
+the uniform rays first, then the uncertainty top-k.
+
+Random draws (the ``draws`` idiom of render/pipeline.py; each is drawn from
+the generator when absent):
+  "pix_ids"    [2B, nsample] uniform pixel ids
+  "cand_ids"   [2B, 4 * (nsample + nsample_active)] active-sampling pool
+  "active_idx" [B * nsample_active] the top-k selection itself, indices into
+               the reference half's flattened pool (the uncertainty MLP is
+               then not run)
 """
 from __future__ import annotations
 
@@ -61,18 +69,46 @@ def _check_index(idx: torch.Tensor, size: int, what: str):
         raise IndexError(f"{what} out of range [0, {size})")
 
 
+def _unc_scores(model, xys, ts, vid_code, Kinv, embed_alpha):
+    """No-grad uncertainty at candidate pixels. xys [..., 2]; Kinv
+    [..., 3, 3]. The MLP reads the embedded xyt and the video code per
+    point (the legacy layout, no in-kernel embed)."""
+    with torch.no_grad():
+        xy1 = torch.cat([xys, torch.ones_like(xys[..., :1])], -1)
+        xysn = (xy1[..., None, :] @ Kinv.transpose(-1, -2))[..., 0, :2]
+        xyt_e = model.embed_xyz(torch.cat([xysn, ts], -1), embed_alpha)
+        return model.apply_unc(torch.cat([xyt_e, vid_code], -1), site="unc_scores")[..., 0]
+
+
+def active_sample_ids(model, batch: Dict[str, torch.Tensor], Kinv: torch.Tensor,
+                      cand_ids: torch.Tensor, nsample_active: int,
+                      embed_alpha=None) -> torch.Tensor:
+    """Uncertainty-guided selection: the global top B * nsample_active
+    candidates of the reference half (the paired half takes the same slots),
+    as indices into its flattened [B, pool] candidates, highest first."""
+    B, pool = cand_ids.shape[0] // 2, cand_ids.shape[1]
+    cand_xys = ids_to_xys(cand_ids, model.cfg.img_size, batch.get("lineid"))
+    ts = batch["frameid_sub"].float() / model.max_ts * 2.0 - 1.0
+    vid = model.apply_vid_code(batch["dataid"][:B])
+    scores = _unc_scores(model, cand_xys[:B], ts[:B, None, None].expand(B, pool, 1),
+                         vid[:, None, :].expand(B, pool, vid.shape[-1]),
+                         Kinv[:B, None].expand(B, pool, 3, 3), embed_alpha)
+    # a pool may hold one pixel twice: ties go to the lower index, as in
+    # jax.lax.top_k (a stable descending sort; torch.topk leaves ties unordered)
+    order = torch.sort(scores.reshape(-1), descending=True, stable=True).indices
+    return order[:B * nsample_active]
+
+
 def build_rays(model, batch: Dict[str, torch.Tensor], rtk: torch.Tensor, nsample: int,
                nsample_active: int = 0, embed_alpha=None,
                generator: Optional[torch.Generator] = None,
-               pix_ids: Optional[torch.Tensor] = None) -> RayDict:
-    """Flat per-ray bundle [R = 2B*nsample].
+               draws: Optional[Dict[str, torch.Tensor]] = None) -> RayDict:
+    """Flat per-ray bundle [R = 2B * (nsample + nsample_active)].
 
-    The uniform pixel ids come from batch["pix_ids"] (host-sampled sparse
-    batches), else from ``pix_ids`` [2B, nsample] when the caller passes
-    the draw, else from ``generator``."""
-    if nsample_active > 0:
-        raise NotImplementedError("uncertainty-guided active sampling is ported in a later "
-                                  "slice of moda_tpu_torch")
+    The pixel ids come from batch["pix_ids"] (host-sampled sparse batches:
+    the uniform slots first, the candidate pool in the last columns), else
+    from ``draws`` (module docstring), else from ``generator``."""
+    draws = draws or {}
     cfg = model.cfg
     dev = rtk.device
     kaug, frameid, dataid = batch["kaug"], batch["frameid"], batch["dataid"]
@@ -85,14 +121,33 @@ def build_rays(model, batch: Dict[str, torch.Tensor], rtk: torch.Tensor, nsample
 
     if packed is not None:
         rand_inds = packed[:, :nsample]
-    elif pix_ids is not None:
-        rand_inds = pix_ids
+    elif "pix_ids" in draws:
+        rand_inds = draws["pix_ids"].to(dev)
     else:
         rand_inds = sample_pixel_ids(generator, bs2, nsample, cfg.img_size, lineid, device=dev)
     ent_first = torch.arange(B, device=dev).repeat_interleave(nsample)
     loc_first = torch.arange(nsample, device=dev).repeat(B)
     pix_first = rand_inds[:B].reshape(-1)
     pix_second = rand_inds[B:].reshape(-1)
+
+    if nsample_active > 0:
+        pool = 4 * (nsample + nsample_active)
+        if packed is not None:
+            cand_loc0 = packed.shape[1] - pool  # the pool takes the last columns
+            cand_ids = packed[:, cand_loc0:]
+        else:
+            cand_loc0 = 0
+            cand_ids = (draws["cand_ids"].to(dev) if "cand_ids" in draws else
+                        sample_pixel_ids(generator, bs2, pool, cfg.img_size, lineid, device=dev))
+        if "active_idx" in draws:
+            top = draws["active_idx"].to(dev)
+            _check_index(top, B * pool, "active_idx")
+        else:
+            top = active_sample_ids(model, batch, Kinv, cand_ids, nsample_active, embed_alpha)
+        ent_first = torch.cat([ent_first, torch.div(top, pool, rounding_mode="floor")])
+        loc_first = torch.cat([loc_first, cand_loc0 + top % pool])
+        pix_first = torch.cat([pix_first, cand_ids[:B].reshape(-1)[top]])
+        pix_second = torch.cat([pix_second, cand_ids[B:].reshape(-1)[top]])
 
     ray_entry = torch.cat([ent_first, ent_first + B])
     ray_pix = torch.cat([pix_first, pix_second])
@@ -127,6 +182,13 @@ def build_rays(model, batch: Dict[str, torch.Tensor], rtk: torch.Tensor, nsample
     rays["bone_rts_target"] = flip_pair(rays["bone_rts"])
     rays["rest_pose_code"] = model.apply_rest_pose_code(
         torch.zeros(1, dtype=torch.long, device=dev))
+    if cfg.use_unc:
+        _check_index(dataid, model.num_vid, "dataid")
+        ts = batch["frameid_sub"].float() / model.max_ts * 2.0 - 1.0
+        rays["ts"] = ts[ray_entry][:, None]
+        rays["vid_code"] = model.apply_vid_code(dataid)[ray_entry]
+        xy1 = torch.cat([xys, torch.ones_like(xys[..., :1])], -1)
+        rays["xysn"] = (xy1[:, None, :] @ Kinv[ray_entry].transpose(-1, -2))[:, 0, :2]
 
     def gather(img):  # [2B, C, P|npix] -> [R, C]
         return img[ray_entry, :, ray_loc]

@@ -1,10 +1,11 @@
 """The training step: forward render -> losses -> grads -> update.
 
-Counterpart of moda_tpu/train/step.py for the init stage. The step
+Counterpart of moda_tpu/train/step.py for the init, ft1 and ft2 stages
+(fine pass, delta-skin MLP, uncertainty-guided active sampling). The step
 updates the model's parameters and the optimizer state in place and
 returns (aux, host_out). Random draws come from a ``torch.Generator`` or,
-for tests, from an explicit ``draws`` dict (see render/pipeline.py and
-"pix_ids" [2B, nsample], "eik_idx" [1000]).
+for tests, from an explicit ``draws`` dict (see render/rays.py,
+render/pipeline.py and "eik_idx" [1000]).
 """
 from __future__ import annotations
 
@@ -104,10 +105,8 @@ def make_train_step(model, optimizer: MoDAOptimizer, *, nsample: int, ndepth: in
     dev = resolve_device(device)
     if model.device.type != dev.type:
         raise ValueError(f"model lives on {model.device}, step asked for {dev}")
-    for flag, what in ((use_fine, "use_fine"), (use_dskin, "use_dskin"),
-                       (nsample_active > 0, "active sampling"), (not use_bones,
-                                                                  "use_bones=False"),
-                       (accu_steps > 1, "accu_steps > 1"), (chunk_steps > 1, "chunk_steps > 1")):
+    for flag, what in ((not use_bones, "use_bones=False"), (accu_steps > 1, "accu_steps > 1"),
+                       (chunk_steps > 1, "chunk_steps > 1")):
         if flag:
             raise NotImplementedError(f"{what} is ported in a later slice of moda_tpu_torch")
     cfg = model.cfg
@@ -121,8 +120,8 @@ def make_train_step(model, optimizer: MoDAOptimizer, *, nsample: int, ndepth: in
         base_rt = extras.base_rt if cfg.use_cam else None
         rtk_all3 = model.compute_rts(base_rt=base_rt)
         rtk = batch_rtk(model, rtk_all3, batch)
-        rays = build_rays(model, batch, rtk, nsample, embed_alpha=extras.embed_alpha,
-                          generator=generator, pix_ids=draws.get("pix_ids"))
+        rays = build_rays(model, batch, rtk, nsample, nsample_active=nsample_active,
+                          embed_alpha=extras.embed_alpha, generator=generator, draws=draws)
         rendered = render_rays(model, rays, ndepth, use_fine=use_fine, use_dskin=use_dskin,
                                draws=draws, generator=generator)
         keep = torch.ones_like(rendered["sil_loss_samp"])

@@ -69,26 +69,31 @@ def test_entry_points_need_a_card_unless_asked_for_cpu(monkeypatch):
 
 
 def test_later_slices_refuse_explicitly():
+    """What the init/ft1/ft2 slices do not port raises, naming a later slice:
+    nerf_dis, flowbw, ft_cse, s3im_loss, freeze_coarse, accu_steps and
+    chunk_steps > 1, and use_bones=False."""
     from moda_tpu_torch.fields.model import MoDAModel
     from moda_tpu_torch.train.optim import MoDAOptimizer
 
     from moda_tpu_torch.render.losses import total_loss
 
     cfg, info = _tiny()
-    for flag in ("use_unc", "nerf_dis", "flowbw", "ft_cse"):
+    for flag in ("nerf_dis", "flowbw", "ft_cse"):
         with pytest.raises(NotImplementedError, match="later slice"):
             MoDAModel(cfg.replace(**{flag: True}), info, device="cpu")
-    with pytest.raises(NotImplementedError, match="later slice"):
-        total_loss(MoDAModel(cfg.replace(s3im_loss=True), info, device="cpu"), {}, {}, None, {})
-    model = MoDAModel(cfg, info, device="cpu")
+    for flag in ("s3im_loss", "freeze_coarse"):
+        with pytest.raises(NotImplementedError, match="later slice"):
+            total_loss(MoDAModel(cfg.replace(**{flag: True}), info, device="cpu"), {}, {}, None,
+                       {})
+    model = MoDAModel(cfg.replace(use_unc=True), info, device="cpu")
     opt = MoDAOptimizer(cfg, total_steps=10)
     build_step = _step_factory()
-    for kw in (dict(use_fine=True), dict(use_dskin=True), dict(nsample_active=2),
-               dict(accu_steps=2), dict(chunk_steps=2)):
-        args = dict(nsample=4, ndepth=8, use_fine=False, use_dskin=False, use_bones=True)
-        args.update(kw)
+    args = dict(nsample=2, ndepth=8, use_fine=True, use_dskin=True, use_bones=True,
+                nsample_active=2)
+    build_step(model, opt, device="cpu", **args)
+    for kw in (dict(accu_steps=2), dict(chunk_steps=2), dict(use_bones=False)):
         with pytest.raises(NotImplementedError, match="later slice"):
-            build_step(model, opt, device="cpu", **args)
+            build_step(model, opt, device="cpu", **dict(args, **kw))
 
 
 def test_config_loads_a_jax_config():

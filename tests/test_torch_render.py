@@ -60,7 +60,7 @@ def _torch_loss(cfg, tmodel, batch, draws, ex, lineload):
     rtk_all3 = tmodel.compute_rts()
     rtk = TS.batch_rtk(tmodel, rtk_all3, batch)
     rays = t_build_rays(tmodel, batch, rtk, cfg.nsample, embed_alpha=torch.tensor(7.5),
-                        pix_ids=draws["pix_ids"])
+                        draws=draws)
     rendered = t_render_rays(tmodel, rays, cfg.ndepth, draws=draws)
     if lineload:
         keep, _, _ = TS.sil_loss_filter_line(rendered["sil_loss_samp"] * cfg.sil_wt,

@@ -6,6 +6,8 @@ moda_tpu_torch.bridge); JAX runs on the CPU, the port on the CPU in fp32.
 """
 from __future__ import annotations
 
+import functools
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -27,14 +29,22 @@ def to_t(x) -> torch.Tensor:
     return torch.from_numpy(np.array(x))
 
 
-def both_models(**cfg_kw):
-    """(jax cfg, jax model, jax params, jax mvars, torch model) with the
-    port's parameters copied from the JAX init."""
-    kw = dict(INIT_KW)
-    kw.update(cfg_kw)
-    cfg = MoDAConfig(**kw)
+@functools.lru_cache(maxsize=None)
+def _jax_init(cfg_json: str):
+    # JAX arrays are immutable, so one init (a jit compile of its own) serves
+    # every test of a process that asks for the same configuration
+    cfg = MoDAConfig.from_json(cfg_json)
     model = MoDAModel(cfg, INFO)
     params, mvars = model.init(jax.random.key(0))
+    return cfg, model, params, mvars
+
+
+def both_models(**cfg_kw):
+    """(jax cfg, jax model, jax params, jax mvars, torch model) with a fresh
+    port model whose parameters are copied from the JAX init."""
+    kw = dict(INIT_KW)
+    kw.update(cfg_kw)
+    cfg, model, params, mvars = _jax_init(MoDAConfig(**kw).to_json())
     tcfg = TMoDAConfig.from_json(cfg.to_json())
     from moda_tpu_torch.config import DataInfo as TDataInfo
     tmodel = TMoDAModel(tcfg, TDataInfo(offset=INFO.offset, intrinsics=INFO.intrinsics),
@@ -74,29 +84,41 @@ def torch_batch(batch):
             for k, v in batch.items()}
 
 
-def jax_draws(key, cfg, batch, nsample: int):
+def jax_draws(key, cfg, batch, nsample: int, nsample_active: int = 0, use_fine: bool = False):
     """Replay the JAX key-split tree of one step (train/step.py:141,
-    render/rays.py:130, render/pipeline.py:521 and :290, losses eikonal)
-    and return the draws it makes, as torch tensors for the port."""
+    render/rays.py:130 and :153, render/pipeline.py:521, :290 of both
+    inference_deform passes, sampling.sample_pdf, losses eikonal) and return
+    the draws it makes, as torch tensors for the port."""
     bs2 = batch["frameid"].shape[0]
-    R, S, G = bs2 * nsample, cfg.ndepth, cfg.feat_ndepth_grid
+    R, S, G = bs2 * (nsample + nsample_active), cfg.ndepth, cfg.feat_ndepth_grid
+    S0 = S // 2 if use_fine else S
     k_rays, k_render, k_loss = jax.random.split(key, 3)
-    k_px, _ = jax.random.split(k_rays)
+    k_px, k_act = jax.random.split(k_rays)
     lineid = batch.get("lineid")
-    pix = RB.sample_pixel_ids(k_px, bs2, nsample, cfg.img_size,
-                              None if lineid is None else jnp.asarray(lineid))
+    lineid = None if lineid is None else jnp.asarray(lineid)
+    draws = {"pix_ids": RB.sample_pixel_ids(k_px, bs2, nsample, cfg.img_size, lineid)}
+    if nsample_active:
+        draws["cand_ids"] = RB.sample_pixel_ids(k_act, bs2, 4 * (nsample + nsample_active),
+                                                cfg.img_size, lineid)
     kr = jax.random.split(k_render, 4)
+    draws["z_u"] = jax.random.uniform(kr[0], (R, S0))
+    if use_fine:
+        kc = jax.random.split(kr[1], 6)
+        draws["coarse_symm_u"] = jax.random.uniform(kc[0], (R, S0, 1))
+        draws["coarse_sigma_noise"] = jax.random.normal(kc[1], (R, S0))
+        draws["pdf_u"] = jax.random.uniform(kr[2], (R, S0))
     kd = jax.random.split(kr[3], 6)
-    draws = {
-        "pix_ids": pix,
-        "z_u": jax.random.uniform(kr[0], (R, S)),
+    draws.update({
+        "symm_u": jax.random.uniform(kd[0], (R, S, 1)),
+        "sigma_noise": jax.random.normal(kd[1], (R, S)),
         "grid_noise": jax.random.normal(kd[2], (G ** 3, 3)),
         "vis_neg": jax.random.uniform(kd[3], (R, S, 3), minval=-1.0, maxval=1.0),
         "eik_idx": jax.random.randint(k_loss, (1000,), 0, R * S),
-    }
+    })
     out = {k: to_t(v) for k, v in draws.items()}
-    out["pix_ids"] = out["pix_ids"].long()
-    out["eik_idx"] = out["eik_idx"].long()
+    for k in ("pix_ids", "cand_ids", "eik_idx"):
+        if k in out:
+            out[k] = out[k].long()
     return out
 
 
