@@ -10,8 +10,11 @@ Phases:
    bf16 mode at every call site of the init, ft1 and ft2 steps, at the
    shapes those steps give them, and K1s/K2s (the activation-stash mode)
    at the trunk and skin sites, against the plain version and K2s's
-   gradients against K2's; time the kernel, the plain version and a bf16
-   layer-by-layer F.linear chain (yardstick), and compute the bound;
+   gradients against K2's; print each launch's shared-memory bytes and
+   resident CTAs per SM, and at the trunk site check that two backwards on
+   the same inputs give bit-identical gradients; time the kernel, the plain
+   version and a bf16 layer-by-layer F.linear chain (yardstick), and compute
+   the bound;
 4. for each of bench.py's init, ft1 and ft2 stages (full widths, random
    weights and data from a seed): one kernel-path step against one plain
    fp32 step from the same parameters and draws, then ten timed steps with
@@ -167,10 +170,23 @@ KERNEL_CASES = {
 }
 # K1s/K2s are checked and timed at these cases; they serve the ft2 stash run
 STASH_CASES = {"trunk_feat_r2048": ["trunk_feat"], "skin_r2048_s128": ["skin_bw", "skin_fw"]}
+# two backwards on the same inputs must give bit-identical gradients here
+DETERMINISM_CASE = "trunk_feat_r2048"
 
 # the nets of each call site, as the wrapper's launch counter names them
 NETS = {"trunk_feat": "D8W256o3+D5W128o16", "feat_grid": "D5W128o16", "vis": "D5W64o1",
         "skin": "D5W64o25c128", "unc": "D8W256o1"}
+
+
+# the wrapper's launch-counter kind of each kernel
+KINDS = {"K1": "fwd", "K2": "bwd", "K1s": "fwd_stash", "K2s": "bwd_stash"}
+
+
+def footprint(FM, kname: str, case: str):
+    """(shared-memory bytes, resident CTAs per SM) of kernel ``kname``'s
+    block kernel as the wrapper recorded them at the case's launch."""
+    (fp,) = [v for k, v in FM.footprints.items() if k.startswith(f"{KINDS[kname]}:{case}:")]
+    return fp
 
 
 def nets_of(site: str) -> str:
@@ -289,6 +305,19 @@ def check_kernels(results: list, profile: bool = False):
             return max_abs_out, max_abs_grad
 
         err_out, err_grad = compare("K1/K2", outs_k, grads_k)
+        print(f"[kernels] {name}: shared memory " + ", ".join(
+            "{} {} B ({} CTAs/SM)".format(k, *footprint(FM, k, name))
+            for k in (("K1",) if fwd_only else ("K1", "K2"))) +
+            f" at BM_F={FM.BM_F}, BM_B={FM.BM_B}", flush=True)
+        if name == DETERMINISM_CASE:
+            outs_k2, grads_k2 = values(True)
+            torch.cuda.synchronize()
+            same = all(torch.equal(a, b) for a, b in zip(outs_k + grads_k, outs_k2 + grads_k2)
+                       if a is not None)
+            print(f"[kernels] K1/K2 {name}: a second run on the same inputs is bit-identical: "
+                  f"{same}", flush=True)
+            if not same:
+                raise SystemExit(f"{name}: the backward is not deterministic run to run")
         stash_errs = None
         if name in STASH_CASES:
             with stash_mode(True):
@@ -405,6 +434,8 @@ def check_kernels(results: list, profile: bool = False):
                 "ms": t_k, "plain_ms": t_p, "bound_ms": max(t_ops, t_bytes),
                 "bound_by": "operations" if t_ops >= t_bytes else "bytes",
                 "library_ms": None, "layer_chain_ms": t_c, "device_ms": d_k,
+                "smem_bytes": footprint(FM, kname, name)[0],
+                "ctas_per_sm": footprint(FM, kname, name)[1],
                 "runs": ([["ft2_stash", s] for s in STASH_CASES[name]] if stash else
                          [list(r) for r in runs]),
             })

@@ -5,6 +5,12 @@
 // Replaces moda_tpu/ops/fused_mlp.py::_fwd_kernel (K1) and ::_bwd_kernel
 // (K2), launched there by _call_fwd / _fused_mlp_bwd through pl.pallas_call.
 //
+// Every block product (block_gemm) keeps its fp32 sums in registers: a warp
+// owns 16-column tiles, stages one 16x16 fragment at a time in its own small
+// fp32 tile (16 x 20 floats, 10 KB for 8 warps) and applies the product's
+// epilogue (bias, ReLU, sigmoid, mask, bf16 rounding, column sums) on the
+// way to the result's destination. No block-wide fp32 result tile exists.
+//
 // K1 (fmlp_fwd_kernel): one CTA per block of BM_F points. The in-kernel
 //   positional embed (x * 2^j is exact in fp32; sinf/cosf, never the fast
 //   intrinsics: arguments reach 2^9 |x|), the per-ray code broadcast and
@@ -14,17 +20,22 @@
 //   activations are rounded to bf16 exactly where the TPU kernel rounds them
 //   (at each product input). Bound on the H100: tensor-core operations (the
 //   trunk at 262,144 points is ~0.37 TFLOP against ~25 MB of inputs and
-//   outputs). What holds it back today: the latency of the weight fragments
-//   from L2, with one CTA of 8 warps per SM at the trunk's width (the fp32
-//   accumulator tile takes 66 KB of shared memory).
+//   outputs). Measured on an H100 80GB HBM3 at 700 W: 3.98 ms at the trunk
+//   site (262,144 points), ~9% of that bound, with two CTAs of 8 warps per
+//   SM (128 registers, 103 KB of shared memory for the trunk launch). What
+//   holds it back: each warp waits on the weight fragments it fetches from
+//   L2, four at a time, with nothing in flight across layers.
 // K2 (fmlp_bwd_kernel + fmlp_dw_kernel + fmlp_reduce_kernel): persistent
 //   CTAs walk blocks of BM_B points. Each block recomputes the forward,
 //   writes every layer's bf16 input activation (A) and bf16 pre-activation
 //   gradient (D) to scratch, and propagates the VJP back to the embed (dx,
-//   per-ray code grads, window grad). The TPU kernel carried dW/db in one
+//   per-ray code grads, window grad). Each input-gradient product's epilogue
+//   masks it into the layer before's D and writes that D into whichever of
+//   h0/h1 the product does not read. The TPU kernel carried dW/db in one
 //   buffer across its sequential grid; blocks here run concurrently, so:
-//     - db and dwin: per-CTA partial sums in shared memory, written once per
-//       CTA, then summed by a second kernel in a fixed order;
+//     - db and dwin: per-CTA partial sums in shared memory (a column's sum
+//       over a block runs inside the warp that owns the column), written
+//       once per CTA, then summed by a second kernel in a fixed order;
 //     - dW = A^T D: a split-K tensor-core GEMM over all points (chunks of
 //       both stacks staged in shared memory by cp.async) with one fp32
 //       partial per split, then the same fixed-order reduction;
@@ -33,6 +44,16 @@
 //   No atomics: results are deterministic run to run.
 //   Bound: tensor-core operations (~3x the forward's) plus the A/D scratch
 //   traffic (~2 x 14 KB per point for the trunk + feature launch).
+//   Measured on the same card at the trunk site: 19.3 ms, of which the
+//   block kernel 14.4 and the dW GEMM 4.8. Of the block kernel's time, the
+//   recomputed forward takes ~7 and the input-gradient products and their
+//   epilogues ~7.4: inferred from K2 - K2s (K2s skips the recompute), not
+//   read from a per-phase profile. The same weight
+//   latency as K1's holds the block kernel back. BM_B = 32 keeps it at 118
+//   registers and 91 KB, two CTAs per SM; at 64 rows it needs 204 registers
+//   (one CTA per SM) and narrow nets leave half the warps without a column
+//   tile: it was slower at every backward site but the smallest (the
+//   8,000-point feat grid).
 // K1s/K2s (the activation-stash mode, MODA_PALLAS_STASH=1; the stash route
 //   of the same two pallas_calls, moda_tpu/ops/fused_mlp.py:315-338,
 //   :565-570, :597-650): K1s also writes every layer's bf16 input activation
@@ -55,8 +76,10 @@ typedef __nv_bfloat16 bf16;
 #define MAXLAYERS 12
 #define NTHREADS 256
 #define NWARPS (NTHREADS / 32)
-#define BM_F 64
-#define BM_B 32
+// rows per block of K1 / K2, set by the build (ops/fused_mlp.py BM_F, BM_B)
+#if !defined(BM_F) || !defined(BM_B)
+#error "build with -DBM_F=<rows> -DBM_B=<rows>, as ops/fused_mlp.py::build_library does"
+#endif
 
 // ---------------------------------------------------------------- layouts
 // Mirrored field for field by ctypes Structures in ops/fused_mlp.py.
@@ -82,8 +105,9 @@ struct FusedDesc {
   int n, s, c, f, in_x, xp, ct, ctp, cd, cdp, nnets;
   int need_dx, need_dt, need_dwin;
   int stashed;  // K1s: write the A stacks; K2s: read them, skip the recompute
-  int hw, outw, accw_f, accw_b, dsw, total_bias, total_w;
+  int hw, outw, dsw, total_bias, total_w;
   int npad, nblocks, grid, nsplit, chunk;
+  int rows_slot, spb;  // code-gradient slot geometry (ops/fused_mlp.py::bwd_geometry)
   const float* x;        // [N][c] raw points (f > 0) or [N][in_x]
   const float* ct_code;  // [R][ct]
   const float* cd_code;  // [R][cd]
@@ -106,41 +130,47 @@ __host__ __device__ inline int align128(int b) { return (b + 127) & ~127; }
 #define PADH 8
 #define PADF 4
 
+// row stride of a warp's fp32 staging tile (16 rows of one 16-column tile)
+#define LDT (16 + PADF)
+#define NSMEM 12
+
 struct Smem {
-  bf16 *xe, *ct, *cd, *h0, *h1, *ds, *ds2;
-  float *acc, *outs, *dt, *dcd, *bacc, *wacc;
-  int lx, lct, lcd, lh, lacc, lds, lds2;  // row strides (elements)
+  bf16 *xe, *ct, *cd, *h0, *h1, *ds2;
+  float *stage, *outs, *dt, *dcd, *bacc, *wacc;
+  int lx, lct, lcd, lh, lds2;  // row strides (elements)
 };
 
-__host__ __device__ inline int acc_width(const FusedDesc& d, bool bwd) {
-  return (bwd ? d.accw_b : d.accw_f) + PADF;
+// Width of h0/h1. In the backward they also hold each layer's bf16 D in
+// turn: a product's epilogue writes the next D into the buffer its A
+// operand does not use.
+__host__ __device__ inline int h_width(const FusedDesc& d, bool bwd) {
+  return bwd && d.dsw > d.hw ? d.dsw : d.hw;
 }
 
 // byte offsets of the shared-memory buffers; returns the total size
 __host__ __device__ inline int smem_layout(const FusedDesc& d, int BM, bool bwd, int* o) {
   int off = 0, i = 0;
   auto put = [&](int bytes) { o[i++] = off; off += align128(bytes); };
-  put(BM * (d.xp + PADH) * 2);            // 0 xe
-  put(BM * (d.ctp + PADH) * 2);           // 1 ct
-  put(BM * (d.cdp + PADH) * 2);           // 2 cd
-  put(BM * (d.hw + PADH) * 2);            // 3 h0
-  put(BM * (d.hw + PADH) * 2);            // 4 h1
-  put(BM * acc_width(d, bwd) * 4);        // 5 acc
-  put(BM * d.outw * 4);                   // 6 outs
+  put(BM * (d.xp + PADH) * 2);              // 0 xe
+  put(BM * (d.ctp + PADH) * 2);             // 1 ct
+  put(BM * (d.cdp + PADH) * 2);             // 2 cd
+  put(BM * (h_width(d, bwd) + PADH) * 2);   // 3 h0
+  put(BM * (h_width(d, bwd) + PADH) * 2);   // 4 h1
+  put(NWARPS * 16 * LDT * 4);               // 5 stage: one fp32 tile per warp
+  put(BM * d.outw * 4);                     // 6 outs
   if (bwd) {
-    put(BM * (d.dsw + PADH) * 2);         // 7 ds
-    put(BM * (16 + PADH) * 2);            // 8 ds2
-    put(BM * (d.xp + d.ctp) * 4);          // 9 dt
-    put(BM * d.cdp * 4);                   // 10 dcd
-    put(d.total_bias * 4);                 // 11 bacc
-    put(2 * d.f * d.c * 4 + 4);            // 12 wacc
+    put(BM * (16 + PADH) * 2);              // 7 ds2
+    put(BM * (d.xp + d.ctp) * 4);           // 8 dt
+    put(BM * d.cdp * 4);                    // 9 dcd
+    put(d.total_bias * 4);                  // 10 bacc
+    put(2 * d.f * d.c * 4 + 4);             // 11 wacc
   }
   return off;
 }
 
 __device__ inline Smem carve(const FusedDesc& d, int BM, bool bwd) {
   extern __shared__ __align__(128) unsigned char smem_raw[];
-  int o[13];
+  int o[NSMEM];
   smem_layout(d, BM, bwd, o);
   Smem s;
   s.xe = (bf16*)(smem_raw + o[0]);
@@ -148,24 +178,21 @@ __device__ inline Smem carve(const FusedDesc& d, int BM, bool bwd) {
   s.cd = (bf16*)(smem_raw + o[2]);
   s.h0 = (bf16*)(smem_raw + o[3]);
   s.h1 = (bf16*)(smem_raw + o[4]);
-  s.acc = (float*)(smem_raw + o[5]);
+  s.stage = (float*)(smem_raw + o[5]);
   s.outs = (float*)(smem_raw + o[6]);
   s.lx = d.xp + PADH;
   s.lct = d.ctp + PADH;
   s.lcd = d.cdp + PADH;
-  s.lh = d.hw + PADH;
-  s.lacc = acc_width(d, bwd);
-  s.lds = d.dsw + PADH;
+  s.lh = h_width(d, bwd) + PADH;
   s.lds2 = 16 + PADH;
-  s.ds = s.ds2 = nullptr;
+  s.ds2 = nullptr;
   s.dt = s.dcd = s.bacc = s.wacc = nullptr;
   if (bwd) {
-    s.ds = (bf16*)(smem_raw + o[7]);
-    s.ds2 = (bf16*)(smem_raw + o[8]);
-    s.dt = (float*)(smem_raw + o[9]);
-    s.dcd = (float*)(smem_raw + o[10]);
-    s.bacc = (float*)(smem_raw + o[11]);
-    s.wacc = (float*)(smem_raw + o[12]);
+    s.ds2 = (bf16*)(smem_raw + o[7]);
+    s.dt = (float*)(smem_raw + o[8]);
+    s.dcd = (float*)(smem_raw + o[9]);
+    s.bacc = (float*)(smem_raw + o[10]);
+    s.wacc = (float*)(smem_raw + o[11]);
   }
   return s;
 }
@@ -182,11 +209,18 @@ struct Seg {
   int ldb;
 };
 
-// C[BM][n] (fp32, shared, stride ldc) = sum over segments of A_seg B_seg
-template <int BM>
-__device__ void block_gemm(const Seg* segs, int nseg, int n, float* c, int ldc) {
+// C[BM][n] = sum over segments of A_seg B_seg, never stored whole. A warp
+// owns 16-column tiles of C. When a tile's K loop ends, the warp stores its
+// RT fragments one at a time, rows ascending, into its own fp32 staging tile
+// t [16][LDT] and calls epi.rows(t, r0, c0, csum) with the whole warp, then
+// epi.cols(c0, csum). One warp owns a column, so a column sum needs no
+// atomics: lane j < 16 carries column c0 + j's running sum in csum, in a
+// fixed order (rows ascending).
+template <int BM, typename Epi>
+__device__ void block_gemm(const Seg* segs, int nseg, int n, float* stage, const Epi& epi) {
   constexpr int RT = BM / 16;
   const int warp = threadIdx.x / 32;
+  float* t = stage + warp * 16 * LDT;
   // B fragments come from global memory (L2): KU of them are requested
   // before the products that use them, so their latencies overlap
   constexpr int KU = 4;
@@ -218,11 +252,147 @@ __device__ void block_gemm(const Seg* segs, int nseg, int n, float* c, int ldc) 
         }
       }
     }
+    float csum = 0.0f;
 #pragma unroll
-    for (int r = 0; r < RT; ++r)
-      wmma::store_matrix_sync(c + (r * 16) * ldc + tn * 16, acc[r], ldc, wmma::mem_row_major);
+    for (int r = 0; r < RT; ++r) {
+      wmma::store_matrix_sync(t, acc[r], LDT, wmma::mem_row_major);
+      __syncwarp();
+      epi.rows(t, r * 16, tn * 16, csum);
+      __syncwarp();
+    }
+    epi.cols(tn * 16, csum);
   }
 }
+
+// ------------------------------------------------------------- epilogues
+// A lane's share of a staged tile: row lane / 2, the 8 columns from
+// 8 * (lane % 2) (16 bytes of bf16, 32 of fp32).
+__device__ inline int lane_row() { return (threadIdx.x % 32) >> 1; }
+__device__ inline int lane_col() { return (threadIdx.x & 1) * 8; }
+
+__device__ inline void load8(const float* p, float* v) {
+  const float4 lo = reinterpret_cast<const float4*>(p)[0];
+  const float4 hi = reinterpret_cast<const float4*>(p)[1];
+  v[0] = lo.x; v[1] = lo.y; v[2] = lo.z; v[3] = lo.w;
+  v[4] = hi.x; v[5] = hi.y; v[6] = hi.z; v[7] = hi.w;
+}
+
+__device__ inline uint4 pack8(const float* v) {
+  uint4 pv;
+  __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&pv);
+#pragma unroll
+  for (int q = 0; q < 4; ++q) h[q] = __floats2bfloat162_rn(v[2 * q], v[2 * q + 1]);
+  return pv;
+}
+
+// bias, optional ReLU, bf16 into h [BM][ld]: a hidden, final or dir layer
+struct EpiAct {
+  const float* b;
+  bf16* h;
+  int ld;
+  bool relu;
+  __device__ void rows(float* t, int r0, int c0, float&) const {
+    const int i = lane_row(), j = lane_col();
+    float v[8];
+    load8(t + i * LDT + j, v);
+#pragma unroll
+    for (int q = 0; q < 8; ++q) {
+      v[q] += b[c0 + j + q];
+      if (relu) v[q] = fmaxf(v[q], 0.0f);
+    }
+    *reinterpret_cast<uint4*>(h + (r0 + i) * ld + c0 + j) = pack8(v);
+  }
+  __device__ void cols(int, float) const {}
+};
+
+// the sigma head (one live column): bias, then the output's last column
+struct EpiSigma {
+  float b;
+  float* out;
+  int stride, row0, n;
+  __device__ void rows(float* t, int r0, int c0, float&) const {
+    const int lane = threadIdx.x % 32, p = row0 + r0 + lane;
+    if (c0 == 0 && lane < 16 && p < n) out[(size_t)p * stride] = t[lane * LDT] + b;
+  }
+  __device__ void cols(int, float) const {}
+};
+
+// the rgb head: bias, optional sigmoid, into outs [BM][ldo] and, when out,
+// into the output's first out_ch columns
+struct EpiRgb {
+  const float* b;
+  int sigmoid;
+  float* outs;
+  int ldo;
+  float* out;
+  int stride, out_ch, row0, n;
+  __device__ void rows(float* t, int r0, int c0, float&) const {
+    const int i = lane_row(), j = lane_col(), p = row0 + r0 + i;
+#pragma unroll
+    for (int q = 0; q < 8; ++q) {
+      const int c = c0 + j + q;
+      float v = t[i * LDT + j + q] + b[c];
+      if (sigmoid) v = 1.0f / (1.0f + expf(-v));
+      outs[(r0 + i) * ldo + c] = v;
+      if (out && p < n && c < out_ch) out[(size_t)p * stride + c] = v;
+    }
+  }
+  __device__ void cols(int, float) const {}
+};
+
+// A backward product, the gradient of a layer's input. Columns [col0,
+// col0 + nd) are the D of the layer before (L): ReLU mask from the mask
+// stack at the same column (the layer's own A) when mask, the fp32 column
+// sum into bacc, bf16 into ds [BM][lds] and into L's D stack. Columns below
+// col0 add into the trunk-input gradient dt [BM][dtw]; columns from col0 + nd
+// on into the dir-code gradient dcd [BM][cdw].
+struct EpiGrad {
+  const LayerDesc* L;
+  const bf16* mask;
+  int mask_ld;
+  bf16* ds;
+  int lds;
+  float* bacc;
+  float* dt;
+  int dtw;
+  float* dcd;
+  int cdw, col0, nd, row0;
+  __device__ void rows(float* t, int r0, int c0, float& csum) const {
+    const int lane = threadIdx.x % 32;
+    if (c0 < col0 || c0 >= col0 + nd) {
+      float* dst = c0 < col0 ? dt + c0 : dcd + (c0 - col0 - nd);
+      const int ld = c0 < col0 ? dtw : cdw;
+      for (int e = lane; e < 256; e += 32) {
+        const int i = e >> 4, jj = e & 15;
+        dst[(r0 + i) * ld + jj] += t[i * LDT + jj];
+      }
+      return;
+    }
+    const int i = lane_row(), j = lane_col(), c = c0 - col0 + j;
+    const size_t p = (size_t)(row0 + r0 + i);
+    float v[8];
+    load8(t + i * LDT + j, v);
+    if (mask) {
+      const uint4 mv = *reinterpret_cast<const uint4*>(mask + p * mask_ld + c0 + j);
+      const bf16* m = reinterpret_cast<const bf16*>(&mv);
+#pragma unroll
+      for (int q = 0; q < 8; ++q) {
+        if (!(__bfloat162float(m[q]) > 0.0f)) v[q] = 0.0f;
+        t[i * LDT + j + q] = v[q];
+      }
+    }
+    const uint4 pv = pack8(v);
+    *reinterpret_cast<uint4*>(ds + (r0 + i) * lds + c) = pv;
+    *reinterpret_cast<uint4*>(L->d + p * L->nout + c) = pv;
+    __syncwarp();
+    if (lane < 16)
+      for (int ii = 0; ii < 16; ++ii) csum += t[ii * LDT + lane];
+  }
+  __device__ void cols(int c0, float csum) const {
+    const int lane = threadIdx.x % 32;
+    if (c0 >= col0 && c0 < col0 + nd && lane < 16) bacc[L->bias_off + c0 - col0 + lane] += csum;
+  }
+};
 
 // ---------------------------------------------------------------- inputs
 __device__ inline float embed_col(const FusedDesc& d, int p, int k) {
@@ -290,7 +460,7 @@ __device__ inline int trunk_segs(const FusedDesc& d, const NetDesc& nd, const Sm
 // WRITE_OUT. STASH writes every layer input to its A stack.
 template <int BM, bool STASH, bool WRITE_OUT>
 __device__ void net_forward(const FusedDesc& d, const NetDesc& nd, int row0, const Smem& s) {
-  const int W = nd.W, Wd = W / 2, D = nd.D, accw = s.lacc, lh = s.lh;
+  const int W = nd.W, Wd = W / 2, D = nd.D, lh = s.lh;
   bf16* h = s.h0;
   bf16* h2 = s.h1;
   Seg segs[3];
@@ -300,13 +470,7 @@ __device__ void net_forward(const FusedDesc& d, const NetDesc& nd, int row0, con
     if (i == 0 || ((nd.skips >> i) & 1)) nseg = trunk_segs(d, nd, s, L, segs);
     if (i > 0) segs[nseg++] = Seg{h, lh, W, L.wt + (L.kin - W), L.kin};
     if (STASH) stash<BM>(L, row0, segs, nseg);
-    block_gemm<BM>(segs, nseg, W, s.acc, accw);
-    __syncthreads();
-    const float* b = d.bias + L.bias_off;
-    for (int e = threadIdx.x; e < BM * W; e += NTHREADS) {
-      const int r = e / W, cc = e % W;
-      h2[r * lh + cc] = __float2bfloat16_rn(fmaxf(s.acc[r * accw + cc] + b[cc], 0.0f));
-    }
+    block_gemm<BM>(segs, nseg, W, s.stage, EpiAct{d.bias + L.bias_off, h2, lh, true});
     __syncthreads();
     bf16* t = h; h = h2; h2 = t;
   }
@@ -318,46 +482,24 @@ __device__ void net_forward(const FusedDesc& d, const NetDesc& nd, int row0, con
   segs[0] = Seg{h, lh, W, Lf.wt, Lf.kin};
   if (STASH) stash<BM>(Lf, row0, segs, 1);  // Ls.a aliases Lf.a
   if (!nd.drop_sigma && WRITE_OUT) {
-    Seg ss = Seg{h, lh, W, Ls.wt, Ls.kin};
-    block_gemm<BM>(&ss, 1, Ls.nout, s.acc, accw);
-    __syncthreads();
-    const int ostride = nd.out_ch + 1;
-    for (int r = threadIdx.x; r < BM; r += NTHREADS) {
-      const int p = row0 + r;
-      if (p < d.n) nd.out[(size_t)p * ostride + nd.out_ch] = s.acc[r * accw] + d.bias[Ls.bias_off];
-    }
-    __syncthreads();
+    const Seg ss = Seg{h, lh, W, Ls.wt, Ls.kin};
+    block_gemm<BM>(&ss, 1, Ls.nout, s.stage,
+                   EpiSigma{d.bias[Ls.bias_off], nd.out + nd.out_ch, nd.out_ch + 1, row0, d.n});
   }
-  block_gemm<BM>(segs, 1, W, s.acc, accw);
-  __syncthreads();
-  for (int e = threadIdx.x; e < BM * W; e += NTHREADS) {
-    const int r = e / W, cc = e % W;
-    h2[r * lh + cc] = __float2bfloat16_rn(s.acc[r * accw + cc] + d.bias[Lf.bias_off + cc]);
-  }
+  block_gemm<BM>(segs, 1, W, s.stage, EpiAct{d.bias + Lf.bias_off, h2, lh, false});
   __syncthreads();
   int nseg = 0;
   segs[nseg++] = Seg{h2, lh, W, Ld.wt, Ld.kin};
   if (nd.uses_cd) segs[nseg++] = Seg{s.cd, s.lcd, d.cdp, Ld.wt + W, Ld.kin};
   if (STASH) stash<BM>(Ld, row0, segs, nseg);
-  block_gemm<BM>(segs, nseg, Wd, s.acc, accw);
-  __syncthreads();
-  for (int e = threadIdx.x; e < BM * Wd; e += NTHREADS) {
-    const int r = e / Wd, cc = e % Wd;
-    h[r * lh + cc] = __float2bfloat16_rn(fmaxf(s.acc[r * accw + cc] + d.bias[Ld.bias_off + cc], 0.0f));
-  }
+  block_gemm<BM>(segs, nseg, Wd, s.stage, EpiAct{d.bias + Ld.bias_off, h, lh, true});
   __syncthreads();
   segs[0] = Seg{h, lh, Wd, Lr.wt, Lr.kin};
   if (STASH) stash<BM>(Lr, row0, segs, 1);
-  block_gemm<BM>(segs, 1, Lr.nout, s.acc, accw);
-  __syncthreads();
-  const int ostride = nd.out_ch + (nd.drop_sigma ? 0 : 1);
-  for (int e = threadIdx.x; e < BM * nd.out_pad; e += NTHREADS) {
-    const int r = e / nd.out_pad, j = e % nd.out_pad, p = row0 + r;
-    float v = s.acc[r * accw + j] + d.bias[Lr.bias_off + j];
-    if (nd.sigmoid) v = 1.0f / (1.0f + expf(-v));
-    s.outs[r * d.outw + j] = v;
-    if (WRITE_OUT && p < d.n && j < nd.out_ch) nd.out[(size_t)p * ostride + j] = v;
-  }
+  block_gemm<BM>(segs, 1, Lr.nout, s.stage,
+                 EpiRgb{d.bias + Lr.bias_off, nd.sigmoid, s.outs, d.outw,
+                        WRITE_OUT ? nd.out : nullptr, nd.out_ch + (nd.drop_sigma ? 0 : 1),
+                        nd.out_ch, row0, d.n});
   __syncthreads();
 }
 
@@ -376,89 +518,61 @@ __global__ void __launch_bounds__(NTHREADS) fmlp_fwd_kernel(const __grid_constan
 }
 
 // -------------------------------------------------------------------- K2
-// Turn the fp32 gradient in acc (columns col0.., n wide) into this layer's
-// D: optional ReLU mask from a bf16 activation stack, per-CTA bias-grad
-// accumulation (fp32), bf16 copy into ds and into the D stack.
-template <int BM>
-__device__ void emit_d(const FusedDesc& d, const LayerDesc& L, int row0, const Smem& s,
-                       int col0, int n, const bf16* mask, int mask_ld, int mask_off,
-                       bf16* ds) {
-  // 8 columns (16 bytes of bf16, 32 of fp32) per thread and step: n, col0,
-  // the strides and the mask offset are multiples of 8
-  const int accw = s.lacc, n8 = n / 8;
-  if (mask) {
-    for (int e = threadIdx.x; e < BM * n8; e += NTHREADS) {
-      const int r = e / n8, c = (e % n8) * 8;
-      const uint4 mv =
-          *reinterpret_cast<const uint4*>(mask + (size_t)(row0 + r) * mask_ld + mask_off + c);
-      const bf16* m = reinterpret_cast<const bf16*>(&mv);
-      float* a = s.acc + r * accw + col0 + c;
-#pragma unroll
-      for (int q = 0; q < 8; ++q)
-        if (!(__bfloat162float(m[q]) > 0.0f)) a[q] = 0.0f;
-    }
-    __syncthreads();
+// the rgb head's pre-activation gradient: g (* s(1-s) with the recomputed
+// sigmoid output)
+__device__ inline float rgb_grad(const FusedDesc& d, const NetDesc& nd, const Smem& s, int row0,
+                                 int r, int j) {
+  const int p = row0 + r;
+  if (p >= d.n || j >= nd.out_ch) return 0.0f;
+  float v = nd.g[(size_t)p * (nd.out_ch + (nd.drop_sigma ? 0 : 1)) + j];
+  if (nd.sigmoid) {
+    const float sg = s.outs[r * d.outw + j];
+    v *= sg * (1.0f - sg);
   }
-  for (int cc = threadIdx.x; cc < n; cc += NTHREADS) {
-    float sum = 0.0f;
-    for (int r = 0; r < BM; ++r) sum += s.acc[r * accw + col0 + cc];
-    s.bacc[L.bias_off + cc] += sum;
-  }
-  for (int e = threadIdx.x; e < BM * n8; e += NTHREADS) {
-    const int r = e / n8, c = (e % n8) * 8;
-    const float4* a = reinterpret_cast<const float4*>(s.acc + r * accw + col0 + c);
-    const float4 lo = a[0], hi = a[1];
-    uint4 pv;
-    __nv_bfloat162* v = reinterpret_cast<__nv_bfloat162*>(&pv);
-    v[0] = __floats2bfloat162_rn(lo.x, lo.y);
-    v[1] = __floats2bfloat162_rn(lo.z, lo.w);
-    v[2] = __floats2bfloat162_rn(hi.x, hi.y);
-    v[3] = __floats2bfloat162_rn(hi.z, hi.w);
-    *reinterpret_cast<uint4*>(ds + r * s.lds + c) = pv;
-    *reinterpret_cast<uint4*>(L.d + (size_t)(row0 + r) * L.nout + c) = pv;
-  }
-  __syncthreads();
+  return v;
 }
 
+// The VJP of one net for the block, products from the last layer back.
+// Each product's epilogue (EpiGrad) writes the D of the layer before into
+// the one of h0/h1 that its A operand does not use.
 __device__ void net_backward(const FusedDesc& d, const NetDesc& nd, int row0, const Smem& s) {
-  const int W = nd.W, Wd = W / 2, D = nd.D, accw = s.lacc, lds = s.lds;
+  const int W = nd.W, Wd = W / 2, D = nd.D, lh = s.lh, dtw = d.xp + d.ctp;
   const LayerDesc& Ls = nd.layers[D];
   const LayerDesc& Lf = nd.layers[D + 1];
   const LayerDesc& Ld = nd.layers[D + 2];
   const LayerDesc& Lr = nd.layers[D + 3];
   const int gstride = nd.out_ch + (nd.drop_sigma ? 0 : 1);
-  // rgb head: d_out = g (* s(1-s) with the recomputed sigmoid output)
+  bf16* da = s.h0;  // the current layer's D, the next product's A operand
+  bf16* db = s.h1;  // the layer before's D, written by that product
+  auto grad_epi = [&](const LayerDesc& L, const bf16* mask, int mask_ld, int col0, int n,
+                      float* dt, float* dcd) {
+    return EpiGrad{&L, mask, mask_ld, db, lh, s.bacc, dt, dtw, dcd, d.cdp, col0, n, row0};
+  };
+  // rgb head D, straight from the cotangent
+  for (int cc = threadIdx.x; cc < nd.out_pad; cc += NTHREADS) {
+    float sum = 0.0f;
+    for (int r = 0; r < BM_B; ++r) sum += rgb_grad(d, nd, s, row0, r, cc);
+    s.bacc[Lr.bias_off + cc] += sum;
+  }
   for (int e = threadIdx.x; e < BM_B * nd.out_pad; e += NTHREADS) {
-    const int r = e / nd.out_pad, j = e % nd.out_pad, p = row0 + r;
-    float v = 0.0f;
-    if (p < d.n && j < nd.out_ch) {
-      v = nd.g[(size_t)p * gstride + j];
-      if (nd.sigmoid) {
-        const float sg = s.outs[r * d.outw + j];
-        v *= sg * (1.0f - sg);
-      }
-    }
-    s.acc[r * accw + j] = v;
+    const int r = e / nd.out_pad, j = e % nd.out_pad;
+    const bf16 bv = __float2bfloat16_rn(rgb_grad(d, nd, s, row0, r, j));
+    da[r * lh + j] = bv;
+    Lr.d[(size_t)(row0 + r) * Lr.nout + j] = bv;
   }
   __syncthreads();
-  emit_d<BM_B>(d, Lr, row0, s, 0, nd.out_pad, nullptr, 0, 0, s.ds);
-  Seg sg = Seg{s.ds, lds, nd.out_pad, Lr.w, Lr.nout};
-  block_gemm<BM_B>(&sg, 1, Wd, s.acc, accw);
+  Seg sg = Seg{da, lh, nd.out_pad, Lr.w, Lr.nout};
+  block_gemm<BM_B>(&sg, 1, Wd, s.stage, grad_epi(Ld, Lr.a, Lr.kin, 0, Wd, nullptr, nullptr));
   __syncthreads();
-  emit_d<BM_B>(d, Ld, row0, s, 0, Wd, Lr.a, Lr.kin, 0, s.ds);
-  // dir input = [h_final | cd code]
-  sg = Seg{s.ds, lds, Wd, Ld.w, Ld.nout};
-  block_gemm<BM_B>(&sg, 1, Ld.kin, s.acc, accw);
+  bf16* t = da; da = db; db = t;
+  // dir input = [h_final | cd code]: the final layer's D, then the cd gradient
+  sg = Seg{da, lh, Wd, Ld.w, Ld.nout};
+  block_gemm<BM_B>(&sg, 1, Ld.kin, s.stage, grad_epi(Lf, nullptr, 0, 0, W, nullptr, s.dcd));
   __syncthreads();
-  if (nd.uses_cd)
-    for (int e = threadIdx.x; e < BM_B * d.cdp; e += NTHREADS) {
-      const int r = e / d.cdp, k = e % d.cdp;
-      s.dcd[e] += s.acc[r * accw + W + k];
-    }
-  emit_d<BM_B>(d, Lf, row0, s, 0, W, nullptr, 0, 0, s.ds);
+  t = da; da = db; db = t;
   Seg segs[2];
   int nseg = 0;
-  segs[nseg++] = Seg{s.ds, lds, W, Lf.w, Lf.nout};
+  segs[nseg++] = Seg{da, lh, W, Lf.w, Lf.nout};
   if (!nd.drop_sigma) {
     // sigma head: one live column, padded to 16
     for (int cc = threadIdx.x; cc < 16; cc += NTHREADS) {
@@ -479,45 +593,33 @@ __device__ void net_backward(const FusedDesc& d, const NetDesc& nd, int row0, co
     __syncthreads();
     segs[nseg++] = Seg{s.ds2, s.lds2, 16, Ls.w, Ls.nout};
   }
-  block_gemm<BM_B>(segs, nseg, W, s.acc, accw);
+  // the gradient of the trunk output: the last hidden layer's D
+  block_gemm<BM_B>(segs, nseg, W, s.stage,
+                   grad_epi(nd.layers[D - 1], Lf.a, Lf.kin, 0, W, nullptr, nullptr));
   __syncthreads();
-  // trunk, last layer first; acc holds d(relu output) at column col0
-  int col0 = 0;
+  t = da; da = db; db = t;
+  // trunk, last layer first: layer l's input gradient gives layer l-1's D
+  // (masked by layer l's own input) and, at layer 0 and the skip layers, the
+  // trunk-input gradient in the columns below tin
   for (int l = D - 1; l >= 0; --l) {
     const LayerDesc& L = nd.layers[l];
-    const bf16* mask;
-    int mld, moff;
-    if (l == D - 1) {
-      mask = Lf.a; mld = Lf.kin; moff = 0;
-    } else {
-      const LayerDesc& Ln = nd.layers[l + 1];
-      mask = Ln.a; mld = Ln.kin; moff = ((nd.skips >> (l + 1)) & 1) ? nd.tin : 0;
-    }
-    emit_d<BM_B>(d, L, row0, s, col0, W, mask, mld, moff, s.ds);
-    const bool skip = (nd.skips >> l) & 1;
-    if (l > 0 || d.need_dt) {
-      sg = Seg{s.ds, lds, W, L.w, L.nout};
-      block_gemm<BM_B>(&sg, 1, L.kin, s.acc, accw);
-      __syncthreads();
-      if (l == 0 || skip) {
-        const int dtw = d.xp + d.ctp;
-        for (int e = threadIdx.x; e < BM_B * nd.tin; e += NTHREADS) {
-          const int r = e / nd.tin, k = e % nd.tin;
-          s.dt[r * dtw + k] += s.acc[r * accw + k];
-        }
-        __syncthreads();
-      }
-      col0 = skip ? nd.tin : 0;
-    }
+    const bool to_dt = l == 0 || ((nd.skips >> l) & 1);
+    if (l == 0 && !d.need_dt) break;
+    sg = Seg{da, lh, W, L.w, L.nout};
+    block_gemm<BM_B>(&sg, 1, L.kin, s.stage,
+                     grad_epi(nd.layers[l > 0 ? l - 1 : 0], L.a, L.kin, to_dt ? nd.tin : 0,
+                              l > 0 ? W : 0, to_dt ? s.dt : nullptr, nullptr));
+    __syncthreads();
+    t = da; da = db; db = t;
   }
 }
 
 // K2s: a sigmoid head's output from the stashed last hidden layer, with the
-// same product, bias and sigmoid as net_forward, so it is bit-identical to
-// the recomputed one. Other heads need nothing from the forward.
+// same product and epilogue as net_forward, so it is bit-identical to the
+// recomputed one. Other heads need nothing from the forward.
 __device__ void rgb_from_stash(const FusedDesc& d, const NetDesc& nd, int row0, const Smem& s) {
   const LayerDesc& Lr = nd.layers[nd.D + 3];
-  const int k8 = Lr.kin / 8, accw = s.lacc;
+  const int k8 = Lr.kin / 8;
   for (int i = threadIdx.x; i < BM_B * k8; i += NTHREADS) {
     const int r = i / k8, k = (i % k8) * 8;
     *reinterpret_cast<uint4*>(s.h0 + r * s.lh + k) =
@@ -525,21 +627,15 @@ __device__ void rgb_from_stash(const FusedDesc& d, const NetDesc& nd, int row0, 
   }
   __syncthreads();
   const Seg sg = Seg{s.h0, s.lh, Lr.kin, Lr.wt, Lr.kin};
-  block_gemm<BM_B>(&sg, 1, Lr.nout, s.acc, accw);
-  __syncthreads();
-  for (int e = threadIdx.x; e < BM_B * nd.out_pad; e += NTHREADS) {
-    const int r = e / nd.out_pad, j = e % nd.out_pad;
-    const float v = s.acc[r * accw + j] + d.bias[Lr.bias_off + j];
-    s.outs[r * d.outw + j] = 1.0f / (1.0f + expf(-v));
-  }
+  block_gemm<BM_B>(&sg, 1, Lr.nout, s.stage,
+                   EpiRgb{d.bias + Lr.bias_off, 1, s.outs, d.outw, nullptr, 0, 0, row0, d.n});
   __syncthreads();
 }
 
 // per-ray sums of a per-point code gradient into its ray slots
 __device__ void code_slots(const FusedDesc& d, int blk, const float* src, int ld, int off,
                            int width, float* part) {
-  const int rows = d.s < BM_B ? d.s : BM_B;
-  const int spb = BM_B / rows;
+  const int rows = d.rows_slot, spb = d.spb;
   const int row0 = blk * BM_B;
   for (int e = threadIdx.x; e < spb * width; e += NTHREADS) {
     const int lr = e / width, k = e % width;
@@ -735,17 +831,30 @@ static int launch_reduce(const float* part, float* out, int M, int G, int E, cud
   return (int)cudaGetLastError();
 }
 
-// resident backward CTAs per SM at this launch's shared-memory size
-extern "C" int moda_fmlp_bwd_blocks_per_sm(const FusedDesc* d) {
-  int o[13];
-  const int smem = smem_layout(*d, BM_B, true, o);
+// shared-memory bytes of K1's (bwd = 0) or K2's block kernel at this launch
+extern "C" int moda_fmlp_smem_bytes(const FusedDesc* d, int bwd) {
+  int o[NSMEM];
+  return smem_layout(*d, bwd ? BM_B : BM_F, bwd != 0, o);
+}
+
+template <typename K>
+static int blocks_per_sm(K kernel, int smem) {
   int n = 0;
-  if (cudaFuncSetAttribute(fmlp_bwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           smem) != cudaSuccess ||
-      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, fmlp_bwd_kernel, NTHREADS, smem) !=
-          cudaSuccess)
+  if (cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem) !=
+          cudaSuccess ||
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, kernel, NTHREADS, smem) != cudaSuccess)
     return 1;
   return n > 0 ? n : 1;
+}
+
+// resident CTAs per SM of K1's and K2's block kernel at this launch's
+// shared-memory size
+extern "C" int moda_fmlp_fwd_blocks_per_sm(const FusedDesc* d) {
+  return blocks_per_sm(fmlp_fwd_kernel, moda_fmlp_smem_bytes(d, 0));
+}
+
+extern "C" int moda_fmlp_bwd_blocks_per_sm(const FusedDesc* d) {
+  return blocks_per_sm(fmlp_bwd_kernel, moda_fmlp_smem_bytes(d, 1));
 }
 
 extern "C" int moda_fmlp_num_sms(void) {
@@ -760,8 +869,7 @@ extern "C" const char* moda_fmlp_error_string(int code) {
 }
 
 extern "C" int moda_fmlp_forward(const FusedDesc* d, void* stream) {
-  int o[13];
-  const int smem = smem_layout(*d, BM_F, false, o);
+  const int smem = moda_fmlp_smem_bytes(d, 0);
   cudaError_t e = cudaFuncSetAttribute(fmlp_fwd_kernel,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return (int)e;
@@ -776,8 +884,7 @@ extern "C" int moda_fmlp_backward(const FusedDesc* d, const DwDesc* dw, float* d
                                   float* db_out, float* dwin_out, float* dct_out,
                                   float* dcd_out, int rays, int bpr, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
-  int o[13];
-  const int smem = smem_layout(*d, BM_B, true, o);
+  const int smem = moda_fmlp_smem_bytes(d, 1);
   cudaError_t e = cudaFuncSetAttribute(fmlp_bwd_kernel,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return (int)e;

@@ -37,7 +37,7 @@ import os
 import subprocess
 import threading
 from pathlib import Path
-from typing import Optional, Sequence, Tuple
+from typing import NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
@@ -45,6 +45,9 @@ import torch
 # (K1, K2, K1s, K2s) and by call site and nets ("bwd:skin_bw:D5W64o25c128")
 launches = {"fwd": 0, "bwd": 0, "fwd_stash": 0, "bwd_stash": 0}
 launches_by_call = collections.Counter()
+# (shared-memory bytes, resident CTAs per SM) of the block kernel of each
+# key of launches_by_call, taken at its first launch
+footprints = {}
 
 
 def reset_launches():
@@ -53,9 +56,15 @@ def reset_launches():
     launches_by_call.clear()
 
 
-def _count(kind: str, site: Optional[str], nets: str):
+def _count(kind: str, site: Optional[str], nets: str, lib, desc):
     launches[kind] += 1
-    launches_by_call[f"{kind}:{site}:{nets}" if site else f"{kind}:{nets}"] += 1
+    key = f"{kind}:{site}:{nets}" if site else f"{kind}:{nets}"
+    launches_by_call[key] += 1
+    if key not in footprints:
+        bwd = kind.startswith("bwd")
+        per_sm = lib.moda_fmlp_bwd_blocks_per_sm if bwd else lib.moda_fmlp_fwd_blocks_per_sm
+        ref = ctypes.byref(desc)
+        footprints[key] = (lib.moda_fmlp_smem_bytes(ref, int(bwd)), per_sm(ref))
 
 
 def stash_enabled() -> bool:
@@ -63,7 +72,7 @@ def stash_enabled() -> bool:
     (moda_tpu/ops/fused_mlp.py::_stash reads the same variable)."""
     return os.environ.get("MODA_PALLAS_STASH") == "1"
 
-BM_F, BM_B = 64, 32  # rows per block of the forward / backward kernels
+BM_F, BM_B = 64, 32  # rows per block of the forward / backward kernels (built in)
 MAXNETS, MAXLAYERS = 2, 12
 
 
@@ -189,8 +198,12 @@ def _nvcc() -> str:
     return "nvcc"
 
 
+# the block sizes reach the kernels as macros, so they are set here alone
+_DEFINES = [f"-DBM_F={BM_F}", f"-DBM_B={BM_B}"]
+
+
 def _lib_path() -> Path:
-    tag = hashlib.sha256(_SRC.read_bytes()).hexdigest()[:16]
+    tag = hashlib.sha256(_SRC.read_bytes() + " ".join(_DEFINES).encode()).hexdigest()[:16]
     return _BUILD / f"libmoda_fmlp_{tag}.so"
 
 
@@ -213,8 +226,8 @@ def build_library() -> ctypes.CDLL:
         if not so.exists():
             tmp = so.with_suffix(f".{os.getpid()}.tmp")
             cmd = [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-                   "-O3", "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC", "-o", str(tmp),
-                   str(_SRC)]
+                   "-O3", "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC", *_DEFINES,
+                   "-o", str(tmp), str(_SRC)]
             res = subprocess.run(cmd, capture_output=True, text=True)
             if res.returncode != 0:
                 raise RuntimeError(f"nvcc failed ({res.returncode}):\n{res.stderr}")
@@ -226,8 +239,11 @@ def build_library() -> ctypes.CDLL:
         lib.moda_fmlp_backward.argtypes = [ctypes.c_void_p, ctypes.c_void_p] + \
             [ctypes.c_void_p] * 5 + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
         lib.moda_fmlp_backward.restype = ctypes.c_int
-        lib.moda_fmlp_bwd_blocks_per_sm.argtypes = [ctypes.c_void_p]
-        lib.moda_fmlp_bwd_blocks_per_sm.restype = ctypes.c_int
+        for fn in (lib.moda_fmlp_fwd_blocks_per_sm, lib.moda_fmlp_bwd_blocks_per_sm):
+            fn.argtypes = [ctypes.c_void_p]
+            fn.restype = ctypes.c_int
+        lib.moda_fmlp_smem_bytes.argtypes = [ctypes.c_void_p, ctypes.c_int]
+        lib.moda_fmlp_smem_bytes.restype = ctypes.c_int
         lib.moda_fmlp_num_sms.argtypes = []
         lib.moda_fmlp_num_sms.restype = ctypes.c_int
         lib.moda_fmlp_error_string.argtypes = [ctypes.c_int]
@@ -253,8 +269,9 @@ class _NetDesc(ctypes.Structure):
 class _FusedDesc(ctypes.Structure):
     _fields_ = [(n, ctypes.c_int) for n in (
         "n", "s", "c", "f", "in_x", "xp", "ct", "ctp", "cd", "cdp", "nnets",
-        "need_dx", "need_dt", "need_dwin", "stashed", "hw", "outw", "accw_f", "accw_b", "dsw",
-        "total_bias", "total_w", "npad", "nblocks", "grid", "nsplit", "chunk")] + [
+        "need_dx", "need_dt", "need_dwin", "stashed", "hw", "outw", "dsw",
+        "total_bias", "total_w", "npad", "nblocks", "grid", "nsplit", "chunk", "rows_slot",
+        "spb")] + [
         (n, ctypes.c_void_p) for n in (
             "x", "ct_code", "cd_code", "win", "bias", "dx", "part_b", "part_win",
             "part_ct", "part_cd", "part_w")] + [("nets", _NetDesc * MAXNETS)]
@@ -340,8 +357,6 @@ class _Layout:
         outs = [n["layers"][-1]["nout"] for n in self.nets]
         self.hw = max(Ws)
         self.outw = max(outs)
-        self.accw_f = max(max(Ws), self.outw, 16)
-        self.accw_b = max(max(l["kin"], l["nout"]) for n in self.nets for l in n["layers"])
         self.dsw = max(l["nout"] for n in self.nets for l in n["layers"])
 
     def fill(self, desc: _FusedDesc, archs, n, S):
@@ -350,8 +365,7 @@ class _Layout:
         for name, v in (("n", n), ("s", S), ("c", C), ("f", F), ("in_x", self.in_x),
                         ("xp", self.xp), ("ct", self.ct), ("ctp", self.ctp), ("cd", self.cd),
                         ("cdp", self.cdp), ("nnets", len(archs)), ("hw", self.hw),
-                        ("outw", self.outw), ("accw_f", self.accw_f), ("accw_b", self.accw_b),
-                        ("dsw", self.dsw), ("total_bias", self.total_bias),
+                        ("outw", self.outw), ("dsw", self.dsw), ("total_bias", self.total_bias),
                         ("total_w", self.total_w)):
             setattr(desc, name, int(v))
         desc.bias = self.bias.data_ptr()
@@ -414,19 +428,40 @@ def _alloc_stacks(lay: _Layout, rows: int, which: str, dev):
                  for offs in plan]
 
 
+class BwdGeometry(NamedTuple):
+    nblocks: int    # blocks of bm points
+    npad: int       # rows of the scratch stacks: nblocks * bm
+    rows_slot: int  # points per code-gradient slot: min(S, bm)
+    spb: int        # code-gradient slots per block: bm // rows_slot
+    nslots: int     # code-gradient slots, each inside one block and one ray: nblocks * spb
+    bpr: int        # consecutive slots per ray, summed by the reduction
+
+
+def bwd_geometry(n: int, S: int, bm: int = BM_B) -> BwdGeometry:
+    """How K2 groups n points (rays of S consecutive points) into blocks of
+    bm rows and per-ray code-gradient slots. Point p lies in block p // bm
+    and slot (p // bm) * spb + (p % bm) // rows_slot, and ray r sums slots
+    [r * bpr, (r + 1) * bpr). Needs S | bm or bm | S. The kernel reads
+    rows_slot and spb from the descriptor."""
+    if S % bm and bm % S:
+        raise NotImplementedError(f"fused kernel backward needs S | {bm} or {bm} | S, got {S}")
+    nblocks = -(-n // bm)
+    rows_slot = min(S, bm)
+    spb = bm // rows_slot
+    return BwdGeometry(nblocks, nblocks * bm, rows_slot, spb, nblocks * spb, max(S // bm, 1))
+
+
 def _check_inputs(x, ct_code, cd_code, win, archs):
     a0 = archs[0]
     if len(archs) > MAXNETS:
         raise NotImplementedError(f"fused kernel takes at most {MAXNETS} nets per launch")
     if a0.emb and not a0.emb[2]:
         raise NotImplementedError("fused kernel: only log-scale embedding frequencies")
-    S = a0.S
-    if S % BM_B and BM_B % S:
-        raise NotImplementedError(f"fused kernel backward needs S | {BM_B} or {BM_B} | S, got {S}")
+    bwd_geometry(x.shape[0], a0.S)
     for t in (x, ct_code, cd_code, win):
         if t is not None and (t.device.type != "cuda" or t.dtype != torch.float32):
             raise ValueError("fused kernel: inputs must be float32 CUDA tensors")
-    if x.shape[0] % S:
+    if x.shape[0] % a0.S:
         raise ValueError("fused kernel: x rows must be R * S")
 
 
@@ -453,7 +488,7 @@ class _FusedMLP(torch.autograd.Function):
         for i, o in enumerate(outs):
             desc.nets[i].out = o.data_ptr()
         # K1s: the A stacks, one row per point of every forward block (the
-        # backward's 32-row blocks cover no more rows than that)
+        # backward's BM_B-row blocks cover no more rows than that)
         acts = aptrs = None
         if stash and n:
             acts, ptrs = _alloc_stacks(lay, (n + BM_F - 1) // BM_F * BM_F, "a", x.device)
@@ -465,7 +500,7 @@ class _FusedMLP(torch.autograd.Function):
         if n:
             stream = torch.cuda.current_stream(x.device).cuda_stream
             _check(lib, lib.moda_fmlp_forward(ctypes.byref(desc), stream), "fused MLP forward")
-            _count("fwd_stash" if acts is not None else "fwd", site, _nets_key(lay))
+            _count("fwd_stash" if acts is not None else "fwd", site, _nets_key(lay), lib, desc)
         ctx.archs, ctx.lay, ctx.site = archs, lay, site
         ctx.stashed, ctx.acts, ctx.aptrs = acts is not None, acts, aptrs
         ctx.save_for_backward(x, ct_code, cd_code, win)
@@ -481,8 +516,7 @@ class _FusedMLP(torch.autograd.Function):
         dev = x.device
         n, S = x.shape[0], a0.S
         R = n // S
-        nblocks = (n + BM_B - 1) // BM_B
-        npad = nblocks * BM_B
+        geo = bwd_geometry(n, S)
         need_dx = bool(a0.need_dx and ctx.needs_input_grad[0])
         need_dwin = bool(a0.emb and win is not None and ctx.needs_input_grad[3])
         gs = [torch.zeros(n, net["out_ch"] + (0 if net["arch"].drop_sigma else 1), device=dev)
@@ -490,13 +524,13 @@ class _FusedMLP(torch.autograd.Function):
         desc = _FusedDesc()
         lay.fill(desc, archs, n, S)
         # persistent CTAs: as many as stay resident at once
-        grid = max(1, min(nblocks, lib.moda_fmlp_num_sms() *
+        grid = max(1, min(geo.nblocks, lib.moda_fmlp_num_sms() *
                           lib.moda_fmlp_bwd_blocks_per_sm(ctypes.byref(desc))))
         # scratch stacks: D always; A too unless K1s kept them (K2s)
         acts, ctx.acts = ctx.acts, None  # released once this backward is queued
         if ctx.stashed and acts is None:
             raise RuntimeError("the stashed activations were used by an earlier backward")
-        scratch, ptrs = _alloc_stacks(lay, npad, "d" if ctx.stashed else "ad", dev)
+        scratch, ptrs = _alloc_stacks(lay, geo.npad, "d" if ctx.stashed else "ad", dev)
         for i, net in enumerate(lay.nets):
             nd = desc.nets[i]
             nd.g = gs[i].data_ptr()
@@ -505,16 +539,13 @@ class _FusedMLP(torch.autograd.Function):
                 nd.layers[li].a = ctx.aptrs[i][li] if ctx.stashed else a
                 nd.layers[li].d = d
         desc.stashed = int(ctx.stashed)
-        rows_slot = min(S, BM_B)
-        nslots = nblocks * (BM_B // rows_slot)
-        bpr = max(S // BM_B, 1)
         fc2 = 2 * a0.emb[0] * a0.emb[1] if a0.emb else 0
         f32 = dict(device=dev, dtype=torch.float32)
         dx = torch.empty(x.shape, **f32) if need_dx else None
         part_b = torch.empty(grid, lay.total_bias, **f32)
         part_win = torch.empty(grid, max(fc2, 1), **f32)
-        part_ct = torch.empty(nslots, max(lay.ctp, 1), **f32)
-        part_cd = torch.empty(nslots, max(lay.cdp, 1), **f32)
+        part_ct = torch.empty(geo.nslots, max(lay.ctp, 1), **f32)
+        part_cd = torch.empty(geo.nslots, max(lay.cdp, 1), **f32)
         # dW GEMM tasks: every layer with a D stack (not the dropped sigma)
         dw = _DwDesc()
         tasks, tile = [], 0
@@ -533,16 +564,18 @@ class _FusedMLP(torch.autograd.Function):
                 tasks.append(t)
         # about 8 resident dW CTAs per SM; chunks of whole 32-point steps
         nsplit_target = max(1, -(-8 * lib.moda_fmlp_num_sms() // tile))
-        chunk = -(-npad // nsplit_target)
+        chunk = -(-geo.npad // nsplit_target)
         chunk = (chunk + 31) // 32 * 32
-        nsplit = -(-npad // chunk)
+        nsplit = -(-geo.npad // chunk)
         part_w = torch.empty(nsplit, lay.total_w, **f32)
         dw.ntasks, dw.total_tiles, dw.npad, dw.chunk, dw.total_w = (
-            len(tasks), tile, npad, chunk, lay.total_w)
+            len(tasks), tile, geo.npad, chunk, lay.total_w)
         dw.part_w = part_w.data_ptr()
         desc.need_dx, desc.need_dwin = int(need_dx), int(need_dwin)
         desc.need_dt = int(need_dx or need_dwin or lay.ct > 0)
-        desc.npad, desc.nblocks, desc.grid, desc.nsplit, desc.chunk = npad, nblocks, grid, nsplit, chunk
+        desc.npad, desc.nblocks, desc.grid, desc.nsplit, desc.chunk = (
+            geo.npad, geo.nblocks, grid, nsplit, chunk)
+        desc.rows_slot, desc.spb = geo.rows_slot, geo.spb
         desc.x, desc.ct_code, desc.cd_code, desc.win = (
             x.data_ptr(), _ptr(ct_code), _ptr(cd_code), _ptr(win))
         desc.dx = _ptr(dx)
@@ -556,9 +589,9 @@ class _FusedMLP(torch.autograd.Function):
         stream = torch.cuda.current_stream(dev).cuda_stream
         _check(lib, lib.moda_fmlp_backward(
             ctypes.byref(desc), ctypes.byref(dw), dw_all.data_ptr(), db_all.data_ptr(),
-            dwin.data_ptr(), dct.data_ptr(), dcd.data_ptr(), R, bpr, stream),
+            dwin.data_ptr(), dct.data_ptr(), dcd.data_ptr(), R, geo.bpr, stream),
             "fused MLP backward")
-        _count("bwd_stash" if ctx.stashed else "bwd", ctx.site, _nets_key(lay))
+        _count("bwd_stash" if ctx.stashed else "bwd", ctx.site, _nets_key(lay), lib, desc)
         del acts, scratch  # their last use is queued on this stream
         dws = []
         for net in lay.nets:

@@ -153,6 +153,42 @@ def test_plain_bf16_matches_jax(name):
     _compare(t_named, _jax_named(jb_grads), need_dx, BF16_GRAD_TOL)
 
 
+@pytest.mark.parametrize("bm", [32, 64])
+@pytest.mark.parametrize("S", [1, 64, 128])
+def test_bwd_geometry_matches_brute_force_grouping(S, bm):
+    """K2's blocks and code-gradient slots against a walk over the points:
+    a slot is a maximal run of consecutive points in one block and one ray,
+    numbered in point order, every block holds bm // rows_slot of them (the
+    last one's padding rows too), and ray r's code gradient is the sum of
+    slots [r * bpr, (r + 1) * bpr). Ray counts leave the last block partial
+    where S < bm."""
+    for R in (1, 2, 3, 5, 7, 66):
+        n = R * S
+        geo = TFM.bwd_geometry(n, S, bm)
+        blocks = sorted({p // bm for p in range(n)})
+        assert geo.nblocks == len(blocks) and geo.npad == geo.nblocks * bm
+        assert geo.npad - bm < n <= geo.npad
+        runs = []  # [(block, ray), points] of each maximal run
+        for p in range(n):
+            key = (p // bm, p // S)
+            if not runs or runs[-1][0] != key:
+                runs.append([key, 0])
+            runs[-1][1] += 1
+        assert {c for _, c in runs} == {geo.rows_slot}
+        assert geo.nslots == geo.nblocks * geo.spb == geo.npad // geo.rows_slot
+        for blk in blocks[:-1]:
+            assert sum(1 for (b, _), _ in runs if b == blk) == geo.spb
+        for i, ((_, ray), _) in enumerate(runs):
+            assert i // geo.bpr == ray
+        assert len(runs) == R * geo.bpr <= geo.nslots
+
+
+@pytest.mark.parametrize("S", [3, 48, 80])
+def test_bwd_geometry_rejects_rays_across_blocks(S):
+    with pytest.raises(NotImplementedError, match=r"needs S \|"):
+        TFM.bwd_geometry(10 * S, S)
+
+
 def test_wrapper_routes_cpu_tensors_to_plain_version():
     """On the CPU the wrapper takes the plain version and launches nothing;
     the kernel route is decided by the tensor's device alone."""
