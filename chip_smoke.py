@@ -14,8 +14,14 @@ Phases:
    resident CTAs per SM, and at the trunk site check that two backwards on
    the same inputs give bit-identical gradients; time the kernel, the plain
    version and a bf16 layer-by-layer F.linear chain (yardstick), and compute
-   the bound;
-4. for each of bench.py's init, ft1 and ft2 stages (full widths, random
+   the bound; K2's device time is split into the block kernel, the dW GEMM
+   and the reductions;
+4. the dW GEMM alone (``fused_mlp.dw_gemm``) at every backward call site:
+   seeded random bf16 A/D stacks of the site's task shapes and rows (as K2
+   takes them: ``fused_mlp.dw_task_shapes``), against ``dw_gemm_plain`` (relative L2 error <= 1e-4 per
+   task), run twice (bit-identical), timed beside its bound and one cuBLAS
+   ``torch.matmul(A.t(), D)`` a task (the yardstick, ``library_ms``);
+5. for each of bench.py's init, ft1 and ft2 stages (full widths, random
    weights and data from a seed): one kernel-path step against one plain
    fp32 step from the same parameters and draws, then ten timed steps with
    the launch counters set to 0 before and read after, checked per call
@@ -179,7 +185,19 @@ NETS = {"trunk_feat": "D8W256o3+D5W128o16", "feat_grid": "D5W128o16", "vis": "D5
 
 
 # the wrapper's launch-counter kind of each kernel
-KINDS = {"K1": "fwd", "K2": "bwd", "K1s": "fwd_stash", "K2s": "bwd_stash"}
+KINDS = {"K1": "fwd", "K2": "bwd", "K1s": "fwd_stash", "K2s": "bwd_stash", "dW": "dw"}
+# ptxas registers a thread: moda_fmlp_registers's argument of each kernel
+REGISTERS = {"K1": 0, "K1s": 0, "K2": 1, "K2s": 1, "dW": 2}
+
+
+def counter_kind(entry: str, stash: bool) -> str:
+    """The launch-counter kind that counts kernel entry ``entry``'s launches
+    in a run with or without MODA_PALLAS_STASH=1 (K2 and K2s both launch the
+    dW GEMM)."""
+    k = entry.split(":")[0]
+    if k == "dW":
+        return "dw"
+    return ("fwd" if k.startswith("K1") else "bwd") + ("_stash" if stash else "")
 
 
 def footprint(FM, kname: str, case: str):
@@ -196,35 +214,54 @@ def nets_of(site: str) -> str:
     raise KeyError(site)
 
 
+def case_nets(name: str) -> list:
+    """Case ``name``'s nets [(NeRFMLP, use_ct, use_cd)] on the CPU, as
+    ``nerf_mlp_fused`` takes them."""
+    from moda_tpu_torch.fields.nets import NeRFMLP
+
+    specs, _, _, ct, _, _, layout = KERNEL_CASES[name][:7]
+    return [(NeRFMLP(D=D, W=W, in_channels_xyz=63 + (ct if use_ct else 0),
+                     in_channels_dir=in_dir, out_channels=out, raw_feat=raw),
+             use_ct, use_cd and layout != "embedded")
+            for D, W, in_dir, out, raw, use_ct, use_cd in specs]
+
+
+def build_case(name: str, gen, dev):
+    """Case ``name``'s nets (random weights) and inputs from ``gen``:
+    (mods [(module, use_ct, use_cd)], x, ct code, cd code, window, legacy)."""
+    import torch
+    from moda_tpu_torch.core.embedding import window_vec
+    from moda_tpu_torch.fields.nets import reset_denses
+
+    _, N, S, ct, cd, _, layout = KERNEL_CASES[name][:7]
+    R = N // S
+    legacy = layout == "embedded"
+    mods = []
+    for m, use_ct, use_cd in case_nets(name):
+        reset_denses(m, gen)
+        mods.append((m.to(dev), use_ct, use_cd))
+    if legacy:
+        x = torch.randn(N, 63 + cd, generator=gen).to(dev)
+        ctc = cdc = win = None
+    else:
+        x = (torch.randn(N, 3, generator=gen) * 0.3).to(dev)
+        ctc = torch.randn(R, ct, generator=gen).to(dev) if ct else None
+        cdc = torch.randn(R, cd, generator=gen).to(dev) if cd else None
+        win = window_vec(10, 3, 7.5, device=dev)
+    return mods, x, ctc, cdc, win, legacy
+
+
 def check_kernels(results: list, profile: bool = False):
     """Each case's K1/K2 (and K1s/K2s where listed) against the plain
     version, timed; one JSON entry per kernel and case goes to ``results``
     (launches are filled in by the step phases)."""
     import torch
-    from moda_tpu_torch.core.embedding import window_vec
-    from moda_tpu_torch.fields.nets import NeRFMLP, reset_denses
     from moda_tpu_torch.ops import fused_mlp as FM
 
     dev = torch.device("cuda")
     gen = torch.Generator().manual_seed(0)
-    for name, (specs, N, S, ct, cd, need_dx, layout, fwd_only, site, runs) in \
-            KERNEL_CASES.items():
-        R = N // S
-        legacy = layout == "embedded"
-        mods = []
-        for D, W, in_dir, out, raw, use_ct, use_cd in specs:
-            m = NeRFMLP(D=D, W=W, in_channels_xyz=63 + (ct if use_ct else 0),
-                        in_channels_dir=in_dir, out_channels=out, raw_feat=raw)
-            reset_denses(m, gen)
-            mods.append((m.to(dev), use_ct, use_cd and not legacy))
-        if legacy:
-            x = torch.randn(N, 63 + cd, generator=gen).to(dev)
-            ctc = cdc = win = None
-        else:
-            x = (torch.randn(N, 3, generator=gen) * 0.3).to(dev)
-            ctc = torch.randn(R, ct, generator=gen).to(dev) if ct else None
-            cdc = torch.randn(R, cd, generator=gen).to(dev) if cd else None
-            win = window_vec(10, 3, 7.5, device=dev)
+    for name, (_, N, S, _, _, need_dx, _, fwd_only, site, runs) in KERNEL_CASES.items():
+        mods, x, ctc, cdc, win, legacy = build_case(name, gen, dev)
         weights = [w for m, _, _ in mods for w in m.flat_weights()]
         leaves = [x] + [t for t in (ctc, cdc, win) if t is not None] + weights
         names = ["x"] + [n for n, t in (("ct", ctc), ("cd", cdc), ("win", win))
@@ -392,6 +429,7 @@ def check_kernels(results: list, profile: bool = False):
         _, events, busy = profiled(target, 3)
         d_kf = device_ms(events, 3, ["fmlp_fwd"])
         d_kb = device_ms(events, 3, ["fmlp_bwd", "fmlp_dw", "fmlp_reduce"])
+        splits = {"K2": k2_split(events)}
         if profile:
             print(f"[kernels] profile {name}: device busy {busy:.3f} ms per call", flush=True)
             print_table("kernels", events, 3, True, 8)
@@ -414,6 +452,7 @@ def check_kernels(results: list, profile: bool = False):
             timed["K1s"] = (t_sf, device_ms(ev_s, 3, ["fmlp_fwd"]), t_pf, t_cf)
             timed["K2s"] = (t_sb, device_ms(ev_s, 3, ["fmlp_bwd", "fmlp_dw", "fmlp_reduce"]),
                             t_pb, t_cb)
+            splits["K2s"] = k2_split(ev_s)
         for k in FM.launches:  # timing launches are not main-path launches
             FM.launches[k] = n_launch[k]
 
@@ -436,13 +475,98 @@ def check_kernels(results: list, profile: bool = False):
                 "library_ms": None, "layer_chain_ms": t_c, "device_ms": d_k,
                 "smem_bytes": footprint(FM, kname, name)[0],
                 "ctas_per_sm": footprint(FM, kname, name)[1],
+                "registers": FM.build_library().moda_fmlp_registers(REGISTERS[kname]),
                 "runs": ([["ft2_stash", s] for s in STASH_CASES[name]] if stash else
                          [list(r) for r in runs]),
+                **splits.get(kname, {}),
             })
-            print(f"[kernels] {kname} {name}: kernel {t_k:.3f} ms (device only {d_k:.3f})  "
-                  f"plain {t_p:.3f} ms  F.linear chain {t_c:.3f} ms  bound "
-                  f"{max(t_ops, t_bytes):.3f} ms ({'ops' if t_ops >= t_bytes else 'bytes'})",
-                  flush=True)
+            split = " ".join(f"{k} {v:.3f}" for k, v in splits.get(kname, {}).items())
+            print(f"[kernels] {kname} {name}: kernel {t_k:.3f} ms (device only {d_k:.3f}"
+                  f"{'; ' + split if split else ''})  plain {t_p:.3f} ms  F.linear chain "
+                  f"{t_c:.3f} ms  bound {max(t_ops, t_bytes):.3f} ms "
+                  f"({'ops' if t_ops >= t_bytes else 'bytes'})", flush=True)
+
+
+def k2_split(events) -> dict:
+    """K2's device ms per call, by kernel: the block kernel, the dW GEMM and
+    the reductions (the dW partials' and the others')."""
+    return {"block_ms": device_ms(events, 3, ["fmlp_bwd"]),
+            "dw_ms": device_ms(events, 3, ["fmlp_dw"]),
+            "reduce_ms": device_ms(events, 3, ["fmlp_reduce"])}
+
+
+def check_dw(results: list):
+    """The dW GEMM alone at every backward call site of KERNEL_CASES, at the
+    task shapes and rows K2 takes there (``fused_mlp.dw_task_shapes`` and
+    ``bwd_geometry``): seeded random bf16 stacks (the sigma head reads the final layer's A, as
+    in K2), ``dw_gemm`` against ``dw_gemm_plain`` per task (relative L2
+    error <= 1e-4: both sum the same bf16 products in fp32, in another
+    order), twice (bit-identical), timed beside the bound and one cuBLAS
+    ``torch.matmul(A.t(), D)`` a task (``library_ms``). One JSON entry per
+    site goes to ``results``."""
+    import torch
+    from moda_tpu_torch.ops import fused_mlp as FM
+
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    tol = 1e-4
+    for name, (_, N, S, ct, cd, _, _, fwd_only, site, runs) in KERNEL_CASES.items():
+        if fwd_only:
+            continue
+        tasks = FM.dw_task_shapes(case_nets(name), 63, ct, cd, S, emb=(3, 10, True))
+        npad = FM.bwd_geometry(N, S).npad
+
+        def randn(rows, cols):
+            return torch.randn(rows, cols, generator=gen, device="cuda").to(torch.bfloat16)
+
+        a_of = {j: randn(npad, kin) for j, (kin, _, first) in enumerate(tasks) if first == j}
+        a = [a_of[first] for _, _, first in tasks]
+        d = [randn(npad, nout) for _, nout, _ in tasks]
+        n_launch = dict(FM.launches)
+        out = FM.dw_gemm(a, d, npad, site=name)
+        out2 = FM.dw_gemm(a, d, npad, site=name)
+        ref = FM.dw_gemm_plain(a, d, npad)
+        torch.cuda.synchronize()
+        errs = [float((o - r).norm() / (r.norm() + 1e-12)) for o, r in zip(out, ref)]
+        same = all(torch.equal(x, y) for x, y in zip(out, out2))
+        max_abs = max(float((o - r).abs().max()) for o, r in zip(out, ref))
+        print(f"[dW] {name}: {len(tasks)} tasks, npad {npad}: worst rel_l2 {max(errs):.3e} "
+              f"(tol {tol}), max|kernel-plain| {max_abs:.3e}; a second run bit-identical: "
+              f"{same}", flush=True)
+        if max(errs) > tol or not same:
+            raise SystemExit(f"dW GEMM mismatch or not deterministic at {name}")
+
+        def kernel():
+            FM.dw_gemm(a, d, npad, site=name)
+
+        t_k = cuda_time(kernel)
+        _, events, _ = profiled(kernel, 3)
+        d_k, d_r = device_ms(events, 3, ["fmlp_dw"]), device_ms(events, 3, ["fmlp_reduce_dw"])
+        t_p = cuda_time(lambda: FM.dw_gemm_plain(a, d, npad))
+        t_l = cuda_time(lambda: [torch.matmul(x.t(), y) for x, y in zip(a, d)])
+        for k in FM.launches:  # timing launches are not main-path launches
+            FM.launches[k] = n_launch[k]
+        flops = sum(2 * npad * kin * nout for kin, nout, _ in tasks)
+        nbytes = 2 * npad * (sum(kin for j, (kin, _, first) in enumerate(tasks) if first == j)
+                             + sum(nout for _, nout, _ in tasks)) + \
+            4 * sum(kin * nout for kin, nout, _ in tasks)
+        t_ops, t_bytes = flops / PEAK_BF16_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
+        smem, ctas = FM.footprints[f"dw:{name}"]
+        regs = FM.build_library().moda_fmlp_registers(REGISTERS["dW"])
+        results.append({
+            "name": f"dW:{name}", "route": "cuda", "source": "moda_tpu_torch/csrc/fused_mlp.cu",
+            "replaces": "moda_tpu/ops/fused_mlp.py:245", "call_site": site, "launches": 0,
+            "max_abs_err": max_abs, "rel_l2": max(errs), "ms": t_k, "plain_ms": t_p,
+            "bound_ms": max(t_ops, t_bytes),
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes", "library_ms": t_l,
+            "device_ms": d_k, "reduce_ms": d_r, "smem_bytes": smem, "ctas_per_sm": ctas,
+            "registers": regs, "points": N, "npad": npad,
+            "runs": [list(r) for r in runs] + [["ft2_stash", s] for s in
+                                               STASH_CASES.get(name, [])],
+        })
+        print(f"[dW] {name}: kernel {t_k:.3f} ms (device {d_k:.3f} + reduce {d_r:.3f})  plain "
+              f"{t_p:.3f} ms  cuBLAS {t_l:.3f} ms  bound {max(t_ops, t_bytes):.3f} ms "
+              f"({'ops' if t_ops >= t_bytes else 'bytes'}); {smem} B, {ctas} CTAs/SM, "
+              f"{regs} registers", flush=True)
 
 
 # ------------------------------------------------------------ train step
@@ -598,9 +722,9 @@ def stage_draws(name, cfg, model, plain, batch, extras, rays: int):
 def expected_calls(name: str, steps: int, stash: bool = False) -> dict:
     out = {}
     for site, (nf, nb) in SITES[name].items():
-        for kind, n in (("fwd", nf), ("bwd", nb)):
+        for kind, n in (("fwd", nf), ("bwd", nb), ("dw", nb)):
             if n:
-                k = f"{kind}_stash" if stash and nb else kind
+                k = f"{kind}_stash" if stash and nb and kind != "dw" else kind
                 out[f"{k}:{site}:{nets_of(site)}"] = n * steps
     return out
 
@@ -668,8 +792,8 @@ def run_stage(name: str, results: list, card: str, profile: bool = False) -> dic
         raise SystemExit(f"{name}: launches by call site {calls} != "
                          f"{expected_calls(name, n_timed)}")
     for r in results:
-        r["launches"] += sum(calls.get(f"{'fwd' if r['name'].startswith('K1') else 'bwd'}:"
-                                       f"{site}:{nets_of(site)}", 0)
+        r["launches"] += sum(calls.get(f"{counter_kind(r['name'], False)}:{site}:"
+                                       f"{nets_of(site)}", 0)
                              for stage, site in r["runs"] if stage == name)
     busy = profile_steps(name, step_k, batch, extras, gen, dt) if profile else None
     step_p(batch, extras, generator=gen)
@@ -740,8 +864,8 @@ def run_stash(start, cfg, kw, batch, extras, draws, rays, results, card) -> dict
         raise SystemExit(f"ft2 stash: launches by call site {calls} != "
                          f"{expected_calls('ft2', n, stash=True)}")
     for r in results:
-        r["launches"] += sum(calls.get(f"{'fwd_stash' if r['name'].startswith('K1') else 'bwd_stash'}"
-                                       f":{site}:{nets_of(site)}", 0)
+        r["launches"] += sum(calls.get(f"{counter_kind(r['name'], True)}:{site}:"
+                                       f"{nets_of(site)}", 0)
                              for stage, site in r["runs"] if stage == "ft2_stash")
     return {"loss_stash": ls, "loss_remat": lr, "params_bit_identical": same,
             "remat_ms_per_step": times["remat"], "stash_ms_per_step": times["stash"],
@@ -781,6 +905,8 @@ def main():
     results: list = []
     check_kernels(results, profile=args.profile)
     print(f"[time] kernel phase done at {time.time() - t0:.1f} s", flush=True)
+    check_dw(results)
+    print(f"[time] dW phase done at {time.time() - t0:.1f} s", flush=True)
     steps = {}
     for name in STAGES:
         steps[name] = run_stage(name, results, card, profile=args.profile)

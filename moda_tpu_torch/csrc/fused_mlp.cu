@@ -36,16 +36,29 @@
 //     - db and dwin: per-CTA partial sums in shared memory (a column's sum
 //       over a block runs inside the warp that owns the column), written
 //       once per CTA, then summed by a second kernel in a fixed order;
-//     - dW = A^T D: a split-K tensor-core GEMM over all points (chunks of
-//       both stacks staged in shared memory by cp.async) with one fp32
-//       partial per split, then the same fixed-order reduction;
+//     - dW = A^T D (the TPU kernel's mmT_nt products, moda_tpu/ops/
+//       fused_mlp.py:245-290, accumulated over the grid at :458-478): a
+//       second kernel, fmlp_dw_kernel, over the bf16 A and D stacks. Its
+//       output tiles are up to 128 x 128 (a 256-wide layer is two), its
+//       operands stream through a TMA ring of 128-point stages, and
+//       ldmatrix.trans + mma.sync multiply them in 8 warps, a stage at a
+//       time into fresh accumulators that are then added to the running
+//       fp32 sums. A plan made in Python (ops/fused_mlp.py::dw_plan)
+//       splits each tile's points into ranges of about equal cost; each
+//       range leaves fp32 partials, and fmlp_reduce_dw_kernel sums a
+//       tile's partials in a fixed order. Bound at the trunk site (262,144
+//       points, 20 tasks): bytes, 3.63 GB of A and D at 3.35 TB/s =
+//       ~1.08 ms (the products, 0.38 TFLOP, take 0.38 ms at peak).
+//       Measured there on the same card: 2.71 ms (the split-K kernel it
+//       replaced: 4.78);
 //     - code grads: blocks are ray-aligned (BM_B | S or S | BM_B), so a
 //       ray's sum lies inside one block or in consecutive per-block slots.
 //   No atomics: results are deterministic run to run.
 //   Bound: tensor-core operations (~3x the forward's) plus the A/D scratch
 //   traffic (~2 x 14 KB per point for the trunk + feature launch).
 //   Measured on the same card at the trunk site: 19.3 ms, of which the
-//   block kernel 14.4 and the dW GEMM 4.8. Of the block kernel's time, the
+//   block kernel 14.4 and the split-K dW GEMM that fmlp_dw_kernel
+//   replaced 4.8. Of the block kernel's time, the
 //   recomputed forward takes ~7 and the input-gradient products and their
 //   epilogues ~7.4: inferred from K2 - K2s (K2s skips the recompute), not
 //   read from a per-phase profile. The same weight
@@ -64,6 +77,7 @@
 //   the forward to the backward (~7.2 KB per point for the trunk + feature
 //   launch) instead of being rewritten; K2s moves no more bytes than K2.
 
+#include <cuda.h>  // CUtensorMap; its encoder is fetched from the driver at run time
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <mma.h>
@@ -106,7 +120,7 @@ struct FusedDesc {
   int need_dx, need_dt, need_dwin;
   int stashed;  // K1s: write the A stacks; K2s: read them, skip the recompute
   int hw, outw, dsw, total_bias, total_w;
-  int npad, nblocks, grid, nsplit, chunk;
+  int npad, nblocks, grid;
   int rows_slot, spb;  // code-gradient slot geometry (ops/fused_mlp.py::bwd_geometry)
   const float* x;        // [N][c] raw points (f > 0) or [N][in_x]
   const float* ct_code;  // [R][ct]
@@ -118,7 +132,6 @@ struct FusedDesc {
   float* part_win;       // [grid][2fc]
   float* part_ct;        // [nslots][ctp]
   float* part_cd;        // [nslots][cdp]
-  float* part_w;         // [nsplit][total_w]
   NetDesc nets[MAXNETS];
 };
 
@@ -712,101 +725,286 @@ __global__ void __launch_bounds__(NTHREADS) fmlp_bwd_kernel(const __grid_constan
     d.part_win[(size_t)blockIdx.x * fc2 + i] = s.wacc[i];
 }
 
-// dW = A^T D over all points: split-K, one DW_T x DW_T output tile and one
-// range of points per CTA, one fp32 partial per split. Chunks of DW_C points
-// of A and D are copied to shared memory with cp.async, the next chunk in
-// flight while the 4 warps (each a 32 x 32 quarter, 2 x 2 fragments) multiply
-// the current one from shared memory.
+// ----------------------------------------------------------------- dW GEMM
+// fmlp_dw_kernel: dW_l = A_l^T D_l for every task of a launch (one task per
+// layer with a D stack), bf16 operands, fp32 sums, fp32 partials. Replaces
+// the weight gradients of moda_tpu/ops/fused_mlp.py::_bwd_kernel (mmT_nt,
+// :245-290), which the TPU kernel accumulated over its sequential grid
+// (:458-478). Bound on the H100: bytes. Each point's A row (kin bf16) and D
+// row (nout bf16) must be read once: 13.9 KB a point at the trunk + feature
+// launch, 3.63 GB at 262,144 points = ~1.08 ms at 3.35 TB/s, against
+// 0.38 ms for its 0.38 TFLOP of products. What the design does about it:
+//   - Output tiles as wide as the layer, up to DW_TM x DW_TN = 128 x 128:
+//     an A row reaches an SM once per 128 output columns and a D row once
+//     per 128 input rows (the split-K kernel this replaced used 64 x 64).
+//   - A ring of 3-4 stages of DW_KC = 128 points (as many as fit in the
+//     block's shared memory: 3 at 128 x 128, ~192 KB) filled by TMA: thread
+//     0 copies a stage as 128-point x 64-column boxes of the A and D stacks
+//     (cp.async.bulk.tensor.2d through a tensor map per stack, completing
+//     on the stage's mbarrier), refilling a stage as soon as the block has
+//     passed the barrier that ends its use. A box lands with the
+//     128-byte swizzle, so the 8 rows an ldmatrix reads fall in distinct
+//     banks without padding; rows past npad (a ragged tail, or the rows a
+//     K1s stack holds beyond it) and columns past the stack's width are
+//     filled with zeros by the copy and never read from memory. A bulk copy
+//     per tile row, a 16-byte cp.async ring issued by the warps, and
+//     64-point boxes were each measured slower (PERF.md §6): the copies'
+//     issue and the per-stage barriers, not the bytes, held them back.
+//   - ldmatrix.trans loads the fragments (both stacks are point-major and
+//     the points are the reduction dimension) and mma.sync m16n8k16
+//     multiplies them; each of the 8 warps owns a 64 x 32 block of the tile.
+//     A tile with fewer blocks than warps (a 64 x 64 tile has two) gives
+//     each block ks warps (a power of two), which take its 16-point steps
+//     in turn and write ks partials (k-slices). A stage's products sum in
+//     fresh accumulators, which are then added to the running fp32 sums:
+//     a tensor-core accumulator chain over tens of thousands of points
+//     drifts (relative error 1.5e-4 at 36,864 points an item, measured), a
+//     128-point one does not.
+//   - Balanced work: ops/fused_mlp.py::dw_plan cuts each tile's points into
+//     ranges of about equal cost (operand bytes plus products) so the grid
+//     holds about DW_WAVES items per resident CTA, ordered so that items
+//     reading the same points of a task run side by side (L2 reuse). One
+//     CTA per item; each item writes its fp32 partials, and
+//     fmlp_reduce_dw_kernel sums a tile's partials in order. No atomics:
+//     the result is the same bits run to run, and K2s (whose A stacks K1s
+//     wrote) gets K2's.
+// The plan (a device int32 table) holds per tile (task, m0, n0, mw, nw,
+// nsplit, part_off, ks) and per item (tile, split, p0, p1); p0 is a
+// multiple of DW_KC and p1 of BM_B. Partial s * ks + z of a tile is split
+// s's k-slice z.
 struct GemmTask {
-  int kin, nout, dw_off, tiles_n, tile_start;
-  const bf16* a;
-  const bf16* d;
+  int kin, nout, dw_off;
+  const bf16* a;  // [>= npad][kin]: the A stack (K1s's may hold more rows)
+  const bf16* d;  // [npad][nout]
 };
 
 struct DwDesc {
-  int ntasks, total_tiles, npad, chunk, total_w;
-  float* part_w;
+  int ntasks, ntiles, nitems, npad;
+  int ba, bd;       // 64-column boxes a stage holds of A and of D (the launch's widest tiles)
+  int nstages;      // ring stages (ops/fused_mlp.py::dw_stages)
+  const int* plan;  // ntiles x 8 ints, then nitems x 4 ints (ops/fused_mlp.py::dw_plan)
+  float* part_w;    // the partials, tile by tile: [nsplit * ks][mw][nw] each
   GemmTask t[MAXNETS * MAXLAYERS];
 };
 
-#define DW_T 64
-#define DW_C 32
-#define DW_LD (DW_T + PADH)
+// the TMA descriptors of each task's A and D stack, built by the launcher
+struct DwMaps {
+  CUtensorMap a[MAXNETS * MAXLAYERS];
+  CUtensorMap d[MAXNETS * MAXLAYERS];
+};
 
-__device__ inline void cp_async16(void* smem, const void* gmem) {
-  const unsigned sa = (unsigned)__cvta_generic_to_shared(smem);
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(sa), "l"(gmem));
+#define DW_TM 128
+#define DW_TN 128
+#define DW_KC 128
+#define DW_BOX 64  // columns of a TMA box: 128 bytes, the swizzle's span
+#define DW_BOX_BYTES (DW_KC * DW_BOX * 2)
+#define DW_WARPS 8
+#define DW_THREADS (DW_WARPS * 32)
+
+__host__ __device__ inline int dw_smem_bytes(const DwDesc& d) {
+  // 1024 bytes to align the ring (the swizzle's requirement), the ring,
+  // then an mbarrier a stage
+  return 1024 + d.nstages * (d.ba + d.bd) * DW_BOX_BYTES + 8 * d.nstages;
 }
 
-__global__ void __launch_bounds__(128) fmlp_dw_kernel(const __grid_constant__ DwDesc dd) {
-  __shared__ __align__(128) bf16 sa[2][DW_C][DW_LD];
-  __shared__ __align__(128) bf16 sd[2][DW_C][DW_LD];
-  const int split = blockIdx.x / dd.total_tiles;
-  const int tile = blockIdx.x % dd.total_tiles;
-  int ti = 0;
-  while (ti + 1 < dd.ntasks && dd.t[ti + 1].tile_start <= tile) ++ti;
-  const GemmTask& t = dd.t[ti];
-  const int local = tile - t.tile_start;
-  const int m0 = (local / t.tiles_n) * DW_T, n0 = (local % t.tiles_n) * DW_T;
-  // live rows / columns of this tile (multiples of 16)
-  const int mw = min(DW_T, t.kin - m0), nw = min(DW_T, t.nout - n0);
-  const int warp = threadIdx.x / 32;
-  const int wm = (warp / 2) * 32, wn = (warp % 2) * 32;
-  const int r0 = split * dd.chunk;
-  const int nchunks = (min(dd.npad, r0 + dd.chunk) - r0) / DW_C;
+__device__ inline unsigned smem_u32(const void* p) {
+  return (unsigned)__cvta_generic_to_shared(p);
+}
 
-  auto load = [&](int c, int buf) {
-    const int p0 = r0 + c * DW_C;
-    for (int i = threadIdx.x; i < DW_C * (DW_T / 8); i += 128) {
-      const int r = i / (DW_T / 8), v = (i % (DW_T / 8)) * 8;
-      if (v < mw) cp_async16(&sa[buf][r][v], t.a + (size_t)(p0 + r) * t.kin + m0 + v);
-      if (v < nw) cp_async16(&sd[buf][r][v], t.d + (size_t)(p0 + r) * t.nout + n0 + v);
-    }
-    asm volatile("cp.async.commit_group;\n" ::);
-  };
+__device__ inline void mbar_init(uint64_t* b, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(b)), "r"(count)
+               : "memory");
+}
 
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[2][2];
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 2; ++j) wmma::fill_fragment(acc[i][j], 0.0f);
-  if (nchunks > 0) load(0, 0);
-  for (int c = 0; c < nchunks; ++c) {
-    const int buf = c & 1;
-    if (c + 1 < nchunks) {
-      load(c + 1, buf ^ 1);
-      asm volatile("cp.async.wait_group 1;\n" ::);
-    } else {
-      asm volatile("cp.async.wait_group 0;\n" ::);
-    }
-    __syncthreads();
-#pragma unroll
-    for (int k = 0; k < DW_C; k += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::col_major> af[2];
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> bfr[2];
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-        if (wm + 16 * i < mw) wmma::load_matrix_sync(af[i], &sa[buf][k][wm + 16 * i], DW_LD);
-#pragma unroll
-      for (int j = 0; j < 2; ++j)
-        if (wn + 16 * j < nw) wmma::load_matrix_sync(bfr[j], &sd[buf][k][wn + 16 * j], DW_LD);
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-#pragma unroll
-        for (int j = 0; j < 2; ++j)
-          if (wm + 16 * i < mw && wn + 16 * j < nw)
-            wmma::mma_sync(acc[i][j], af[i], bfr[j], acc[i][j]);
-    }
-    __syncthreads();
+__device__ inline void mbar_arrive_expect_tx(uint64_t* b, unsigned bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(b)),
+               "r"(bytes)
+               : "memory");
+}
+
+// Wait until the phase of parity `parity` has completed. A wait that never
+// ends (a lost arrival) traps after ~4 s at 2 GHz, so it fails the launch
+// instead of holding the card.
+__device__ inline void mbar_wait(uint64_t* b, unsigned parity) {
+  const unsigned a = smem_u32(b);
+  const long long t0 = clock64();
+  for (;;) {
+    unsigned done;
+    asm volatile(
+        "{\n .reg .pred p;\n mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        " selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(a), "r"(parity)
+        : "memory");
+    if (done) return;
+    if (clock64() - t0 > (1ll << 33)) __trap();
   }
-  float* out = dd.part_w + (size_t)split * dd.total_w + t.dw_off;
+}
+
+// box (x: first column, y: first row) of the tensor map into shared memory
+__device__ inline void tma_load(void* dst, const CUtensorMap* map, int x, int y, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%2, %3}], [%4];\n" ::"r"(smem_u32(dst)),
+      "l"((uint64_t)map), "r"(x), "r"(y), "r"(smem_u32(bar))
+      : "memory");
+}
+
+// four 8 x 8 bf16 matrices, transposed, from the rows each lane points at
+__device__ inline void ldmatrix_x4_trans(unsigned* r, const unsigned char* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_u32(p)));
+}
+
+// the 16 bytes at (row, column col .. col + 7) of a stage's operand whose
+// boxes start at `base`: box col / 64, its 16-byte chunk XOR (row % 8)
+__device__ inline const unsigned char* swz(const unsigned char* base, int row, int col) {
+  return base + (col >> 6) * DW_BOX_BYTES + row * 128 + ((((col & 63) >> 3) ^ (row & 7)) << 4);
+}
+
+__device__ inline void mma_bf16(float* c, const unsigned* a, const unsigned* b) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, {%4, %5, %6, %7}, "
+      "{%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+__global__ void __launch_bounds__(DW_THREADS, 1)
+    fmlp_dw_kernel(const __grid_constant__ DwDesc dd, const __grid_constant__ DwMaps maps) {
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  unsigned char* ring = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~(uintptr_t)1023);
+  const int ns = dd.nstages, stage = (dd.ba + dd.bd) * DW_BOX_BYTES;
+  uint64_t* full = reinterpret_cast<uint64_t*>(ring + ns * stage);
+  const int* item = dd.plan + 8 * dd.ntiles + 4 * blockIdx.x;
+  const int* tile = dd.plan + 8 * item[0];
+  const int task = tile[0], m0 = tile[1], n0 = tile[2], mw = tile[3], nw = tile[4];
+  const int ks = tile[7];  // a power of two
+  const int p0 = item[2], npts = item[3] - item[2];
+  const int nchunks = (npts + DW_KC - 1) / DW_KC;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  // chunk c into stage c % ns, by thread 0 (the stage's previous chunk is
+  // done: every warp has passed the barrier after it)
+  const int nba = (mw + DW_BOX - 1) / DW_BOX, nbd = (nw + DW_BOX - 1) / DW_BOX;
+  auto issue = [&](int c) {
+    const int s = c % ns;
+    unsigned char* st = ring + s * stage;
+    mbar_arrive_expect_tx(&full[s], (unsigned)((nba + nbd) * DW_BOX_BYTES));
+    for (int b = 0; b < nba; ++b)
+      tma_load(st + b * DW_BOX_BYTES, &maps.a[task], m0 + DW_BOX * b, p0 + c * DW_KC, &full[s]);
+    for (int b = 0; b < nbd; ++b)
+      tma_load(st + (dd.ba + b) * DW_BOX_BYTES, &maps.d[task], n0 + DW_BOX * b, p0 + c * DW_KC,
+               &full[s]);
+  };
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < ns; ++s) mbar_init(&full[s], 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    for (int c = 0; c < min(ns, nchunks); ++c) issue(c);
+  }
+  __syncthreads();
+
+  // the tile's 64 x 32 blocks (4 x 4 m16n8 fragments each; fragments past
+  // mw / nw do nothing): warp w takes block w % nblk and k-slice w / nblk,
+  // the 16-point steps s with s % ks == w / nblk; warps past nblk * ks idle
+  const int bn = (nw + 31) / 32, nblk = ((mw + 63) / 64) * bn;
+  const int blk = warp % nblk, slice = warp / nblk;
+  const int wm = (blk / bn) * 64, wn = (blk % bn) * 32;
+  float acc[4][4][4];
 #pragma unroll
-  for (int i = 0; i < 2; ++i)
+  for (int i = 0; i < 4; ++i)
 #pragma unroll
-    for (int j = 0; j < 2; ++j)
-      if (wm + 16 * i < mw && wn + 16 * j < nw)
-        wmma::store_matrix_sync(out + (size_t)(m0 + wm + 16 * i) * t.nout + n0 + wn + 16 * j,
-                                acc[i][j], t.nout, wmma::mem_row_major);
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) acc[i][j][q] = 0.0f;
+  // this lane's ldmatrix row: matrix lane / 8, row lane % 8 of it
+  const int lr = lane & 7, hi = lane >> 4, mid = (lane >> 3) & 1;
+  for (int c = 0; c < nchunks; ++c) {
+    const int s = c % ns;
+    mbar_wait(&full[s], (c / ns) & 1);
+    if (slice < ks) {
+      const int rows = min(DW_KC, npts - c * DW_KC);
+      const unsigned char* sa = ring + s * stage;
+      const unsigned char* sd = sa + dd.ba * DW_BOX_BYTES;
+      float part[4][4][4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+#pragma unroll
+          for (int q = 0; q < 4; ++q) part[i][j][q] = 0.0f;
+      // one 16-point step at row k of the stage
+      auto step = [&](int k) {
+        unsigned af[4][4], bfr[4][2];
+        // A^T fragment (m16 x k16) from A [k][m]: matrices (k, m),
+        // (k, m+8), (k+8, m), (k+8, m+8)
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+          if (wm + 16 * i < mw)
+            ldmatrix_x4_trans(af[i], swz(sa, k + lr + 8 * hi, wm + 16 * i + 8 * mid));
+        // D fragments (k16 x n8) from D [k][n], two n8 at a time: matrices
+        // (k, n), (k+8, n), (k, n+8), (k+8, n+8)
+#pragma unroll
+        for (int j = 0; j < 4; j += 2)
+          if (wn + 8 * j < nw) {
+            unsigned r4[4];
+            ldmatrix_x4_trans(r4, swz(sd, k + lr + 8 * mid, wn + 8 * j + 8 * hi));
+            bfr[j][0] = r4[0];
+            bfr[j][1] = r4[1];
+            bfr[j + 1][0] = r4[2];
+            bfr[j + 1][1] = r4[3];
+          }
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int j = 0; j < 4; ++j)
+            if (wm + 16 * i < mw && wn + 8 * j < nw) mma_bf16(part[i][j], af[i], bfr[j]);
+      };
+      if (ks == 1 && rows == DW_KC) {
+#pragma unroll
+        for (int k = 0; k < DW_KC; k += 16) step(k);
+      } else {
+        for (int k = 16 * ((slice - c * (DW_KC / 16)) & (ks - 1)); k < rows; k += 16 * ks)
+          step(k);
+      }
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+#pragma unroll
+          for (int q = 0; q < 4; ++q) acc[i][j][q] += part[i][j][q];
+    }
+    __syncthreads();
+    if (threadIdx.x == 0 && c + ns < nchunks) issue(c + ns);
+  }
+  if (slice >= ks) return;
+  // the item's partial: [mw][nw] fp32 at the tile's offset, split item[1],
+  // k-slice `slice`
+  float* out = dd.part_w + tile[6] + (size_t)(item[1] * ks + slice) * mw * nw;
+  const int g = lane >> 2, tq = lane & 3;
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      if (wm + 16 * i < mw && wn + 8 * j < nw) {
+        float* o = out + (size_t)(wm + 16 * i + g) * nw + wn + 8 * j + 2 * tq;
+        *reinterpret_cast<float2*>(o) = make_float2(acc[i][j][0], acc[i][j][1]);
+        *reinterpret_cast<float2*>(o + 8 * nw) = make_float2(acc[i][j][2], acc[i][j][3]);
+      }
+}
+
+// a tile of dW = the sum of its partials, in split order (grid.y: tiles)
+__global__ void fmlp_reduce_dw_kernel(const __grid_constant__ DwDesc dd, float* out) {
+  const int* tile = dd.plan + 8 * blockIdx.y;
+  const GemmTask& t = dd.t[tile[0]];
+  const int mw = tile[3], nw = tile[4], nsplit = tile[5] * tile[7], elems = mw * nw;
+  const float* part = dd.part_w + tile[6];
+  for (int e = blockIdx.x * blockDim.x + threadIdx.x; e < elems; e += gridDim.x * blockDim.x) {
+    float sum = 0.0f;
+    for (int sp = 0; sp < nsplit; ++sp) sum += part[(size_t)sp * elems + e];
+    out[t.dw_off + (size_t)(tile[1] + e / nw) * t.nout + tile[2] + e % nw] = sum;
+  }
 }
 
 // out[m][e] = sum_{g<G} part[(m*G + g)][e], summed in a fixed order
@@ -857,6 +1055,40 @@ extern "C" int moda_fmlp_bwd_blocks_per_sm(const FusedDesc* d) {
   return blocks_per_sm(fmlp_bwd_kernel, moda_fmlp_smem_bytes(d, 1));
 }
 
+// shared-memory bytes and resident CTAs per SM of the dW GEMM at this launch
+extern "C" int moda_fmlp_dw_smem_bytes(const DwDesc* dw) { return dw_smem_bytes(*dw); }
+
+// Lets the dW GEMM take all of a block's shared memory, once per process
+// (every launch's ring fits under that, so no launch sets it again).
+static int dw_smem_attribute() {
+  static const cudaError_t e = [] {
+    int dev = 0, optin = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+    return cudaFuncSetAttribute(fmlp_dw_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                optin);
+  }();
+  return (int)e;
+}
+
+extern "C" int moda_fmlp_dw_blocks_per_sm(const DwDesc* dw) {
+  int n = 0;
+  if (dw_smem_attribute() ||
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, fmlp_dw_kernel, DW_THREADS,
+                                                    dw_smem_bytes(*dw)) != cudaSuccess)
+    return 1;
+  return n > 0 ? n : 1;
+}
+
+// registers a thread of K1's (0), K2's block kernel (1) or the dW GEMM (2)
+extern "C" int moda_fmlp_registers(int which) {
+  cudaFuncAttributes a;
+  const void* k = which == 0   ? (const void*)fmlp_fwd_kernel
+                  : which == 1 ? (const void*)fmlp_bwd_kernel
+                               : (const void*)fmlp_dw_kernel;
+  return cudaFuncGetAttributes(&a, k) == cudaSuccess ? a.numRegs : -1;
+}
+
 extern "C" int moda_fmlp_num_sms(void) {
   int dev = 0, n = 0;
   cudaGetDevice(&dev);
@@ -878,8 +1110,59 @@ extern "C" int moda_fmlp_forward(const FusedDesc* d, void* stream) {
   return (int)cudaGetLastError();
 }
 
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// a bf16 [rows][cols] stack as DW_KC-row x DW_BOX-column boxes with the
+// 128-byte swizzle; reads past rows or cols fill with zeros
+static int encode_stack(CUtensorMap* map, const bf16* p, int rows, int cols) {
+  static EncodeTiled encode = nullptr;
+  if (!encode) {
+    cudaDriverEntryPointQueryResult q;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", (void**)&encode, cudaEnableDefault,
+                                &q) != cudaSuccess ||
+        q != cudaDriverEntryPointSuccess || !encode) {
+      encode = nullptr;
+      return (int)cudaErrorSymbolNotFound;
+    }
+  }
+  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)cols * 2};
+  const cuuint32_t box[2] = {DW_BOX, DW_KC}, estr[2] = {1, 1};
+  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, (void*)p, dims, strides, box,
+                            estr, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                            CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
+}
+
+// The dW GEMM and the reduction of its partials into dw_out (each task's
+// [kin][nout] at its dw_off). K2's backward launches it through here too.
+static int launch_dw(const DwDesc* dw, float* dw_out, cudaStream_t st) {
+  if (dw->nitems == 0) return 0;
+  DwMaps maps;  // copied into the launch's parameters
+  for (int j = 0; j < dw->ntasks; ++j) {
+    int rc = encode_stack(&maps.a[j], dw->t[j].a, dw->npad, dw->t[j].kin);
+    if (!rc) rc = encode_stack(&maps.d[j], dw->t[j].d, dw->npad, dw->t[j].nout);
+    if (rc) return rc;
+  }
+  int rc = dw_smem_attribute();
+  if (rc) return rc;
+  fmlp_dw_kernel<<<dw->nitems, DW_THREADS, dw_smem_bytes(*dw), st>>>(*dw, maps);
+  rc = (int)cudaGetLastError();
+  if (rc) return rc;
+  fmlp_reduce_dw_kernel<<<dim3((DW_TM * DW_TN + 255) / 256, dw->ntiles), 256, 0, st>>>(*dw,
+                                                                                     dw_out);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int moda_fmlp_dw(const DwDesc* dw, float* dw_out, void* stream) {
+  return launch_dw(dw, dw_out, (cudaStream_t)stream);
+}
+
 // Backward: the block kernel, the dW GEMM, then the fixed-order reductions
-// of dW, db, dwin and the per-ray code gradients into the given outputs.
+// of db, dwin and the per-ray code gradients into the given outputs.
 extern "C" int moda_fmlp_backward(const FusedDesc* d, const DwDesc* dw, float* dw_out,
                                   float* db_out, float* dwin_out, float* dct_out,
                                   float* dcd_out, int rays, int bpr, void* stream) {
@@ -891,10 +1174,7 @@ extern "C" int moda_fmlp_backward(const FusedDesc* d, const DwDesc* dw, float* d
   fmlp_bwd_kernel<<<d->grid, NTHREADS, smem, st>>>(*d);
   int rc = (int)cudaGetLastError();
   if (rc) return rc;
-  const int nsplit = (d->npad + dw->chunk - 1) / dw->chunk;
-  fmlp_dw_kernel<<<nsplit * dw->total_tiles, 128, 0, st>>>(*dw);
-  if ((rc = (int)cudaGetLastError())) return rc;
-  if ((rc = launch_reduce(d->part_w, dw_out, 1, nsplit, d->total_w, st))) return rc;
+  if ((rc = launch_dw(dw, dw_out, st))) return rc;
   if ((rc = launch_reduce(d->part_b, db_out, 1, d->grid, d->total_bias, st))) return rc;
   if (d->f > 0 && d->need_dwin &&
       (rc = launch_reduce(d->part_win, dwin_out, 1, d->grid, 2 * d->f * d->c, st)))

@@ -41,12 +41,14 @@ from typing import NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
-# kernel launches made through the wrapper since the last reset, in all
-# (K1, K2, K1s, K2s) and by call site and nets ("bwd:skin_bw:D5W64o25c128")
-launches = {"fwd": 0, "bwd": 0, "fwd_stash": 0, "bwd_stash": 0}
+# kernel launches made through the wrappers since the last reset, in all
+# (K1, K2, K1s, K2s, and the dW GEMM, which K2 and K2s launch and dw_gemm
+# launches alone) and by call site and nets ("bwd:skin_bw:D5W64o25c128",
+# "dw:skin_bw:D5W64o25c128")
+launches = {"fwd": 0, "bwd": 0, "fwd_stash": 0, "bwd_stash": 0, "dw": 0}
 launches_by_call = collections.Counter()
-# (shared-memory bytes, resident CTAs per SM) of the block kernel of each
-# key of launches_by_call, taken at its first launch
+# (shared-memory bytes, resident CTAs per SM) of the block kernel (or the
+# dW GEMM) of each key of launches_by_call, taken at its first launch
 footprints = {}
 
 
@@ -65,6 +67,14 @@ def _count(kind: str, site: Optional[str], nets: str, lib, desc):
         per_sm = lib.moda_fmlp_bwd_blocks_per_sm if bwd else lib.moda_fmlp_fwd_blocks_per_sm
         ref = ctypes.byref(desc)
         footprints[key] = (lib.moda_fmlp_smem_bytes(ref, int(bwd)), per_sm(ref))
+
+
+def _count_dw(key: str, lib, dw):
+    launches["dw"] += 1
+    launches_by_call[key] += 1
+    if key not in footprints:
+        ref = ctypes.byref(dw)
+        footprints[key] = (lib.moda_fmlp_dw_smem_bytes(ref), lib.moda_fmlp_dw_blocks_per_sm(ref))
 
 
 def stash_enabled() -> bool:
@@ -239,6 +249,13 @@ def build_library() -> ctypes.CDLL:
         lib.moda_fmlp_backward.argtypes = [ctypes.c_void_p, ctypes.c_void_p] + \
             [ctypes.c_void_p] * 5 + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
         lib.moda_fmlp_backward.restype = ctypes.c_int
+        lib.moda_fmlp_dw.argtypes = [ctypes.c_void_p] * 3
+        lib.moda_fmlp_dw.restype = ctypes.c_int
+        for fn in (lib.moda_fmlp_dw_smem_bytes, lib.moda_fmlp_dw_blocks_per_sm):
+            fn.argtypes = [ctypes.c_void_p]
+            fn.restype = ctypes.c_int
+        lib.moda_fmlp_registers.argtypes = [ctypes.c_int]
+        lib.moda_fmlp_registers.restype = ctypes.c_int
         for fn in (lib.moda_fmlp_fwd_blocks_per_sm, lib.moda_fmlp_bwd_blocks_per_sm):
             fn.argtypes = [ctypes.c_void_p]
             fn.restype = ctypes.c_int
@@ -270,23 +287,22 @@ class _FusedDesc(ctypes.Structure):
     _fields_ = [(n, ctypes.c_int) for n in (
         "n", "s", "c", "f", "in_x", "xp", "ct", "ctp", "cd", "cdp", "nnets",
         "need_dx", "need_dt", "need_dwin", "stashed", "hw", "outw", "dsw",
-        "total_bias", "total_w", "npad", "nblocks", "grid", "nsplit", "chunk", "rows_slot",
-        "spb")] + [
+        "total_bias", "total_w", "npad", "nblocks", "grid", "rows_slot", "spb")] + [
         (n, ctypes.c_void_p) for n in (
             "x", "ct_code", "cd_code", "win", "bias", "dx", "part_b", "part_win",
-            "part_ct", "part_cd", "part_w")] + [("nets", _NetDesc * MAXNETS)]
+            "part_ct", "part_cd")] + [("nets", _NetDesc * MAXNETS)]
 
 
 class _GemmTask(ctypes.Structure):
-    _fields_ = [(n, ctypes.c_int) for n in (
-        "kin", "nout", "dw_off", "tiles_n", "tile_start")] + [
+    _fields_ = [(n, ctypes.c_int) for n in ("kin", "nout", "dw_off")] + [
         ("a", ctypes.c_void_p), ("d", ctypes.c_void_p)]
 
 
 class _DwDesc(ctypes.Structure):
     _fields_ = [(n, ctypes.c_int) for n in (
-        "ntasks", "total_tiles", "npad", "chunk", "total_w")] + [
-        ("part_w", ctypes.c_void_p), ("t", _GemmTask * (MAXNETS * MAXLAYERS))]
+        "ntasks", "ntiles", "nitems", "npad", "ba", "bd", "nstages")] + [
+        ("plan", ctypes.c_void_p), ("part_w", ctypes.c_void_p),
+        ("t", _GemmTask * (MAXNETS * MAXLAYERS))]
 
 
 def _check(lib, rc: int, what: str):
@@ -451,6 +467,231 @@ def bwd_geometry(n: int, S: int, bm: int = BM_B) -> BwdGeometry:
     return BwdGeometry(nblocks, nblocks * bm, rows_slot, spb, nblocks * spb, max(S // bm, 1))
 
 
+# ------------------------------------------------------------- dW GEMM plan
+# output tile (rows of kin x columns of nout), points per ring stage,
+# columns of a TMA box, consumer warps of a CTA: csrc/fused_mlp.cu DW_TM,
+# DW_TN, DW_KC, DW_BOX and DW_WARPS. A warp owns a 64 x 32 block of a tile.
+DW_TM, DW_TN, DW_KC, DW_BOX, DW_WARPS = 128, 128, 128, 64, 8
+DW_SMEM = 232448  # shared memory a block can have on the H100
+DW_MIN_POINTS = 512  # least points of an item: four ring stages, and enough that
+                     # its fp32 partial is at most 1/8 of the operand bytes it reads
+DW_WAVES = 4         # items per resident CTA, so the block scheduler can even them out
+DW_MAX_ITEMS = 768   # an item's partials are at most 64 KB (8 warps' 64 x 32 fp32
+                     # blocks), so this keeps them under ~52 MB
+
+
+class DwTile(NamedTuple):
+    task: int      # index into the launch's tasks
+    m0: int        # first row of kin
+    n0: int        # first column of nout
+    mw: int        # rows (a multiple of 16, at most DW_TM)
+    nw: int        # columns (a multiple of 16, at most DW_TN)
+    nsplit: int    # point ranges
+    part_off: int  # offset of its partials [nsplit * kslices][mw][nw] (floats)
+    kslices: int   # warps per 64 x 32 block, each summing every kslices-th 16-point step
+
+
+class DwItem(NamedTuple):
+    tile: int
+    split: int
+    p0: int  # a multiple of DW_KC
+    p1: int  # a multiple of BM_B, at most npad
+
+
+class DwPlan(NamedTuple):
+    tiles: Tuple[DwTile, ...]
+    items: Tuple[DwItem, ...]  # one CTA each, in launch order
+    part_floats: int
+
+
+def dw_tasks(lay: _Layout) -> list:
+    """The dW GEMM's tasks of a launch, in K2's order: (net, layer, the
+    layer whose A stack it reads) of every layer with a D stack, that is all
+    but a dropped sigma head. The sigma head reads the final layer's A."""
+    return [(i, li, net["arch"].D + 1 if li == net["arch"].D else li)
+            for i, net in enumerate(lay.nets) for li in range(len(net["layers"]))
+            if not (li == net["arch"].D and net["arch"].drop_sigma)]
+
+
+def dw_task_shapes(nets, in_x: int, ct: int = 0, cd: int = 0, S: int = 1,
+                   emb: Optional[Tuple[int, int, bool]] = None) -> list:
+    """(kin, nout, a) of each task of the dW GEMM that K2 runs for a launch
+    of nets [(NeRFMLP, use_ct, use_cd)] (arguments as ``launch_archs``), in
+    the padded widths of _Layout; a is the first task that reads the same A
+    stack."""
+    archs, weights = launch_archs(nets, in_x, ct, cd, S, emb=emb)
+    lay = _Layout(weights, archs)
+    first = {}
+    return [(lay.nets[i]["layers"][li]["kin"], lay.nets[i]["layers"][li]["nout"],
+             first.setdefault((i, a), j)) for j, (i, li, a) in enumerate(dw_tasks(lay))]
+
+
+def dw_boxes(shapes: Sequence[Tuple[int, int]]) -> Tuple[int, int]:
+    """DW_BOX-column TMA boxes a ring stage holds of A and of D: enough for
+    the launch's widest tile."""
+    return (-(-min(DW_TM, max(k for k, _ in shapes)) // DW_BOX),
+            -(-min(DW_TN, max(n for _, n in shapes)) // DW_BOX))
+
+
+def dw_stages(ba: int, bd: int) -> int:
+    """Ring stages of the dW GEMM: as many as fit in a block's shared memory
+    (csrc/fused_mlp.cu::dw_smem_bytes), at most 8."""
+    stage = (ba + bd) * DW_KC * DW_BOX * 2
+    return min(8, (DW_SMEM - 1024) // (stage + 16))
+
+
+def dw_kslices(mw: int, nw: int) -> int:
+    """Warps that share each 64 x 32 block of an mw x nw tile: the largest
+    power of two that leaves no block without a warp."""
+    blocks, ks = -(-mw // 64) * -(-nw // 32), 1
+    while 2 * ks * blocks <= DW_WARPS:
+        ks *= 2
+    return ks
+
+
+def _dw_cost(mw: int, nw: int) -> float:
+    # per point: the bytes of the TMA boxes a stage copies (zero-filled
+    # columns included), and the products at ~64 per byte
+    return 2 * DW_BOX * (-(-mw // DW_BOX) - (-nw // DW_BOX)) + mw * nw / 64
+
+
+def _dw_min_points(mw: int, nw: int) -> int:
+    # an item reads 2 (mw + nw) bytes a point and writes 4 mw nw once
+    return max(DW_MIN_POINTS, 16 * mw * nw // (mw + nw))
+
+
+def dw_plan(shapes: Sequence[Tuple[int, int]], npad: int, slots: int) -> DwPlan:
+    """The dW GEMM's work for tasks of shapes (kin, nout) over npad points,
+    with ``slots`` CTAs resident at once: every task cut into output tiles
+    of at most DW_TM x DW_TN, every tile's points into ranges (items) of
+    about equal cost, about min(DW_WAVES * slots, DW_MAX_ITEMS) items in
+    all, no item under _dw_min_points unless the tile has fewer. Items are
+    ordered by cost in tenths of the target, the costliest first (no long
+    item left for the end of the grid), then by task, first point and
+    tile, so items that read the same rows of a task's stacks run side by
+    side. A pure function of its arguments."""
+    if npad <= 0 or npad % BM_B:
+        raise ValueError(f"dW GEMM: npad {npad} must be a positive multiple of {BM_B}")
+    for k, n in shapes:
+        if k <= 0 or n <= 0 or k % 16 or n % 16:
+            raise ValueError(f"dW GEMM: task shape ({k}, {n}) must be multiples of 16")
+    geo = [(ti, m0, n0, min(DW_TM, k - m0), min(DW_TN, n - n0))
+           for ti, (k, n) in enumerate(shapes)
+           for m0 in range(0, k, DW_TM) for n0 in range(0, n, DW_TN)]
+    per_item = sum(_dw_cost(mw, nw) for *_, mw, nw in geo) * npad / min(
+        DW_WAVES * max(slots, 1), DW_MAX_ITEMS)
+    tiles, items, off = [], [], 0
+    for t, m0, n0, mw, nw in geo:
+        max_split = max(1, npad // _dw_min_points(mw, nw))
+        want = min(max_split, max(1, round(_dw_cost(mw, nw) * npad / per_item)))
+        step = -(-npad // (want * DW_KC)) * DW_KC
+        nsplit = -(-npad // step)
+        ks = dw_kslices(mw, nw)
+        tiles.append(DwTile(t, m0, n0, mw, nw, nsplit, off, ks))
+        items += [DwItem(len(tiles) - 1, s, s * step, min(npad, (s + 1) * step))
+                  for s in range(nsplit)]
+        off += nsplit * ks * mw * nw
+    if off >= 2 ** 31:
+        raise ValueError("dW GEMM: partials exceed 2^31 floats")
+    def rank(it):
+        t = tiles[it.tile]
+        return (-round(10 * _dw_cost(t.mw, t.nw) * (it.p1 - it.p0) / per_item), t.task, it.p0,
+                it.tile)
+
+    items.sort(key=rank)
+    return DwPlan(tuple(tiles), tuple(items), off)
+
+
+_dw_tables = collections.OrderedDict()  # (shapes, npad, slots, device) -> (plan, int32 table)
+_dw_slots = {}  # (ba, bd, nstages, device) -> dW GEMM CTAs resident at once
+
+
+def _dw_table(shapes, npad: int, slots: int, dev) -> Tuple[DwPlan, torch.Tensor]:
+    """The plan and its device table (8 ints a tile, then 4 an item), kept
+    for the last 64 launch geometries so a step copies none of them again."""
+    key = (tuple(shapes), npad, slots, str(dev))
+    hit = _dw_tables.get(key)
+    if hit is None:
+        plan = dw_plan(shapes, npad, slots)
+        rows = [list(t) for t in plan.tiles] + [list(it) for it in plan.items]
+        table = torch.tensor([v for r in rows for v in r], dtype=torch.int32).to(dev)
+        hit = _dw_tables[key] = (plan, table)
+        while len(_dw_tables) > 64:
+            _dw_tables.popitem(last=False)
+    return hit
+
+
+def _dw_desc(lib, tasks, npad: int, dev) -> Tuple[_DwDesc, torch.Tensor, torch.Tensor]:
+    """The dW GEMM's descriptor for tasks (kin, nout, dw_off, A address, D
+    address). Returns it with the buffers it points at (the partials and the
+    plan table), which must live until the launch is queued."""
+    if len(tasks) > MAXNETS * MAXLAYERS:
+        raise NotImplementedError(f"dW GEMM: at most {MAXNETS * MAXLAYERS} tasks")
+    shapes = [(k, n) for k, n, *_ in tasks]
+    dw = _DwDesc()
+    dw.ntasks = len(tasks)
+    dw.npad = npad
+    dw.ba, dw.bd = dw_boxes(shapes)
+    dw.nstages = dw_stages(dw.ba, dw.bd)
+    for j, (kin, nout, off, a, d) in enumerate(tasks):
+        if a % 16 or d % 16:
+            raise ValueError("dW GEMM: stacks must be 16-byte aligned")
+        t = dw.t[j]
+        t.kin, t.nout, t.dw_off, t.a, t.d = kin, nout, off, a, d
+    # the shared memory, and so the residency, depends on the ring alone
+    skey = (dw.ba, dw.bd, dw.nstages, str(dev))
+    slots = _dw_slots.get(skey)
+    if slots is None:
+        slots = _dw_slots[skey] = (lib.moda_fmlp_num_sms() *
+                                   lib.moda_fmlp_dw_blocks_per_sm(ctypes.byref(dw)))
+    plan, table = _dw_table(shapes, npad, slots, dev)
+    part = torch.empty(max(plan.part_floats, 1), device=dev, dtype=torch.float32)
+    dw.ntiles, dw.nitems = len(plan.tiles), len(plan.items)
+    dw.plan, dw.part_w = table.data_ptr(), part.data_ptr()
+    return dw, part, table
+
+
+def dw_gemm_plain(a: Sequence[torch.Tensor], d: Sequence[torch.Tensor],
+                  npad: Optional[int] = None) -> list:
+    """Plain version of the dW GEMM: per task, A[:npad]^T D in fp32 (npad
+    defaults to D's rows)."""
+    return [ai[:di.shape[0] if npad is None else npad].float().t() @ di.float()
+            for ai, di in zip(a, d)]
+
+
+def dw_gemm(a: Sequence[torch.Tensor], d: Sequence[torch.Tensor], npad: Optional[int] = None,
+            site: Optional[str] = None) -> list:
+    """The dW GEMM alone, as K2's backward runs it: per task, A[:npad]^T D
+    with bf16 A [>= npad, kin] and D [npad, nout] and fp32 sums, returned as
+    fp32 [kin, nout]. CUDA tensors launch fmlp_dw_kernel (csrc/fused_mlp.cu)
+    or raise; CPU tensors take ``dw_gemm_plain``. Passing one tensor twice
+    in ``a`` (the sigma head reads the final layer's A) is allowed."""
+    if len(a) != len(d) or not a:
+        raise ValueError("dw_gemm: one A and one D stack per task")
+    if not d[0].is_cuda:
+        return dw_gemm_plain(a, d, npad)
+    npad = d[0].shape[0] if npad is None else npad
+    for ai, di in zip(a, d):
+        if not (ai.is_cuda and di.is_cuda and ai.dtype == di.dtype == torch.bfloat16
+                and ai.dim() == di.dim() == 2 and ai.is_contiguous() and di.is_contiguous()):
+            raise ValueError("dw_gemm: stacks must be contiguous 2-D bf16 CUDA tensors")
+        if di.shape[0] != npad or ai.shape[0] < npad:
+            raise ValueError(f"dw_gemm: D needs {npad} rows and A at least as many")
+    lib = build_library()
+    dev = d[0].device
+    offs = _offsets([ai.shape[1] * di.shape[1] for ai, di in zip(a, d)])
+    tasks = [(ai.shape[1], di.shape[1], off, ai.data_ptr(), di.data_ptr())
+             for ai, di, off in zip(a, d, offs)]
+    dw, part, table = _dw_desc(lib, tasks, npad, dev)
+    out = torch.empty(offs[-1] + a[-1].shape[1] * d[-1].shape[1], device=dev,
+                      dtype=torch.float32)
+    _check(lib, lib.moda_fmlp_dw(ctypes.byref(dw), out.data_ptr(),
+                                 torch.cuda.current_stream(dev).cuda_stream), "dW GEMM")
+    _count_dw(f"dw:{site}" if site else "dw", lib, dw)
+    del part, table  # their last use is queued on this stream
+    return [out[o:o + k * n].view(k, n) for (k, n, o, _, _) in tasks]
+
+
 def _check_inputs(x, ct_code, cd_code, win, archs):
     a0 = archs[0]
     if len(archs) > MAXNETS:
@@ -546,40 +787,19 @@ class _FusedMLP(torch.autograd.Function):
         part_win = torch.empty(grid, max(fc2, 1), **f32)
         part_ct = torch.empty(geo.nslots, max(lay.ctp, 1), **f32)
         part_cd = torch.empty(geo.nslots, max(lay.cdp, 1), **f32)
-        # dW GEMM tasks: every layer with a D stack (not the dropped sigma)
-        dw = _DwDesc()
-        tasks, tile = [], 0
-        for i, net in enumerate(lay.nets):
-            D = net["arch"].D
-            for li, L in enumerate(net["layers"]):
-                if li == D and net["arch"].drop_sigma:
-                    continue
-                t = dw.t[len(tasks)]
-                t.kin, t.nout, t.dw_off = L["kin"], L["nout"], L["dw_off"]
-                t.tiles_n = (L["nout"] + 63) // 64
-                t.tile_start = tile
-                t.a = desc.nets[i].layers[li].a
-                t.d = desc.nets[i].layers[li].d
-                tile += ((L["kin"] + 63) // 64) * t.tiles_n
-                tasks.append(t)
-        # about 8 resident dW CTAs per SM; chunks of whole 32-point steps
-        nsplit_target = max(1, -(-8 * lib.moda_fmlp_num_sms() // tile))
-        chunk = -(-geo.npad // nsplit_target)
-        chunk = (chunk + 31) // 32 * 32
-        nsplit = -(-geo.npad // chunk)
-        part_w = torch.empty(nsplit, lay.total_w, **f32)
-        dw.ntasks, dw.total_tiles, dw.npad, dw.chunk, dw.total_w = (
-            len(tasks), tile, geo.npad, chunk, lay.total_w)
-        dw.part_w = part_w.data_ptr()
+        tasks = []
+        for i, li, _ in dw_tasks(lay):
+            L, ld = lay.nets[i]["layers"][li], desc.nets[i].layers[li]
+            tasks.append((L["kin"], L["nout"], L["dw_off"], ld.a, ld.d))
+        dw, part_w, dw_table = _dw_desc(lib, tasks, geo.npad, dev)
         desc.need_dx, desc.need_dwin = int(need_dx), int(need_dwin)
         desc.need_dt = int(need_dx or need_dwin or lay.ct > 0)
-        desc.npad, desc.nblocks, desc.grid, desc.nsplit, desc.chunk = (
-            geo.npad, geo.nblocks, grid, nsplit, chunk)
+        desc.npad, desc.nblocks, desc.grid = geo.npad, geo.nblocks, grid
         desc.rows_slot, desc.spb = geo.rows_slot, geo.spb
         desc.x, desc.ct_code, desc.cd_code, desc.win = (
             x.data_ptr(), _ptr(ct_code), _ptr(cd_code), _ptr(win))
         desc.dx = _ptr(dx)
-        desc.part_b, desc.part_win, desc.part_w = part_b.data_ptr(), part_win.data_ptr(), part_w.data_ptr()
+        desc.part_b, desc.part_win = part_b.data_ptr(), part_win.data_ptr()
         desc.part_ct, desc.part_cd = part_ct.data_ptr(), part_cd.data_ptr()
         dw_all = torch.empty(lay.total_w, **f32)
         db_all = torch.empty(lay.total_bias, **f32)
@@ -591,8 +811,10 @@ class _FusedMLP(torch.autograd.Function):
             ctypes.byref(desc), ctypes.byref(dw), dw_all.data_ptr(), db_all.data_ptr(),
             dwin.data_ptr(), dct.data_ptr(), dcd.data_ptr(), R, geo.bpr, stream),
             "fused MLP backward")
-        _count("bwd_stash" if ctx.stashed else "bwd", ctx.site, _nets_key(lay), lib, desc)
-        del acts, scratch  # their last use is queued on this stream
+        nets = _nets_key(lay)
+        _count("bwd_stash" if ctx.stashed else "bwd", ctx.site, nets, lib, desc)
+        _count_dw(f"dw:{ctx.site}:{nets}" if ctx.site else f"dw:{nets}", lib, dw)
+        del acts, scratch, part_w, dw_table  # their last use is queued on this stream
         dws = []
         for net in lay.nets:
             a = net["arch"]
@@ -628,6 +850,25 @@ def fused_mlp(x, ct_code, cd_code, win, weights, archs: Sequence[Arch],
     stash = stash_enabled() and torch.is_grad_enabled() and any(
         t is not None and t.requires_grad for t in (x, ct_code, cd_code, win, *weights))
     return _FusedMLP.apply(x, ct_code, cd_code, win, tuple(archs), stash, site, *weights)
+
+
+def launch_archs(nets, in_x: int, ct: int, cd: int, S: int, need_dx: bool = True,
+                 emb: Optional[Tuple[int, int, bool]] = None) -> Tuple[tuple, list]:
+    """The Arch of each of nets [(NeRFMLP, use_ct, use_cd)] in one launch
+    and their weights, flat: per-point inputs of in_x columns (after the
+    embed ``emb``), per-ray trunk / dir codes of ct / cd columns, S points a
+    ray."""
+    archs, weights = [], []
+    for mod, use_ct, use_cd in nets:
+        ct_i = ct if use_ct else 0
+        cd_i = cd if use_cd else 0
+        if in_x + ct_i != mod.in_channels_xyz or cd_i != mod.in_channels_dir:
+            raise ValueError(f"input widths {in_x}+{ct_i}/{cd_i} do not match "
+                             f"{mod.in_channels_xyz}/{mod.in_channels_dir}")
+        archs.append(Arch(mod.D, in_x, ct_i, cd_i, tuple(mod.skips), S, need_dx=need_dx,
+                          sigmoid=not mod.raw_feat, emb=emb, drop_sigma=mod.raw_feat))
+        weights += mod.flat_weights()
+    return tuple(archs), weights
 
 
 def nerf_mlp_fused(nets, x: torch.Tensor, *, code_trunk=None, code_dir=None,
@@ -673,20 +914,10 @@ def nerf_mlp_fused(nets, x: torch.Tensor, *, code_trunk=None, code_dir=None,
         emb = (C, embed_freqs, True)
         win = (torch.ones(1, embed_freqs * 2 * C, device=x.device) if embed_window is None
                else embed_window.reshape(1, -1).float())
-    archs, weights = [], []
-    for mod, use_ct, use_cd in nets:
-        ct_i = ct if use_ct else 0
-        cd_i = cd if use_cd else 0
-        if in_x + ct_i != mod.in_channels_xyz or cd_i != mod.in_channels_dir:
-            raise ValueError(f"input widths {in_x}+{ct_i}/{cd_i} do not match "
-                             f"{mod.in_channels_xyz}/{mod.in_channels_dir}")
-        archs.append(Arch(mod.D, in_x, ct_i, cd_i, tuple(mod.skips), S, need_dx=need_dx,
-                          sigmoid=not mod.raw_feat, emb=emb, drop_sigma=mod.raw_feat))
-        weights += mod.flat_weights()
+    archs, weights = launch_archs(nets, in_x, ct, cd, S, need_dx, emb)
     if kernel:
-        outs = fused_mlp(x2, code_trunk, code_dir, win, weights, tuple(archs), compute_dtype,
+        outs = fused_mlp(x2, code_trunk, code_dir, win, weights, archs, compute_dtype,
                          site=site)
     else:
-        outs = fused_mlp_plain(x2, code_trunk, code_dir, win, weights, tuple(archs),
-                               compute_dtype)
+        outs = fused_mlp_plain(x2, code_trunk, code_dir, win, weights, archs, compute_dtype)
     return [o.reshape(lead + (o.shape[-1],)) for o in outs]

@@ -222,3 +222,54 @@ def test_backward_is_deterministic(cuda_device):
     _, g1 = run(True)
     _, g2 = run(True)
     assert all(torch.equal(a, b) for a, b in zip(g1, g2))
+
+
+def _dw_stacks(device, shapes, npad, a_rows, seed):
+    gen = torch.Generator().manual_seed(seed)
+    a = [torch.randn(a_rows, k, generator=gen).to(torch.bfloat16) for k, _ in shapes]
+    for t in a:  # rows past npad (a K1s stack's) must never be read
+        t[npad:] = float("nan")
+    d = [torch.randn(npad, n, generator=gen).to(torch.bfloat16) for _, n in shapes]
+    return [t.to(device) for t in a], [t.to(device) for t in d]
+
+
+# (task shapes (kin, nout), npad, rows of A): a 32-point tail (npad % 64 ==
+# 32) with the trunk's dir layer (352), its first layer and a skip layer
+# (320); the heads' 16-wide rows and columns, the W = 64 nets' rgb layer
+# (32) and the feature head's skip layer (192); an A stack with more rows
+# than npad, as K1s leaves it (rows rounded up to BM_F)
+DW_CASES = {
+    "tail_352_320": ([(352, 128), (64, 256), (320, 256)], 64 * 97 + 32, 64 * 97 + 32),
+    "widths_16_32_192": ([(16, 16), (256, 16), (32, 16), (192, 128), (128, 64)], 4096, 4096),
+    "k2s_rows": ([(192, 64), (256, 64), (64, 16)], 64 * 40 + 32, 64 * 41),
+}
+
+
+@pytest.mark.parametrize("case", sorted(DW_CASES))
+def test_dw_gemm_matches_plain(cuda_device, case):
+    """The dW GEMM alone against its plain fp32 version: relative L2 error
+    at most 1e-4 per task (both sum the same bf16 products in fp32; only the
+    order differs), at ragged tails, odd widths and a longer A stack."""
+    from moda_tpu_torch.ops import fused_mlp as FM
+
+    shapes, npad, a_rows = DW_CASES[case]
+    a, d = _dw_stacks(cuda_device, shapes, npad, a_rows, seed=5)
+    before = FM.launches["dw"]
+    out = FM.dw_gemm(a, d, npad)
+    torch.cuda.synchronize()
+    assert FM.launches["dw"] == before + 1
+    ref = FM.dw_gemm_plain(a, d, npad)
+    for (k, n), o, r in zip(shapes, out, ref):
+        assert o.shape == (k, n) and torch.isfinite(o).all()
+        assert float((o - r).norm() / r.norm()) <= 1e-4
+
+
+def test_dw_gemm_is_deterministic(cuda_device):
+    """Fixed-order partials: two runs give the same bits."""
+    from moda_tpu_torch.ops import fused_mlp as FM
+
+    shapes, npad, a_rows = DW_CASES["tail_352_320"]
+    a, d = _dw_stacks(cuda_device, shapes, npad, a_rows, seed=6)
+    o1 = FM.dw_gemm(a, d, npad)
+    o2 = FM.dw_gemm(a, d, npad)
+    assert all(torch.equal(x, y) for x, y in zip(o1, o2))
