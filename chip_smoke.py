@@ -26,7 +26,11 @@ Phases:
    fp32 step from the same parameters and draws, then ten timed steps with
    the launch counters set to 0 before and read after, checked per call
    site; ft2 then runs with MODA_PALLAS_STASH=1 (K1s/K2s), its loss held
-   against the rematerializing step's, the two timed in turns.
+   against the rematerializing step's, the two timed in turns;
+6. the stage-1 trainer (``run_trainer``): ``moda_tpu_torch.cli.train_app.main``
+   with the stage-1 flags of scripts/template.sh on a synthetic line-shard
+   dataset, one 200-step epoch at full widths (batch 256), its logs,
+   checkpoints, rest mesh and K1/K2 launches per call site checked.
 Prints the kernel JSON line, then {"ok": true, "device": {...}} last.
 Exits non-zero without printing a result when there is no CUDA card.
 """
@@ -872,6 +876,220 @@ def run_stash(start, cfg, kw, batch, extras, draws, rays, results, card) -> dict
             "rays_per_sec_stash": rays / (sum(times["stash"]) / 2e3)}
 
 
+# ---------------------------------------------------------------- trainer
+# stage 1 of scripts/template.sh:20-24, with the cuts listed in run_trainer
+TRAINER_FLAGS = ["--lineload", "--batch_size", "256", "--nsample", "4", "--warmup_shape_ep", "1",
+                 "--warmup_rootmlp", "--eikonal_wt", "0.001", "--noppr_eikonal", "--use_rtk_file",
+                 "--num_epochs", "1", "--dskin_steps", "1", "--render_size", "0"]
+TRAINER_FRAMES, TRAINER_IMG = 16, 128
+# Below 100 vertices the trainer treats the rest mesh as absent (random bone
+# centres, no surface samples). Read on the H100 with torch 2.11: 358 vertices
+# after this phase's warmup; scripts/torch_trainer_probe.py warmup gives 372
+# from the same initial parameters and CPU-drawn points on that machine's CPU
+# and on the card, and 19,416-19,468 from the initializer of torch 2.13.
+MIN_MESH_VERTS = 100
+
+
+class _ProfiledLoader:
+    """Wraps the trainer's loader: torch.profiler runs from the ``start``-th
+    batch to the ``stop``-th (the device has finished every step before it
+    then), so the window holds stop - start whole steps of the epoch."""
+
+    def __init__(self, loader, start: int, stop: int):
+        self.loader, self.start, self.stop, self.n = loader, start, stop, 0
+        self.prof = self.t0 = self.wall = None
+        self.overhead = 0.0  # s spent starting and stopping, inside the trainer's t_load
+
+    def __getattr__(self, name):
+        return getattr(self.loader, name)
+
+    def __next__(self):
+        import torch
+        from torch.profiler import ProfilerActivity, profile
+        t0 = time.perf_counter()
+        if self.n == self.start:
+            torch.cuda.synchronize()
+            self.prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+            self.prof.__enter__()
+            self.t0 = time.perf_counter()
+        elif self.n == self.stop:
+            torch.cuda.synchronize()
+            self.wall = time.perf_counter() - self.t0
+            self.prof.__exit__(None, None, None)
+        if self.n in (self.start, self.stop):
+            self.overhead += time.perf_counter() - t0
+        self.n += 1
+        return next(self.loader)
+
+
+def check_grid_query(model, G: int = 32) -> float:
+    """Relative L2 distance of the rest-mesh grid query (SDF and
+    visibility) on the card from the same query on a CPU copy of the model,
+    on a G^3 grid over the model's object bound: the CPU's plain fp32 path
+    is the one the tests hold against the JAX package."""
+    import copy
+    import numpy as np
+    import torch
+    from moda_tpu_torch.extract.mesh import make_grid_query
+
+    b = model.mvars.obj_bound.cpu().numpy()
+    axes = [np.linspace(-b[i], b[i], G, dtype=np.float32) for i in range(3)]
+    pts = torch.as_tensor(np.stack(np.meshgrid(*axes, indexing="ij"), -1).reshape(-1, 3))
+    cpu = copy.deepcopy(model).to("cpu")
+    cpu.mvars = cpu.mvars.to("cpu")
+    got = torch.cat(make_grid_query(model)(pts.cuda())).cpu()
+    want = torch.cat(make_grid_query(cpu)(pts))
+    return float((got - want).norm() / want.norm())
+
+
+def run_trainer(results: list, card: str, profile: bool = False) -> dict:
+    """Stage 1 of the recipe through the port's CLI entry point, on a
+    synthetic line-shard dataset written to a temporary directory under
+    logdir/ (the port's SynthScene in the layout of
+    moda_tpu/preproc/pipeline.py::write_lines: Pixels/ rows, Cameras/,
+    placeholder JPEGImages/ names and the .config), at full widths and
+    defaults (ndepth 128, 25 bones, D8 W256 trunk, 64^3 extraction grid).
+
+    Cuts against a real stage 1 (template.sh:20-24):
+    - warmup_shape_ep 1 instead of 5 (200 shape steps);
+    - num_epochs 1 (200 steps) instead of 120;
+    - --dskin_steps 1: at one epoch the default 0.8 gives int(1 * 0.8) = 0
+      and would switch the delta-skin MLP on from the first step; a
+      120-epoch stage 1 switches it on at epoch 96. With it every step has
+      the init stage's signature (no fine pass, delta-skin or active
+      sampling);
+    - 16 synthetic frames at 128 px (~50 MB of rows) instead of a video;
+    - --render_size 0: the eval renders are not ported yet.
+
+    Checks (any failure exits non-zero): every logged step line (steps 0,
+    50, 100, 150) has a finite total_loss and grad_finite == 1; the shape
+    warmup's loss is finite; the epoch line carries mesh_verts, t_mesh and
+    t_save, and the rest mesh after the shape warmup has more than
+    MIN_MESH_VERTS vertices; the trained model's grid query on the card is
+    within 1e-5 (relative L2) of the same query on the CPU;
+    latest.* and the 1.* copy exist, and latest loads back through the
+    port's ckpt bit-equal to the live parameters; K1/K2 launches over the
+    run equal expected_calls("init", 200) at each call site (the shape
+    warmup, the eikonal term and the extraction run the plain path).
+    --profile: device idle share over steps 100-109 of the epoch."""
+    import tempfile
+    import numpy as np
+    import torch
+    from moda_tpu_torch import bridge
+    from moda_tpu_torch.cli import train_app
+    from moda_tpu_torch.data import dataset as D
+    from moda_tpu_torch.data.synthetic import SynthScene, write_line_dataset
+    from moda_tpu_torch.ops import fused_mlp as FM
+    from moda_tpu_torch.train import ckpt as CK
+    from moda_tpu_torch.train import trainer as TT
+
+    steps = TT.ITERS_PER_EPOCH
+    base = os.path.join(os.path.dirname(os.path.abspath(__file__)), "logdir")
+    os.makedirs(base, exist_ok=True)
+    window = {}
+    loader_cls = D.PairLoader
+    if profile:
+        def profiled_loader(*a, **k):
+            window["loader"] = _ProfiledLoader(loader_cls(*a, **k), 100, 110)
+            return window["loader"]
+        D.PairLoader = profiled_loader
+    try:
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_trainer_", dir=base) as tmp:
+            t0 = time.time()
+            write_line_dataset(os.path.join(tmp, "db"), os.path.join(tmp, "cfg"), "syn-smoke",
+                               SynthScene(img_size=TRAINER_IMG, num_frames=TRAINER_FRAMES))
+            t_data = time.time() - t0
+            argv = ["--seqname", "syn-smoke", "--config_dir", os.path.join(tmp, "cfg"),
+                    "--logname", "smoke", "--checkpoint_dir", os.path.join(tmp, "log"),
+                    "--img_size", str(TRAINER_IMG)] + TRAINER_FLAGS
+            print(f"[trainer] dataset of {TRAINER_FRAMES} frames at {TRAINER_IMG} px written in "
+                  f"{t_data:.1f} s; train_app flags {' '.join(argv[8:])}", flush=True)
+            FM.reset_launches()
+            t0 = time.time()
+            tr = train_app.main(argv)
+            torch.cuda.synchronize()
+            t_run = time.time() - t0
+            calls = dict(FM.launches_by_call)
+            grid_err = check_grid_query(tr.model)
+            rows = [json.loads(line) for line in open(tr.log_path)]
+            saved = CK.load_checkpoint(os.path.join(tr.save_dir, "latest"))[0]
+            same_ckpt = all(np.array_equal(bridge.flatten(saved)[n.replace(".", "/")],
+                                           p.detach().cpu().numpy())
+                            for n, p in tr.model.named_parameters())
+            files = {t: all(os.path.exists(os.path.join(tr.save_dir, t + sfx))
+                            for sfx in CK.SUFFIXES) for t in ("latest", "1")}
+    finally:
+        D.PairLoader = loader_cls
+
+    step_rows = [r for r in rows if "total_loss" in r]
+    warm = [r for r in rows if "warmup_shape_time" in r]
+    epoch = [r for r in rows if "epoch_time" in r]
+    for r in step_rows:
+        print(f"[trainer] step {r['step'] - 1}: total_loss {r['total_loss']:.6f} img "
+              f"{r['img_loss']:.6f} sil {r['sil_loss']:.6f} flo {r['flo_loss']:.6f} grad_finite "
+              f"{r['grad_finite']}", flush=True)
+    fail = []
+    if [r["step"] - 1 for r in step_rows] != list(range(0, steps, 50)):
+        fail.append(f"logged steps {[r['step'] - 1 for r in step_rows]}")
+    if not all(math.isfinite(r["total_loss"]) and r["grad_finite"] == 1.0 for r in step_rows):
+        fail.append("a logged step has a non-finite loss or gradient")
+    if len(warm) != 1 or not math.isfinite(warm[0]["shape_init_loss"]):
+        fail.append("shape warmup loss missing or not finite")
+    ep = epoch[0] if len(epoch) == 1 else {}
+    if not all(k in ep for k in ("mesh_verts", "t_mesh", "t_save")):
+        fail.append(f"epoch line {ep}")
+    elif ep["mesh_verts"] <= MIN_MESH_VERTS:
+        fail.append(f"the rest mesh after the shape warmup has {ep['mesh_verts']} vertices")
+    if not grid_err <= 1e-5:
+        fail.append(f"the grid query on the card is {grid_err:.2e} from the CPU's")
+    if not all(files.values()) or not same_ckpt:
+        fail.append(f"checkpoints {files}, latest bit-equal to the live parameters {same_ckpt}")
+    want = expected_calls("init", steps)
+    print(f"[trainer] launches by call site over the run: {calls}", flush=True)
+    if calls != want:
+        fail.append(f"launches by call site {calls} != {want}")
+    if fail:
+        raise SystemExit("trainer: " + "; ".join(fail))
+    for r in results:
+        n = sum(calls.get(f"{counter_kind(r['name'], False)}:{site}:{nets_of(site)}", 0)
+                for stage, site in r["runs"] if stage == "init")
+        r["launches"] += n
+        r["trainer_launches"] = n
+    out = {"run_s": t_run, "data_s": t_data, "warmup_shape_s": warm[0]["warmup_shape_time"],
+           "shape_init_loss": warm[0]["shape_init_loss"], "epoch_s": ep["epoch_time"],
+           "steps_s": ep["t_steps"], "steps_per_s": ep["steps_per_s"],
+           "ms_per_step": ep["t_steps"] / steps * 1e3, "mesh_verts": ep["mesh_verts"],
+           "frac_occupied": ep["frac_occupied"], "grid_query_rel_l2_vs_cpu": grid_err,
+           "losses": [r["total_loss"] for r in step_rows], "card": card,
+           **{k: ep[k] for k in ("t_mesh", "t_save", "t_load", "t_upload", "t_dispatch",
+                                 "t_fetch")}}
+    print(f"[trainer] shape warmup {out['warmup_shape_s']:.2f} s (loss "
+          f"{out['shape_init_loss']:.3e}); epoch {out['epoch_s']:.2f} s: {steps} steps in "
+          f"{out['steps_s']:.2f} s ({out['steps_per_s']:.3f} steps/s, {out['ms_per_step']:.1f} "
+          f"ms/step), t_load {ep['t_load']} t_upload {ep['t_upload']} t_dispatch "
+          f"{ep['t_dispatch']} t_fetch {ep['t_fetch']} t_mesh {ep['t_mesh']} t_save "
+          f"{ep['t_save']} s; rest mesh {ep['mesh_verts']} vertices (occupied share "
+          f"{ep['frac_occupied']}); grid query rel L2 {grid_err:.2e} from the CPU's; whole "
+          f"train_app.main {t_run:.2f} s ({card})", flush=True)
+    lo = window.get("loader")
+    if lo is not None and lo.wall:
+        ka = lo.prof.key_averages()
+        from torch.autograd import DeviceType
+        dev = [e for e in ka if e.device_type != DeviceType.CPU]
+        n = lo.stop - lo.start
+        busy = sum(_dev_us(e, True) for e in dev) / 1e3
+        out.update(window_steps=n, window_ms_per_step=lo.wall / n * 1e3,
+                   profiler_start_stop_s=lo.overhead,
+                   window_device_busy_ms_per_step=busy / n, window_idle_share=1 - busy / (
+                       lo.wall * 1e3))
+        print(f"[profile trainer] steps {lo.start}-{lo.stop - 1} under the profiler: "
+              f"{lo.wall / n * 1e3:.2f} ms/step, device busy {busy / n:.2f} ms/step, idle share "
+              f"{out['window_idle_share']:.3f}; starting and stopping it took {lo.overhead:.2f} s "
+              f"of the epoch's t_load", flush=True)
+        print_table("profile trainer", dev, n, True, 15)
+    return out
+
+
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--profile", action="store_true",
@@ -911,6 +1129,8 @@ def main():
     for name in STAGES:
         steps[name] = run_stage(name, results, card, profile=args.profile)
         print(f"[time] {name} done at {time.time() - t0:.1f} s", flush=True)
+    steps["trainer"] = run_trainer(results, card, profile=args.profile)
+    print(f"[time] trainer done at {time.time() - t0:.1f} s", flush=True)
     for r in results:
         if r["launches"] == 0:
             raise SystemExit(f"{r['name']} was not launched on the main path")

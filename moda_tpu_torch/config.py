@@ -3,14 +3,18 @@
 The same frozen dataclass as the JAX package's config (same field names
 and defaults), so a config serialized by either package loads in the
 other. ``use_pallas`` keeps its name and means "run the hand-written
-CUDA kernels" here.
+CUDA kernels" here. ``load_seq_config`` reads the sequence ``.config``
+INI files (utils/io.py:277-332 format) the same way.
 """
 from __future__ import annotations
 
+import configparser
 import dataclasses
+import glob
 import json
+import os
 from dataclasses import dataclass
-from typing import Tuple
+from typing import List, Optional, Tuple
 
 
 @dataclass(frozen=True)
@@ -196,6 +200,65 @@ class MoDAConfig:
         d = json.loads(s)
         known = {f.name for f in dataclasses.fields(MoDAConfig)}
         return MoDAConfig(**{k: v for k, v in d.items() if k in known})
+
+
+@dataclass
+class SeqData:
+    """One [data_i] block of a sequence .config file."""
+
+    datapath: str
+    ks: Tuple[float, float, float, float]
+    dframe: List[int]
+    init_frame: int = 0
+    end_frame: int = -1
+    can_frame: int = -1
+    rtk_path: Optional[str] = None
+    flip: int = 0
+
+    def image_list(self) -> List[str]:
+        imgs = sorted(glob.glob(os.path.join(self.datapath, "*")))
+        if self.end_frame > 0:
+            imgs = imgs[: self.end_frame]
+        return imgs
+
+
+def load_seq_config(seqname: str, config_dir: str = "configs") -> List[SeqData]:
+    """Parse configs/<seqname>.config (drop-in compatible with the reference
+    format: utils/io.py:292-332 + moda.py:388-396)."""
+    path = os.path.join(config_dir, f"{seqname}.config")
+    cfg = configparser.RawConfigParser()
+    read = cfg.read(path)
+    if not read:
+        raise FileNotFoundError(path)
+    num_vid = len(cfg.sections()) - 1
+
+    def get(section, key, fallback=None):
+        try:
+            return cfg.get(section, key)
+        except (configparser.NoOptionError, configparser.NoSectionError):
+            return fallback
+
+    out = []
+    for i in range(num_vid):
+        sec = f"data_{i}"
+        datapath = get(sec, "datapath", get("data", "datapath", ""))
+        if num_vid == 1 and not cfg.has_option(sec, "datapath"):
+            datapath = os.path.join(datapath, seqname)
+        ks = tuple(float(x) for x in get(sec, "ks", get("data", "ks", "1 1 0 0")).split())
+        dframe = [int(x) for x in str(get(sec, "dframe", get("data", "dframe", "1"))).split(",")]
+        out.append(
+            SeqData(
+                datapath=datapath,
+                ks=ks,  # type: ignore[arg-type]
+                dframe=dframe,
+                init_frame=int(get(sec, "init_frame", get("data", "init_frame", 0))),
+                end_frame=int(get(sec, "end_frame", get("data", "end_frame", -1))),
+                can_frame=int(get(sec, "can_frame", get("data", "can_frame", -1))),
+                rtk_path=get(sec, "rtk_path", get("data", "rtk_path", None)),
+                flip=int(get(sec, "flip", 0)),
+            )
+        )
+    return out
 
 
 @dataclass(frozen=True)

@@ -1,5 +1,5 @@
 """Loss assembly: counterpart of moda_tpu/render/losses.py (the terms of the
-init, ft1 and ft2 stages).
+init, ft1 and ft2 stages, and the shape warmup's ``shape_init_loss``).
 
   extras = {
     "loss_select":  scalar (0: flow-only warmup, 1: all losses),
@@ -53,6 +53,21 @@ def eikonal_loss(model, pts, bound, ppr: bool, n_sample: int = 1000, embed_alpha
         pts = pts.requires_grad_(True)
         g, = torch.autograd.grad(sdf_fn(pts).sum(), pts, create_graph=True)
     return masked_mean((Q.safe_norm(g) - 1.0) ** 2, inb)
+
+
+def shape_init_loss(model, pts_samp: torch.Tensor, obj_bound: torch.Tensor, use_ellips: bool,
+                    embed_alpha=None) -> torch.Tensor:
+    """Fit the SDF to an ellipsoid/sphere prior (loss_utils.py:540-572), on
+    the plain sigma-only path. pts_samp: [N,3] query points in the loose
+    bound; obj_bound [3]: the tight prior-mesh bound."""
+    if use_ellips:
+        dis = torch.sqrt(((pts_samp / obj_bound[None]) ** 2).sum(-1)) - 1.0
+        dis = dis * obj_bound.mean()
+    else:
+        dis = torch.sqrt((pts_samp ** 2).sum(-1)) - obj_bound.min()
+    y = model.apply_coarse(model.embed_xyz(pts_samp, embed_alpha), sigma_only=True)
+    sdf = -y[..., 0]
+    return ((sdf - dis) ** 2).mean()
 
 
 def compute_root_sm_2nd_loss(rtk_all: torch.Tensor, data_offset) -> torch.Tensor:
@@ -125,7 +140,7 @@ def total_loss(model, rendered: Dict[str, torch.Tensor], rays: Dict[str, torch.T
         feat_loss = masked_mean(feat_loss, sil_at_samp > 0)
         total = total + feat_loss
         aux["feat_loss"] = feat_loss
-        aux["beta_feat"] = model.nerf_beta_feat[0].detach()
+        aux["beta_feat"] = model.nerf_beta_feat[0].detach().clone()
         if cfg.use_corr:
             corr = cfg.corr_wt * rendered["corr_err"] * keep
             if cfg.rm_novp:
@@ -182,9 +197,11 @@ def total_loss(model, rendered: Dict[str, torch.Tensor], rays: Dict[str, torch.T
         aux["unc_loss"] = unc_loss
         total = total + unc_loss
 
-    aux["skin_scale"] = model.skin_aux[0].detach()
-    aux["skin_const"] = model.skin_aux[1].detach()
+    # parameter values are cloned: the step updates the parameters in place
+    # after the loss, and aux must keep the values this loss saw
+    aux["skin_scale"] = model.skin_aux[0].detach().clone()
+    aux["skin_const"] = model.skin_aux[1].detach().clone()
     total = total * cfg.total_wt
     aux["total_loss"] = total
-    aux["beta"] = model.nerf_beta[0].detach()
+    aux["beta"] = model.nerf_beta[0].detach().clone()
     return total, aux

@@ -9,13 +9,15 @@ import pytest
 import torch
 
 PKG = pathlib.Path(__file__).resolve().parents[1] / "moda_tpu_torch"
-FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "moda_tpu")
+# the card's machine is not promised an image codec, so none may load either
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "moda_tpu", "cv2", "imageio", "PIL")
 
 
 def test_import_loads_no_jax_and_no_moda_tpu():
     code = ("import sys, moda_tpu_torch, moda_tpu_torch.train.step, moda_tpu_torch.bridge\n"
-            "bad = [m for m in sys.modules if m in ('jax', 'flax', 'optax', 'moda_tpu') or "
-            "m.startswith(('jax.', 'flax.', 'optax.', 'moda_tpu.'))]\n"
+            "import moda_tpu_torch.train.trainer, moda_tpu_torch.cli.train_app\n"
+            "import moda_tpu_torch.extract.mesh, moda_tpu_torch.data.dataset\n"
+            f"bad = [m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r}]\n"
             "print(bad)\n"
             "assert not bad, bad\n")
     res = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
@@ -68,10 +70,10 @@ def test_entry_points_need_a_card_unless_asked_for_cpu(monkeypatch):
     build_step(model, opt, device="cpu", **kw)
 
 
-def test_later_slices_refuse_explicitly():
-    """What the init/ft1/ft2 slices do not port raises, naming a later slice:
+def test_later_slices_refuse_explicitly(tmp_path):
+    """What the ported slices do not run raises, naming a later slice:
     nerf_dis, flowbw, ft_cse, s3im_loss, freeze_coarse, accu_steps and
-    chunk_steps > 1, and use_bones=False."""
+    chunk_steps > 1, use_bones=False, and the trainer's refusals."""
     from moda_tpu_torch.fields.model import MoDAModel
     from moda_tpu_torch.train.optim import MoDAOptimizer
 
@@ -95,6 +97,21 @@ def test_later_slices_refuse_explicitly():
         with pytest.raises(NotImplementedError, match="later slice"):
             build_step(model, opt, device="cpu", **dict(args, **kw))
 
+    # the trainer: the pose-CNN warmup, the eval renders, K steps per
+    # dispatch, gradient accumulation, s3im and freeze_coarse
+    from moda_tpu_torch.train.trainer import Trainer
+    tcfg = cfg.replace(render_size=0, checkpoint_dir=str(tmp_path))
+    for kw in (dict(warmup_pose_ep=1), dict(render_size=64), dict(steps_chunk=2),
+               dict(accu_steps=2), dict(s3im_loss=True), dict(freeze_coarse=True)):
+        with pytest.raises(NotImplementedError, match="later slice"):
+            Trainer(tcfg.replace(**kw), info, device="cpu")
+    tr = Trainer(tcfg, info, device="cpu")
+    # by name: tests/conftest.py marks a test slow whose source calls the
+    # pose warmup, and this one is quick
+    for method, arg in (("warmup_pose", 1), ("extract_cams_cnn", [])):
+        with pytest.raises(NotImplementedError, match="later slice"):
+            getattr(tr, method)(arg)
+
 
 def test_config_loads_a_jax_config():
     from moda_tpu.config import MoDAConfig as JConfig
@@ -103,3 +120,46 @@ def test_config_loads_a_jax_config():
     j = JConfig(nsample=6, freeze_proj=True, num_bones=11)
     t = MoDAConfig.from_json(j.to_json())
     assert t.to_json() == j.to_json()
+
+
+def test_train_app_refuses_later_slices(tmp_path, monkeypatch):
+    """train_app refuses a dataset without line shards, the trainer's
+    unported flags and more than one process, naming a later slice."""
+    from moda_tpu_torch.cli import train_app
+    from moda_tpu_torch.data.synthetic import SynthScene, write_line_dataset
+
+    write_line_dataset(str(tmp_path / "db"), str(tmp_path / "cfg"), "syn",
+                       SynthScene(img_size=8, num_frames=3))
+    argv = ["--seqname", "syn", "--config_dir", str(tmp_path / "cfg"), "--render_size", "0",
+            "--checkpoint_dir", str(tmp_path)]
+    with pytest.raises(NotImplementedError, match="later slice"):
+        train_app.main(argv, device="cpu")  # no --lineload
+    with pytest.raises(NotImplementedError, match="later slice"):
+        train_app.main(argv + ["--lineload", "--render_size", "16"], device="cpu")
+    monkeypatch.setenv("WORLD_SIZE", "2")
+    with pytest.raises(NotImplementedError, match="later slice"):
+        train_app.main(argv + ["--lineload"], device="cpu")
+
+
+def test_pair_loader_close_leaves_no_thread_exception(tmp_path, monkeypatch):
+    """close() stops and joins the workers; none dies with an unhandled
+    exception, also when closed with the queue full, and the loader has no
+    chunk assembler that could outlive it."""
+    import threading
+
+    from moda_tpu_torch.data.dataset import PairLoader, build_line_datasets
+    from moda_tpu_torch.data.synthetic import SynthScene, write_line_dataset
+
+    errors = []
+    monkeypatch.setattr(threading, "excepthook", lambda args: errors.append(args))
+    write_line_dataset(str(tmp_path / "db"), str(tmp_path / "cfg"), "syn",
+                       SynthScene(img_size=8, num_frames=4))
+    ds = build_line_datasets("syn", 8, str(tmp_path / "cfg"))
+    for npix in (6, None):
+        loader = PairLoader(ds, 2, num_threads=3, num_prefetch=2, npix=npix)
+        next(loader)
+        loader.close()
+        assert not any(t.is_alive() for t in loader.threads)
+        assert not hasattr(loader, "next_chunk")
+    assert errors == []
+

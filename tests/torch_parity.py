@@ -136,3 +136,38 @@ def assert_grads_match(jax_flat: dict, torch_named: dict, groups=None, atol=2e-3
         scale = float(np.abs(gr).max()) + 1e-8
         np.testing.assert_allclose(gt.detach().numpy() / scale, gr / scale, atol=atol,
                                    err_msg=key)
+
+
+class JaxTrainerDraws:
+    """The draws of the port's Trainer (its ``draws`` callable), replayed
+    from the JAX Trainer's key chain: jax.random.key(seed), one split for
+    the model init (trainer.py:96-97), then one split per draw in the order
+    the trainers make them (``_next_key``, trainer.py:162): the shape-warmup
+    points (:266), the body head's re-init (:306-311) and each step's key
+    (:720). The k-means start is jax.random.choice under the fixed key(0)
+    (ops/kmeans.py:20)."""
+
+    def __init__(self, cfg, seed: int = 0):
+        self.cfg = cfg
+        self.key = jax.random.key(seed)
+        self._next()
+
+    def _next(self):
+        self.key, k = jax.random.split(self.key)
+        return k
+
+    def __call__(self, kind, **info):
+        if kind == "shape_pts":
+            return np.asarray(jax.random.uniform(self._next(), (1, info["n"], 3),
+                                                 minval=-1.0, maxval=1.0))[0]
+        if kind == "kmeans_idx":
+            return np.asarray(jax.random.choice(jax.random.key(0), info["n"], (info["k"],),
+                                                replace=False))
+        if kind == "head_init":
+            lim = info["limit"]
+            return np.asarray(jax.random.uniform(self._next(), info["shape"], minval=-lim,
+                                                 maxval=lim))
+        if kind == "step":
+            return jax_draws(self._next(), self.cfg, info["batch"], info["nsample"],
+                             info["nsample_active"], use_fine=info["use_fine"])
+        raise KeyError(kind)
