@@ -28,9 +28,23 @@ Phases:
    site; ft2 then runs with MODA_PALLAS_STASH=1 (K1s/K2s), its loss held
    against the rematerializing step's, the two timed in turns;
 6. the stage-1 trainer (``run_trainer``): ``moda_tpu_torch.cli.train_app.main``
-   with the stage-1 flags of scripts/template.sh on a synthetic line-shard
+   with the stage-1 flags of scripts/template.sh (the default render_size
+   64, so the epoch ends with the eval grid) on a synthetic line-shard
    dataset, one 200-step epoch at full widths (batch 256), its logs,
-   checkpoints, rest mesh and K1/K2 launches per call site checked.
+   checkpoints, rest mesh, eval grid (``eval-000.png`` at the grid's size,
+   no ``eval_render_error``) and K1/K2/dW launches per call site checked
+   (the eval renders launch none);
+7. extraction and scoring (``run_extract``) on the trainer's dataset and
+   ``latest`` checkpoint, with the flags of scripts/eval_synth.sh:
+   ``extract_app.main`` (``--lineload --test_frames {0} --sample_grid3d
+   128``), then ``evals.ama.main`` against the dataset's ground-truth
+   meshes and ``eval_root_app.main`` against its cameras. Checks: as many
+   exported meshes, cameras and camera trajectories as video 0 has frames
+   less one; every warped mesh finite with the rest mesh's vertex count;
+   ``make_warp_fw_frames`` on the card within 1e-5 (relative L2) of a CPU
+   copy of the model, and one 64 px frame of ``make_frame_renderer`` with
+   flow within 1e-4; finite AMA and root-pose scores, F-scores in [0, 1];
+   no kernel launch in the phase. It prints the time of each part.
 Prints the kernel JSON line, then {"ok": true, "device": {...}} last.
 Exits non-zero without printing a result when there is no CUDA card.
 """
@@ -43,6 +57,7 @@ import math
 import os
 import subprocess
 import sys
+import tempfile
 import time
 
 # H100 SXM published dense peaks (NVIDIA data sheet)
@@ -880,7 +895,10 @@ def run_stash(start, cfg, kw, batch, extras, draws, rays, results, card) -> dict
 # stage 1 of scripts/template.sh:20-24, with the cuts listed in run_trainer
 TRAINER_FLAGS = ["--lineload", "--batch_size", "256", "--nsample", "4", "--warmup_shape_ep", "1",
                  "--warmup_rootmlp", "--eikonal_wt", "0.001", "--noppr_eikonal", "--use_rtk_file",
-                 "--num_epochs", "1", "--dskin_steps", "1", "--render_size", "0"]
+                 "--num_epochs", "1", "--dskin_steps", "1"]
+# the eval grid: 9 frames in 3 x 3 tiles, each of rgb, silhouette and flow
+# columns (no observed columns: the line-shard datasets have no frame reader)
+GRID_TILES, GRID_COLUMNS = 3, 3
 TRAINER_FRAMES, TRAINER_IMG = 16, 128
 # Below 100 vertices the trainer treats the rest mesh as absent (random bone
 # centres, no surface samples). Read on the H100 with torch 2.11: 358 vertices
@@ -927,7 +945,6 @@ def check_grid_query(model, G: int = 32) -> float:
     visibility) on the card from the same query on a CPU copy of the model,
     on a G^3 grid over the model's object bound: the CPU's plain fp32 path
     is the one the tests hold against the JAX package."""
-    import copy
     import numpy as np
     import torch
     from moda_tpu_torch.extract.mesh import make_grid_query
@@ -935,20 +952,34 @@ def check_grid_query(model, G: int = 32) -> float:
     b = model.mvars.obj_bound.cpu().numpy()
     axes = [np.linspace(-b[i], b[i], G, dtype=np.float32) for i in range(3)]
     pts = torch.as_tensor(np.stack(np.meshgrid(*axes, indexing="ij"), -1).reshape(-1, 3))
+    got = torch.cat(make_grid_query(model)(pts.cuda())).cpu()
+    want = torch.cat(make_grid_query(cpu_copy(model))(pts))
+    return rel_l2(got, want)
+
+
+def cpu_copy(model):
+    """A copy of the model and its state on the CPU."""
+    import copy
     cpu = copy.deepcopy(model).to("cpu")
     cpu.mvars = cpu.mvars.to("cpu")
-    got = torch.cat(make_grid_query(model)(pts.cuda())).cpu()
-    want = torch.cat(make_grid_query(cpu)(pts))
-    return float((got - want).norm() / want.norm())
+    return cpu
 
 
-def run_trainer(results: list, card: str, profile: bool = False) -> dict:
+def rel_l2(got, want) -> float:
+    import numpy as np
+    got = np.asarray(got, np.float64)
+    want = np.asarray(want, np.float64)
+    return float(np.linalg.norm(got - want) / max(np.linalg.norm(want), 1e-30))
+
+
+def run_trainer(results: list, card: str, tmp: str, profile: bool = False) -> dict:
     """Stage 1 of the recipe through the port's CLI entry point, on a
-    synthetic line-shard dataset written to a temporary directory under
-    logdir/ (the port's SynthScene in the layout of
+    synthetic line-shard dataset written to ``tmp`` (a temporary directory
+    under logdir/; the port's SynthScene in the layout of
     moda_tpu/preproc/pipeline.py::write_lines: Pixels/ rows, Cameras/,
-    placeholder JPEGImages/ names and the .config), at full widths and
-    defaults (ndepth 128, 25 bones, D8 W256 trunk, 64^3 extraction grid).
+    ground-truth Meshes/, placeholder JPEGImages/ names and the .config), at
+    full widths and defaults (ndepth 128, 25 bones, D8 W256 trunk, 64^3
+    extraction grid, 64 px eval grid).
 
     Cuts against a real stage 1 (template.sh:20-24):
     - warmup_shape_ep 1 instead of 5 (200 shape steps);
@@ -958,8 +989,7 @@ def run_trainer(results: list, card: str, profile: bool = False) -> dict:
       120-epoch stage 1 switches it on at epoch 96. With it every step has
       the init stage's signature (no fine pass, delta-skin or active
       sampling);
-    - 16 synthetic frames at 128 px (~50 MB of rows) instead of a video;
-    - --render_size 0: the eval renders are not ported yet.
+    - 16 synthetic frames at 128 px (~50 MB of rows) instead of a video.
 
     Checks (any failure exits non-zero): every logged step line (steps 0,
     50, 100, 150) has a finite total_loss and grad_finite == 1; the shape
@@ -968,11 +998,13 @@ def run_trainer(results: list, card: str, profile: bool = False) -> dict:
     MIN_MESH_VERTS vertices; the trained model's grid query on the card is
     within 1e-5 (relative L2) of the same query on the CPU;
     latest.* and the 1.* copy exist, and latest loads back through the
-    port's ckpt bit-equal to the live parameters; K1/K2 launches over the
-    run equal expected_calls("init", 200) at each call site (the shape
-    warmup, the eikonal term and the extraction run the plain path).
+    port's ckpt bit-equal to the live parameters; eval-000.png exists with
+    the grid's size in its header, and no eval_render_error is logged;
+    K1/K2/dW launches over the run equal expected_calls("init", 200) at
+    each call site (the shape warmup, the eikonal term, the extraction and
+    the eval renders run the plain path). The dataset and the checkpoints
+    stay in ``tmp`` for run_extract.
     --profile: device idle share over steps 100-109 of the epoch."""
-    import tempfile
     import numpy as np
     import torch
     from moda_tpu_torch import bridge
@@ -982,10 +1014,9 @@ def run_trainer(results: list, card: str, profile: bool = False) -> dict:
     from moda_tpu_torch.ops import fused_mlp as FM
     from moda_tpu_torch.train import ckpt as CK
     from moda_tpu_torch.train import trainer as TT
+    from moda_tpu_torch.viz.render_vis import png_size
 
     steps = TT.ITERS_PER_EPOCH
-    base = os.path.join(os.path.dirname(os.path.abspath(__file__)), "logdir")
-    os.makedirs(base, exist_ok=True)
     window = {}
     loader_cls = D.PairLoader
     if profile:
@@ -994,30 +1025,32 @@ def run_trainer(results: list, card: str, profile: bool = False) -> dict:
             return window["loader"]
         D.PairLoader = profiled_loader
     try:
-        with tempfile.TemporaryDirectory(prefix="chip_smoke_trainer_", dir=base) as tmp:
-            t0 = time.time()
-            write_line_dataset(os.path.join(tmp, "db"), os.path.join(tmp, "cfg"), "syn-smoke",
-                               SynthScene(img_size=TRAINER_IMG, num_frames=TRAINER_FRAMES))
-            t_data = time.time() - t0
-            argv = ["--seqname", "syn-smoke", "--config_dir", os.path.join(tmp, "cfg"),
-                    "--logname", "smoke", "--checkpoint_dir", os.path.join(tmp, "log"),
-                    "--img_size", str(TRAINER_IMG)] + TRAINER_FLAGS
-            print(f"[trainer] dataset of {TRAINER_FRAMES} frames at {TRAINER_IMG} px written in "
-                  f"{t_data:.1f} s; train_app flags {' '.join(argv[8:])}", flush=True)
-            FM.reset_launches()
-            t0 = time.time()
-            tr = train_app.main(argv)
-            torch.cuda.synchronize()
-            t_run = time.time() - t0
-            calls = dict(FM.launches_by_call)
-            grid_err = check_grid_query(tr.model)
-            rows = [json.loads(line) for line in open(tr.log_path)]
-            saved = CK.load_checkpoint(os.path.join(tr.save_dir, "latest"))[0]
-            same_ckpt = all(np.array_equal(bridge.flatten(saved)[n.replace(".", "/")],
-                                           p.detach().cpu().numpy())
-                            for n, p in tr.model.named_parameters())
-            files = {t: all(os.path.exists(os.path.join(tr.save_dir, t + sfx))
-                            for sfx in CK.SUFFIXES) for t in ("latest", "1")}
+        t0 = time.time()
+        write_line_dataset(os.path.join(tmp, "db"), os.path.join(tmp, "cfg"), "syn-smoke",
+                           SynthScene(img_size=TRAINER_IMG, num_frames=TRAINER_FRAMES))
+        t_data = time.time() - t0
+        argv = ["--seqname", "syn-smoke", "--config_dir", os.path.join(tmp, "cfg"),
+                "--logname", "smoke", "--checkpoint_dir", os.path.join(tmp, "log"),
+                "--img_size", str(TRAINER_IMG)] + TRAINER_FLAGS
+        print(f"[trainer] dataset of {TRAINER_FRAMES} frames at {TRAINER_IMG} px written in "
+              f"{t_data:.1f} s; train_app flags {' '.join(argv[8:])}", flush=True)
+        FM.reset_launches()
+        t0 = time.time()
+        tr = train_app.main(argv)
+        torch.cuda.synchronize()
+        t_run = time.time() - t0
+        calls = dict(FM.launches_by_call)
+        grid_err = check_grid_query(tr.model)
+        rows = [json.loads(line) for line in open(tr.log_path)]
+        saved = CK.load_checkpoint(os.path.join(tr.save_dir, "latest"))[0]
+        same_ckpt = all(np.array_equal(bridge.flatten(saved)[n.replace(".", "/")],
+                                       p.detach().cpu().numpy())
+                        for n, p in tr.model.named_parameters())
+        files = {t: all(os.path.exists(os.path.join(tr.save_dir, t + sfx))
+                        for sfx in CK.SUFFIXES) for t in ("latest", "1")}
+        grid_png = os.path.join(tr.save_dir, "eval-000.png")
+        grid_size = png_size(grid_png) if os.path.exists(grid_png) else None
+        rs = tr.cfg.render_size
     finally:
         D.PairLoader = loader_cls
 
@@ -1044,6 +1077,12 @@ def run_trainer(results: list, card: str, profile: bool = False) -> dict:
         fail.append(f"the grid query on the card is {grid_err:.2e} from the CPU's")
     if not all(files.values()) or not same_ckpt:
         fail.append(f"checkpoints {files}, latest bit-equal to the live parameters {same_ckpt}")
+    want_grid = (GRID_TILES * rs, GRID_TILES * rs * GRID_COLUMNS)
+    if grid_size != want_grid:
+        fail.append(f"eval-000.png of size {grid_size}, not {want_grid}")
+    errors = [r["eval_render_error"] for r in rows if "eval_render_error" in r]
+    if errors:
+        fail.append(f"eval_render_error {errors}")
     want = expected_calls("init", steps)
     print(f"[trainer] launches by call site over the run: {calls}", flush=True)
     if calls != want:
@@ -1061,14 +1100,16 @@ def run_trainer(results: list, card: str, profile: bool = False) -> dict:
            "ms_per_step": ep["t_steps"] / steps * 1e3, "mesh_verts": ep["mesh_verts"],
            "frac_occupied": ep["frac_occupied"], "grid_query_rel_l2_vs_cpu": grid_err,
            "losses": [r["total_loss"] for r in step_rows], "card": card,
-           **{k: ep[k] for k in ("t_mesh", "t_save", "t_load", "t_upload", "t_dispatch",
-                                 "t_fetch")}}
+           "eval_grid_size": list(grid_size), "render_size": rs,
+           **{k: ep[k] for k in ("t_mesh", "t_save", "t_eval", "t_load", "t_upload",
+                                 "t_dispatch", "t_fetch")}}
     print(f"[trainer] shape warmup {out['warmup_shape_s']:.2f} s (loss "
           f"{out['shape_init_loss']:.3e}); epoch {out['epoch_s']:.2f} s: {steps} steps in "
           f"{out['steps_s']:.2f} s ({out['steps_per_s']:.3f} steps/s, {out['ms_per_step']:.1f} "
           f"ms/step), t_load {ep['t_load']} t_upload {ep['t_upload']} t_dispatch "
           f"{ep['t_dispatch']} t_fetch {ep['t_fetch']} t_mesh {ep['t_mesh']} t_save "
-          f"{ep['t_save']} s; rest mesh {ep['mesh_verts']} vertices (occupied share "
+          f"{ep['t_save']} t_eval {ep['t_eval']} s (eval grid {grid_size[0]} x {grid_size[1]} "
+          f"px at render_size {rs}); rest mesh {ep['mesh_verts']} vertices (occupied share "
           f"{ep['frac_occupied']}); grid query rel L2 {grid_err:.2e} from the CPU's; whole "
           f"train_app.main {t_run:.2f} s ({card})", flush=True)
     lo = window.get("loader")
@@ -1087,6 +1128,186 @@ def run_trainer(results: list, card: str, profile: bool = False) -> dict:
               f"{out['window_idle_share']:.3f}; starting and stopping it took {lo.overhead:.2f} s "
               f"of the epoch's t_load", flush=True)
         print_table("profile trainer", dev, n, True, 15)
+    return out
+
+
+# ------------------------------------------------------- extraction + eval
+# scripts/eval_synth.sh:40-42's extract_app flags
+EXTRACT_FLAGS = ["--lineload", "--nouse_human", "--nosymm_shape", "--test_frames", "{0}",
+                 "--sample_grid3d", "128"]
+# the card-against-CPU render: one 64 px frame with flow (4096 rays) in
+# chunks of this many rays, the second padded, on both devices
+CHECK_CHUNK = 3072
+
+
+class _Timers(dict):
+    """Seconds spent in wrapped calls, each call ended by a device sync."""
+
+    def wrap(self, name, fn):
+        import torch
+
+        def timed(*a, **k):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*a, **k)
+            torch.cuda.synchronize()
+            self[name] = self.get(name, 0.0) + time.perf_counter() - t0
+            return out
+        return timed
+
+    def wrap_factory(self, name, factory):
+        """Time the calls of the functions that ``factory`` makes."""
+        return lambda *a, **k: self.wrap(name, factory(*a, **k))
+
+
+@contextlib.contextmanager
+def _patched(patches):
+    """Set (object, attribute, value) triples for the block."""
+    old = [(o, n, getattr(o, n)) for o, n, _ in patches]
+    for o, n, v in patches:
+        setattr(o, n, v)
+    try:
+        yield
+    finally:
+        for o, n, v in old:
+            setattr(o, n, v)
+
+
+def run_extract(card: str, tmp: str) -> dict:
+    """Extraction and scoring, as scripts/eval_synth.sh runs them after
+    training, on run_trainer's dataset and ``latest`` checkpoint in ``tmp``
+    at full widths: ``extract_app.main`` with EXTRACT_FLAGS (128^3 grid,
+    every frame of video 0 but its last, 64 px renders with ndepth 128 in
+    chunks of 32,768 rays), ``evals.ama.main`` against the dataset's
+    Meshes/ (10,000 samples a mesh, 20 ICP iterations) and
+    ``eval_root_app.main`` against its Cameras/. Cuts against a real run:
+    the checkpoint has one epoch of training behind it; 16 frames at
+    128 px. Checks are listed in the module docstring; any failure exits
+    non-zero. The launch counters are set to 0 before the phase and must
+    read 0 after it: extraction, eval renders and scoring run the plain
+    fp32 path."""
+    import numpy as np
+    import torch
+    from moda_tpu_torch.cli import eval_root_app, extract_app
+    from moda_tpu_torch.evals import ama
+    from moda_tpu_torch.extract import mesh as EM
+    from moda_tpu_torch.ops import fused_mlp as FM
+    from moda_tpu_torch.render.evalrender import make_frame_renderer
+
+    seq, log = "syn-smoke", os.path.join(tmp, "log")
+    export = os.path.join(log, "smoke-export")
+    argv = ["--seqname", seq, "--config_dir", os.path.join(tmp, "cfg"), "--logname", "smoke",
+            "--checkpoint_dir", log, "--model_path", os.path.join(log, "smoke", "latest"),
+            "--img_size", str(TRAINER_IMG)] + EXTRACT_FLAGS
+    print(f"[extract] extract_app flags {' '.join(argv[8:])}", flush=True)
+    timers = _Timers()
+    FM.reset_launches()
+    t_phase = time.perf_counter()
+    gt_dir = os.path.join(tmp, "db", "Meshes", "Full-Resolution", seq)
+    cam_dir = os.path.join(tmp, "db", "Cameras", "Full-Resolution", seq)
+    with _patched([(extract_app, "Trainer", timers.wrap("trainer_and_checkpoint",
+                                                        extract_app.Trainer)),
+                   (extract_app, "extract_mesh", timers.wrap("extract_mesh",
+                                                             extract_app.extract_mesh)),
+                   (EM, "make_grid_query", timers.wrap_factory("grid_query", EM.make_grid_query)),
+                   (EM, "marching_cubes", timers.wrap("marching", EM.marching_cubes)),
+                   (extract_app, "skin_colors", timers.wrap("skin_colors",
+                                                            extract_app.skin_colors)),
+                   (extract_app, "make_warp_fw_frames",
+                    timers.wrap_factory("warps", extract_app.make_warp_fw_frames)),
+                   (extract_app, "make_frame_renderer",
+                    timers.wrap_factory("renders", extract_app.make_frame_renderer)),
+                   (extract_app, "mesh_silhouette",
+                    timers.wrap("silhouettes", extract_app.mesh_silhouette)),
+                   (EM.Mesh, "export_obj", timers.wrap("obj_writes", EM.Mesh.export_obj)),
+                   (ama, "load_obj", timers.wrap("ama_obj_reads", ama.load_obj))]):
+        t0 = time.perf_counter()
+        ex = extract_app.main(argv)
+        t_app = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        scores = ama.main([export, gt_dir])
+        torch.cuda.synchronize()
+        t_ama = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    root = eval_root_app.main([os.path.join(export, f"{seq}-cam"), cam_dir,
+                               str(len(os.listdir(cam_dir)) - 1)])
+    t_root = time.perf_counter() - t0
+    t_phase = time.perf_counter() - t_phase
+    calls, counts = dict(FM.launches_by_call), dict(FM.launches)
+
+    # the exports
+    n_fr = ex.data_info.offset[1] - 1  # --test_frames {0}: video 0 but its last frame
+    files = os.listdir(export)
+    exported = {k: len([f for f in files if f.startswith(f"{seq}-{k}-0")])
+                for k in ("mesh", "cam", "ctrajs", "refsil")}
+    rest = ama.load_obj(os.path.join(export, f"{seq}-mesh-rest.obj"))
+    warped = [ama.load_obj(os.path.join(export, f"{seq}-mesh-{i:05d}.obj")) for i in range(n_fr)]
+    bad = [i for i, m in enumerate(warped)
+           if m.vertices.shape != rest.vertices.shape or not np.isfinite(m.vertices).all()]
+    rgb = np.load(os.path.join(export, f"{seq}-rgb.npy"))
+
+    # the card against a CPU copy of the model, on the same inputs
+    model, cpu, lv = ex.model, cpu_copy(ex.model), ex.latest_vars
+    fids = list(range(n_fr))
+    t0 = time.perf_counter()
+    warp_card = EM.make_warp_fw_frames(model)(rest.vertices, fids)[0].cpu()
+    t_warp_all = time.perf_counter() - t0
+    warp_err = rel_l2(warp_card, EM.make_warp_fw_frames(cpu)(rest.vertices, fids)[0])
+    rs, S, fi = ex.cfg.render_size, ex.cfg.ndepth, n_fr // 2
+    px, py = float(lv["rtk"][fi][3, 2]), float(lv["rtk"][fi][3, 3])
+    kaug = np.asarray([[max(2 * px / rs, 1e-6), max(2 * py / rs, 1e-6), 0.0, 0.0]], np.float32)
+    g = torch.Generator().manual_seed(5)
+    draws = {"vis_neg": torch.rand(CHECK_CHUNK, S, 3, generator=g) * 2 - 1,
+             "symm_u": torch.rand(CHECK_CHUNK, S, 1, generator=g),
+             "sigma_noise": torch.randn(CHECK_CHUNK, S, generator=g)}
+    args = (lv["rtk"][fi][None], kaug, [fi], [0])
+    kw = dict(rtk_target=lv["rtk"][fi + 1][None], frameid_target=[fi + 1], draws=draws)
+    renders = {}
+    for dev, m in (("card", model), ("cpu", cpu)):
+        t0 = time.perf_counter()
+        render = make_frame_renderer(m, rs, S, chunk=CHECK_CHUNK, with_flow=True)
+        renders[dev] = render(*args, **kw)
+        renders[dev + "_s"] = time.perf_counter() - t0
+    render_err = {k: rel_l2(renders["card"][k], renders["cpu"][k]) for k in renders["cpu"]}
+
+    fail = []
+    if any(v != n_fr for v in exported.values()):
+        fail.append(f"exported {exported}, not {n_fr} each")
+    if bad or len(rest.vertices) == 0:
+        fail.append(f"warped meshes {bad} not finite or not of the rest mesh's "
+                    f"{len(rest.vertices)} vertices")
+    n_rendered = int((lv["idk"][:n_fr] > 0).sum())  # frames the checkpoint has cameras for
+    if rgb.shape != (n_rendered, rs, rs, 3):
+        fail.append(f"rgb frames {rgb.shape}, not {n_rendered} at {rs} px")
+    if not warp_err <= 1e-5:
+        fail.append(f"make_warp_fw_frames on the card is {warp_err:.2e} from the CPU's")
+    if not max(render_err.values()) <= 1e-4:
+        fail.append(f"the frame render on the card is {render_err} from the CPU's")
+    if not all(math.isfinite(v) for v in list(scores.values()) + list(root.values())) or \
+            not all(0.0 <= v <= 1.0 for k, v in scores.items() if k.startswith("f@")):
+        fail.append(f"scores {scores} {root}")
+    if calls or any(counts.values()):
+        fail.append(f"kernel launches in the phase: {calls}")
+    out = {"extract_app_s": t_app, **{f"{k}_s": v for k, v in timers.items()},
+           "ama_s": t_ama, "root_eval_s": t_root, "phase_s": t_phase,
+           "warp_all_frames_one_call_s": t_warp_all, "rest_verts": len(rest.vertices),
+           "rest_faces": len(rest.faces), "frames": n_fr, "exported": exported,
+           "warp_rel_l2_vs_cpu": warp_err, "render_rel_l2_vs_cpu": render_err,
+           "check_render_card_s": renders["card_s"], "check_render_cpu_s": renders["cpu_s"],
+           "ama": scores, "root": root, "card": card}
+    parts = ", ".join(f"{k} {v:.3f} s" for k, v in timers.items())
+    print(f"[extract] rest mesh {len(rest.vertices)} vertices at {ex.cfg.sample_grid3d}^3; "
+          f"{n_fr} frames exported {exported}, {len(rgb)} rendered at {rs} px; extract_app.main "
+          f"{t_app:.2f} s, AMA {t_ama:.2f} s, root eval {t_root:.3f} s, phase {t_phase:.2f} s; "
+          f"parts (extract_mesh holds grid_query and marching; the OBJ reads are AMA's): "
+          f"{parts} ({card})", flush=True)
+    print(f"[extract] card against CPU: warps of {n_fr} frames rel L2 {warp_err:.2e} (tol "
+          f"1e-5); one {rs} px frame with flow in chunks of {CHECK_CHUNK}: {render_err} (tol "
+          f"1e-4), card {renders['card_s']:.2f} s, CPU {renders['cpu_s']:.2f} s", flush=True)
+    print(f"[extract] AMA {json.dumps(scores)}; root {json.dumps(root)}; launches {calls}",
+          flush=True)
+    if fail:
+        raise SystemExit("extract: " + "; ".join(fail))
     return out
 
 
@@ -1129,8 +1350,13 @@ def main():
     for name in STAGES:
         steps[name] = run_stage(name, results, card, profile=args.profile)
         print(f"[time] {name} done at {time.time() - t0:.1f} s", flush=True)
-    steps["trainer"] = run_trainer(results, card, profile=args.profile)
-    print(f"[time] trainer done at {time.time() - t0:.1f} s", flush=True)
+    base = os.path.join(os.path.dirname(os.path.abspath(__file__)), "logdir")
+    os.makedirs(base, exist_ok=True)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_trainer_", dir=base) as tmp:
+        steps["trainer"] = run_trainer(results, card, tmp, profile=args.profile)
+        print(f"[time] trainer done at {time.time() - t0:.1f} s", flush=True)
+        steps["extract"] = run_extract(card, tmp)
+        print(f"[time] extraction and eval done at {time.time() - t0:.1f} s", flush=True)
     for r in results:
         if r["launches"] == 0:
             raise SystemExit(f"{r['name']} was not launched on the main path")

@@ -3,11 +3,14 @@ reference's main.py) for the line-shard route.
 
   python -m moda_tpu_torch.cli.train_app --seqname <seq> --logname <name> \\
       --num_epochs 120 --lineload --batch_size 256 --warmup_shape_ep 5 \\
-      --warmup_rootmlp --eikonal_wt 0.001 --nsample 4 --noppr_eikonal \\
-      --render_size 0
+      --warmup_rootmlp --eikonal_wt 0.001 --nsample 4 --noppr_eikonal
 
-(stage 1 of scripts/template.sh, with ``--render_size 0``). It trains on
-the CUDA card; ``main(argv, device="cpu")`` runs the plain path on the CPU.
+(stage 1 of scripts/template.sh). It trains on the CUDA card;
+``main(argv, device="cpu")`` runs the plain path on the CPU. The eval
+grid (``--render_size``, 64 by default) renders the full raw frames: the
+line-shard datasets have no frame reader for its observed columns
+(``eval_datasets=None``; the JAX package builds them with the
+frame-decoding route).
 Refused, each naming the later slice that ports it: a dataset without
 ``Pixels/`` line shards (the frame-decoding route), more than one
 process, and the trainer's and the step's unported flags

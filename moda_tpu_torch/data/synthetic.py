@@ -17,6 +17,9 @@ from typing import Dict, List
 
 import numpy as np
 
+from moda_tpu_torch.extract.mesh import Mesh
+from moda_tpu_torch.native import marching_cubes
+
 # Fixed random direction bank for the CSE stand-in feature (see
 # surface_feat): 8 unit directions -> sin+cos = 16-d embedding with no
 # rotational symmetry. Seeded so datasets are reproducible across builds.
@@ -212,6 +215,10 @@ def write_line_dataset(root: str, config_dir: str, seqname: str, scene: SynthSce
     - ``Pixels/Full-Resolution/<seq>/1_%05d/%04d.npy``: per-row dicts of the
       pair (i, i+1), pair-stacked [1, 2, C, W], plus ``rtk.npy``;
     - ``Cameras/Full-Resolution/<seq>/%05d.txt``: the exact cameras [R|T; K];
+    - ``Meshes/Full-Resolution/<seq>/mesh-%05d.obj``: the ground-truth surface
+      of each frame, as the ellipsoid branch of tools/make_synth_dataset.py
+      makes it (marching tetrahedra on the negated SDF over a 64^3 grid of
+      +-1.5 radius, object coordinates);
     - ``JPEGImages/Full-Resolution/<seq>/%05d.jpg``: placeholders (the line
       loader reads only their names);
     - ``<config_dir>/<seq>.config`` with the exact intrinsics.
@@ -220,13 +227,22 @@ def write_line_dataset(root: str, config_dir: str, seqname: str, scene: SynthSce
     units, as ``SynthScene.make_batch`` gives them. Returns the config path."""
     S = scene.img_size
     dirs = {k: os.path.join(root, k, "Full-Resolution", seqname)
-            for k in ("JPEGImages", "Cameras", "Pixels")}
+            for k in ("JPEGImages", "Cameras", "Pixels", "Meshes")}
     for d in dirs.values():
         os.makedirs(d, exist_ok=True)
     frames = [scene.render_frame(i) for i in range(scene.num_frames)]
     for i, f in enumerate(frames):
         np.zeros(1, np.uint8).tofile(os.path.join(dirs["JPEGImages"], "%05d.jpg" % i))
         np.savetxt(os.path.join(dirs["Cameras"], "%05d.txt" % i), f["rtk"])
+    n, half = 64, 1.5 * scene.radius
+    lin = np.linspace(-half, half, n).astype(np.float32)
+    grid = np.stack(np.meshgrid(lin, lin, lin, indexing="ij"), -1).reshape(-1, 3)
+    for i in range(scene.num_frames):
+        sdf = -scene.sdf(grid, i / max(scene.num_frames - 1, 1)).reshape(n, n, n)
+        v, tris = marching_cubes(sdf.astype(np.float32), 0.0)
+        v = (v - n / 2.0) / n * 2.0 * half
+        Mesh(v.astype(np.float32), tris).export_obj(
+            os.path.join(dirs["Meshes"], "mesh-%05d.obj" % i))
 
     def chans(f, flow):  # reference row keys -> [C, S, S]
         return {"img": f["img"].transpose(2, 0, 1), "mask": f["mask"][None],

@@ -1,15 +1,15 @@
-"""Rest-mesh extraction: a dense grid SDF query on the device -> host
-marching cubes -> largest connected component. Counterpart of the
-extraction half of moda_tpu/extract/mesh.py (train_utils.py:1364-1476).
+"""Mesh extraction: a dense grid SDF query on the device -> host marching
+cubes -> largest connected component, and the forward/backward warps of
+meshes through the deformation model. Counterpart of
+moda_tpu/extract/mesh.py (train_utils.extract_mesh, train_utils.py:1364-1476;
+warp_bw/warp_fw, geom_utils.py:974-1073).
 
-The query runs the plain fp32 path (the JAX package's ``model.precise()``):
-a view of the model with ``use_pallas=False``, under ``torch.no_grad()``,
-so it launches no kernel and builds no graph. The warp helpers wait for
-the extraction slice.
+Everything here runs the plain fp32 path (``MoDAModel.precise()``, the JAX
+package's ``model.precise()``) under ``torch.no_grad()``, so it launches no
+kernel and builds no graph.
 """
 from __future__ import annotations
 
-import copy
 from dataclasses import dataclass, field
 from typing import Optional
 
@@ -18,7 +18,9 @@ import scipy.sparse as sp
 import scipy.sparse.csgraph as csgraph
 import torch
 
+from moda_tpu_torch.core import skinning as SK
 from moda_tpu_torch.native import marching_cubes
+from moda_tpu_torch.render.rays import compute_bone_rts
 
 
 @dataclass
@@ -80,8 +82,7 @@ def make_grid_query(model, chunk: Optional[int] = None):
     model's device: ``query(pts, symm=False) -> (raw [N], vis [N])``.
     chunk: points per call; None runs one call on the card and chunks of
     cfg.chunk on the CPU."""
-    view = copy.copy(model)  # shares the parameters; only cfg differs
-    view.cfg = model.cfg.replace(use_pallas=False)
+    view = model.precise()
     if chunk is None:
         chunk = 0 if model.device.type == "cuda" else model.cfg.chunk
 
@@ -134,3 +135,128 @@ def extract_mesh(model, obj_bound: np.ndarray, grid_size: int, threshold: float,
         vlen = np.maximum(mesh.vertices.max(0, keepdims=True) - vmin, 1e-9)
         mesh.colors = (mesh.vertices - vmin) / vlen
     return mesh
+
+
+def _skin(view, pts: torch.Tensor, bones: torch.Tensor, code: torch.Tensor) -> torch.Tensor:
+    """Skinning weights [bs, N, B] of points pts [bs, N, 3] against bones
+    [bs, B, 10], the delta-skin MLP reading the per-point code (the layout
+    of the JAX package's warp helpers: [xyz_embed | code] per point)."""
+    dskin = None
+    if view.cfg.nerf_skin:
+        c = code[:, None, :].expand(pts.shape[:-1] + (code.shape[-1],))
+        dskin = view.apply_skin(torch.cat([view.embed_xyz(pts), c], -1))
+    return SK.skinning_weights(bones, pts, dskin, view.skin_aux[0])
+
+
+def _blend(view, bones, rts, skin, pts, backward: bool):
+    if view.cfg.neudbs:
+        return SK.neu_dbs(bones, rts, skin, pts, backward=backward)
+    return SK.lbs(bones, rts, skin, pts, backward=backward)
+
+
+def _rest_code(view) -> torch.Tensor:
+    return view.apply_rest_pose_code(torch.zeros(1, dtype=torch.long, device=view.device))
+
+
+def _points(view, x) -> torch.Tensor:
+    return torch.as_tensor(x, dtype=torch.float32, device=view.device)
+
+
+def _frames(view, fid) -> torch.Tensor:
+    return torch.as_tensor(fid, device=view.device).long().reshape(-1)
+
+
+def make_warp_fw(model):
+    """Canonical -> frame vertex warp (warp_fw, geom_utils.py:1029-1073):
+    ``warp(verts [V,3], frameid) -> (verts_dfm [V,3], bones_dfm [B,10])``,
+    tensors on the model's device."""
+    view = model.precise()
+
+    @torch.no_grad()
+    def warp(verts, frameid):
+        bones_rst, bone_rts = compute_bone_rts(view, _frames(view, frameid))
+        pts = _points(view, verts)[None]
+        skin = _skin(view, pts, bones_rst[None], _rest_code(view))
+        out, bones_dfm = _blend(view, bones_rst[None], bone_rts, skin, pts, backward=False)
+        return out[0], bones_dfm[0]
+
+    return warp
+
+
+def make_warp_fw_frames(model):
+    """The rest mesh warped to F frames in one call:
+    ``warp(verts [V,3], frameids [F]) -> (verts_dfm [F,V,3], bones_dfm
+    [F,B,10])``. The skinning weights read only the rest pose and the
+    rest-pose code, so they are computed once for all frames. (The JAX
+    package shards the frame axis over its device mesh; one card has no
+    counterpart.)"""
+    view = model.precise()
+
+    @torch.no_grad()
+    def warp(verts, frameids):
+        fids = _frames(view, frameids)
+        bones_rst, bone_rts = compute_bone_rts(view, fids)
+        F = fids.shape[0]
+        pts = _points(view, verts)[None]
+        skin = _skin(view, pts, bones_rst[None], _rest_code(view))
+        return _blend(view, bones_rst[None].expand((F,) + bones_rst.shape), bone_rts,
+                      skin.expand((F,) + skin.shape[1:]),
+                      pts.expand((F,) + pts.shape[1:]), backward=False)
+
+    return warp
+
+
+def make_warp_bw(model):
+    """Frame -> canonical point warp (warp_bw, geom_utils.py:974-1027):
+    ``warp(pts_frame [N,3], frameid) -> pts_canonical [N,3]``."""
+    view = model.precise()
+
+    @torch.no_grad()
+    def warp(pts_frame, frameid):
+        fid = _frames(view, frameid)
+        bones_rst, bone_rts = compute_bone_rts(view, fid)
+        if view.cfg.neudbs:
+            bones_dfm = SK.bone_transform_dq(bones_rst, bone_rts)
+        else:
+            bones_dfm = SK.bone_transform_rts(bones_rst, bone_rts)
+        pts = _points(view, pts_frame)[None]
+        skin = _skin(view, pts, bones_dfm, view.apply_pose_code(fid))
+        out, _ = _blend(view, bones_rst[None], bone_rts, skin, pts, backward=True)
+        return out[0]
+
+    return warp
+
+
+@torch.no_grad()
+def skin_colors(model, mesh: Mesh) -> np.ndarray:
+    """Rest-mesh vertex colours [V,3] by skinning weight, each bone a fixed
+    random colour (train_utils.py:567-591)."""
+    view = model.precise()
+    bones_rst, _ = compute_bone_rts(view, torch.zeros(1, dtype=torch.long,
+                                                      device=view.device))
+    pts = _points(view, mesh.vertices)[None]
+    skin = _skin(view, pts, bones_rst[None], _rest_code(view))[0].cpu().numpy()
+    rng = np.random.default_rng(0)
+    cmap = rng.uniform(0.1, 1.0, size=(skin.shape[-1], 3))
+    return (skin @ cmap).astype(np.float32)
+
+
+@torch.no_grad()
+def radiance_colors(model, mesh: Mesh, frameid: int, view_dir: np.ndarray,
+                    env_frameid: Optional[int] = None) -> np.ndarray:
+    """Vertex colours [V,3] from the radiance field (the ce_color=False path,
+    train_utils.py:538-546 + get_vertex_colors): the coarse MLP's rgb
+    branch at the canonical vertices with the frame's env code and the
+    given viewing directions view_dir [V,3] (any length)."""
+    view = model.precise()
+    v = _points(view, mesh.vertices)
+    d = _points(view, view_dir)
+    d = d / torch.clamp(torch.linalg.norm(d, dim=-1, keepdim=True), min=1e-9)
+    feats = [view.embed_xyz(v), view.embed_dir(d)]
+    if view.cfg.env_code:
+        env = view.apply_env_code(_frames(view, env_frameid or frameid))
+        feats.append(env.expand(v.shape[0], env.shape[-1]))
+    if view.cfg.appearance_code:
+        app = view.apply_appearance_code(_frames(view, frameid))
+        feats.append(app.expand(v.shape[0], app.shape[-1]))
+    return view.apply_coarse(torch.cat(feats, -1))[..., :3].cpu().numpy()

@@ -11,6 +11,7 @@ counters.
 """
 from __future__ import annotations
 
+import copy
 from dataclasses import dataclass, fields
 from typing import Optional
 
@@ -145,6 +146,14 @@ class MoDAModel(nn.Module):
     @property
     def device(self) -> torch.device:
         return self.nerf_beta.device
+
+    def precise(self) -> "MoDAModel":
+        """A view of this model on the plain fp32 path (``use_pallas`` off):
+        it shares the parameters and launches no kernel. Extraction and the
+        eval renders run on it, as on the JAX package's ``precise()``."""
+        view = copy.copy(self)  # shares parameters and state; only cfg differs
+        view.cfg = self.cfg.replace(use_pallas=False)
+        return view
 
     # ------------------------------------------------------------ applies
     def embed_xyz(self, xyz, alpha=None):

@@ -1,8 +1,8 @@
 """Host-side native components, built with g++ on first use into
 ``moda_tpu_torch/_build/`` and loaded through ctypes: the marching
 tetrahedra isosurface of the rest-mesh extraction (the reference's
-PyMCubes, train_utils.py:19,1441). Counterpart of the marching half of
-moda_tpu/native/__init__.py."""
+PyMCubes, train_utils.py:19,1441) and the z-buffer rasterizer of the
+silhouette export. Counterpart of moda_tpu/native/__init__.py."""
 from __future__ import annotations
 
 import ctypes
@@ -47,22 +47,38 @@ def _compile(name: str) -> Path:
     return so
 
 
-def _load_marching():
+def _declare(name: str, lib):
+    if name == "marching":
+        lib.marching_tets.restype = ctypes.c_int
+        lib.marching_tets.argtypes = [
+            ctypes.POINTER(ctypes.c_float), ctypes.c_int, ctypes.c_int, ctypes.c_int,
+            ctypes.c_float,
+            ctypes.POINTER(ctypes.POINTER(ctypes.c_float)),
+            ctypes.POINTER(ctypes.POINTER(ctypes.c_int32)),
+            ctypes.POINTER(ctypes.c_int64), ctypes.POINTER(ctypes.c_int64),
+        ]
+        lib.mt_free.argtypes = [ctypes.POINTER(ctypes.c_float),
+                                ctypes.POINTER(ctypes.c_int32)]
+    else:
+        lib.rasterize.restype = None
+        lib.rasterize.argtypes = [
+            ctypes.POINTER(ctypes.c_float), ctypes.c_int64,
+            ctypes.POINTER(ctypes.c_int32), ctypes.c_int64,
+            ctypes.POINTER(ctypes.c_float), ctypes.c_int,
+            ctypes.c_int, ctypes.c_int,
+            ctypes.POINTER(ctypes.c_float), ctypes.POINTER(ctypes.c_float),
+            ctypes.POINTER(ctypes.c_float),
+        ]
+
+
+def _load(name: str):
+    """The library built from ``<name>.cpp`` ("marching" or "raster")."""
     with _LOCK:
-        if "marching" not in _LIBS:
-            lib = ctypes.CDLL(str(_compile("marching")))
-            lib.marching_tets.restype = ctypes.c_int
-            lib.marching_tets.argtypes = [
-                ctypes.POINTER(ctypes.c_float), ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                ctypes.c_float,
-                ctypes.POINTER(ctypes.POINTER(ctypes.c_float)),
-                ctypes.POINTER(ctypes.POINTER(ctypes.c_int32)),
-                ctypes.POINTER(ctypes.c_int64), ctypes.POINTER(ctypes.c_int64),
-            ]
-            lib.mt_free.argtypes = [ctypes.POINTER(ctypes.c_float),
-                                    ctypes.POINTER(ctypes.c_int32)]
-            _LIBS["marching"] = lib
-        return _LIBS["marching"]
+        if name not in _LIBS:
+            lib = ctypes.CDLL(str(_compile(name)))
+            _declare(name, lib)
+            _LIBS[name] = lib
+        return _LIBS[name]
 
 
 def marching_cubes(grid: np.ndarray, iso: float = 0.0):
@@ -71,7 +87,7 @@ def marching_cubes(grid: np.ndarray, iso: float = 0.0):
     Returns (verts [V,3] in voxel coords (x,y,z), tris [T,3] int32).
     Triangles wind around the >iso region.
     """
-    lib = _load_marching()
+    lib = _load("marching")
     grid = np.ascontiguousarray(grid, np.float32)
     nx, ny, nz = grid.shape
     vp = ctypes.POINTER(ctypes.c_float)()
@@ -92,3 +108,32 @@ def marching_cubes(grid: np.ndarray, iso: float = 0.0):
     finally:
         lib.mt_free(vp, tp)
     return verts, tris
+
+
+def rasterize(verts: np.ndarray, faces: np.ndarray, attrs: np.ndarray,
+              height: int, width: int):
+    """Hard z-buffer rasterization with perspective-correct vertex-attribute
+    interpolation. verts [V,3] = (x_px, y_px, depth); faces [F,3] int;
+    attrs [V,C]. Faces with an index outside the vertices are skipped.
+    Returns (attr [H,W,C], depth [H,W] (inf where empty), mask [H,W]), float32."""
+    lib = _load("raster")
+    verts = np.ascontiguousarray(verts, np.float32)
+    faces = np.ascontiguousarray(faces, np.int32)
+    attrs = np.ascontiguousarray(attrs, np.float32)
+    # the shapes the native loop reads past otherwise
+    if verts.ndim != 2 or verts.shape[1] != 3 or faces.ndim != 2 or faces.shape[1] != 3 \
+            or attrs.ndim != 2 or len(attrs) != len(verts):
+        raise ValueError(f"rasterize: verts {verts.shape}, faces {faces.shape}, "
+                         f"attrs {attrs.shape}")
+    C = attrs.shape[1]
+    out_attr = np.zeros((height, width, C), np.float32)
+    out_depth = np.zeros((height, width), np.float32)
+    out_mask = np.zeros((height, width), np.float32)
+    fptr = ctypes.POINTER(ctypes.c_float)
+    lib.rasterize(
+        verts.ctypes.data_as(fptr), len(verts),
+        faces.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)), len(faces),
+        attrs.ctypes.data_as(fptr), C, height, width,
+        out_attr.ctypes.data_as(fptr), out_depth.ctypes.data_as(fptr),
+        out_mask.ctypes.data_as(fptr))
+    return out_attr, out_depth, out_mask

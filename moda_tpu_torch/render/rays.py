@@ -208,3 +208,67 @@ def build_rays(model, batch: Dict[str, torch.Tensor], rtk: torch.Tensor, nsample
     elif "errid" in batch:
         rays["errid"] = batch["errid"][ray_entry]
     return rays
+
+
+def build_rays_image(model, rtk: torch.Tensor, kaug: torch.Tensor, frameid: torch.Tensor,
+                     dataid: torch.Tensor, render_size: int, embed_alpha=None,
+                     rtk_target: Optional[torch.Tensor] = None,
+                     frameid_target: Optional[torch.Tensor] = None) -> RayDict:
+    """Full-image ray bundle for eval rendering, every pixel of each frame:
+    rtk [B,4,4], kaug [B,4], frameid/dataid [B] -> rays leading with
+    [B * render_size^2]. rtk_target/frameid_target (optional): the paired
+    frame's camera and codes, so the render includes flow (flo_coarse), as
+    the reference's eval grid does (train_utils.py:500-505)."""
+    cfg = model.cfg
+    dev = rtk.device
+    B = rtk.shape[0]
+    P = render_size * render_size
+    _check_index(frameid, model.num_fr, "frameid")
+    ii = torch.arange(P, device=dev)
+    xys = torch.stack([(ii % render_size).float(),
+                       torch.div(ii, render_size, rounding_mode="floor").float()], -1)
+    xys = xys[None].expand(B, P, 2)
+    Rmat, Tmat, Kinv = cam.prepare_ray_cams(rtk, kaug)
+    rays_nt = cam.raycast(xys, Rmat, Tmat, Kinv, model.mvars.near_far[frameid])
+    R = B * P
+
+    def flat(x):
+        return x.reshape((R,) + x.shape[2:])
+
+    def per_ray(codes):  # [B, C] -> [R, C]
+        return flat(codes[:, None, :].expand(B, P, codes.shape[-1]))
+
+    rays: RayDict = {"rays_o": flat(rays_nt.rays_o), "rays_d": flat(rays_nt.rays_d),
+                     "near": flat(rays_nt.near), "far": flat(rays_nt.far),
+                     "rtk_vec": flat(rays_nt.rtk_vec), "xys": flat(rays_nt.xys)}
+    if embed_alpha is not None:
+        rays["embed_alpha"] = embed_alpha
+    rays["time_embedded"] = per_ray(model.apply_pose_code(frameid))
+    if cfg.env_code:
+        rays["env_code"] = per_ray(model.apply_env_code(frameid))
+    if cfg.appearance_code:
+        rays["appearance_code"] = per_ray(model.apply_appearance_code(frameid))
+    bones_rst, bone_rts = compute_bone_rts(model, frameid)
+    rays["bones_rst"] = bones_rst
+    rays["bone_rts"] = flat(bone_rts[:, None].expand((B, P) + bone_rts.shape[1:]))
+    rays["rest_pose_code"] = model.apply_rest_pose_code(
+        torch.zeros(1, dtype=torch.long, device=dev))
+    if cfg.use_unc:
+        # the unc MLP's inputs for the eval grid's uncertainty channel
+        # (rendering.py:501-516): normalized pixel coords and frame time
+        _check_index(dataid, model.num_vid, "dataid")
+        off = torch.as_tensor(model.offset, dtype=torch.float32, device=dev)[dataid]
+        ts = (frameid.float() - off) / model.max_ts * 2.0 - 1.0
+        rays["ts"] = flat(ts[:, None, None].expand(B, P, 1))
+        rays["vid_code"] = per_ray(model.apply_vid_code(dataid))
+        xy1 = torch.cat([xys, torch.ones_like(xys[..., :1])], -1)
+        rays["xysn"] = flat((xy1[..., None, :] @ Kinv.transpose(-1, -2)[:, None])[..., 0, :2])
+    if rtk_target is not None and frameid_target is not None:
+        _check_index(frameid_target, model.num_fr, "frameid_target")
+        Rt, Tt, Kit = cam.prepare_ray_cams(rtk_target, kaug)
+        rtk_vec_t = torch.cat([Rt.reshape(B, 1, 9), Tt.reshape(B, 1, 3), Kit.reshape(B, 1, 9)],
+                              -1)
+        rays["rtk_vec_target"] = flat(rtk_vec_t.expand(B, P, 21))
+        _, bone_rts_t = compute_bone_rts(model, frameid_target)
+        rays["bone_rts_target"] = flat(bone_rts_t[:, None].expand((B, P) + bone_rts_t.shape[1:]))
+    return rays

@@ -3,7 +3,8 @@ moda_tpu/train/trainer.py (train_utils.py:64-1543, v2s_trainer) for stage 1
 of the recipe: the epoch loop with per-epoch rest-mesh extraction and
 hyperparameter resets, shape warmup, root-table preset from the cameras,
 k-means bone re-initialization, the silhouette-outlier history, near/far
-management, checkpoints and the explosion rollback.
+management, checkpoints, the explosion rollback and the per-epoch eval
+renders.
 
 The model's parameters are updated in place: the step captures them by
 reference (train/step.py), so everything that writes them here (shape
@@ -27,6 +28,7 @@ import json
 import os
 import pickle
 import time
+import traceback
 from typing import Callable, Dict, Iterator, Optional
 
 import numpy as np
@@ -40,13 +42,14 @@ from moda_tpu_torch.data.synthetic import feat_bank_encode
 from moda_tpu_torch.extract.mesh import Mesh, extract_mesh, make_grid_query
 from moda_tpu_torch.fields.model import MoDAModel
 from moda_tpu_torch.ops.kmeans import kmeans
+from moda_tpu_torch.render.evalrender import make_frame_renderer
 from moda_tpu_torch.render import losses as L
 from moda_tpu_torch.runtime import Device, resolve_device
 from moda_tpu_torch.train import ckpt as CK
 from moda_tpu_torch.train import schedule as SCH
 from moda_tpu_torch.train.optim import MoDAOptimizer, group_of
 from moda_tpu_torch.train.step import StepExtras, make_train_step
-from moda_tpu_torch.viz.render_vis import draw_cams, unit_sphere
+from moda_tpu_torch.viz.render_vis import draw_cams, save_png, unit_sphere
 
 ITERS_PER_EPOCH = 200  # train_utils.py:933
 
@@ -64,8 +67,6 @@ def check_ported(cfg: MoDAConfig):
     for flag, what, where in (
             (cfg.warmup_pose_ep > 0, "warmup_pose_ep > 0 (the pose-CNN warmup)",
              "the cold-start slice"),
-            (cfg.render_size > 0, "render_size > 0 (the per-epoch eval renders); pass "
-             "--render_size 0", "the extraction and eval slice"),
             (cfg.steps_chunk > 1, "steps_chunk > 1 (K steps per dispatch)",
              "the host-side step slice"),
             (cfg.accu_steps > 1, "accu_steps > 1", "the step-branch slice"),
@@ -124,12 +125,18 @@ class Trainer:
     def __init__(self, cfg: MoDAConfig, data_info: DataInfo,
                  loader: Optional[Iterator] = None, save_dir: Optional[str] = None,
                  prior_verts: Optional[np.ndarray] = None, seed: int = 0,
-                 device: Device = None, draws: Optional[Callable] = None):
-        """Runs on the card unless device="cpu" is passed."""
+                 device: Device = None, draws: Optional[Callable] = None,
+                 eval_datasets: Optional[list] = None):
+        """Runs on the card unless device="cpu" is passed. eval_datasets:
+        datasets at render_size whose ``reader.read_raw`` gives the eval
+        grid its observed columns and crop kaug (train_utils.py:140); the
+        port's line-shard datasets have no reader, so train_app passes
+        None and the grid renders the full raw frame."""
         check_ported(cfg)
         self.cfg = cfg
         self.data_info = data_info
         self.loader = loader
+        self.eval_datasets = eval_datasets
         self.draws = draws
         self.save_dir = save_dir or os.path.join(cfg.checkpoint_dir, cfg.logname)
         os.makedirs(self.save_dir, exist_ok=True)
@@ -358,6 +365,79 @@ class Trainer:
             stored = SK.bone_transform_rts(bones_desired, rts_rst)[0]
         self.model.bones.copy_(stored)
 
+    # ---------------------------------------------------------- eval grid
+    def _eval_frame_obs(self, fi: int):
+        """Frame fi (global id) read through the render_size eval datasets:
+        {'kaug', 'img', ...}, or None where there is none. The port's
+        datasets have no frame reader until the frame-decoding slice, so
+        with them the grid has no observed columns."""
+        if not self.eval_datasets:
+            return None
+        offs = np.asarray(self.data_info.offset)
+        di = int(np.searchsorted(offs, fi, side="right")) - 1
+        reader = getattr(self.eval_datasets[di], "reader", None)
+        if reader is None:
+            return None
+        return reader.read_raw(int(fi - offs[di]), flowfw=True, dframe=1)
+
+    def eval_renders(self, epoch: int, num_frames: int = 9) -> str:
+        """Per-epoch qualitative renders (train_utils.py:695-704): a grid of
+        frames rendered at render_size with flow against the next frame,
+        written as ``eval-<epoch>.png``. Returns its path."""
+        cfg = self.cfg
+        rs = cfg.render_size
+        if not hasattr(self, "_frame_renderer"):
+            self._frame_renderer = make_frame_renderer(self.model, rs, cfg.ndepth,
+                                                       chunk=cfg.chunk, with_flow=True)
+        # one fixed stream for every render, as the JAX trainer's fixed key:
+        # the training draws do not depend on whether an epoch rendered
+        gen = torch.Generator(device=self.device).manual_seed(0)
+        ids = np.linspace(0, self.data_info.num_fr - 2, num_frames, dtype=int)
+        tiles = []
+        for fi in ids:
+            rtk = self.latest_vars["rtk"][fi][None]
+            obs = self._eval_frame_obs(fi)
+            if obs is not None:
+                kaug = np.asarray(obs["kaug"], np.float32)[None]
+            else:
+                # no eval datasets: the full raw frame (principal point
+                # assumed centred, image W ~ 2 px, H ~ 2 py)
+                px, py = float(rtk[0, 3, 2]), float(rtk[0, 3, 3])
+                kaug = np.asarray([[max(2 * px / rs, 1e-6), max(2 * py / rs, 1e-6), 0.0, 0.0]],
+                                  np.float32)
+            out = self._frame_renderer(rtk, kaug, [fi], [0],
+                                       rtk_target=self.latest_vars["rtk"][fi + 1][None],
+                                       frameid_target=[fi + 1], generator=gen)
+            tile = [np.clip(out["img_coarse"], 0, 1),
+                    np.repeat(np.clip(out["sil_coarse"], 0, 1), 3, axis=-1)]
+            if obs is not None:  # the observed column (the reference grid's 'img')
+                tile.insert(0, np.asarray(obs["img"], np.float32))
+            if "flo_coarse" in out:  # flow magnitude and angle
+                flo = out["flo_coarse"]
+                mag = np.clip(np.linalg.norm(flo, axis=-1, keepdims=True) * 2, 0, 1)
+                ang = (np.arctan2(flo[..., 1:2], flo[..., :1]) / np.pi + 1) / 2
+                tile.append(np.concatenate([mag, ang, 1 - mag], -1))
+            # feature-error and uncertainty channels (train_utils.py:1482-1514)
+            if "feat_rnd" in out and obs is not None and "dp_feat_rsmp" in obs:
+                gt_f = np.transpose(np.asarray(obs["dp_feat_rsmp"], np.float32), (1, 2, 0))
+                if gt_f.shape[0] != rs:
+                    raise NotImplementedError("resizing the observed features is ported with "
+                                              "the frame-decoding slice of moda_tpu_torch")
+                err = np.linalg.norm(out["feat_rnd"] - gt_f, axis=-1, keepdims=True) / 2.0
+                tile.append(np.repeat(np.clip(err, 0, 1), 3, axis=-1))
+            if "unc_pred" in out:
+                tile.append(np.repeat(np.clip(out["unc_pred"][..., :1], 0, 1), 3, axis=-1))
+            tiles.append(np.concatenate(tile, axis=1))
+        n = int(np.ceil(np.sqrt(len(tiles))))
+        H, W, _ = tiles[0].shape
+        grid = np.ones((n * H, n * W, 3), np.float32)
+        for i, t in enumerate(tiles):
+            r, c = divmod(i, n)
+            grid[r * H:(r + 1) * H, c * W:(c + 1) * W] = t
+        path = os.path.join(self.save_dir, f"eval-{epoch:03d}.png")
+        save_png(path, (grid * 255).astype(np.uint8))
+        return path
+
     # ------------------------------------------------------------ main loop
     def train(self):
         cfg = self.cfg
@@ -397,9 +477,21 @@ class Trainer:
             CK.copy_checkpoint(os.path.join(self.save_dir, "latest"),
                                os.path.join(self.save_dir, str(epoch + 1)))
             t_save = time.time() - t_save0
+            t_eval0 = time.time()
+            render_now = (epoch in (0, cfg.num_epochs // 2, cfg.num_epochs - 1)
+                          or (cfg.num_epochs >= 20
+                              and epoch % max(1, cfg.num_epochs // 20) == 0))
+            if cfg.render_size > 0 and self.latest_vars["idk"].sum() > 0 and render_now:
+                try:
+                    self.eval_renders(epoch)
+                except Exception as e:  # rendering must never end training
+                    traceback.print_exc()
+                    self._log({"eval_render_error": str(e)})
+            t_eval = time.time() - t_eval0
             n_steps = ITERS_PER_EPOCH * cfg.accu_steps
             self._log({"epoch": epoch, "epoch_time": time.time() - t_ep,
                        "t_mesh": round(t_mesh, 3), "t_save": round(t_save, 3),
+                       "t_eval": round(t_eval, 3),
                        "t_steps": round(t_loop, 3), "steps_per_s": n_steps / max(t_loop, 1e-9),
                        "mesh_verts": len(self.mesh_rest.vertices),
                        "frac_occupied": round(self.mesh_rest.frac_occupied, 5),

@@ -4,8 +4,13 @@
 - the native marching tetrahedra and largest_component on one volume
   (bit-equal vertices and faces);
 - extract_mesh end to end on one volume;
-- k-means from the same initial centres (within 1e-5).
+- k-means from the same initial centres (within 1e-5);
+- the warps (make_warp_fw, make_warp_fw_frames, make_warp_bw) and the
+  vertex colours (skin_colors, radiance_colors) on one mesh, with NeuDBS
+  and with LBS (within 1e-5 relative L2), launching no kernel and building
+  no graph.
 """
+import pytest
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -94,3 +99,46 @@ def test_kmeans_matches_jax():
     # from the trainer's generator: k distinct points to start from
     cg = t_kmeans(torch.as_tensor(pts), k, generator=torch.Generator().manual_seed(1))
     assert cg.shape == (k, 3) and torch.isfinite(cg).all()
+
+
+def _mesh_and_frames():
+    m = TM.largest_component(TM.Mesh(*t_marching(_two_blobs(14), 0.0)))
+    # object units: the blobs at ~0.1, as the trainer's rest meshes
+    return TM.Mesh(m.vertices * 0.012 - 0.08, m.faces), [0, 3, 5, 2]
+
+
+@pytest.mark.parametrize("skinning", ["neudbs", "lbs"])
+def test_warps_match_jax(skinning):
+    kw = {} if skinning == "neudbs" else dict(neudbs=False, lbs=True)
+    _, jmodel, params, _, tmodel = both_models(**kw)
+    mesh, fids = _mesh_and_frames()
+    v = jnp.asarray(mesh.vertices)
+    jv, jb = JM.make_warp_fw(jmodel)(params, v, jnp.asarray(fids[1]))
+    tv, tb = TM.make_warp_fw(tmodel)(mesh.vertices, fids[1])
+    assert not tv.requires_grad
+    assert _rel(tv.numpy(), jv) <= 1e-5 and _rel(tb.numpy(), jb) <= 1e-5
+    assert _rel(tv.numpy(), mesh.vertices) > 1e-3  # the warp moves the mesh
+    jv, jb = JM.make_warp_fw_frames(jmodel)(params, v, jnp.asarray(fids))
+    tv, tb = TM.make_warp_fw_frames(tmodel)(mesh.vertices, fids)
+    assert tv.shape == (len(fids),) + mesh.vertices.shape and tb.shape == jb.shape
+    assert _rel(tv.numpy(), jv) <= 1e-5 and _rel(tb.numpy(), jb) <= 1e-5
+    # frame 3 of the batch is the single-frame warp's
+    assert _rel(tv[1].numpy(), TM.make_warp_fw(tmodel)(mesh.vertices, fids[1])[0].numpy()) <= 1e-6
+    pts = np.asarray(jv[2])
+    jc = JM.make_warp_bw(jmodel)(params, jnp.asarray(pts), jnp.asarray(fids[2]))
+    tc = TM.make_warp_bw(tmodel)(pts, fids[2])
+    assert _rel(tc.numpy(), jc) <= 1e-5
+
+
+def test_vertex_colours_match_jax():
+    _, jmodel, params, _, tmodel = both_models()
+    mesh, _ = _mesh_and_frames()
+    jmesh = JM.Mesh(mesh.vertices, mesh.faces)
+    tc = TM.skin_colors(tmodel, mesh)
+    assert tc.shape == mesh.vertices.shape and tc.dtype == np.float32
+    assert _rel(tc, JM.skin_colors(jmodel, params, jmesh)) <= 1e-5
+    view_dir = np.random.default_rng(4).normal(size=mesh.vertices.shape).astype(np.float32)
+    for fid, env_fid in ((2, None), (1, 4)):
+        tr = TM.radiance_colors(tmodel, mesh, fid, view_dir, env_frameid=env_fid)
+        jr = JM.radiance_colors(jmodel, params, jmesh, fid, view_dir, env_frameid=env_fid)
+        assert tr.shape == mesh.vertices.shape and _rel(tr, jr) <= 1e-5

@@ -17,6 +17,9 @@ def test_import_loads_no_jax_and_no_moda_tpu():
     code = ("import sys, moda_tpu_torch, moda_tpu_torch.train.step, moda_tpu_torch.bridge\n"
             "import moda_tpu_torch.train.trainer, moda_tpu_torch.cli.train_app\n"
             "import moda_tpu_torch.extract.mesh, moda_tpu_torch.data.dataset\n"
+            "import moda_tpu_torch.cli.extract_app, moda_tpu_torch.cli.eval_root_app\n"
+            "import moda_tpu_torch.evals.ama, moda_tpu_torch.evals.sim3\n"
+            "import moda_tpu_torch.render.evalrender, moda_tpu_torch.viz.render_vis\n"
             f"bad = [m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r}]\n"
             "print(bad)\n"
             "assert not bad, bad\n")
@@ -97,15 +100,16 @@ def test_later_slices_refuse_explicitly(tmp_path):
         with pytest.raises(NotImplementedError, match="later slice"):
             build_step(model, opt, device="cpu", **dict(args, **kw))
 
-    # the trainer: the pose-CNN warmup, the eval renders, K steps per
-    # dispatch, gradient accumulation, s3im and freeze_coarse
+    # the trainer: the pose-CNN warmup, K steps per dispatch, gradient
+    # accumulation, s3im and freeze_coarse; the eval renders run
     from moda_tpu_torch.train.trainer import Trainer
-    tcfg = cfg.replace(render_size=0, checkpoint_dir=str(tmp_path))
-    for kw in (dict(warmup_pose_ep=1), dict(render_size=64), dict(steps_chunk=2),
+    tcfg = cfg.replace(checkpoint_dir=str(tmp_path))
+    for kw in (dict(warmup_pose_ep=1), dict(steps_chunk=2),
                dict(accu_steps=2), dict(s3im_loss=True), dict(freeze_coarse=True)):
         with pytest.raises(NotImplementedError, match="later slice"):
             Trainer(tcfg.replace(**kw), info, device="cpu")
     tr = Trainer(tcfg, info, device="cpu")
+    assert tr.cfg.render_size == 64
     # by name: tests/conftest.py marks a test slow whose source calls the
     # pose warmup, and this one is quick
     for method, arg in (("warmup_pose", 1), ("extract_cams_cnn", [])):
@@ -124,21 +128,30 @@ def test_config_loads_a_jax_config():
 
 def test_train_app_refuses_later_slices(tmp_path, monkeypatch):
     """train_app refuses a dataset without line shards, the trainer's
-    unported flags and more than one process, naming a later slice."""
-    from moda_tpu_torch.cli import train_app
+    unported flags and more than one process, and extract_app a dataset
+    without line shards, naming a later slice."""
+    import shutil
+
+    from moda_tpu_torch.cli import extract_app, train_app
     from moda_tpu_torch.data.synthetic import SynthScene, write_line_dataset
 
     write_line_dataset(str(tmp_path / "db"), str(tmp_path / "cfg"), "syn",
                        SynthScene(img_size=8, num_frames=3))
-    argv = ["--seqname", "syn", "--config_dir", str(tmp_path / "cfg"), "--render_size", "0",
+    argv = ["--seqname", "syn", "--config_dir", str(tmp_path / "cfg"),
             "--checkpoint_dir", str(tmp_path)]
     with pytest.raises(NotImplementedError, match="later slice"):
         train_app.main(argv, device="cpu")  # no --lineload
     with pytest.raises(NotImplementedError, match="later slice"):
-        train_app.main(argv + ["--lineload", "--render_size", "16"], device="cpu")
+        train_app.main(argv + ["--lineload", "--steps_chunk", "2"], device="cpu")
+    with pytest.raises(SystemExit, match="model_path"):
+        extract_app.main(argv + ["--lineload"], device="cpu")
     monkeypatch.setenv("WORLD_SIZE", "2")
     with pytest.raises(NotImplementedError, match="later slice"):
         train_app.main(argv + ["--lineload"], device="cpu")
+    shutil.rmtree(tmp_path / "db" / "Pixels")
+    with pytest.raises(NotImplementedError, match="later slice"):
+        extract_app.main(argv + ["--lineload", "--model_path", str(tmp_path / "x")],
+                         device="cpu")
 
 
 def test_pair_loader_close_leaves_no_thread_exception(tmp_path, monkeypatch):

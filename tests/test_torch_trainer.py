@@ -10,7 +10,8 @@
 - warmup_shape for 3 steps and reinit_bones with the same draws (relative
   L2 <= 1e-5, untouched leaves bit-equal);
 - a step's aux keeps the parameter values its loss saw;
-- the port's train_app on the CPU for two short epochs;
+- the port's train_app on the CPU for two short epochs, and for one with
+  the eval grid (render_size > 0) at the JAX trainer's epochs;
 - a two-epoch run of both trainers in lockstep with the draws passed in
   (slow): the state the port's trainer brings to each step against
   JAX's, each step's losses, and the same decisions (its docstring gives
@@ -375,6 +376,34 @@ def test_train_app_runs_on_the_cpu(tmp_path, monkeypatch):
     for n, p in tr.model.named_parameters():
         np.testing.assert_array_equal(params[n.replace(".", "/")], p.detach().numpy())
     assert tr.total_steps_done == 4 and tr.latest_vars["idk"].sum() > 0
+
+
+def test_train_app_writes_the_eval_grid(tmp_path, monkeypatch):
+    """The eval grid at render_size 8 (the full raw frame: the line-shard
+    datasets have no frame reader): eval-000.png of 3 x 3 tiles, each the
+    rgb, silhouette and flow columns, no eval_render_error, and its time
+    in the epoch line. The renders run the plain view: no kernel route
+    is taken on the CPU either way."""
+    from moda_tpu_torch.cli import train_app
+    from moda_tpu_torch.data.synthetic import SynthScene, write_line_dataset
+    from moda_tpu_torch.viz.render_vis import png_size
+
+    monkeypatch.setattr(TT, "ITERS_PER_EPOCH", 2)
+    write_line_dataset(str(tmp_path / "db"), str(tmp_path / "cfg"), "syn",
+                       SynthScene(img_size=16, num_frames=6))
+    tr = train_app.main(
+        ["--seqname", "syn", "--config_dir", str(tmp_path / "cfg"), "--logname", "v",
+         "--checkpoint_dir", str(tmp_path / "log"), "--num_epochs", "1", "--lineload",
+         "--batch_size", "2", "--nsample", "4", "--ndepth", "8", "--img_size", "16",
+         "--sample_grid3d", "12", "--feat_ndepth_grid", "4", "--num_bones", "3",
+         "--use_rtk_file", "--warmup_shape_ep", "1", "--warmup_rootmlp", "--eikonal_wt",
+         "0.001", "--noppr_eikonal", "--dskin_steps", "1", "--render_size", "8", "--chunk",
+         "48", "--n_data_workers", "1"], device="cpu")
+    rows = _logs(tr)
+    assert not [r for r in rows if "eval_render_error" in r]
+    assert png_size(os.path.join(tr.save_dir, "eval-000.png")) == (3 * 8, 3 * 8 * 3)
+    epoch = [r for r in rows if "epoch_time" in r][0]
+    assert 0 < epoch["t_eval"] < epoch["epoch_time"]
 
 
 def _flat_np(tree):
