@@ -44,7 +44,15 @@ Phases:
    ``make_warp_fw_frames`` on the card within 1e-5 (relative L2) of a CPU
    copy of the model, and one 64 px frame of ``make_frame_renderer`` with
    flow within 1e-4; finite AMA and root-pose scores, F-scores in [0, 1];
-   no kernel launch in the phase. It prints the time of each part.
+   no kernel launch in the phase. It prints the time of each part;
+8. the cold start and the frame-decoding route (``run_coldstart``): a
+   16-frame 256 px articulated scene in the DAVIS layout, trained by
+   train_app from the pose CNN's cameras (pose warmup, extract_cams_cnn,
+   root preset, one 200-step epoch, the eval grid with observed columns),
+   then 2 steps of the frame-decoding route at batch 256; read_raw timed at
+   img_size 512 and the tests' JPEG fixture decoded (checks in its
+   docstring). The main-path launch counts of phases 6 and 8 go into the
+   kernel JSON's ``launches``.
 Prints the kernel JSON line, then {"ok": true, "device": {...}} last.
 Exits non-zero without printing a result when there is no CUDA card.
 """
@@ -1311,6 +1319,271 @@ def run_extract(card: str, tmp: str) -> dict:
     return out
 
 
+# ------------------------------------------------ cold start + frame route
+# stage 1 of scripts/template.sh:20-24 from a video without cameras: the
+# pose-CNN warmup instead of --use_rtk_file (the cuts are run_trainer's)
+COLDSTART_FLAGS = ["--batch_size", "256", "--nsample", "4", "--warmup_shape_ep", "1",
+                   "--warmup_rootmlp", "--eikonal_wt", "0.001", "--noppr_eikonal",
+                   "--num_epochs", "1", "--dskin_steps", "1"]
+COLDSTART_FRAMES, COLDSTART_IMG = 16, 256
+FRAME_ROUTE_STEPS = 3  # the frame-decoding route's epoch, cut from 200 steps
+# frames whose CSE features are mirrored left to right (DensePose's typical
+# failure), so that the OOD check rejects them and their rotations are
+# substituted from the nearest accepted frame
+MIRRORED_CSE_FRAMES = (2, 5, 9, 13)
+READ_RAW_SIZE = 512  # the recipe's default img_size, for the read_raw timing
+# the eval grid with a frame reader: observed image, rgb, silhouette, flow
+# and feature error
+COLDSTART_COLUMNS = 5
+
+
+class _HostTimer:
+    """Seconds and calls of a host function, summed over the threads that
+    call it; ``timed`` is the function to patch in (a plain function, so it
+    binds as a method where it replaces one)."""
+
+    def __init__(self, fn):
+        import threading
+        self.s, self.n, lock = 0.0, 0, threading.Lock()
+
+        def timed(*a, **k):
+            t0 = time.perf_counter()
+            out = fn(*a, **k)
+            with lock:
+                self.s += time.perf_counter() - t0
+                self.n += 1
+            return out
+        self.timed = timed
+
+
+def _so3_deg(r_pred, r_gt):
+    import numpy as np
+    cos = (np.trace(r_pred @ np.swapaxes(r_gt, -1, -2), axis1=-2, axis2=-1) - 1) / 2
+    return np.degrees(np.arccos(np.clip(cos, -1.0, 1.0)))
+
+
+def run_coldstart(results: list, card: str, tmp: str) -> dict:
+    """The cold-start route of stage 1 (a DAVIS-layout video with frames,
+    masks, flow and CSE features but no camera files in use), at full
+    widths, on a 16-frame 256 px MeshScene (data/synth_mesh.py, the
+    articulated "a-flap" fixture) written by ``write_frame_dataset`` (PNG
+    bytes under the DAVIS .jpg names) with line shards cut from its frames
+    by ``write_lines``, into ``tmp``; the CSE features of MIRRORED_CSE_FRAMES
+    are mirrored left to right first:
+
+    1. ``train_app.main`` with COLDSTART_FLAGS, ``--lineload --img_size 256
+       --prior_mesh_path <prior.pkl> --warmup_pose_ep 1``: the shape warmup,
+       200 pose-CNN steps at batch 16, ``extract_cams_cnn`` over all 16
+       frames through the frame reader, ``preset_rootmlp``, one 200-step
+       epoch and the 64 px eval grid with its observed columns;
+    2. the frame-decoding route: the same flags without ``--lineload`` and
+       with ``--use_rtk_file`` (cameras from Cameras/) and ``--render_size
+       0``, its epoch cut to FRAME_ROUTE_STEPS steps (the trainer's
+       ITERS_PER_EPOCH patched here, as run_extract patches its timers),
+       batch 256, every pair decoded and cropped by the loader's threads;
+    3. ``FrameReader.read_raw`` timed at img_size 512 over the 16 frames,
+       and the JPEG fixture of the tests decoded by this machine's build.
+
+    Checks (any failure exits non-zero): the warmup's rotation loss finite
+    and below its first logged value; pose_cnn.npz and 16 finite init-cam
+    files, ``extract_cams_n`` 16; eval-000.png with the observed-image and
+    feature-error columns, no ``eval_render_error`` or unreadable eval
+    frame; K1/K2/dW launches exactly expected_calls("init", 200) in run 1
+    and expected_calls("init", FRAME_ROUTE_STEPS) in run 2, with finite
+    losses; the trained PoseCNN's forward on the card within 1e-4
+    (relative L2) of a CPU copy on one warmup batch; the fixture within one
+    level of cv2's stored pixels; ``extract_cams_valid`` strictly between 0
+    and 1 (the OOD check accepts the frames whose features are not mirrored
+    and rejects some that are). Reported, not gated: the CNN cameras' median
+    SO(3) error against the dataset's Cameras/."""
+    import copy
+
+    import numpy as np
+    import torch
+    from moda_tpu_torch.cli import train_app
+    from moda_tpu_torch.data import dataset as D
+    from moda_tpu_torch.data import frames as F
+    from moda_tpu_torch.data import imageio as IO
+    from moda_tpu_torch.data.pfm import read_pfm, write_pfm
+    from moda_tpu_torch.data.synth_mesh import MeshScene
+    from moda_tpu_torch.data.synthetic import write_frame_dataset, write_lines
+    from moda_tpu_torch.ops import fused_mlp as FM
+    from moda_tpu_torch.train import trainer as TT
+    from moda_tpu_torch.train.warmup_pose import render_pose_batch
+    from moda_tpu_torch.viz.render_vis import png_size
+
+    seq, db, cfg_dir = "flap-smoke", os.path.join(tmp, "cdb"), os.path.join(tmp, "ccfg")
+    parts = {}
+    t0 = time.perf_counter()
+    write_frame_dataset(db, cfg_dir, seq, MeshScene(img_size=COLDSTART_IMG,
+                                                    num_frames=COLDSTART_FRAMES))
+    for i in MIRRORED_CSE_FRAMES:
+        feat = os.path.join(db, "Densepose", "Full-Resolution", seq, "feat-%05d.pfm" % i)
+        write_pfm(feat, np.ascontiguousarray(read_pfm(feat)[0][:, ::-1]))
+    parts["write_frames_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    write_lines(db, seq, COLDSTART_IMG, D.build_datasets(seq, COLDSTART_IMG, cfg_dir))
+    parts["write_lines_s"] = time.perf_counter() - t0
+    prior = os.path.join(db, "Densepose", "Full-Resolution", seq, "prior.pkl")
+    base = ["--seqname", seq, "--config_dir", cfg_dir, "--checkpoint_dir",
+            os.path.join(tmp, "clog"), "--img_size", str(COLDSTART_IMG)] + COLDSTART_FLAGS
+    argv = base + ["--logname", "cold", "--lineload", "--prior_mesh_path", prior,
+                   "--warmup_pose_ep", "1"]
+    print(f"[coldstart] {COLDSTART_FRAMES} frames at {COLDSTART_IMG} px and their line shards "
+          f"written in {parts['write_frames_s']:.1f} + {parts['write_lines_s']:.1f} s; "
+          f"train_app flags {' '.join(argv[6:])}", flush=True)
+
+    FM.reset_launches()
+    t0 = time.perf_counter()
+    tr = train_app.main(argv)
+    torch.cuda.synchronize()
+    parts["run_s"] = time.perf_counter() - t0
+    calls = dict(FM.launches_by_call)
+    rows = [json.loads(line) for line in open(tr.log_path)]
+    warm = [r for r in rows if "warmup_pose_rot_loss" in r]
+    cams = [r for r in rows if "extract_cams_n" in r]
+    epoch = [r for r in rows if "epoch_time" in r]
+    step_rows = [r for r in rows if "total_loss" in r]
+    cam_dir = os.path.join(tr.save_dir, "init-cam")
+    cam_files = sorted(os.listdir(cam_dir)) if os.path.isdir(cam_dir) else []
+    pred = np.stack([np.loadtxt(os.path.join(cam_dir, f)) for f in cam_files]) \
+        if cam_files else np.zeros((0, 4, 4))
+    gt = np.stack([np.loadtxt(os.path.join(db, "Cameras", "Full-Resolution", seq, "%05d.txt" % i))
+                   for i in range(COLDSTART_FRAMES)])
+    so3 = _so3_deg(pred[:, :3, :3], gt[:len(pred), :3, :3]) if len(pred) else np.zeros(0)
+    grid_png = os.path.join(tr.save_dir, "eval-000.png")
+    grid_size = png_size(grid_png) if os.path.exists(grid_png) else None
+    rs = tr.cfg.render_size
+
+    # the trained CNN on the card against a CPU copy, on one warmup batch
+    net = tr.pose_cnn.net
+    feats, _ = render_pose_batch(tr.prior_verts_unit, tr.prior_faces, tr.prior_embeds,
+                                 tr.pose_cnn.d_mean, 16, np.random.default_rng(0))
+    with torch.no_grad():
+        cnn_card = net(torch.as_tensor(feats, device=tr.device)).cpu()
+        cnn_cpu = copy.deepcopy(net).cpu()(torch.as_tensor(feats))
+    cnn_err = rel_l2(cnn_card, cnn_cpu)
+    # the CNN's optimizer step alone (no host rendering), and a batch's rendering
+    rtk = torch.as_tensor(render_pose_batch(tr.prior_verts_unit, tr.prior_faces,
+                                            tr.prior_embeds, tr.pose_cnn.d_mean, 16,
+                                            np.random.default_rng(1))[1])
+    t0 = time.perf_counter()
+    for i in range(5):
+        render_pose_batch(tr.prior_verts_unit, tr.prior_faces, tr.prior_embeds,
+                          tr.pose_cnn.d_mean, 16, np.random.default_rng(i))
+    parts["render_pose_batch_s"] = (time.perf_counter() - t0) / 5
+    parts["cnn_step_ms"] = cuda_time(lambda: tr.pose_cnn.step(feats, rtk.numpy()), iters=20,
+                                     warmup=3)
+
+    # 2. the frame-decoding route
+    argv2 = base + ["--logname", "frames", "--use_rtk_file", "--render_size", "0"]
+    timer = _HostTimer(F.FrameReader.read_raw)
+    FM.reset_launches()
+    t0 = time.perf_counter()
+    with _patched([(TT, "ITERS_PER_EPOCH", FRAME_ROUTE_STEPS), (F.FrameReader, "read_raw", timer.timed)]):
+        tr2 = train_app.main(argv2)
+        torch.cuda.synchronize()
+    parts["frame_route_run_s"] = time.perf_counter() - t0
+    calls2 = dict(FM.launches_by_call)
+    rows2 = [json.loads(line) for line in open(tr2.log_path)]
+    ep2 = [r for r in rows2 if "epoch_time" in r]
+    steps2 = [r for r in rows2 if "total_loss" in r]
+    read_raw_s = timer.s / max(timer.n, 1)
+
+    # 3. read_raw at img_size 512, one thread; the JPEG fixture
+    reader = D.build_datasets(seq, READ_RAW_SIZE, cfg_dir)[0].reader
+    t0 = time.perf_counter()
+    for i in range(COLDSTART_FRAMES):
+        reader.read_raw(i, flowfw=i < COLDSTART_FRAMES - 1, dframe=1)
+    read_raw_512_s = (time.perf_counter() - t0) / COLDSTART_FRAMES
+    here = os.path.dirname(os.path.abspath(__file__))
+    z = np.load(os.path.join(here, "tests", "goldens", "torch_jpeg_fixture.npz"))
+    jpeg_err = int(max(np.abs(IO.decode_jpeg(z["jpeg"].tobytes()).astype(int) - z["rgb"]).max(),
+                       np.abs(IO.decode_jpeg(z["jpeg"].tobytes(), gray=True).astype(int)
+                              - z["grey"]).max()))
+
+    fail = []
+    w = warm[0] if len(warm) == 1 else {}
+    curve = w.get("warmup_pose_rot_loss_t", [])
+    if not (curve and math.isfinite(w["warmup_pose_rot_loss"])
+            and w["warmup_pose_rot_loss"] < curve[0]):
+        fail.append(f"pose warmup rotation loss {w.get('warmup_pose_rot_loss')} against its "
+                    f"first logged {curve[:1]}")
+    if not os.path.exists(os.path.join(tr.save_dir, "pose_cnn.npz")):
+        fail.append("no pose_cnn.npz")
+    if len(cam_files) != COLDSTART_FRAMES or not np.isfinite(pred).all() or \
+            not cams or cams[0]["extract_cams_n"] != COLDSTART_FRAMES:
+        fail.append(f"init-cam files {len(cam_files)}, extract_cams {cams}")
+    elif not 0 < cams[0]["extract_cams_valid"] < 1:
+        fail.append(f"the OOD check accepted a share {cams[0]['extract_cams_valid']} of the "
+                    f"frames, {len(MIRRORED_CSE_FRAMES)} of them with mirrored features")
+    want_grid = (3 * rs, 3 * rs * COLDSTART_COLUMNS)
+    if grid_size != want_grid:
+        fail.append(f"eval-000.png of size {grid_size}, not {want_grid}")
+    bad = [r for r in rows if "eval_render_error" in r or "eval_frames_unreadable" in r]
+    if bad:
+        fail.append(f"eval grid faults {bad}")
+    if not step_rows or not all(math.isfinite(r["total_loss"]) for r in step_rows):
+        fail.append("a logged step of the cold-start epoch is not finite")
+    want = expected_calls("init", TT.ITERS_PER_EPOCH)
+    if calls != want:
+        fail.append(f"cold-start launches by call site {calls} != {want}")
+    if not cnn_err <= 1e-4:
+        fail.append(f"the PoseCNN on the card is {cnn_err:.2e} from the CPU's")
+    want2 = expected_calls("init", FRAME_ROUTE_STEPS)
+    if calls2 != want2:
+        fail.append(f"frame-route launches by call site {calls2} != {want2}")
+    if not steps2 or not all(math.isfinite(r["total_loss"]) for r in steps2) or len(ep2) != 1:
+        fail.append(f"frame-route steps {steps2} epochs {len(ep2)}")
+    if not jpeg_err <= 1:
+        fail.append(f"the JPEG fixture decodes {jpeg_err} levels from cv2's pixels")
+
+    ep = epoch[0] if epoch else {}
+    out = {**parts, "warmup_pose_s": w.get("warmup_pose_time"),
+           "warmup_pose_rot_loss": w.get("warmup_pose_rot_loss"),
+           "warmup_pose_rot_loss_t": curve, "pose_cnn_rel_l2_vs_cpu": cnn_err,
+           "extract_cams_s": cams[0].get("extract_cams_time") if cams else None,
+           "extract_cams_valid": cams[0].get("extract_cams_valid") if cams else None,
+           "so3_median_deg": float(np.median(so3)) if len(so3) else None,
+           "so3_deg": [round(float(a), 2) for a in so3],
+           "epoch_s": ep.get("epoch_time"), "steps_s": ep.get("t_steps"),
+           "t_eval": ep.get("t_eval"), "t_load": ep.get("t_load"),
+           "eval_grid_size": list(grid_size) if grid_size else None,
+           "frame_route_t_load_per_step_s": ep2[0]["t_load"] / FRAME_ROUTE_STEPS if ep2 else None,
+           "frame_route_epoch_s": ep2[0]["epoch_time"] if ep2 else None,
+           "frame_route_split": {k: ep2[0][k] for k in ("t_load", "t_upload", "t_dispatch",
+                                                        "t_fetch", "t_mesh", "t_save")}
+           if ep2 else None,
+           "read_raw_s": read_raw_s, "read_raw_calls": timer.n,
+           "read_raw_512_s": read_raw_512_s, "jpeg_fixture_max_abs": jpeg_err, "card": card}
+    print(f"[coldstart] run 1 (train_app --lineload --warmup_pose_ep 1) {parts['run_s']:.2f} s: "
+          f"pose warmup {out['warmup_pose_s']} s ({TT.ITERS_PER_EPOCH} steps at batch 16; "
+          f"rotation loss {curve[:1]} -> {out['warmup_pose_rot_loss']}), CNN step "
+          f"{parts['cnn_step_ms']:.2f} ms alone, a batch's host rendering "
+          f"{parts['render_pose_batch_s'] * 1e3:.1f} ms; extract_cams_cnn "
+          f"{out['extract_cams_s']} s over {len(cam_files)} frames (valid share "
+          f"{out['extract_cams_valid']}); SO(3) error against Cameras/ median "
+          f"{out['so3_median_deg']} deg; epoch {out['epoch_s']} s (steps {out['steps_s']} s, "
+          f"t_load {out['t_load']}, t_eval {out['t_eval']}); eval grid {grid_size}; PoseCNN "
+          f"card against CPU rel L2 {cnn_err:.2e} ({card})", flush=True)
+    bs = COLDSTART_FLAGS[COLDSTART_FLAGS.index("--batch_size") + 1]
+    print(f"[coldstart] run 2 (the frame-decoding route, {FRAME_ROUTE_STEPS} steps at batch "
+          f"{bs}) {parts['frame_route_run_s']:.2f} s: t_load "
+          f"{out['frame_route_t_load_per_step_s']} s a step (epoch {out['frame_route_epoch_s']} s: "
+          f"{out['frame_route_split']}), read_raw {read_raw_s * 1e3:.1f} ms "
+          f"a call over {timer.n} calls in the loader's threads at img_size {COLDSTART_IMG}; "
+          f"read_raw at img_size {READ_RAW_SIZE} on one thread {read_raw_512_s * 1e3:.1f} ms; "
+          f"JPEG fixture max abs {jpeg_err}; launches {calls2}", flush=True)
+    if fail:
+        raise SystemExit("coldstart: " + "; ".join(fail))
+    for r in results:
+        n = sum(c.get(f"{counter_kind(r['name'], False)}:{site}:{nets_of(site)}", 0)
+                for c in (calls, calls2) for stage, site in r["runs"] if stage == "init")
+        r["launches"] += n
+        r["coldstart_launches"] = n
+    return out
+
+
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--profile", action="store_true",
@@ -1357,6 +1630,8 @@ def main():
         print(f"[time] trainer done at {time.time() - t0:.1f} s", flush=True)
         steps["extract"] = run_extract(card, tmp)
         print(f"[time] extraction and eval done at {time.time() - t0:.1f} s", flush=True)
+        steps["coldstart"] = run_coldstart(results, card, tmp)
+        print(f"[time] cold start and frame route done at {time.time() - t0:.1f} s", flush=True)
     for r in results:
         if r["launches"] == 0:
             raise SystemExit(f"{r['name']} was not launched on the main path")

@@ -4,6 +4,10 @@ The JAX parameter pytree (``MoDAModel.init``) and its checkpoint layout
 (``/``-joined keys, moda_tpu/train/ckpt.py) name every leaf the way the
 port's ``named_parameters()`` does with "." for "/", and Dense kernels are
 [in, out] on both sides, so no leaf is transposed. Arrays cross as numpy.
+
+The pose CNN (fields/cnn.py) is a torch conv net: ``load_pose_cnn`` and
+``export_pose_cnn`` move its Flax parameters by name, with conv kernels
+HWIO <-> OIHW, Dense kernels transposed and GroupNorm scale <-> weight.
 """
 from __future__ import annotations
 
@@ -65,3 +69,49 @@ def load_mvars(model, mvars) -> None:
         v = mvars[f] if isinstance(mvars, Mapping) else getattr(mvars, f)
         setattr(model.mvars, f, torch.as_tensor(np.asarray(v), dtype=torch.float32,
                                                 device=model.device))
+
+
+def _pose_cnn_leaves(module: torch.nn.Module):
+    """(JAX key, torch parameter, layout) of every leaf of a
+    fields/cnn.py module: Conv kernels HWIO <-> OIHW ("conv"), Dense kernels
+    [in, out] <-> [out, in] ("dense"), GroupNorm scale <-> weight."""
+    for mname, mod in module.named_modules():
+        prefix = mname.replace(".", "/") + "/" if mname else ""
+        if isinstance(mod, torch.nn.Conv2d):
+            yield prefix + "kernel", mod.weight, "conv"
+        elif isinstance(mod, torch.nn.Linear):
+            yield prefix + "kernel", mod.weight, "dense"
+        elif isinstance(mod, torch.nn.GroupNorm):
+            yield prefix + "scale", mod.weight, None
+        else:
+            continue
+        yield prefix + "bias", mod.bias, None
+
+
+def load_pose_cnn(module: torch.nn.Module, params: Mapping[str, Any]):
+    """Copy the JAX PoseCNN's parameter tree (nested or "/"-flattened) into
+    ``module`` (fields/cnn.py); every leaf must be present with its shape."""
+    flat = flatten(params)
+    with torch.no_grad():
+        for key, p, layout in _pose_cnn_leaves(module):
+            v = np.asarray(flat[key])
+            if layout == "conv":
+                v = v.transpose(3, 2, 0, 1)
+            elif layout == "dense":
+                v = v.T
+            if tuple(v.shape) != tuple(p.shape):
+                raise ValueError(f"{key}: JAX shape {v.shape} != port shape {tuple(p.shape)}")
+            p.copy_(torch.as_tensor(np.array(v), dtype=p.dtype))
+
+
+def export_pose_cnn(module: torch.nn.Module) -> Dict[str, Any]:
+    """The PoseCNN's parameters as the JAX package's nested numpy tree."""
+    flat = {}
+    for key, p, layout in _pose_cnn_leaves(module):
+        v = p.detach().cpu().numpy()
+        if layout == "conv":
+            v = v.transpose(2, 3, 1, 0)
+        elif layout == "dense":
+            v = v.T
+        flat[key] = np.ascontiguousarray(v)
+    return unflatten(flat)

@@ -12,15 +12,16 @@ checkpoint has cameras for, and writes the JAX package's export layout to
 ``<checkpoint_dir>/<logname>-export/`` (extract.py:24-136's save_output):
 ``<seq>-mesh-rest.obj``, ``<seq>-mesh-skin.obj`` and per frame
 ``<seq>-mesh-%05d.obj``, ``-cam-%05d.txt``, ``-ctrajs-%05d.txt`` and
-``-refsil-%05d.png``. Two differences, both deliberate: the rgb and
-silhouette animations are uint8 ``<seq>-rgb.npy`` / ``<seq>-sil.npy``
-frame stacks [N, H, W, 3], not gifs (no image library); the refsil size
-comes from the first mask PNG's header ((render_size, render_size) where
-there is none, as in the JAX package).
+``-refsil-%05d.png``. One difference, deliberate: the rgb and silhouette
+animations are uint8 ``<seq>-rgb.npy`` / ``<seq>-sil.npy`` frame stacks
+[N, H, W, 3], not gifs (no GIF encoder at hand). The refsil size is the
+first mask's ((render_size, render_size) where there is none), decoded by
+``data/imageio.py`` as the JAX package decodes it with cv2.
 
 It runs on the CUDA card; ``main(argv, device="cpu")`` runs on the CPU.
-Frames are read through the line-shard datasets (``Pixels/``); without
-them it refuses, naming the data slice.
+The videos' frame counts come from the frame datasets, as in the JAX
+package; building them reads no file, so a dataset with or without
+``Pixels/`` line shards takes the same route.
 """
 from __future__ import annotations
 
@@ -32,11 +33,12 @@ import torch
 
 from moda_tpu_torch.cli.flags import parse_config
 from moda_tpu_torch.config import DataInfo, load_seq_config
-from moda_tpu_torch.data.dataset import build_line_datasets, data_offsets
+from moda_tpu_torch.data.dataset import build_datasets, data_offsets
+from moda_tpu_torch.data.imageio import imread
 from moda_tpu_torch.extract.mesh import Mesh, extract_mesh, make_warp_fw_frames, skin_colors
 from moda_tpu_torch.render.evalrender import make_frame_renderer
 from moda_tpu_torch.train.trainer import Trainer
-from moda_tpu_torch.viz.render_vis import mesh_silhouette, png_size, save_frames, save_png
+from moda_tpu_torch.viz.render_vis import mesh_silhouette, save_frames, save_png
 
 WARP_GROUP = 4  # frames per warp call (the JAX package's group on one device)
 
@@ -56,10 +58,12 @@ def parse_test_frames(spec: str, offsets) -> list:
 
 
 def _mask_size(seq, rs: int):
-    """(H, W) of a video's first mask (Annotations/ PNG), or (rs, rs)."""
+    """(H, W) of a video's first mask (Annotations/ PNG), or (rs, rs) where
+    it is missing or not an image."""
     first = seq.image_list()[0]
-    path = first.replace("JPEGImages", "Annotations").rsplit(".", 1)[0] + ".png"
-    return png_size(path) if os.path.exists(path) else (rs, rs)
+    mask = imread(first.replace("JPEGImages", "Annotations").rsplit(".", 1)[0] + ".png",
+                  gray=True)
+    return mask.shape if mask is not None else (rs, rs)
 
 
 def main(argv=None, device=None) -> Trainer:
@@ -69,13 +73,8 @@ def main(argv=None, device=None) -> Trainer:
     if not cfg.model_path:
         raise SystemExit("--model_path is required for extraction")
     seqs = load_seq_config(cfg.seqname, cfg.config_dir)
-    pixels = seqs[0].image_list()[0].replace("JPEGImages", "Pixels").rsplit("/", 1)[0]
-    if not os.path.isdir(pixels):
-        raise NotImplementedError("extraction from a dataset without Pixels/ line shards (the "
-                                  "frame-decoding route) is ported in a later slice of "
-                                  "moda_tpu_torch (the data slice)")
-    datasets = build_line_datasets(cfg.seqname, cfg.img_size, cfg.config_dir,
-                                   rtk_base=cfg.rtk_path or None)
+    datasets = build_datasets(cfg.seqname, cfg.img_size, cfg.config_dir,
+                              rtk_base=cfg.rtk_path or None)
     offsets = data_offsets(datasets)
     info = DataInfo(offset=offsets, intrinsics=tuple(tuple(s.ks) for s in seqs))
     trainer = Trainer(cfg, info, loader=None, device=device)

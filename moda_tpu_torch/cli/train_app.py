@@ -1,19 +1,22 @@
 """Training entry point: counterpart of moda_tpu/cli/train_app.py (the
-reference's main.py) for the line-shard route.
+reference's main.py).
 
   python -m moda_tpu_torch.cli.train_app --seqname <seq> --logname <name> \\
       --num_epochs 120 --lineload --batch_size 256 --warmup_shape_ep 5 \\
       --warmup_rootmlp --eikonal_wt 0.001 --nsample 4 --noppr_eikonal
 
 (stage 1 of scripts/template.sh). It trains on the CUDA card;
-``main(argv, device="cpu")`` runs the plain path on the CPU. The eval
-grid (``--render_size``, 64 by default) renders the full raw frames: the
-line-shard datasets have no frame reader for its observed columns
-(``eval_datasets=None``; the JAX package builds them with the
-frame-decoding route).
-Refused, each naming the later slice that ports it: a dataset without
-``Pixels/`` line shards (the frame-decoding route), more than one
-process, and the trainer's and the step's unported flags
+``main(argv, device="cpu")`` runs the plain path on the CPU. With
+``--lineload`` and ``Pixels/`` line shards it trains from the shards;
+otherwise it decodes the frames (``data/dataset.py::build_datasets``, the
+frame-decoding route). Either way the eval grid reads its observed columns
+through frame datasets at ``--render_size`` (``eval_datasets``), as the JAX
+package does; a video without frames, or ``--render_size 0``, leaves the
+grid without them (logged where frames are missing).
+With ``--warmup_pose_ep`` > 0 and a template prior, the trainer's cold start
+trains the pose CNN and takes the cameras from it.
+Refused, naming the later slice that ports it: more than one process and
+the trainer's and the step's unported flags
 (``train/trainer.py::check_ported``).
 """
 from __future__ import annotations
@@ -23,17 +26,34 @@ import sys
 
 import numpy as np
 
+from moda_tpu_torch.data.dataset import (PairLoader, build_datasets, build_line_datasets,
+                                         data_offsets)
+
 
 def _num_processes() -> int:
     """The process count that torch's launchers (torchrun) set."""
     return int(os.environ.get("WORLD_SIZE") or 1)
 
 
+def _eval_datasets(cfg):
+    """Frame datasets at render_size for the eval grid's observed columns
+    (train_utils.py:140), or None where the grid is off (render_size 0) or a
+    video has no frames. None lets the cold start read the loader's frame
+    datasets at img_size instead."""
+    if cfg.render_size <= 0:
+        return None
+    try:
+        return build_datasets(cfg.seqname, cfg.render_size, cfg.config_dir,
+                              rtk_base=cfg.rtk_path or None)
+    except FileNotFoundError as e:
+        print(f"train_app: the eval grid has no observed columns ({e})")
+        return None
+
+
 def main(argv=None, device=None):
     """Train from the flags in ``argv``; returns the Trainer."""
     from moda_tpu_torch.cli.flags import parse_config
     from moda_tpu_torch.config import DataInfo, load_seq_config
-    from moda_tpu_torch.data.dataset import PairLoader, build_line_datasets, data_offsets
     from moda_tpu_torch.train.trainer import Trainer, check_ported
 
     if _num_processes() > 1:
@@ -42,13 +62,17 @@ def main(argv=None, device=None):
     cfg = parse_config(argv)
     check_ported(cfg)
     seqs = load_seq_config(cfg.seqname, cfg.config_dir)
-    pixels = seqs[0].image_list()[0].replace("JPEGImages", "Pixels").rsplit("/", 1)[0]
-    if not (cfg.lineload and os.path.isdir(pixels)):
-        raise NotImplementedError("training without --lineload and Pixels/ line shards (the "
-                                  "frame-decoding route) is ported in a later slice of "
-                                  "moda_tpu_torch (the data slice)")
-    datasets = build_line_datasets(cfg.seqname, cfg.img_size, cfg.config_dir,
-                                   rtk_base=cfg.rtk_path or None)
+    imgs = seqs[0].image_list()
+    if not imgs:
+        raise FileNotFoundError(f"no frames under {seqs[0].datapath}")
+    pixels = imgs[0].replace("JPEGImages", "Pixels").rsplit("/", 1)[0]
+    # lineload: the reference's pre-sharded pixel rows when present
+    if cfg.lineload and os.path.isdir(pixels):
+        datasets = build_line_datasets(cfg.seqname, cfg.img_size, cfg.config_dir,
+                                       rtk_base=cfg.rtk_path or None)
+    else:
+        datasets = build_datasets(cfg.seqname, cfg.img_size, cfg.config_dir,
+                                  rtk_base=cfg.rtk_path or None)
     info = DataInfo(offset=data_offsets(datasets), intrinsics=tuple(tuple(s.ks) for s in seqs))
     # host-side pixel sampling: nsample uniform slots + the 4x active
     # candidate pool per entry
@@ -56,7 +80,8 @@ def main(argv=None, device=None):
                         num_threads=cfg.n_data_workers,
                         num_prefetch=max(4, cfg.n_data_workers), npix=5 * cfg.nsample)
     try:
-        trainer = Trainer(cfg, info, loader=loader, seed=cfg.seed, device=device)
+        trainer = Trainer(cfg, info, loader=loader, seed=cfg.seed, device=device,
+                          eval_datasets=_eval_datasets(cfg))
         # canonical template prior (moda.py:405-445)
         if cfg.prior_mesh_path:
             trainer.load_prior_mesh(cfg.prior_mesh_path)

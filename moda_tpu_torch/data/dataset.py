@@ -1,33 +1,101 @@
-"""Line-shard datasets and the pair batcher: the ``--lineload`` route of
-the recipe (scripts/template.sh:21). Counterpart of part of
-moda_tpu/data/dataset.py (utils/io.py:277-518 + dataloader/frameloader.py):
+"""Datasets and the pair batcher. Counterpart of moda_tpu/data/dataset.py
+(utils/io.py:277-518 + dataloader/frameloader.py):
 
+- ``VideoDataset`` and ``build_datasets``: the frame-decoding route, a pair
+  of frames read and cropped through ``data/frames.py::FrameReader`` per
+  sample (vidbase.load_data);
 - ``LineShardDataset`` reads the reference's pre-sharded pixel rows
-  (``Pixels/<seq>/<dframe>_<frameid>/%04d.npy``), and ``preload_dense``
-  turns them into dense arrays so a batch is numpy gathers;
-- ``PairLoader`` assembles [2B, C, npix] batches in worker threads from
-  the dense arrays, or full-width rows pair by pair when no ``npix`` is
-  given. The dense route raises when the shards cannot be preloaded, and
-  a worker's fault reaches the caller of ``next``.
+  (``Pixels/<seq>/<dframe>_<frameid>/%04d.npy``, the ``--lineload`` route of
+  scripts/template.sh:21), and ``preload_dense`` turns them into dense
+  arrays so a batch is numpy gathers;
+- ``PairLoader`` assembles [2B, C, npix] batches in worker threads: from
+  the dense arrays when every dataset is a line-shard dataset and ``npix``
+  is given, else pair by pair through ``sample_pair`` (``collate_pairs``).
+  The dense route raises when the shards cannot be preloaded, and a
+  worker's fault (a shard or frame that cannot be read) reaches the caller
+  of ``next``; the JAX loader substitutes pair 0 for a pair that fails to
+  load (dataset.py:251-255), the port does not.
 
-The frame-decoding route (``VideoDataset``, ``build_datasets``,
-``data/frames.py``) waits for a later slice of the port. ``PairLoader``
-has no ``next_chunk``: the port's trainer dispatches one step at a time.
-``close()`` stops and joins its workers, and a worker never drops a batch
-it drew, so one worker gives one batch sequence per seed.
+``PairLoader`` has no ``next_chunk``: the port's trainer dispatches one
+step at a time. ``close()`` stops and joins its workers, and a worker never
+drops a batch it drew, so one worker gives one batch sequence per seed.
 """
 from __future__ import annotations
 
 import os
 import queue
 import threading
+from dataclasses import dataclass
 from typing import Dict, List, Optional
 
 import numpy as np
 
 from moda_tpu_torch.config import load_seq_config
+from moda_tpu_torch.data.frames import FramePaths, FrameReader
 
 DFRAME_CANDIDATES = [2, 4, 8, 16, 32]
+
+
+@dataclass
+class VideoDataset:
+    """One video: frame pair access (vidbase.load_data equivalent)."""
+
+    reader: FrameReader
+    dataid: int
+    num_frames: int
+
+    @property
+    def rtklist(self) -> List[str]:
+        """The per-frame camera files (as LineShardDataset.rtklist)."""
+        return self.reader.paths.rtklist
+
+    def sample_pair(self, rng: np.random.Generator, idx: Optional[int] = None) -> Dict:
+        max_id = self.num_frames - 1
+        if idx is None:
+            idx = int(rng.integers(0, max_id))
+        fw = bool(rng.integers(0, 2)) if 0 < idx < max_id else (idx < max_id)
+        dir_fac = 1 if fw else -1
+        cands = [1] + [d for d in DFRAME_CANDIDATES
+                       if idx % d == 0 and 0 <= idx + d * dir_fac <= max_id]
+        dframe = int(rng.choice(cands))
+        i0, i1 = idx, idx + dframe * dir_fac
+
+        d0 = self.reader.read_raw(i0, flowfw=fw, dframe=dframe)
+        d1 = self.reader.read_raw(i1, flowfw=not fw, dframe=dframe)
+        flow, flown, occ, occn = self.reader.flow_process(d0, d1)
+
+        def pack(d, fl, oc):
+            return {
+                "imgs": d["img"].reshape(-1, 3).T,         # [3, P]
+                "masks": (d["mask"] * d["vis2d"] > 0).astype(np.float32).reshape(1, -1),
+                "vis2d": d["vis2d"].reshape(1, -1).astype(np.float32),
+                "flow": fl.reshape(-1, 2).T,
+                "occ": oc.reshape(1, -1),
+                "dp_feats": d["dp_feat_rsmp"].reshape(16, -1),
+                "dps": d["dp"].reshape(1, -1),
+                "rtk": d["rtk"].astype(np.float32),
+                "kaug": d["kaug"].astype(np.float32),
+            }
+
+        return {
+            "frames": (pack(d0, flow, occ), pack(d1, flown, occn)),
+            "frameid": np.asarray([i0, i1], np.int32),
+            "dataid": np.asarray([self.dataid, self.dataid], np.int32),
+        }
+
+
+def build_datasets(seqname: str, img_size: int, config_dir: str = "configs",
+                   rtk_base: Optional[str] = None) -> List[VideoDataset]:
+    """Parse configs/<seqname>.config into per-video datasets."""
+    out = []
+    for i, s in enumerate(load_seq_config(seqname, config_dir)):
+        imgs = s.image_list()
+        if not imgs:
+            raise FileNotFoundError(f"no frames under {s.datapath}")
+        rtk_path = rtk_base + "/" + imgs[0].split("/")[-2] if rtk_base else s.rtk_path
+        reader = FrameReader(FramePaths.from_imglist(imgs, rtk_path), img_size, s.flip)
+        out.append(VideoDataset(reader=reader, dataid=i, num_frames=len(imgs)))
+    return out
 
 
 def data_offsets(datasets) -> tuple:
@@ -118,12 +186,13 @@ class PairLoader:
     """Random pair batches with thread prefetch; per-process sharding by
     disjoint RNG streams (replaces DistributedSampler).
 
-    npix: when set, batches are npix pixel columns per entry, gathered from
-    the datasets' dense arrays (preload_dense, which raises if the shards
-    cannot be read); when None, full-width rows are collated pair by pair
-    (collate_pairs)."""
+    npix: when set, batches are npix pixel columns per entry: gathered from
+    the datasets' dense arrays when every dataset is a line-shard dataset
+    (preload_dense, which raises if the shards cannot be read), else
+    sampled while the pairs are collated (collate_pairs); when None, full
+    rows or frames are collated pair by pair."""
 
-    def __init__(self, datasets: List["LineShardDataset"], batch_size: int,
+    def __init__(self, datasets: list, batch_size: int,
                  seed: int = 0, process_index: int = 0, num_prefetch: int = 4,
                  num_threads: int = 4, npix: Optional[int] = None):
         self.npix = npix
@@ -133,7 +202,8 @@ class PairLoader:
         self.rng = np.random.default_rng(seed * 1000 + process_index)
         # dense route: batch assembly is vectorized numpy gathers instead of
         # 2*B per-row sample_pair calls
-        self._dense = npix is not None
+        self._dense = npix is not None and all(isinstance(d, LineShardDataset)
+                                               for d in datasets)
         if self._dense:
             for d in datasets:
                 d.preload_dense()
@@ -181,15 +251,19 @@ class PairLoader:
             [p["pix_ids"][len(p["lineid"]):] for _, p in parts], 0)
         return batch
 
-    def _sample_batch(self) -> Dict[str, np.ndarray]:
+    def _sample_batch(self) -> Optional[Dict[str, np.ndarray]]:
+        """One batch; None when the loader stops while the pairs are read."""
         if self._dense:
             return self._sample_batch_dense()
         with self._lock:
             picks = [int(self.rng.integers(0, len(self.datasets)))
                      for _ in range(self.batch_size)]
             seeds = self.rng.integers(0, 2**31, size=self.batch_size + 1)
-        pairs = [self.datasets[ds_idx].sample_pair(np.random.default_rng(int(s)))
-                 for ds_idx, s in zip(picks, seeds)]
+        pairs = []
+        for ds_idx, s in zip(picks, seeds):
+            if self._stop.is_set():  # a frame batch takes seconds: stop between pairs
+                return None
+            pairs.append(self.datasets[ds_idx].sample_pair(np.random.default_rng(int(s))))
         return collate_pairs(pairs, self.offsets, npix=self.npix,
                              rng=np.random.default_rng(int(seeds[-1])))
 
@@ -202,7 +276,7 @@ class PairLoader:
             except Exception as e:  # handed to the caller of __next__
                 self._error = e
                 return
-            while not self._stop.is_set():
+            while batch is not None and not self._stop.is_set():
                 try:
                     self.q.put(batch, timeout=1.0)
                     break

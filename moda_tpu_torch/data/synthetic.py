@@ -1,6 +1,10 @@
 """Synthetic scene generator: analytic SDF scenes with exact GT.
-The port's copy of moda_tpu/data/synthetic.py, plus ``write_line_dataset``,
-which stores a scene as an on-disk line-shard dataset for the trainer.
+The port's copy of moda_tpu/data/synthetic.py, plus three writers of
+on-disk datasets for the trainer: ``write_line_dataset`` (line shards of
+full frames), ``write_frame_dataset`` (the DAVIS layout that
+tools/make_synth_dataset.py writes) and ``write_lines`` (line shards cut
+from a frame dataset through the frame reader, preproc/pipeline.py's
+``write_lines``).
 
 Role of scripts/synthetic/render_synthetic.py in the reference (which
 rasterizes eagle/hands meshes with SoftRas to produce GT cameras/flow for
@@ -17,6 +21,7 @@ from typing import Dict, List
 
 import numpy as np
 
+from moda_tpu_torch.data.pfm import write_pfm
 from moda_tpu_torch.extract.mesh import Mesh
 from moda_tpu_torch.native import marching_cubes
 
@@ -234,15 +239,7 @@ def write_line_dataset(root: str, config_dir: str, seqname: str, scene: SynthSce
     for i, f in enumerate(frames):
         np.zeros(1, np.uint8).tofile(os.path.join(dirs["JPEGImages"], "%05d.jpg" % i))
         np.savetxt(os.path.join(dirs["Cameras"], "%05d.txt" % i), f["rtk"])
-    n, half = 64, 1.5 * scene.radius
-    lin = np.linspace(-half, half, n).astype(np.float32)
-    grid = np.stack(np.meshgrid(lin, lin, lin, indexing="ij"), -1).reshape(-1, 3)
-    for i in range(scene.num_frames):
-        sdf = -scene.sdf(grid, i / max(scene.num_frames - 1, 1)).reshape(n, n, n)
-        v, tris = marching_cubes(sdf.astype(np.float32), 0.0)
-        v = (v - n / 2.0) / n * 2.0 * half
-        Mesh(v.astype(np.float32), tris).export_obj(
-            os.path.join(dirs["Meshes"], "mesh-%05d.obj" % i))
+    _write_sdf_meshes(dirs["Meshes"], scene)
 
     def chans(f, flow):  # reference row keys -> [C, S, S]
         return {"img": f["img"].transpose(2, 0, 1), "mask": f["mask"][None],
@@ -265,11 +262,155 @@ def write_line_dataset(root: str, config_dir: str, seqname: str, scene: SynthSce
                     {k: np.stack([c0[k][:, row], c1[k][:, row]]).astype(np.float32)[None]
                      for k in c0})
 
+    return _write_config(config_dir, seqname, dirs["JPEGImages"], scene)
+
+
+def _write_sdf_meshes(mesh_dir: str, scene: SynthScene):
+    """Ground-truth surface of each frame of the ellipsoid scene: marching
+    tetrahedra on the negated SDF over a 64^3 grid of +-1.5 radius, object
+    coordinates (the ellipsoid branch of tools/make_synth_dataset.py)."""
+    n, half = 64, 1.5 * scene.radius
+    lin = np.linspace(-half, half, n).astype(np.float32)
+    grid = np.stack(np.meshgrid(lin, lin, lin, indexing="ij"), -1).reshape(-1, 3)
+    for i in range(scene.num_frames):
+        sdf = -scene.sdf(grid, i / max(scene.num_frames - 1, 1)).reshape(n, n, n)
+        v, tris = marching_cubes(sdf.astype(np.float32), 0.0)
+        v = (v - n / 2.0) / n * 2.0 * half
+        Mesh(v.astype(np.float32), tris).export_obj(os.path.join(mesh_dir, "mesh-%05d.obj" % i))
+
+
+def _write_config(config_dir: str, seqname: str, img_dir: str, scene: SynthScene) -> str:
+    """``<config_dir>/<seq>.config`` with the scene's exact intrinsics."""
+    S = scene.img_size
     os.makedirs(config_dir, exist_ok=True)
     fpx = scene.focal * S / 2.0
     path = os.path.join(config_dir, f"{seqname}.config")
     with open(path, "w") as fo:
         fo.write("[data]\ndframe = 1\ninit_frame = 0\nend_frame = -1\ncan_frame = -1\n\n")
         fo.write(f"[data_0]\nks = {fpx} {fpx} {S / 2} {S / 2}\n")
-        fo.write(f"datapath = {dirs['JPEGImages']}/\n")
+        fo.write(f"datapath = {img_dir}/\n")
     return path
+
+
+FLOW_DFRAMES = (1, 2, 4, 8)  # the loader's dframes that the fixture gives flow for
+
+
+def write_frame_dataset(root: str, config_dir: str, seqname: str, scene: SynthScene) -> str:
+    """Store ``scene`` (a SynthScene or a data/synth_mesh.py MeshScene) as a
+    DAVIS-layout dataset under ``root``, as tools/make_synth_dataset.py:64-125
+    does, for the frame-decoding route:
+
+    - ``JPEGImages/Full-Resolution/<seq>/%05d.jpg``: the frames, as PNG bytes
+      under their DAVIS names (no JPEG encoder is at hand; the port's reader
+      and cv2.imread tell the format by its first bytes);
+    - ``Annotations/.../%05d.png``: the masks at 128 (grey PNG);
+    - ``FlowFW_<d>/``, ``FlowBW_<d>/`` for d in FLOW_DFRAMES: ground-truth
+      ``flo-%05d.pfm`` in pixels and ``occ-%05d.pfm`` (the source frame's mask);
+    - ``Densepose/...``: vertex maps ``%05d.pfm`` (a MeshScene's nearest
+      rest-vertex ids, ``MeshScene.vertex_ids``; zeros for a SynthScene,
+      as the tool writes for every scene), the 16-d features of a
+      tight object-bbox crop resized to 112 x 112 (``feat-%05d.pfm``, the
+      reference's compute_dp.py crop) and that bbox (``bbox-%05d.txt``), and
+      ``prior.pkl`` (rest vertices, faces and embeddings) for a MeshScene;
+    - ``Cameras/.../%05d.txt`` and ground-truth ``Meshes/.../mesh-%05d.obj``
+      (camera space and ``mesh-rest.obj`` for a MeshScene, the SDF's
+      surface in object coordinates for a SynthScene);
+    - ``<config_dir>/<seq>.config`` with the exact intrinsics.
+    Returns the config path."""
+    import pickle
+
+    from moda_tpu_torch.data import imageio as IO
+    from moda_tpu_torch.viz.render_vis import save_png
+
+    S = scene.img_size
+    dirs = {k: os.path.join(root, k, "Full-Resolution", seqname)
+            for k in ("JPEGImages", "Annotations", "Cameras", "Densepose", "Meshes")}
+    for d in dirs.values():
+        os.makedirs(d, exist_ok=True)
+    frames = [scene.render_frame(i) for i in range(scene.num_frames)]
+    if hasattr(scene, "rest_verts"):
+        with open(os.path.join(dirs["Densepose"], "prior.pkl"), "wb") as fpk:
+            pickle.dump({"vertices": scene.rest_verts, "faces": scene.faces,
+                         "embeddings": scene.vert_feats}, fpk)
+    for i, f in enumerate(frames):
+        save_png(os.path.join(dirs["JPEGImages"], "%05d.jpg" % i),
+                 (f["img"] * 255).astype(np.uint8))
+        save_png(os.path.join(dirs["Annotations"], "%05d.png" % i),
+                 (f["mask"] * 128).astype(np.uint8))
+        np.savetxt(os.path.join(dirs["Cameras"], "%05d.txt" % i), f["rtk"])
+        ys, xs = np.where(f["mask"] > 0)
+        if len(xs) >= 4:
+            bx0, bx1 = int(xs.min()), int(xs.max()) + 1
+            by0, by1 = int(ys.min()), int(ys.max()) + 1
+        else:
+            bx0, by0, bx1, by1 = 0, 0, S, S
+        feat112 = IO.resize(f["feat"][by0:by1, bx0:bx1], (112, 112)).transpose(2, 0, 1)
+        write_pfm(os.path.join(dirs["Densepose"], "feat-%05d.pfm" % i),
+                  feat112.reshape(16 * 112, 112))
+        np.savetxt(os.path.join(dirs["Densepose"], "bbox-%05d.txt" % i),
+                   np.asarray([bx0, by0, bx1, by1], np.float32))
+        # vertex ids at (id + 0.5) / 50 on the mask, so that read_raw's
+        # truncating `* 50` gives each id back
+        dp = (scene.vertex_ids(f) + 0.5) * 0.02 * (f["mask"] > 0) \
+            if hasattr(scene, "vertex_ids") else np.zeros((S, S))
+        write_pfm(os.path.join(dirs["Densepose"], "%05d.pfm" % i), dp.astype(np.float32))
+
+    for d in FLOW_DFRAMES:
+        fw_dir = os.path.join(root, f"FlowFW_{d}", "Full-Resolution", seqname)
+        bw_dir = os.path.join(root, f"FlowBW_{d}", "Full-Resolution", seqname)
+        os.makedirs(fw_dir, exist_ok=True)
+        os.makedirs(bw_dir, exist_ok=True)
+        for i in range(0, scene.num_frames - d, d):
+            flo_fw = scene.flow_between(frames[i], frames[i + d], i + d) * S / 2.0
+            flo_bw = scene.flow_between(frames[i + d], frames[i], i) * S / 2.0
+            for out_dir, k, flo, occ in ((fw_dir, i, flo_fw, frames[i]["mask"]),
+                                         (bw_dir, i + d, flo_bw, frames[i + d]["mask"])):
+                write_pfm(os.path.join(out_dir, "flo-%05d.pfm" % k),
+                          np.concatenate([flo, np.zeros_like(flo[..., :1])], -1))
+                write_pfm(os.path.join(out_dir, "occ-%05d.pfm" % k), occ.astype(np.float32))
+
+    if hasattr(scene, "gt_mesh_cam"):
+        for i in range(scene.num_frames):
+            Mesh(*scene.gt_mesh_cam(i)).export_obj(
+                os.path.join(dirs["Meshes"], "mesh-%05d.obj" % i))
+        Mesh(*scene.gt_mesh_rest()).export_obj(os.path.join(dirs["Meshes"], "mesh-rest.obj"))
+    else:
+        _write_sdf_meshes(dirs["Meshes"], scene)
+    return _write_config(config_dir, seqname, dirs["JPEGImages"], scene)
+
+
+def write_lines(database_root: str, seqname: str, img_size: int, datasets) -> None:
+    """Line shards (preprocess/img2lines.py:33-107) cut from frame datasets
+    (data/dataset.py::VideoDataset): ``Pixels/Full-Resolution/<seq>/1_%05d/
+    %04d.npy`` per row of the pair (i, i+1) read through the frame reader
+    at dframe 1, reference key names, pair-stacked [1, 2, C, W], plus
+    ``rtk.npy`` {'rtk', 'kaug'}. The JAX package's preproc/pipeline.py::
+    write_lines stores ``sample_pair(rng(i), idx=i)`` there, a pair of
+    random direction and dframe under the dframe-1 name; this one stores
+    the pair its name says."""
+    out_base = os.path.join(database_root, "Pixels", "Full-Resolution", seqname)
+    for ds in datasets:
+        reader = ds.reader
+        for i in range(ds.num_frames - 1):
+            d0 = reader.read_raw(i, flowfw=True, dframe=1)
+            d1 = reader.read_raw(i + 1, flowfw=False, dframe=1)
+            flow, flown, occ, occn = reader.flow_process(d0, d1)
+            rows = {}
+            for k, (a, b) in {"img": (d0["img"], d1["img"]), "flow": (flow, flown),
+                              "mask": ((d0["mask"] * d0["vis2d"] > 0),
+                                       (d1["mask"] * d1["vis2d"] > 0)),
+                              "vis2d": (d0["vis2d"], d1["vis2d"]), "occ": (occ, occn),
+                              "dp_feat_rsmp": (d0["dp_feat_rsmp"].transpose(1, 2, 0),
+                                               d1["dp_feat_rsmp"].transpose(1, 2, 0)),
+                              "dp": (d0["dp"], d1["dp"])}.items():
+                # [S, S(, C)] -> [S rows, 2, C, S]
+                pair = np.stack([np.asarray(a, np.float32), np.asarray(b, np.float32)], 1)
+                rows[k] = pair.reshape(img_size, 2, img_size, -1).transpose(0, 1, 3, 2)
+            dirname = os.path.join(out_base, f"1_{i:05d}")
+            os.makedirs(dirname, exist_ok=True)
+            np.save(os.path.join(dirname, "rtk.npy"),
+                    {"rtk": np.stack([d0["rtk"], d1["rtk"]]).astype(np.float32)[None],
+                     "kaug": np.stack([d0["kaug"], d1["kaug"]])[None]})
+            for row in range(img_size):
+                np.save(os.path.join(dirname, "%04d.npy" % row),
+                        {k: v[row][None] for k, v in rows.items()})

@@ -1,8 +1,11 @@
 """Host-side native components, built with g++ on first use into
 ``moda_tpu_torch/_build/`` and loaded through ctypes: the marching
 tetrahedra isosurface of the rest-mesh extraction (the reference's
-PyMCubes, train_utils.py:19,1441) and the z-buffer rasterizer of the
-silhouette export. Counterpart of moda_tpu/native/__init__.py."""
+PyMCubes, train_utils.py:19,1441), the z-buffer rasterizer of the
+silhouette export and the pose-CNN warmup, and the image codec of the
+frame reader (``imgcodec.cpp``: JPEG decoding, PNG unfiltering, cv2's
+resize and remap; ``data/imageio.py`` wraps it). Counterpart of
+moda_tpu/native/__init__.py."""
 from __future__ import annotations
 
 import ctypes
@@ -59,6 +62,22 @@ def _declare(name: str, lib):
         ]
         lib.mt_free.argtypes = [ctypes.POINTER(ctypes.c_float),
                                 ctypes.POINTER(ctypes.c_int32)]
+    elif name == "imgcodec":
+        u8p, f32p = ctypes.POINTER(ctypes.c_uint8), ctypes.POINTER(ctypes.c_float)
+        ip = ctypes.POINTER(ctypes.c_int)
+        lib.jpeg_size.restype = ctypes.c_int
+        lib.jpeg_size.argtypes = [u8p, ctypes.c_int64, ip, ip, ip, ctypes.c_char_p, ctypes.c_int]
+        lib.jpeg_decode.restype = ctypes.c_int
+        lib.jpeg_decode.argtypes = [u8p, ctypes.c_int64, ctypes.c_int, u8p, ctypes.c_int,
+                                    ctypes.c_int, ctypes.c_char_p, ctypes.c_int]
+        lib.png_unfilter.restype = ctypes.c_int
+        lib.png_unfilter.argtypes = [u8p, ctypes.c_int64, ctypes.c_int64, ctypes.c_int, u8p]
+        lib.resize_f32.restype = None
+        lib.resize_f32.argtypes = [f32p, ctypes.c_int, ctypes.c_int, ctypes.c_int, f32p,
+                                   ctypes.c_int, ctypes.c_int, ctypes.c_int]
+        lib.remap_f32.restype = None
+        lib.remap_f32.argtypes = [f32p, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                                  f32p, f32p, ctypes.c_int64, f32p, ctypes.c_int, ctypes.c_int]
     else:
         lib.rasterize.restype = None
         lib.rasterize.argtypes = [
@@ -72,7 +91,8 @@ def _declare(name: str, lib):
 
 
 def _load(name: str):
-    """The library built from ``<name>.cpp`` ("marching" or "raster")."""
+    """The library built from ``<name>.cpp`` ("marching", "raster" or
+    "imgcodec")."""
     with _LOCK:
         if name not in _LIBS:
             lib = ctypes.CDLL(str(_compile(name)))

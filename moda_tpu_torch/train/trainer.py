@@ -1,7 +1,8 @@
 """Trainer: the optimization schedule around the train step. Counterpart of
 moda_tpu/train/trainer.py (train_utils.py:64-1543, v2s_trainer) for stage 1
 of the recipe: the epoch loop with per-epoch rest-mesh extraction and
-hyperparameter resets, shape warmup, root-table preset from the cameras,
+hyperparameter resets, shape warmup, the pose-CNN cold start (warmup_pose
+-> extract_cams_cnn), root-table preset from the cameras,
 k-means bone re-initialization, the silhouette-outlier history, near/far
 management, checkpoints, the explosion rollback and the per-epoch eval
 renders.
@@ -38,6 +39,7 @@ from moda_tpu_torch import bridge
 from moda_tpu_torch.config import DataInfo, MoDAConfig
 from moda_tpu_torch.core import quat as Q
 from moda_tpu_torch.core import skinning as SK
+from moda_tpu_torch.data import imageio as IO
 from moda_tpu_torch.data.synthetic import feat_bank_encode
 from moda_tpu_torch.extract.mesh import Mesh, extract_mesh, make_grid_query
 from moda_tpu_torch.fields.model import MoDAModel
@@ -49,6 +51,8 @@ from moda_tpu_torch.train import ckpt as CK
 from moda_tpu_torch.train import schedule as SCH
 from moda_tpu_torch.train.optim import MoDAOptimizer, group_of
 from moda_tpu_torch.train.step import StepExtras, make_train_step
+from moda_tpu_torch.train.warmup_pose import (PoseWarmup, nearest_valid_substitution,
+                                              ood_check_features)
 from moda_tpu_torch.viz.render_vis import draw_cams, save_png, unit_sphere
 
 ITERS_PER_EPOCH = 200  # train_utils.py:933
@@ -65,8 +69,6 @@ def check_ported(cfg: MoDAConfig):
     own unported flags (nerf_dis, flowbw, ft_cse; accu_steps > 1,
     s3im_loss, freeze_coarse) when they are built or run."""
     for flag, what, where in (
-            (cfg.warmup_pose_ep > 0, "warmup_pose_ep > 0 (the pose-CNN warmup)",
-             "the cold-start slice"),
             (cfg.steps_chunk > 1, "steps_chunk > 1 (K steps per dispatch)",
              "the host-side step slice"),
             (cfg.accu_steps > 1, "accu_steps > 1", "the step-branch slice"),
@@ -128,15 +130,15 @@ class Trainer:
                  device: Device = None, draws: Optional[Callable] = None,
                  eval_datasets: Optional[list] = None):
         """Runs on the card unless device="cpu" is passed. eval_datasets:
-        datasets at render_size whose ``reader.read_raw`` gives the eval
-        grid its observed columns and crop kaug (train_utils.py:140); the
-        port's line-shard datasets have no reader, so train_app passes
-        None and the grid renders the full raw frame."""
+        frame datasets at render_size whose ``reader.read_raw`` gives the
+        eval grid its observed columns and crop kaug (train_utils.py:140);
+        without them the grid renders the full raw frame."""
         check_ported(cfg)
         self.cfg = cfg
         self.data_info = data_info
         self.loader = loader
         self.eval_datasets = eval_datasets
+        self._eval_unreadable: list = []  # eval frames that could not be read this epoch
         self.draws = draws
         self.save_dir = save_dir or os.path.join(cfg.checkpoint_dir, cfg.logname)
         os.makedirs(self.save_dir, exist_ok=True)
@@ -175,6 +177,8 @@ class Trainer:
         self.progress = 0.0
         self.counter_frz_rebone = 0.0
         self._pending = None  # (fid, fetch handle, step in epoch) of the step in flight
+        # the epoch's host-time split (train_one_epoch)
+        self._t_load_ep = self._t_upload_ep = self._t_dispatch_ep = self._t_fetch_ep = 0.0
         self.np_rng = np.random.default_rng(seed)
         self.grid_query = make_grid_query(self.model)
         self._step_cache: Dict = {}
@@ -284,13 +288,96 @@ class Trainer:
         else:
             self.prior_embeds = np.zeros((len(v), 16), np.float32)
 
-    def warmup_pose(self, num_epochs: int):
-        raise NotImplementedError("warmup_pose is ported in a later slice of moda_tpu_torch "
-                                  "(the cold-start slice)")
+    def warmup_pose(self, num_epochs: int) -> PoseWarmup:
+        """Train the pose CNN on rasterized prior-mesh features
+        (train_utils.py:871-921), num_epochs x 200 steps at batch 16, or load
+        it from ``pose_cnn_path``; saves ``pose_cnn.npz``."""
+        cfg = self.cfg
+        d_mean = float(self.mvars_host["near_far"].mean()) * self.model.obj_scale
+        # the full reference budget (train_utils.py:878 `range(200)` an epoch)
+        steps = num_epochs * ITERS_PER_EPOCH
+        t0 = time.time()
+        w = PoseWarmup(self.prior_verts_unit, self.prior_faces, self.prior_embeds,
+                       d_mean=d_mean, total_steps=steps, device=self.device)
+        if cfg.pose_cnn_path and os.path.exists(cfg.pose_cnn_path):
+            w.load(cfg.pose_cnn_path)  # the pretrained route (template.sh --pose_cnn_path)
+        else:
+            losses = w.train(steps=steps, bs=16)
+            self._log({"warmup_pose_rot_loss": float(np.mean(losses[-5:])),
+                       "warmup_pose_rot_loss_t": [
+                           round(float(np.mean(losses[max(0, i - 5):i + 1])), 4)
+                           for i in range(0, len(losses), max(1, len(losses) // 20))],
+                       "warmup_pose_time": time.time() - t0, "warmup_pose_steps": steps})
+            w.save(os.path.join(self.save_dir, "pose_cnn.npz"))
+        self.pose_cnn = w
+        return w
 
     def extract_cams_cnn(self, datasets, save: bool = True):
-        raise NotImplementedError("extract_cams_cnn is ported in a later slice of "
-                                  "moda_tpu_torch (the cold-start slice)")
+        """Per-frame cameras from the trained pose CNN on each frame's
+        observed CSE features, read through the frame reader, with the OOD
+        filter and nearest-valid rotation substitution; writes
+        ``init-cam/cam-%05d.txt`` and installs the cameras
+        (train_utils.py:393-453, 732-823). Returns (rtk [F,4,4], valid [F])."""
+        if not hasattr(self, "pose_cnn"):
+            raise RuntimeError("extract_cams_cnn needs warmup_pose first")
+        rtks, valids = [], []
+        for ds in datasets:
+            feats_seq, dp_idx_seq = [], []
+            for i in range(ds.num_frames):
+                d = ds.reader.read_raw(i, flowfw=True, dframe=1)
+                feats_seq.append(np.transpose(d["dp_feat"], (1, 2, 0)))  # [112,112,16]
+                dp_idx_seq.append(IO.resize(d["dp"].astype(np.float32), (112, 112),
+                                            IO.INTER_NEAREST).astype(int))
+            feats = np.stack(feats_seq)
+            feats = feats / np.maximum(np.linalg.norm(feats, axis=-1, keepdims=True), 1e-9)
+            rtk_seq = self.pose_cnn.predict(feats)
+            if self.cfg.unc_filter and self.prior_embeds.any():
+                valid, _ = ood_check_features(np.transpose(feats, (0, 3, 1, 2)),
+                                              self.prior_embeds, np.stack(dp_idx_seq))
+                rtk_seq = nearest_valid_substitution(rtk_seq, valid)
+            else:
+                valid = np.ones(len(rtk_seq), bool)
+            for i in range(ds.num_frames):
+                rtk = np.eye(4, dtype=np.float32)
+                rtk[:3] = rtk_seq[i, :3]
+                rtk[:3, 3] *= self.model.obj_scale
+                rtk[3] = np.asarray(self.data_info.intrinsics[ds.dataid])
+                rtks.append(rtk)
+                valids.append(bool(valid[i]))
+        rtks = np.stack(rtks)
+        if save:
+            cam_dir = os.path.join(self.save_dir, "init-cam")
+            os.makedirs(cam_dir, exist_ok=True)
+            for i, rtk in enumerate(rtks):
+                np.savetxt(os.path.join(cam_dir, "cam-%05d.txt" % i), rtk)
+        norm = rtks.copy()
+        norm[:, :3, 3] /= self.model.obj_scale
+        self.set_cameras_from_rtk_files(norm)
+        return rtks, np.asarray(valids)
+
+    def cold_start(self):
+        """warmup_pose, then, where no cameras are installed, extract_cams_cnn
+        through the datasets that have a frame reader (the eval datasets
+        first, then the loader's): the reference's warmup_pose -> extract_cams
+        chain (train_utils.py:893-921). Without such a dataset it logs a
+        warning, where the JAX trainer skips the install silently."""
+        cfg = self.cfg
+        self.warmup_pose(cfg.warmup_pose_ep)
+        if self.latest_vars["idk"].sum() > 0:  # cameras from files (use_rtk_file)
+            return
+        cam_ds = [d for d in (self.eval_datasets or []) if getattr(d, "reader", None) is not None]
+        if not cam_ds and self.loader is not None:
+            cam_ds = [d for d in getattr(self.loader, "datasets", [])
+                      if getattr(d, "reader", None) is not None]
+        if not cam_ds:
+            print("warning: the pose CNN was trained but no dataset has a frame reader, so its "
+                  "cameras are not installed")
+            self._log({"extract_cams_skipped": "no dataset with a frame reader"})
+            return
+        t0 = time.time()
+        rtks, valid = self.extract_cams_cnn(cam_ds)
+        self._log({"extract_cams_valid": float(np.mean(valid)), "extract_cams_n": int(len(rtks)),
+                   "extract_cams_time": time.time() - t0})
 
     # -------------------------------------------------------------- warmups
     def warmup_shape(self, num_epochs: int) -> float:
@@ -368,9 +455,10 @@ class Trainer:
     # ---------------------------------------------------------- eval grid
     def _eval_frame_obs(self, fi: int):
         """Frame fi (global id) read through the render_size eval datasets:
-        {'kaug', 'img', ...}, or None where there is none. The port's
-        datasets have no frame reader until the frame-decoding slice, so
-        with them the grid has no observed columns."""
+        {'kaug', 'img', ...}, or None where there is none: no eval datasets,
+        or a frame file that is missing or not an image (the line-shard
+        fixtures' placeholder JPEGs). Any other fault raises; the JAX
+        trainer swallows every exception here (trainer.py:443-446)."""
         if not self.eval_datasets:
             return None
         offs = np.asarray(self.data_info.offset)
@@ -378,7 +466,11 @@ class Trainer:
         reader = getattr(self.eval_datasets[di], "reader", None)
         if reader is None:
             return None
-        return reader.read_raw(int(fi - offs[di]), flowfw=True, dframe=1)
+        try:
+            return reader.read_raw(int(fi - offs[di]), flowfw=True, dframe=1)
+        except FileNotFoundError as e:
+            self._eval_unreadable.append(str(e))
+            return None
 
     def eval_renders(self, epoch: int, num_frames: int = 9) -> str:
         """Per-epoch qualitative renders (train_utils.py:695-704): a grid of
@@ -394,6 +486,7 @@ class Trainer:
         gen = torch.Generator(device=self.device).manual_seed(0)
         ids = np.linspace(0, self.data_info.num_fr - 2, num_frames, dtype=int)
         tiles = []
+        self._eval_unreadable = []
         for fi in ids:
             rtk = self.latest_vars["rtk"][fi][None]
             obs = self._eval_frame_obs(fi)
@@ -421,8 +514,7 @@ class Trainer:
             if "feat_rnd" in out and obs is not None and "dp_feat_rsmp" in obs:
                 gt_f = np.transpose(np.asarray(obs["dp_feat_rsmp"], np.float32), (1, 2, 0))
                 if gt_f.shape[0] != rs:
-                    raise NotImplementedError("resizing the observed features is ported with "
-                                              "the frame-decoding slice of moda_tpu_torch")
+                    gt_f = IO.resize(gt_f, (rs, rs), IO.INTER_LINEAR)
                 err = np.linalg.norm(out["feat_rnd"] - gt_f, axis=-1, keepdims=True) / 2.0
                 tile.append(np.repeat(np.clip(err, 0, 1), 3, axis=-1))
             if "unc_pred" in out:
@@ -436,6 +528,9 @@ class Trainer:
             grid[r * H:(r + 1) * H, c * W:(c + 1) * W] = t
         path = os.path.join(self.save_dir, f"eval-{epoch:03d}.png")
         save_png(path, (grid * 255).astype(np.uint8))
+        if self._eval_unreadable:  # once an epoch
+            self._log({"eval_frames_unreadable": len(self._eval_unreadable),
+                       "eval_frame_error": self._eval_unreadable[0]})
         return path
 
     # ------------------------------------------------------------ main loop
@@ -449,6 +544,10 @@ class Trainer:
             t0 = time.time()
             loss = self.warmup_shape(cfg.warmup_shape_ep)
             self._log({"warmup_shape_time": time.time() - t0, "shape_init_loss": loss})
+        if cfg.warmup_pose_ep > 0 and (
+                self.prior_embeds.any()
+                or (cfg.pose_cnn_path and os.path.exists(cfg.pose_cnn_path))):
+            self.cold_start()
         if cfg.warmup_rootmlp and self.latest_vars["idk"].sum() > 0:
             self.preset_rootmlp()
         if not self.is_fine_tune:

@@ -150,3 +150,35 @@ def test_eval_renders_grid_matches_jax(tmp_path, reader):
     assert timg.shape == jimg.shape == (3 * RS, 3 * RS * cols, 3)
     diff = np.abs(timg.astype(int) - jimg.astype(int))
     assert diff.max() <= 1 and (diff == 0).mean() >= 0.99, (diff.max(), (diff == 0).mean())
+
+
+class _WideReader(_Reader):
+    """A reader whose CSE features come at twice render_size, so the grid's
+    feature-error column resizes them (bilinear, trainer.py:494)."""
+
+    def read_raw(self, idx, flowfw=True, dframe=1):
+        out = super().read_raw(idx, flowfw, dframe)
+        rng = np.random.default_rng(100 + idx)
+        out["dp_feat_rsmp"] = rng.normal(size=(16, 2 * RS, 2 * RS)).astype(np.float32)
+        return out
+
+
+def test_eval_renders_resizes_the_observed_features(tmp_path):
+    """The grid's feature-error column from observed features at twice the
+    render size: resized through the port's cv2-semantic resize, the grid
+    matches the JAX trainer's (cv2.resize) within one count of 255."""
+    cfg, jmodel, params, mvars, tmodel = both_models(**CFG)
+    cfg = cfg.replace(render_size=RS, chunk=CHUNK)
+    eval_ds = [types.SimpleNamespace(reader=_WideReader())]
+    lv = {"rtk": np.concatenate([_cams(3)] * 2)[:INFO.num_fr]}
+    jtr = _trainer_like(JTrainer, tmp_path, "jax", model=jmodel, params=params, mvars=mvars,
+                        cfg=cfg, latest_vars=lv, eval_datasets=eval_ds)
+    jimg = cv2.imread(JTrainer.eval_renders(jtr, 0))[..., ::-1]
+    from moda_tpu_torch.config import MoDAConfig
+    ttr = _trainer_like(TTrainer, tmp_path, "port", model=tmodel, device=tmodel.device,
+                        cfg=MoDAConfig.from_json(cfg.to_json()), latest_vars=lv,
+                        eval_datasets=eval_ds)
+    timg = cv2.imread(TTrainer.eval_renders(ttr, 0))[..., ::-1]
+    assert timg.shape == jimg.shape == (3 * RS, 3 * RS * 6, 3)
+    diff = np.abs(timg.astype(int) - jimg.astype(int))
+    assert diff.max() <= 1 and (diff == 0).mean() >= 0.99, (diff.max(), (diff == 0).mean())

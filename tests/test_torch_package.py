@@ -20,6 +20,8 @@ def test_import_loads_no_jax_and_no_moda_tpu():
             "import moda_tpu_torch.cli.extract_app, moda_tpu_torch.cli.eval_root_app\n"
             "import moda_tpu_torch.evals.ama, moda_tpu_torch.evals.sim3\n"
             "import moda_tpu_torch.render.evalrender, moda_tpu_torch.viz.render_vis\n"
+            "import moda_tpu_torch.data.frames, moda_tpu_torch.data.imageio\n"
+            "import moda_tpu_torch.train.warmup_pose, moda_tpu_torch.fields.cnn\n"
             f"bad = [m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r}]\n"
             "print(bad)\n"
             "assert not bad, bad\n")
@@ -100,21 +102,21 @@ def test_later_slices_refuse_explicitly(tmp_path):
         with pytest.raises(NotImplementedError, match="later slice"):
             build_step(model, opt, device="cpu", **dict(args, **kw))
 
-    # the trainer: the pose-CNN warmup, K steps per dispatch, gradient
-    # accumulation, s3im and freeze_coarse; the eval renders run
+    # the trainer: K steps per dispatch, gradient accumulation, s3im and
+    # freeze_coarse; the eval renders and the pose-CNN cold start run
     from moda_tpu_torch.train.trainer import Trainer
+    from moda_tpu_torch.train.warmup_pose import PoseWarmup
     tcfg = cfg.replace(checkpoint_dir=str(tmp_path))
-    for kw in (dict(warmup_pose_ep=1), dict(steps_chunk=2),
-               dict(accu_steps=2), dict(s3im_loss=True), dict(freeze_coarse=True)):
+    for kw in (dict(steps_chunk=2), dict(accu_steps=2), dict(s3im_loss=True),
+               dict(freeze_coarse=True)):
         with pytest.raises(NotImplementedError, match="later slice"):
             Trainer(tcfg.replace(**kw), info, device="cpu")
-    tr = Trainer(tcfg, info, device="cpu")
+    tr = Trainer(tcfg.replace(warmup_pose_ep=1), info, device="cpu")
     assert tr.cfg.render_size == 64
-    # by name: tests/conftest.py marks a test slow whose source calls the
-    # pose warmup, and this one is quick
-    for method, arg in (("warmup_pose", 1), ("extract_cams_cnn", [])):
-        with pytest.raises(NotImplementedError, match="later slice"):
-            getattr(tr, method)(arg)
+    # the reference's .pth posenet checkpoint waits for the preprocessing slice
+    w = PoseWarmup(tr.prior_verts_unit, tr.prior_faces, tr.prior_embeds, 3.0, device="cpu")
+    with pytest.raises(NotImplementedError, match="later slice"):
+        w.load(str(tmp_path / "posenet.pth"))
 
 
 def test_config_loads_a_jax_config():
@@ -127,9 +129,10 @@ def test_config_loads_a_jax_config():
 
 
 def test_train_app_refuses_later_slices(tmp_path, monkeypatch):
-    """train_app refuses a dataset without line shards, the trainer's
-    unported flags and more than one process, and extract_app a dataset
-    without line shards, naming a later slice."""
+    """train_app refuses the trainer's unported flags and more than one
+    process, naming a later slice, on either data route; extract_app needs
+    a checkpoint. Datasets without line shards are read through the frame
+    route (tests/test_torch_frames.py), a video without frames raises."""
     import shutil
 
     from moda_tpu_torch.cli import extract_app, train_app
@@ -139,19 +142,18 @@ def test_train_app_refuses_later_slices(tmp_path, monkeypatch):
                        SynthScene(img_size=8, num_frames=3))
     argv = ["--seqname", "syn", "--config_dir", str(tmp_path / "cfg"),
             "--checkpoint_dir", str(tmp_path)]
-    with pytest.raises(NotImplementedError, match="later slice"):
-        train_app.main(argv, device="cpu")  # no --lineload
-    with pytest.raises(NotImplementedError, match="later slice"):
-        train_app.main(argv + ["--lineload", "--steps_chunk", "2"], device="cpu")
+    for route in ([], ["--lineload"]):
+        with pytest.raises(NotImplementedError, match="later slice"):
+            train_app.main(argv + route + ["--steps_chunk", "2"], device="cpu")
     with pytest.raises(SystemExit, match="model_path"):
         extract_app.main(argv + ["--lineload"], device="cpu")
     monkeypatch.setenv("WORLD_SIZE", "2")
     with pytest.raises(NotImplementedError, match="later slice"):
         train_app.main(argv + ["--lineload"], device="cpu")
-    shutil.rmtree(tmp_path / "db" / "Pixels")
-    with pytest.raises(NotImplementedError, match="later slice"):
-        extract_app.main(argv + ["--lineload", "--model_path", str(tmp_path / "x")],
-                         device="cpu")
+    monkeypatch.delenv("WORLD_SIZE")
+    shutil.rmtree(tmp_path / "db" / "JPEGImages")
+    with pytest.raises(FileNotFoundError):
+        train_app.main(argv, device="cpu")
 
 
 def test_pair_loader_close_leaves_no_thread_exception(tmp_path, monkeypatch):

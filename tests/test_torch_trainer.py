@@ -380,10 +380,10 @@ def test_train_app_runs_on_the_cpu(tmp_path, monkeypatch):
 
 def test_train_app_writes_the_eval_grid(tmp_path, monkeypatch):
     """The eval grid at render_size 8 (the full raw frame: the line-shard
-    datasets have no frame reader): eval-000.png of 3 x 3 tiles, each the
-    rgb, silhouette and flow columns, no eval_render_error, and its time
-    in the epoch line. The renders run the plain view: no kernel route
-    is taken on the CPU either way."""
+    fixture's placeholder frames cannot be decoded, which is logged once):
+    eval-000.png of 3 x 3 tiles, each the rgb, silhouette and flow columns,
+    no eval_render_error, and its time in the epoch line. The renders run
+    the plain view: no kernel route is taken on the CPU either way."""
     from moda_tpu_torch.cli import train_app
     from moda_tpu_torch.data.synthetic import SynthScene, write_line_dataset
     from moda_tpu_torch.viz.render_vis import png_size
@@ -401,6 +401,7 @@ def test_train_app_writes_the_eval_grid(tmp_path, monkeypatch):
          "48", "--n_data_workers", "1"], device="cpu")
     rows = _logs(tr)
     assert not [r for r in rows if "eval_render_error" in r]
+    assert [r["eval_frames_unreadable"] for r in rows if "eval_frames_unreadable" in r] == [9]
     assert png_size(os.path.join(tr.save_dir, "eval-000.png")) == (3 * 8, 3 * 8 * 3)
     epoch = [r for r in rows if "epoch_time" in r][0]
     assert 0 < epoch["t_eval"] < epoch["epoch_time"]
