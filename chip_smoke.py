@@ -49,10 +49,18 @@ Phases:
    16-frame 256 px articulated scene in the DAVIS layout, trained by
    train_app from the pose CNN's cameras (pose warmup, extract_cams_cnn,
    root preset, one 200-step epoch, the eval grid with observed columns),
-   then 2 steps of the frame-decoding route at batch 256; read_raw timed at
+   then 3 steps of the frame-decoding route at batch 256; read_raw timed at
    img_size 512 and the tests' JPEG fixture decoded (checks in its
-   docstring). The main-path launch counts of phases 6 and 8 go into the
-   kernel JSON's ``launches``.
+   docstring);
+9. the step's branches (``run_branches``): the ft2 stage with the
+   displacement field nerf_dis (K1/K2/dW at its dis_bw and dis_fw sites, K1
+   at dis_bw_coarse; the loss less the eikonal term gated at 2e-2, that
+   term at EKL_DIS_TOL), one step each of flowbw without bones, S3IM,
+   freeze_coarse (frozen gradients exactly zero) and accu_steps 2 against
+   the plain fp32 step, ft_cse through train_app on phase 8's dataset (the
+   frame route, 2 steps at batch 256) and CSEDistiller's loss falling.
+The main-path launch counts of phases 5, 6, 8 and 9 go into the kernel
+JSON's ``launches``; the dis cases of phases 3 and 4 are this phase's.
 Prints the kernel JSON line, then {"ok": true, "device": {...}} last.
 Exits non-zero without printing a result when there is no CUDA card.
 """
@@ -169,6 +177,7 @@ FEAT = [(5, 128, 0, 16, True, False, False)]
 VIS = [(5, 64, 0, 1, True, False, False)]
 SKIN = [(5, 64, 0, 25, True, True, False)]
 UNC = [(8, 256, 32, 1, True, False, True)]
+DIS = [(5, 128, 0, 3, True, True, False)]
 P = "moda_tpu/render/pipeline.py"
 
 # name: (nets [(D, W, in_dir, out, raw_feat, use_ct, use_cd)], N points, S, ct, cd,
@@ -200,6 +209,12 @@ KERNEL_CASES = {
     "unc_pred": (UNC, 2048, 1, 0, 32, True, "raw", False, f"{P}:436", [("ft2", "unc_pred")]),
     "unc_scores": (UNC, 4096, 1, 0, 32, False, "embedded", True, "moda_tpu/render/rays.py:91",
                    [("ft2", "unc_scores")]),
+    # the displacement field nerf_dis (the branches phase's ft2 stage): both
+    # warps, and the backward warp of the fine sampling's no-grad coarse pass
+    "dis_r2048_s128": (DIS, 262144, 128, 128, 0, True, "raw", False, f"{P}:87-90,115-118",
+                       [("ft2_dis", "dis_bw"), ("ft2_dis", "dis_fw")]),
+    "dis_coarse": (DIS, 131072, 64, 128, 0, True, "raw", True, f"{P}:87-90 (via :537)",
+                   [("ft2_dis", "dis_bw_coarse")]),
 }
 # K1s/K2s are checked and timed at these cases; they serve the ft2 stash run
 STASH_CASES = {"trunk_feat_r2048": ["trunk_feat"], "skin_r2048_s128": ["skin_bw", "skin_fw"]}
@@ -208,7 +223,7 @@ DETERMINISM_CASE = "trunk_feat_r2048"
 
 # the nets of each call site, as the wrapper's launch counter names them
 NETS = {"trunk_feat": "D8W256o3+D5W128o16", "feat_grid": "D5W128o16", "vis": "D5W64o1",
-        "skin": "D5W64o25c128", "unc": "D8W256o1"}
+        "skin": "D5W64o25c128", "unc": "D8W256o1", "dis": "D5W128o3c128"}
 
 
 # the wrapper's launch-counter kind of each kernel
@@ -602,7 +617,20 @@ STAGES = {
     "init": (dict(nsample=4, eikonal_wt=0.001), 4, 0, False, False),
     "ft1": (dict(nsample=6, freeze_proj=True), 6, 0, False, True),
     "ft2": (dict(nsample=4, use_unc=True, eikonal_wt=0.1), 2, 2, True, True),
+    # the branches phase (run_branches): ft2 with the displacement field, and
+    # one step each of init's shapes with a branch of the step
+    "ft2_dis": (dict(nsample=4, use_unc=True, eikonal_wt=0.1, nerf_dis=True), 2, 2, True, True),
+    "flowbw": (dict(nsample=4, eikonal_wt=0.001, flowbw=True, lbs=False, neudbs=False), 4, 0,
+               False, False),
+    "s3im": (dict(nsample=4, eikonal_wt=0.001, s3im_loss=True), 4, 0, False, False),
+    "freeze_coarse": (dict(nsample=4, eikonal_wt=0.001, freeze_coarse=True), 4, 0, False, False),
+    "accu2": (dict(nsample=4, eikonal_wt=0.001, accu_steps=2), 4, 0, False, False),
 }
+# the ft2 stage with nerf_dis: its eikonal term's tolerance (run_stage)
+EKL_DIS_TOL = 1e-1
+# the stage phases' stages (phase 5); the others run in the branches phase
+RECIPE_STAGES = ("init", "ft1", "ft2")
+BRANCH_STEPS = ("flowbw", "s3im", "freeze_coarse", "accu2")
 # call sites each step launches: site -> (forward, backward) launches per step
 SITES = {
     "init": {"trunk_feat": (1, 1), "feat_grid": (1, 1), "vis": (1, 1)},
@@ -611,6 +639,10 @@ SITES = {
     "ft2": {"unc_scores": (1, 0), "skin_bw_coarse": (1, 0), "trunk_feat_coarse": (1, 0),
             "skin_bw": (1, 1), "skin_fw": (1, 1), "trunk_feat": (1, 1), "feat_grid": (1, 1),
             "skin_reproj": (1, 1), "vis": (1, 1), "unc_pred": (1, 1)},
+    "ft2_dis": {"unc_scores": (1, 0), "skin_bw_coarse": (1, 0), "dis_bw_coarse": (1, 0),
+                "trunk_feat_coarse": (1, 0), "skin_bw": (1, 1), "dis_bw": (1, 1),
+                "skin_fw": (1, 1), "dis_fw": (1, 1), "trunk_feat": (1, 1), "feat_grid": (1, 1),
+                "skin_reproj": (1, 1), "vis": (1, 1), "unc_pred": (1, 1)},
 }
 
 
@@ -709,7 +741,7 @@ def profile_steps(tag, step, batch, extras, gen, step_s: float, n: int = 2):
     return busy
 
 
-def stage_draws(name, cfg, model, plain, batch, extras, rays: int):
+def stage_draws(name, cfg, model, plain, batch, extras, rays: int, seed: int = 1):
     """The draws of one step of ``name``, the same for the kernel and the
     plain path, including the active-sampling selection (the plain path's
     ranking); prints how many selections the two rankings share."""
@@ -719,7 +751,7 @@ def stage_draws(name, cfg, model, plain, batch, extras, rays: int):
     from moda_tpu_torch.train.step import batch_rtk
 
     _, ns, na, use_fine, _ = STAGES[name]
-    g = torch.Generator(device="cuda").manual_seed(1)
+    g = torch.Generator(device="cuda").manual_seed(seed)
     bs2, S, G = batch["frameid"].shape[0], cfg.ndepth, cfg.feat_ndepth_grid
     S0 = S // 2 if use_fine else S
     kw = dict(generator=g, device="cuda")
@@ -730,6 +762,8 @@ def stage_draws(name, cfg, model, plain, batch, extras, rays: int):
              "eik_idx": torch.randint(0, rays * S, (1000,), **kw)}
     if use_fine:
         draws["pdf_u"] = torch.rand(rays, S0, **kw)
+    if cfg.s3im_loss:
+        draws["s3im_perm"] = torch.stack([torch.randperm(1024, **kw) for _ in range(9)])
     if na:
         draws["cand_ids"] = torch.randint(0, cfg.img_size, (bs2, 4 * (ns + na)), **kw)
         picks = []
@@ -780,9 +814,25 @@ def run_stage(name: str, results: list, card: str, profile: bool = False) -> dic
     # bf16 kernel path against the fp32 plain path from the same parameters
     # and draws: the MLP outputs differ by bf16 rounding (~1e-3 relative)
     loss_tol = 2e-2
+    if cfg.nerf_dis:
+        # The displacement field moves every canonical point by its bf16
+        # output (~4e-3 from the fp32 one at random weights), and the eikonal
+        # term (weight 0.1, ~80% of ft2's loss) differentiates 2^9-frequency
+        # features there: it read 3.9% apart in this phase's first run while
+        # the rest of the loss read 0.8% (NVIDIA H100 80GB HBM3, 700 W). The
+        # loss less that term is gated at loss_tol, the term at EKL_DIS_TOL.
+        ek, ep = float(aux_k["ekl_loss"]), float(aux_p["ekl_loss"])
+        rel_ekl = abs(ek - ep) / max(abs(ep), 1e-12)
+        print(f"[{name}] eikonal term: kernel {ek:.6f} plain {ep:.6f} rel diff {rel_ekl:.3e} "
+              f"(tol {EKL_DIS_TOL})", flush=True)
+        if not rel_ekl <= EKL_DIS_TOL:
+            raise SystemExit(f"{name}: the kernel path's eikonal term disagrees with the plain "
+                             "path's")
+        lk, lp = lk - ek, lp - ep
     rel = abs(lk - lp) / max(abs(lp), 1e-12)
-    print(f"[{name}] one step, same inputs: kernel loss {lk:.6f}  plain loss {lp:.6f}  "
-          f"rel diff {rel:.3e} (tol {loss_tol})", flush=True)
+    print(f"[{name}] one step, same inputs: kernel loss {lk:.6f}  plain loss {lp:.6f}"
+          f"{' (less the eikonal term)' if cfg.nerf_dis else ''}  rel diff {rel:.3e} "
+          f"(tol {loss_tol})", flush=True)
     for k in ("img_loss", "sil_loss", "flo_loss", "feat_loss", "feat_rnd_loss", "cyc_loss",
               "proj_loss", "visibility_loss", "ekl_loss", "bone_loc_loss", "unc_loss"):
         if k in aux_k:
@@ -1584,6 +1634,230 @@ def run_coldstart(results: list, card: str, tmp: str) -> dict:
     return out
 
 
+# ------------------------------------------------------------- branches
+FT_CSE_BATCH = 256  # pairs: 512 full 256 px crops through the CSE net a step
+FT_CSE_STEPS = 2    # the ft_cse epoch, cut from 200 steps (the frame route's t_load)
+DISTILL_STEPS, DISTILL_SIZE = 20, 224
+
+
+def run_branch_step(name: str, results: list, card: str) -> dict:
+    """One step of ``name`` (STAGES) at init's shapes (2048 rays) on the
+    kernel path against one plain fp32 step from the same parameters and
+    draws (total loss within 2e-2, gradients finite), its launches per call
+    site exactly init's (accu2: twice, one set a micro-batch). freeze_coarse
+    distils against a snapshot of the input-layer kernels moved by 0.01, and
+    its frozen gradients must be exactly zero on the card (Adam's first
+    moment after one step from zero is a tenth of the gradient). flowbw's
+    gate leaves proj_loss out (reason at the gate)."""
+    import copy
+    import torch
+    from moda_tpu_torch.ops import fused_mlp as FM
+    from moda_tpu_torch.train.optim import INPUT_LAYERS, POS_DIM, MoDAOptimizer, group_of
+    from moda_tpu_torch.train.step import make_train_step, micro_batches
+
+    _, ns, na, use_fine, use_dskin = STAGES[name]
+    cfg, model, batch, extras, rays = make_stage(name, "cuda")
+    plain = copy.deepcopy(model)
+    plain.cfg = cfg.replace(use_pallas=False)
+    snap = None
+    if cfg.freeze_coarse:
+        g = torch.Generator(device="cuda").manual_seed(4)
+        snap = {c: {l: getattr(model, c).get_submodule(l).kernel.detach() + 0.01 * torch.randn(
+            getattr(model, c).get_submodule(l).kernel.shape, generator=g, device="cuda")
+            for l in INPUT_LAYERS} for c in ("nerf_coarse", "nerf_feat")}
+    kw = dict(nsample=ns, ndepth=cfg.ndepth, use_fine=use_fine, use_dskin=use_dskin,
+              use_bones=model.has_bones, nsample_active=na, xyz_wt_snapshot=snap,
+              accu_steps=cfg.accu_steps)
+    opts = {m: MoDAOptimizer(cfg, total_steps=24000) for m in ("kernel", "plain")}
+    step_k = make_train_step(model, opts["kernel"], **kw)
+    step_p = make_train_step(plain, opts["plain"], **kw)
+    if cfg.accu_steps > 1:
+        draws = [stage_draws(name, cfg, model, plain, mb, extras, rays // cfg.accu_steps,
+                             seed=1 + j)
+                 for j, mb in enumerate(micro_batches(batch, cfg.accu_steps))]
+    else:
+        draws = stage_draws(name, cfg, model, plain, batch, extras, rays)
+    aux_p, _ = step_p(batch, extras, draws=draws)
+    torch.cuda.synchronize()
+    FM.reset_launches()
+    t0 = time.perf_counter()
+    aux_k, _ = step_k(batch, extras, draws=draws)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    calls = dict(FM.launches_by_call)
+    # Without bones kp_reproj projects the feat-match points straight from
+    # canonical space: at random weights some land near the camera plane,
+    # where the perspective division turns the bf16 feat-match's rounding
+    # into a different proj_loss (2.3x apart on the CPU at a small size).
+    # That term is printed, the rest of the loss gated.
+    skip = ("proj_loss",) if cfg.flowbw else ()
+    lk, lp = (float(a["total_loss"]) - sum(float(a[k]) for k in skip) for a in (aux_k, aux_p))
+    rel = abs(lk - lp) / max(abs(lp), 1e-12)
+    terms = {k: (float(aux_k[k]), float(aux_p[k])) for k in
+             ("s3im_loss", "shape_xyz_wt_loss", "feat_xyz_wt_loss", "cyc_loss", "proj_loss")
+             if k in aux_k}
+    print(f"[branches] {name}: one step, same inputs: kernel loss {lk:.6f}  plain loss "
+          f"{lp:.6f}{' (less ' + ', '.join(skip) + ')' if skip else ''}  rel diff {rel:.3e} "
+          f"(tol 2e-2); {terms}; kernel step {dt * 1e3:.1f} ms with the first call's "
+          f"overheads ({card}); launches {calls}", flush=True)
+    fail = []
+    if not (rel <= 2e-2 and math.isfinite(lk)) or float(aux_k["grad_finite"]) != 1.0:
+        fail.append("the kernel-path step disagrees with the plain step or is not finite")
+    want = expected_calls("init", cfg.accu_steps)
+    if calls != want:
+        fail.append(f"launches by call site {calls} != {want}")
+    if cfg.flowbw and any(n.startswith(("bones", "nerf_skin", "nerf_dis"))
+                          for n, _ in model.named_parameters()):
+        fail.append("the flowbw model has bones")
+    out = {"loss_kernel": lk, "loss_plain": lp, "step_ms": dt * 1e3, "launches": calls}
+    if cfg.freeze_coarse:
+        mu = opts["kernel"].state.mu
+        leaked, free = 0, 0.0
+        for n, m in mu.items():
+            grp, parts = group_of(n), n.split(".")
+            if grp in ("nerf_coarse", "nerf_feat"):
+                if parts[-2] in INPUT_LAYERS and parts[-1] == "kernel":
+                    free += float(m[:POS_DIM].abs().sum())
+                    m = m[POS_DIM:]
+                leaked += int((m != 0).sum())
+            elif grp in ("bones", "skin_aux", "nerf_vis"):
+                leaked += int((m != 0).sum())
+        print(f"[branches] freeze_coarse: {leaked} nonzero gradient entries where frozen; "
+              f"|first moment| of the free input rows {free:.3e}", flush=True)
+        if leaked or not free > 0:
+            fail.append(f"freeze_coarse: {leaked} frozen entries moved, free rows {free}")
+        out["frozen_nonzero"] = leaked
+    if fail:
+        raise SystemExit(f"branches {name}: " + "; ".join(fail))
+    for r in results:
+        r["launches"] += sum(calls.get(f"{counter_kind(r['name'], False)}:{site}:"
+                                       f"{nets_of(site)}", 0)
+                             for stage, site in r["runs"] if stage == "init")
+    return out
+
+
+def run_ft_cse(results: list, card: str, tmp: str) -> dict:
+    """ft_cse on the frame route: train_app with --ft_cse and without
+    --lineload on the cold-start phase's 16-frame 256 px MeshScene (its
+    Densepose/ features), COLDSTART_FLAGS at batch FT_CSE_BATCH,
+    --use_rtk_file, no eval grid, its epoch cut to FT_CSE_STEPS steps. Every
+    step's aux is read through a wrapper of the trainer's step: csenet_loss
+    finite at every step, and a nonzero csenet gradient norm at a step past
+    ftcse_steps (0: every step after the first); K1/K2/dW launches exactly
+    init's a step. Reports steps/s and the card's peak memory."""
+    import torch
+    from moda_tpu_torch.cli import train_app
+    from moda_tpu_torch.ops import fused_mlp as FM
+    from moda_tpu_torch.train import trainer as TT
+
+    seq, cfg_dir = "flap-smoke", os.path.join(tmp, "ccfg")
+    flags = list(COLDSTART_FLAGS)
+    flags[flags.index("--batch_size") + 1] = str(FT_CSE_BATCH)
+    argv = ["--seqname", seq, "--config_dir", cfg_dir, "--checkpoint_dir",
+            os.path.join(tmp, "clog"), "--img_size", str(COLDSTART_IMG), "--logname", "ftcse",
+            "--ft_cse", "--use_rtk_file", "--render_size", "0"] + flags
+    seen = []
+    get_step = TT.Trainer.get_step_fn
+
+    def recorded(self, *a, **k):
+        fn, ns_u, ns_a = get_step(self, *a, **k)
+
+        def step(*b, **kw):
+            aux, host = fn(*b, **kw)
+            seen.append((self.progress, {k: aux[k].detach() for k in
+                                         ("csenet_loss", "csenet_g", "total_loss")}))
+            return aux, host
+        return step, ns_u, ns_a
+
+    torch.cuda.reset_peak_memory_stats()
+    FM.reset_launches()
+    t0 = time.perf_counter()
+    with _patched([(TT, "ITERS_PER_EPOCH", FT_CSE_STEPS), (TT.Trainer, "get_step_fn", recorded)]):
+        tr = train_app.main(argv)
+        torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    calls = dict(FM.launches_by_call)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    rows = [json.loads(line) for line in open(tr.log_path)]
+    ep = [r for r in rows if "epoch_time" in r]
+    steps = [(p, {k: float(v) for k, v in a.items()}) for p, a in seen]
+    print(f"[branches] ft_cse (train_app --ft_cse, the frame route, {FT_CSE_STEPS} steps at "
+          f"batch {FT_CSE_BATCH}) {run_s:.2f} s: epoch {ep[0] if ep else None}; steps "
+          f"{[(round(p, 5), a) for p, a in steps]}; peak memory {peak:.2f} GiB ({card}); "
+          f"launches {calls}", flush=True)
+    fail = []
+    if len(steps) != FT_CSE_STEPS or not all(math.isfinite(a["csenet_loss"]) and
+                                             math.isfinite(a["total_loss"]) for _, a in steps):
+        fail.append(f"ft_cse steps {steps}")
+    if not any(p > tr.cfg.ftcse_steps and a["csenet_g"] > 0 for p, a in steps):
+        fail.append("no csenet gradient past ftcse_steps")
+    want = expected_calls("init", FT_CSE_STEPS)
+    if calls != want:
+        fail.append(f"ft_cse launches by call site {calls} != {want}")
+    if fail:
+        raise SystemExit("branches ft_cse: " + "; ".join(fail))
+    for r in results:
+        r["launches"] += sum(calls.get(f"{counter_kind(r['name'], False)}:{site}:"
+                                       f"{nets_of(site)}", 0)
+                             for stage, site in r["runs"] if stage == "init")
+    e = ep[0] if ep else {}
+    return {"run_s": run_s, "steps_per_s": e.get("steps_per_s"), "epoch_s": e.get("epoch_time"),
+            "split": {k: e.get(k) for k in ("t_load", "t_upload", "t_dispatch", "t_fetch")},
+            "steps": steps, "peak_gib": peak, "batch": FT_CSE_BATCH}
+
+
+def run_distiller(card: str, tmp: str) -> dict:
+    """CSEDistiller on the card: DISTILL_STEPS AdamW steps on one batch of 8
+    of the MeshScene's frames at 224 px with their resampled CSE features
+    and masks (at 112 px); the loss must fall."""
+    import numpy as np
+    import torch
+    from moda_tpu_torch.data import dataset as D
+    from moda_tpu_torch.train.cse_distill import CSEDistiller
+
+    reader = D.build_datasets("flap-smoke", DISTILL_SIZE, os.path.join(tmp, "ccfg"))[0].reader
+    raws = [reader.read_raw(i, flowfw=True, dframe=1) for i in range(8)]
+    imgs = np.stack([r["img"] for r in raws]).astype(np.float32)
+    imgs = imgs / max(float(imgs.max()), 1.0)
+    feats = np.stack([r["dp_feat_rsmp"].transpose(1, 2, 0)[::2, ::2] for r in raws])
+    masks = np.stack([r["mask"][::2, ::2, None] for r in raws]).astype(np.float32)
+    d = CSEDistiller(lr=1e-3)
+    t0 = time.perf_counter()
+    losses = d.train(iter([(imgs, feats, masks)] * DISTILL_STEPS), DISTILL_STEPS)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    print(f"[branches] CSEDistiller: {DISTILL_STEPS} steps at batch 8, {DISTILL_SIZE} px, "
+          f"{dt / DISTILL_STEPS * 1e3:.1f} ms a step ({card}); loss {losses[0]:.5f} -> "
+          f"{losses[-1]:.5f}", flush=True)
+    if not (all(math.isfinite(v) for v in losses) and losses[-1] < losses[0]):
+        raise SystemExit(f"branches: the CSE distiller's loss did not fall: {losses}")
+    return {"losses": losses, "ms_per_step": dt / DISTILL_STEPS * 1e3}
+
+
+def run_branches(results: list, card: str, tmp: str, profile: bool = False) -> dict:
+    """Phase 9, the step's branches at full widths (trunk D8 W256, feature
+    head D5 W128, visibility and skin D5 W64, dis D5 W128, unc D8 W256), 25
+    bones, 128 depth samples: (a) the ft2 stage with the displacement field
+    nerf_dis (run_stage: K1/K2/dW at dis_bw and dis_fw, K1 at
+    dis_bw_coarse, launches exact per site); (b) one step each of
+    BRANCH_STEPS at init's shapes (run_branch_step); (c) ft_cse on the frame
+    route (run_ft_cse, on run_coldstart's dataset in ``tmp``) and the CSE
+    distiller (run_distiller)."""
+    t0 = time.perf_counter()
+    out = {"ft2_dis": run_stage("ft2_dis", results, card, profile=profile)}
+    t_a = time.perf_counter() - t0
+    for name in BRANCH_STEPS:
+        out[name] = run_branch_step(name, results, card)
+    t_b = time.perf_counter() - t0 - t_a
+    out["ft_cse"] = run_ft_cse(results, card, tmp)
+    out["distiller"] = run_distiller(card, tmp)
+    t_c = time.perf_counter() - t0 - t_a - t_b
+    out["times_s"] = {"ft2_dis": t_a, "steps": t_b, "ft_cse_and_distiller": t_c}
+    print(f"[branches] phase {time.perf_counter() - t0:.1f} s: ft2 with nerf_dis {t_a:.1f} s, "
+          f"branch steps {t_b:.1f} s, ft_cse and the distiller {t_c:.1f} s", flush=True)
+    return out
+
+
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--profile", action="store_true",
@@ -1602,6 +1876,7 @@ def main():
     from moda_tpu_torch.ops import fused_mlp as FM
     from moda_tpu_torch.runtime import resolve_device
 
+    t_start = time.time()
     resolve_device("cuda")
     card = card_line()
     print(card, flush=True)
@@ -1620,7 +1895,7 @@ def main():
     check_dw(results)
     print(f"[time] dW phase done at {time.time() - t0:.1f} s", flush=True)
     steps = {}
-    for name in STAGES:
+    for name in RECIPE_STAGES:
         steps[name] = run_stage(name, results, card, profile=args.profile)
         print(f"[time] {name} done at {time.time() - t0:.1f} s", flush=True)
     base = os.path.join(os.path.dirname(os.path.abspath(__file__)), "logdir")
@@ -1632,11 +1907,14 @@ def main():
         print(f"[time] extraction and eval done at {time.time() - t0:.1f} s", flush=True)
         steps["coldstart"] = run_coldstart(results, card, tmp)
         print(f"[time] cold start and frame route done at {time.time() - t0:.1f} s", flush=True)
+        steps["branches"] = run_branches(results, card, tmp, profile=args.profile)
+        print(f"[time] branches done at {time.time() - t0:.1f} s", flush=True)
     for r in results:
         if r["launches"] == 0:
             raise SystemExit(f"{r['name']} was not launched on the main path")
         del r["runs"]
     print(json.dumps({"steps": steps}))
+    print(f"[time] script total {time.time() - t_start:.1f} s", flush=True)
     print(card)
     print(json.dumps({"kernels": results}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

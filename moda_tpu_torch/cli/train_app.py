@@ -14,10 +14,10 @@ through frame datasets at ``--render_size`` (``eval_datasets``), as the JAX
 package does; a video without frames, or ``--render_size 0``, leaves the
 grid without them (logged where frames are missing).
 With ``--warmup_pose_ep`` > 0 and a template prior, the trainer's cold start
-trains the pose CNN and takes the cameras from it.
+trains the pose CNN and takes the cameras from it. With ``--ft_cse`` the
+batches carry full crops (the trainable CSE net reads them; batch mode).
 Refused, naming the later slice that ports it: more than one process and
-the trainer's and the step's unported flags
-(``train/trainer.py::check_ported``).
+``--steps_chunk`` > 1 (``train/trainer.py::check_ported``).
 """
 from __future__ import annotations
 
@@ -75,10 +75,11 @@ def main(argv=None, device=None):
                                   rtk_base=cfg.rtk_path or None)
     info = DataInfo(offset=data_offsets(datasets), intrinsics=tuple(tuple(s.ks) for s in seqs))
     # host-side pixel sampling: nsample uniform slots + the 4x active
-    # candidate pool per entry
+    # candidate pool per entry; ft_cse's CSE net needs the full crops
     loader = PairLoader(datasets, cfg.batch_size, seed=cfg.seed,
                         num_threads=cfg.n_data_workers,
-                        num_prefetch=max(4, cfg.n_data_workers), npix=5 * cfg.nsample)
+                        num_prefetch=max(4, cfg.n_data_workers),
+                        npix=None if cfg.ft_cse else 5 * cfg.nsample)
     try:
         trainer = Trainer(cfg, info, loader=loader, seed=cfg.seed, device=device,
                           eval_datasets=_eval_datasets(cfg))

@@ -5,7 +5,7 @@ trained from scratch on rasterized CSE-feature renderings, with GroupNorm
 instead of BatchNorm.
 
 The modules keep Flax's semantics and parameter names, so
-``bridge.load_pose_cnn`` / ``bridge.export_pose_cnn`` move weights between
+``bridge.load_params`` / ``bridge.export_params`` move weights between
 the packages by name:
 - convolutions pad as Flax's ``padding="SAME"``: asymmetric under stride 2
   (on even sizes (0, 1) for 3x3, (2, 3) for 7x7), not torch's k // 2;

@@ -23,6 +23,7 @@ from moda_tpu_torch.config import DataInfo, MoDAConfig
 from moda_tpu_torch.core import skinning as SK
 from moda_tpu_torch.core.embedding import embed_dim, positional_embed, window_vec
 from moda_tpu_torch.fields import nets
+from moda_tpu_torch.fields.cse import CSENet
 from moda_tpu_torch.ops.fused_mlp import nerf_mlp_fused
 from moda_tpu_torch.runtime import Device, resolve_device
 
@@ -50,11 +51,6 @@ class ModelVars:
         return ModelVars(**{f.name: getattr(self, f.name).to(device) for f in fields(self)})
 
 
-def _later(what: str):
-    raise NotImplementedError(f"{what} is not on the init/ft1/ft2 path; it is ported in a "
-                              "later slice of moda_tpu_torch")
-
-
 class MoDAModel(nn.Module):
     def __init__(self, cfg: MoDAConfig, data_info: DataInfo, *, device: Device = None,
                  generator: Optional[torch.Generator] = None):
@@ -63,12 +59,10 @@ class MoDAModel(nn.Module):
         card by default; pass device="cpu" to build on the CPU."""
         super().__init__()
         dev = resolve_device(device)
-        for flag, what in ((cfg.flowbw, "flowbw"), (cfg.nerf_dis, "nerf_dis"),
-                           (cfg.ft_cse, "ft_cse")):
-            if flag:
-                _later(what)
-        if not (cfg.lbs or cfg.neudbs):
-            _later("a model without bones")
+        if cfg.flowbw and (cfg.lbs or cfg.neudbs):
+            # the JAX package builds no bones under flowbw, and then fails
+            # where it reads them (build_rays)
+            raise ValueError("flowbw replaces the bones: pass --nolbs --noneudbs with it")
         self.cfg = cfg
         self.data_info = data_info
         self.num_fr = data_info.num_fr
@@ -93,27 +87,38 @@ class MoDAModel(nn.Module):
             self.nerf_unc = nets.NeRFMLP(D=8, W=256, in_channels_xyz=IN_XYZ,
                                          in_channels_dir=VID_DIM, out_channels=1, raw_feat=True)
             self.vid_code = nets.EmbedCode(num=self.num_vid, dim=VID_DIM)
-        self.bones = nn.Parameter(SK.generate_bones(cfg.num_bones, cfg.num_bones, 0.0))
         # scale bookkeeping: near/far starts at [0, 6]; obj_scale maps the
         # scene to a bound of ~0.3
         near_far0 = np.zeros((self.num_fr, 2), np.float32)
         near_far0[:, 1] = 6.0
         self.obj_scale = float((near_far0[:, 1] - near_far0[:, 0]).mean() / 2.0) / 0.3
         self.near_far_init = near_far0 / self.obj_scale
-        self.skin_aux = nn.Parameter(torch.tensor([0.0, self.obj_scale]))
-        self.pose_code = nets.FrameCode(num_freq=NUM_FREQS, embedding_dim=cfg.t_embed_dim,
-                                        vid_offset=self.offset)
-        if cfg.neudbs:
-            self.nerf_body_rts = nets.DQRTHead(num_bodies=cfg.num_bones,
-                                               in_channels=cfg.t_embed_dim)
-        else:
-            self.nerf_body_rts = nets.RTHead(num_bodies=cfg.num_bones, use_quat=False,
-                                             in_channels=cfg.t_embed_dim)
-        self.rest_pose_code = nets.EmbedCode(num=1, dim=cfg.t_embed_dim)
-        if cfg.nerf_skin:
-            self.nerf_skin = nets.NeRFMLP(D=5, W=64, in_channels_xyz=IN_XYZ + cfg.t_embed_dim,
-                                          in_channels_dir=0, out_channels=cfg.num_bones,
-                                          raw_feat=True)
+        in_code = IN_XYZ + cfg.t_embed_dim
+        if self.has_bones or cfg.flowbw:
+            self.pose_code = nets.FrameCode(num_freq=NUM_FREQS, embedding_dim=cfg.t_embed_dim,
+                                            vid_offset=self.offset)
+        if self.has_bones:
+            self.bones = nn.Parameter(SK.generate_bones(cfg.num_bones, cfg.num_bones, 0.0))
+            self.skin_aux = nn.Parameter(torch.tensor([0.0, self.obj_scale]))
+            if cfg.neudbs:
+                self.nerf_body_rts = nets.DQRTHead(num_bodies=cfg.num_bones,
+                                                   in_channels=cfg.t_embed_dim)
+            else:
+                self.nerf_body_rts = nets.RTHead(num_bodies=cfg.num_bones, use_quat=False,
+                                                 in_channels=cfg.t_embed_dim)
+            self.rest_pose_code = nets.EmbedCode(num=1, dim=cfg.t_embed_dim)
+            if cfg.nerf_skin:
+                self.nerf_skin = nets.NeRFMLP(D=5, W=64, in_channels_xyz=in_code,
+                                              in_channels_dir=0, out_channels=cfg.num_bones,
+                                              raw_feat=True)
+            if cfg.nerf_dis:
+                # displacement field: a K1/K2 call site with a per-ray trunk code
+                self.nerf_dis = nets.NeRFMLP(D=5, W=128, in_channels_xyz=in_code,
+                                             in_channels_dir=0, out_channels=3, raw_feat=True)
+        if cfg.flowbw:
+            # the free-form 3D flow fields that replace the bones
+            self.nerf_flowbw = nets.Transhead(in_channels_xyz=in_code)
+            self.nerf_flowfw = nets.Transhead(in_channels_xyz=in_code)
         if cfg.env_code:
             self.env_code = nets.FrameCode(num_freq=NUM_FREQS, embedding_dim=ENV_DIM,
                                            vid_offset=self.offset)
@@ -133,6 +138,10 @@ class MoDAModel(nn.Module):
                 m.reset_parameters(gen)
             elif isinstance(m, nets.EmbedCode):
                 m.reset_parameters(gen)
+        if cfg.ft_cse:
+            # the trainable CSE net of the ft_cse branch (initialized last, so
+            # the other components draw as without it)
+            self.csenet = CSENet(generator=gen)
         self.to(dev)
         bound = float((self.near_far_init[:, 1] - self.near_far_init[:, 0]).mean() / 2.0)
         self.mvars = ModelVars(
@@ -142,6 +151,12 @@ class MoDAModel(nn.Module):
             vis_min=torch.zeros(3, device=dev),
             vis_len=torch.full((3,), bound / 2.0, device=dev),
             beta_is_active=torch.tensor(0.0, device=dev))
+
+    @property
+    def has_bones(self) -> bool:
+        """Bones, skinning and their codes exist (lbs or neudbs); without
+        them the model is rigid, or deforms by the flowbw flow fields."""
+        return self.cfg.lbs or self.cfg.neudbs
 
     @property
     def device(self) -> torch.device:
@@ -226,6 +241,16 @@ class MoDAModel(nn.Module):
         trunk code (the frame's pose code or the rest-pose code)."""
         return self._apply_mlp(self.nerf_skin, x, code_trunk=code_trunk, embed_raw=embed_raw,
                                embed_alpha=embed_alpha, site=site)
+
+    def apply_dis(self, x, code_trunk=None, embed_raw=False, embed_alpha=None, site=None):
+        """Displacement field nerf_dis: per-point 3-d offsets, with a per-ray
+        trunk code (the frame's pose code or the rest-pose code)."""
+        return self._apply_mlp(self.nerf_dis, x, code_trunk=code_trunk, embed_raw=embed_raw,
+                               embed_alpha=embed_alpha, site=site)
+
+    def apply_csenet(self, imgs):
+        """[N, H, W, 3] crops -> [N, H/2, W/2, 16] unit embeddings (ft_cse)."""
+        return self.csenet(imgs)
 
     def apply_pose_code(self, fid):
         return self.pose_code(fid)

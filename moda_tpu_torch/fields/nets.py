@@ -106,6 +106,21 @@ class NeRFMLP(nn.Module):
         return torch.cat([torch.sigmoid(rgb), sigma], -1)
 
 
+class Transhead(nn.Module):
+    """Translation field: a D5 W128 NeRF trunk (``trunk``) whose raw output
+    is scaled by 0.1. It runs as plain PyTorch, as the JAX package runs it
+    through flax (never through the fused kernel)."""
+
+    def __init__(self, in_channels_xyz: int = 63, D: int = 5, W: int = 128,
+                 out_channels: int = 3, device=None):
+        super().__init__()
+        self.trunk = NeRFMLP(D=D, W=W, in_channels_xyz=in_channels_xyz, in_channels_dir=0,
+                             out_channels=out_channels, raw_feat=True, device=device)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.trunk(x) * 0.1
+
+
 class RTHead(nn.Module):
     """Code -> B rigid transforms as 12-vectors (quat or so3 parameters)."""
 

@@ -7,6 +7,7 @@ init, ft1 and ft2 stages, and the shape warmup's ``shape_init_loss``).
     "shape_samp":   [S, 3] canonical surface samples (or zeros),
     "shape_samp_valid": scalar {0,1},
     "progress":     scalar in [0,1],
+    "xyz_wt_snapshot": {component: {layer: kernel}} (freeze_coarse; optional),
   }
 The eikonal term's point indices come from draws["eik_idx"] [n_sample]
 when given, else from the generator.
@@ -16,6 +17,7 @@ from __future__ import annotations
 from typing import Dict, Optional, Tuple
 
 import torch
+from torch.func import jacfwd, vmap
 
 from moda_tpu_torch.core import quat as Q
 from moda_tpu_torch.ops.sinkhorn import sinkhorn_divergence
@@ -53,6 +55,25 @@ def eikonal_loss(model, pts, bound, ppr: bool, n_sample: int = 1000, embed_alpha
         pts = pts.requires_grad_(True)
         g, = torch.autograd.grad(sdf_fn(pts).sum(), pts, create_graph=True)
     return masked_mean((Q.safe_norm(g) - 1.0) ** 2, inb)
+
+
+def elastic_loss(model, xyz: torch.Tensor, time_embedded: torch.Tensor,
+                 embed_alpha=None) -> torch.Tensor:
+    """Log-determinant penalty on the Jacobian of the flowbw field (plus the
+    identity) at detached points xyz [N, 3] with codes [N, C]; a point whose
+    determinant's sign is <= 0 adds 0. Not wired into total_loss, as in the
+    JAX package."""
+    xyz = xyz.detach().reshape(-1, 3)
+    code = time_embedded.detach().reshape(-1, time_embedded.shape[-1])
+
+    def flow_fn(p, c):
+        x = torch.cat([model.embed_xyz(p[None], embed_alpha), c[None]], -1)
+        return model.nerf_flowbw(x)[0]
+
+    jac = vmap(jacfwd(flow_fn))(xyz, code) + torch.eye(3, device=xyz.device)[None]
+    sign, logdet = torch.linalg.slogdet(jac)
+    logdet = torch.where(sign <= 0, torch.zeros_like(logdet), logdet)
+    return (logdet ** 2).mean()
 
 
 def shape_init_loss(model, pts_samp: torch.Tensor, obj_bound: torch.Tensor, use_ellips: bool,
@@ -95,9 +116,6 @@ def total_loss(model, rendered: Dict[str, torch.Tensor], rays: Dict[str, torch.T
                generator: Optional[torch.Generator] = None
                ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     cfg = model.cfg
-    if cfg.freeze_coarse or cfg.s3im_loss:
-        raise NotImplementedError("freeze_coarse / s3im loss terms are ported in a "
-                                  "later slice of moda_tpu_torch")
     aux: Dict[str, torch.Tensor] = {}
     sil_at_samp = rays["sil_at_samp"]
     vis_at_samp = rays["vis_at_samp"]
@@ -115,6 +133,11 @@ def total_loss(model, rendered: Dict[str, torch.Tensor], rays: Dict[str, torch.T
     aux["sil_loss"] = sil_loss
     aux["img_loss"] = img_loss
     total = img_loss + sil_loss
+
+    if cfg.s3im_loss and "s3im_loss" in rendered:
+        s3im = cfg.s3im_wt * rendered["s3im_loss"].mean()
+        total = total + s3im
+        aux["s3im_loss"] = s3im
 
     if cfg.use_embed:
         frnd = cfg.frnd_wt * rendered["frnd_loss_samp"] * keep
@@ -165,6 +188,11 @@ def total_loss(model, rendered: Dict[str, torch.Tensor], rays: Dict[str, torch.T
         total = total + cyc_loss * cfg.cyc_wt
         aux["cyc_loss"] = cyc_loss
 
+    # the displacement field's regularizers, backward and forward
+    for k in ("dis_reg", "dis_reg_forward"):
+        if k in rendered:
+            total = total + rendered[k].mean()
+
     if cfg.root_sm:
         root_sm_loss = compute_root_sm_2nd_loss(rtk_all, model.offset)
         aux["root_sm_loss"] = root_sm_loss
@@ -197,10 +225,24 @@ def total_loss(model, rendered: Dict[str, torch.Tensor], rays: Dict[str, torch.T
         aux["unc_loss"] = unc_loss
         total = total + unc_loss
 
+    if cfg.freeze_coarse and "xyz_wt_snapshot" in extras:
+        # pin the trunks' input-layer kernels to their values at stage start
+        snap = extras["xyz_wt_snapshot"]
+        for comp, label in (("nerf_coarse", "shape"), ("nerf_skin", "skin"),
+                            ("nerf_feat", "feat")):
+            if comp not in snap or not hasattr(model, comp):
+                continue
+            terms = [((k0.detach() - getattr(model, comp).get_submodule(layer).kernel) ** 2)
+                     .mean() for layer, k0 in snap[comp].items()]
+            wt_loss = 100.0 * torch.stack(terms).mean()
+            aux[f"{label}_xyz_wt_loss"] = wt_loss
+            total = total + wt_loss
+
     # parameter values are cloned: the step updates the parameters in place
     # after the loss, and aux must keep the values this loss saw
-    aux["skin_scale"] = model.skin_aux[0].detach().clone()
-    aux["skin_const"] = model.skin_aux[1].detach().clone()
+    if model.has_bones:
+        aux["skin_scale"] = model.skin_aux[0].detach().clone()
+        aux["skin_const"] = model.skin_aux[1].detach().clone()
     total = total * cfg.total_wt
     aux["total_loss"] = total
     aux["beta"] = model.nerf_beta[0].detach().clone()

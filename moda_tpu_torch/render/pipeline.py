@@ -11,6 +11,7 @@ otherwise draw from a ``torch.Generator``:
   "grid_noise" [G^3, 3] standard normal feat-match grid jitter
   "vis_neg"    [R, S, 3] uniform [-1, 1) visibility negatives (x bound)
   "sigma_noise" [R, S] standard normal (used only when cfg.noise_std > 0)
+  "s3im_perm"  [9, 1024] int64 S3IM's drawn permutations (s3im_loss)
 The fine pass's no-grad coarse pass reads its own "symm_u" and
 "sigma_noise" ([R, S / 2, ...]) under the names "coarse_symm_u" and
 "coarse_sigma_noise".
@@ -27,6 +28,7 @@ from moda_tpu_torch.core import density as DN
 from moda_tpu_torch.core import quat as Q
 from moda_tpu_torch.core import sampling as SP
 from moda_tpu_torch.core import skinning as SK
+from moda_tpu_torch.render.s3im import s3im_loss
 
 RayDict = Dict[str, torch.Tensor]
 Draws = Dict[str, torch.Tensor]
@@ -65,10 +67,12 @@ def vrender_flo(weights, xyz_target, xys, img_size: int):
     return flo, valid
 
 
-def _backward_warp(model, rays, xyz, alpha, use_dskin=False, site=None):
+def _backward_warp(model, rays, xyz, alpha, use_dskin=False, tag=""):
     """Frame -> canonical via NeuDBS (or LBS) backward skinning; with
     use_dskin the delta-skin MLP (the frame's pose code as per-ray trunk
-    code) adds to the skinning logits."""
+    code) adds to the skinning logits, and with nerf_dis the displacement
+    field (same code) is subtracted after the blend. Returns (xyz_c,
+    skin_bw, dis or None); ``tag`` suffixes the call sites' names."""
     cfg = model.cfg
     bones_rst, bone_rts_fw = rays["bones_rst"], rays["bone_rts"]
     if cfg.neudbs:
@@ -78,31 +82,51 @@ def _backward_warp(model, rays, xyz, alpha, use_dskin=False, site=None):
     dskin = None
     if cfg.nerf_skin and use_dskin:
         dskin = model.apply_skin(xyz, code_trunk=rays["time_embedded"], embed_raw=True,
-                                 embed_alpha=alpha, site=site)
+                                 embed_alpha=alpha, site="skin_bw" + tag)
     skin_bw = SK.skinning_weights(bones_dfm, xyz, dskin, model.skin_aux[0])
+    dis = None
+    if cfg.nerf_dis:
+        dis = model.apply_dis(xyz, code_trunk=rays["time_embedded"], embed_raw=True,
+                              embed_alpha=alpha, site="dis_bw" + tag)
     if cfg.neudbs:
-        xyz_c, _ = SK.neu_dbs(bones_rst, bone_rts_fw, skin_bw, xyz, backward=True)
+        xyz_c, _ = SK.neu_dbs(bones_rst, bone_rts_fw, skin_bw, xyz, dis=dis, backward=True)
     else:
         xyz_c, _ = SK.lbs(bones_rst, bone_rts_fw, skin_bw, xyz, backward=True)
-    return xyz_c, skin_bw
+    return xyz_c, skin_bw, dis
 
 
-def _forward_warp(model, rays, xyz_c, bone_rts, alpha, use_dskin=False, site=None):
+def _forward_warp(model, rays, xyz_c, bone_rts, alpha, use_dskin=False, use_dis=True,
+                  skin_site="skin_fw"):
     """Canonical -> frame with forward skinning (skin at rest pose; the
-    delta-skin MLP reads the rest-pose code)."""
+    delta-skin MLP and the displacement field read the rest-pose code).
+    use_dis=False leaves the displacement out, as kp_reproj does. Returns
+    (xyz_f, skin_fw, dis or None)."""
     cfg = model.cfg
     bones_rst = rays["bones_rst"]
+    rest = rays["rest_pose_code"]
+    rest = rest.expand(xyz_c.shape[0], rest.shape[-1])
     dskin = None
     if cfg.nerf_skin and use_dskin:
-        rest = rays["rest_pose_code"]
-        dskin = model.apply_skin(xyz_c, code_trunk=rest.expand(xyz_c.shape[0], rest.shape[-1]),
-                                 embed_raw=True, embed_alpha=alpha, site=site)
+        dskin = model.apply_skin(xyz_c, code_trunk=rest, embed_raw=True, embed_alpha=alpha,
+                                 site=skin_site)
+    dis = None
+    if cfg.nerf_dis and use_dis:
+        dis = model.apply_dis(xyz_c, code_trunk=rest, embed_raw=True, embed_alpha=alpha,
+                              site="dis_fw")
     skin_fw = SK.skinning_weights(bones_rst, xyz_c, dskin, model.skin_aux[0])
     if cfg.neudbs:
-        xyz_f, _ = SK.neu_dbs(bones_rst, bone_rts, skin_fw, xyz_c, backward=False)
+        xyz_f, _ = SK.neu_dbs(bones_rst, bone_rts, skin_fw, xyz_c, dis=dis, backward=False)
     else:
         xyz_f, _ = SK.lbs(bones_rst, bone_rts, skin_fw, xyz_c, backward=False)
-    return xyz_f, skin_fw
+    return xyz_f, skin_fw, dis
+
+
+def _flow(model, head, xyz, code, alpha):
+    """A flowbw/flowfw translation field at [R, S, 3] points with a per-ray
+    code [R, C] (plain PyTorch, as flax in the JAX package)."""
+    R, S = xyz.shape[:2]
+    code = code[:, None, :].expand(R, S, code.shape[-1])
+    return head(torch.cat([model.embed_xyz(xyz, alpha), code], -1))
 
 
 def _project_with_rtk_vec(xyz, rtk_vec):
@@ -198,11 +222,14 @@ def feat_match(model, feats, bound, grid_size, use_ot, is_training, embed_alpha=
 
 
 def kp_reproj(model, rays, pts_pred, to_target: bool, embed_alpha=None, use_dskin=False):
-    """Forward-warp canonical points into the (target) frame and project."""
+    """Forward-warp canonical points into the (target) frame and project.
+    The warp leaves the displacement field out, as the reference's
+    kp_reproj does."""
     xyz = pts_pred[:, None, :]
-    bone_rts = rays["bone_rts_target"] if to_target else rays["bone_rts"]
-    xyz, _ = _forward_warp(model, rays, xyz, bone_rts, embed_alpha, use_dskin=use_dskin,
-                           site="skin_reproj")
+    if "bone_rts" in rays:
+        bone_rts = rays["bone_rts_target"] if to_target else rays["bone_rts"]
+        xyz, _, _ = _forward_warp(model, rays, xyz, bone_rts, embed_alpha, use_dskin=use_dskin,
+                                  use_dis=False, skin_site="skin_reproj")
     rtk_vec = rays["rtk_vec_target"] if to_target else rays["rtk_vec"]
     return _project_with_rtk_vec(xyz, rtk_vec)
 
@@ -228,25 +255,47 @@ def inference_deform(model, rays, xyz_sampled, z_vals, cfg, fine_iter=True,
                      use_dskin=False, draws=None, generator=None):
     """Deform + render + per-sample losses. fine_iter=False (the fine
     pass's coarse pass) returns after compositing."""
-    if cfg.s3im_loss:
-        raise NotImplementedError("s3im_loss is ported in a later slice of moda_tpu_torch")
     result: Dict[str, torch.Tensor] = {}
     alpha = rays.get("embed_alpha", None)
     tag = "" if fine_iter else "_coarse"
-    xyz_canonical, _ = _backward_warp(model, rays, xyz_sampled, alpha, use_dskin=use_dskin,
-                                      site="skin_bw" + tag)
-    if fine_iter:
-        xyz_cyc, skin_fw = _forward_warp(model, rays, xyz_canonical, rays["bone_rts"], alpha,
-                                         use_dskin=use_dskin, site="skin_fw")
-        frame_cyc_dis = Q.safe_norm(xyz_sampled - xyz_cyc)
-        xyz_coarse_target = xyz_sampled
-        if cfg.dist_corresp:
-            if cfg.neudbs:
-                xyz_coarse_target, _ = SK.neu_dbs(rays["bones_rst"], rays["bone_rts_target"],
+    has_bones = "bone_rts" in rays
+    frame_cyc_dis = None
+    xyz_coarse_target = xyz_sampled
+    if cfg.flowbw:
+        # free-form 3D flow deformation in place of the bones
+        flow_bw = _flow(model, model.nerf_flowbw, xyz_sampled, rays["time_embedded"], alpha)
+        xyz_canonical = xyz_sampled + flow_bw
+        if fine_iter:
+            flow_fw = _flow(model, model.nerf_flowfw, xyz_canonical, rays["time_embedded"],
+                            alpha)
+            frame_cyc_dis = Q.safe_norm(flow_bw + flow_fw)
+            if "time_embedded_target" in rays:
+                xyz_coarse_target = xyz_canonical + _flow(
+                    model, model.nerf_flowfw, xyz_canonical, rays["time_embedded_target"], alpha)
+    elif has_bones:
+        xyz_canonical, _, dis_bw = _backward_warp(model, rays, xyz_sampled, alpha,
+                                                  use_dskin=use_dskin, tag=tag)
+        if dis_bw is not None:
+            result["dis_reg"] = Q.safe_norm(dis_bw)
+        if fine_iter:
+            xyz_cyc, skin_fw, dis_fw = _forward_warp(model, rays, xyz_canonical,
+                                                     rays["bone_rts"], alpha,
+                                                     use_dskin=use_dskin)
+            frame_cyc_dis = Q.safe_norm(xyz_sampled - xyz_cyc)
+            if dis_fw is not None:
+                result["dis_reg_forward"] = Q.safe_norm(dis_fw)
+            if cfg.dist_corresp and "bone_rts_target" in rays:
+                # the target warp re-applies the rest-code displacement (the
+                # same points and code as dis_fw) before the blend
+                if cfg.neudbs:
+                    xyz_coarse_target, _ = SK.neu_dbs(rays["bones_rst"], rays["bone_rts_target"],
+                                                      skin_fw, xyz_canonical, dis=dis_fw,
+                                                      backward=False)
+                else:
+                    xyz_coarse_target, _ = SK.lbs(rays["bones_rst"], rays["bone_rts_target"],
                                                   skin_fw, xyz_canonical, backward=False)
-            else:
-                xyz_coarse_target, _ = SK.lbs(rays["bones_rst"], rays["bone_rts_target"],
-                                              skin_fw, xyz_canonical, backward=False)
+    else:
+        xyz_canonical = xyz_sampled
 
     xyz_input = xyz_canonical
     if cfg.symm_shape:
@@ -289,7 +338,8 @@ def inference_deform(model, rays, xyz_sampled, z_vals, cfg, fine_iter=True,
             result["proj_err"] = proj_err / cfg.img_size * 2.0
     if cfg.dist_corresp and "rtk_vec_target" in rays:
         xyz_coarse_target = _project_with_rtk_vec(xyz_coarse_target, rays["rtk_vec_target"])
-    result["frame_cyc_dis"] = (frame_cyc_dis * weights.detach()).sum(-1)[..., None]
+    if frame_cyc_dis is not None:
+        result["frame_cyc_dis"] = (frame_cyc_dis * weights.detach()).sum(-1)[..., None]
     if cfg.nerf_vis:
         result["vis_loss"] = visibility_loss(model, xyz_canonical, vis_coarse,
                                              model.mvars.obj_bound, alpha, draws=draws,
@@ -332,6 +382,10 @@ def inference_deform(model, rays, xyz_sampled, z_vals, cfg, fine_iter=True,
         result["sil_loss_samp"] = sil_loss_samp
         result["flo_loss_samp"] = flo_loss_samp * sil_at_samp
         result["sil_at_samp_flo"] = sil_at_samp_flo.to(rgb.dtype)
+        if cfg.s3im_loss:
+            result["s3im_loss"] = s3im_loss(rgb, img_at_samp, sil_at_samp,
+                                            perms=(draws or {}).get("s3im_perm"),
+                                            generator=generator)[None, None]
         if cfg.use_embed and "feats_at_samp" in rays:
             f = feat_rnd / torch.clamp(Q.safe_norm(feat_rnd, keepdims=True), min=1e-9)
             frnd = torch.mean((f - rays["feats_at_samp"]) ** 2, -1)

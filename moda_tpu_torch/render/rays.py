@@ -171,17 +171,21 @@ def build_rays(model, batch: Dict[str, torch.Tensor], rtk: torch.Tensor, nsample
     rays["rtk_vec_target"] = flip_pair(rays["rtk_vec"])
 
     rf = frameid[ray_entry]
-    rays["time_embedded"] = model.apply_pose_code(frameid)[ray_entry]
+    if hasattr(model, "pose_code"):
+        rays["time_embedded"] = model.apply_pose_code(frameid)[ray_entry]
     if cfg.env_code:
         rays["env_code"] = model.apply_env_code(frameid)[ray_entry]
     if cfg.appearance_code:
         rays["appearance_code"] = model.apply_appearance_code(frameid)[ray_entry]
-    bones_rst, bone_rts = compute_bone_rts(model, frameid)
-    rays["bones_rst"] = bones_rst
-    rays["bone_rts"] = bone_rts[ray_entry]
-    rays["bone_rts_target"] = flip_pair(rays["bone_rts"])
-    rays["rest_pose_code"] = model.apply_rest_pose_code(
-        torch.zeros(1, dtype=torch.long, device=dev))
+    if model.has_bones:
+        bones_rst, bone_rts = compute_bone_rts(model, frameid)
+        rays["bones_rst"] = bones_rst
+        rays["bone_rts"] = bone_rts[ray_entry]
+        rays["bone_rts_target"] = flip_pair(rays["bone_rts"])
+        rays["rest_pose_code"] = model.apply_rest_pose_code(
+            torch.zeros(1, dtype=torch.long, device=dev))
+    if cfg.flowbw:
+        rays["time_embedded_target"] = flip_pair(rays["time_embedded"])
     if cfg.use_unc:
         _check_index(dataid, model.num_vid, "dataid")
         ts = batch["frameid_sub"].float() / model.max_ts * 2.0 - 1.0
@@ -243,16 +247,18 @@ def build_rays_image(model, rtk: torch.Tensor, kaug: torch.Tensor, frameid: torc
                      "rtk_vec": flat(rays_nt.rtk_vec), "xys": flat(rays_nt.xys)}
     if embed_alpha is not None:
         rays["embed_alpha"] = embed_alpha
-    rays["time_embedded"] = per_ray(model.apply_pose_code(frameid))
+    if hasattr(model, "pose_code"):
+        rays["time_embedded"] = per_ray(model.apply_pose_code(frameid))
     if cfg.env_code:
         rays["env_code"] = per_ray(model.apply_env_code(frameid))
     if cfg.appearance_code:
         rays["appearance_code"] = per_ray(model.apply_appearance_code(frameid))
-    bones_rst, bone_rts = compute_bone_rts(model, frameid)
-    rays["bones_rst"] = bones_rst
-    rays["bone_rts"] = flat(bone_rts[:, None].expand((B, P) + bone_rts.shape[1:]))
-    rays["rest_pose_code"] = model.apply_rest_pose_code(
-        torch.zeros(1, dtype=torch.long, device=dev))
+    if model.has_bones:
+        bones_rst, bone_rts = compute_bone_rts(model, frameid)
+        rays["bones_rst"] = bones_rst
+        rays["bone_rts"] = flat(bone_rts[:, None].expand((B, P) + bone_rts.shape[1:]))
+        rays["rest_pose_code"] = model.apply_rest_pose_code(
+            torch.zeros(1, dtype=torch.long, device=dev))
     if cfg.use_unc:
         # the unc MLP's inputs for the eval grid's uncertainty channel
         # (rendering.py:501-516): normalized pixel coords and frame time
@@ -269,6 +275,10 @@ def build_rays_image(model, rtk: torch.Tensor, kaug: torch.Tensor, frameid: torc
         rtk_vec_t = torch.cat([Rt.reshape(B, 1, 9), Tt.reshape(B, 1, 3), Kit.reshape(B, 1, 9)],
                               -1)
         rays["rtk_vec_target"] = flat(rtk_vec_t.expand(B, P, 21))
-        _, bone_rts_t = compute_bone_rts(model, frameid_target)
-        rays["bone_rts_target"] = flat(bone_rts_t[:, None].expand((B, P) + bone_rts_t.shape[1:]))
+        if model.has_bones:
+            _, bone_rts_t = compute_bone_rts(model, frameid_target)
+            rays["bone_rts_target"] = flat(
+                bone_rts_t[:, None].expand((B, P) + bone_rts_t.shape[1:]))
+        if cfg.flowbw:
+            rays["time_embedded_target"] = per_ray(model.apply_pose_code(frameid_target))
     return rays

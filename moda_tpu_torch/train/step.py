@@ -1,7 +1,9 @@
 """The training step: forward render -> losses -> grads -> update.
 
-Counterpart of moda_tpu/train/step.py for the init, ft1 and ft2 stages
-(fine pass, delta-skin MLP, uncertainty-guided active sampling). The step
+Counterpart of moda_tpu/train/step.py: the init, ft1 and ft2 stages (fine
+pass, delta-skin MLP, uncertainty-guided active sampling) and the step's
+branches (ft_cse's live CSE features, training without bones, the
+freeze_coarse snapshot, gradient accumulation). The step
 updates the model's parameters and the optimizer state in place and
 returns (aux, host_out). Random draws come from a ``torch.Generator`` or,
 for tests, from an explicit ``draws`` dict (see render/rays.py,
@@ -12,6 +14,7 @@ from __future__ import annotations
 from typing import Dict, NamedTuple, Optional
 
 import torch
+import torch.nn.functional as Fn
 
 from moda_tpu_torch.render import losses as L
 from moda_tpu_torch.render.pipeline import render_rays
@@ -94,34 +97,80 @@ class StepExtras(NamedTuple):
     base_rt: Optional[torch.Tensor] = None
 
 
+def live_cse_feats(model, batch, progress):
+    """ft_cse: the trainable CSE net on the batch's full crops, resized to
+    img_size as jax.image.resize's "linear" upsampling (half-pixel centres,
+    the bilinear of align_corners=False). Returns (live features [2B, 16,
+    S*S] for the renderer, detached until ftcse_steps, and the 1e-5
+    distillation loss against the precomputed features on the pixels that
+    have them)."""
+    cfg = model.cfg
+    S = cfg.img_size
+    imgs = batch["imgs"].reshape(-1, 3, S, S).permute(0, 2, 3, 1)
+    live = model.apply_csenet(imgs).permute(0, 3, 1, 2)
+    live = Fn.interpolate(live, size=(S, S), mode="bilinear", align_corners=False)
+    live = live.reshape(live.shape[0], live.shape[1], -1)
+    pre = batch["dp_feats"]
+    valid_px = (pre.abs().sum(1, keepdim=True) > 0).to(live.dtype)
+    loss = 1e-5 * (((live - pre) ** 2).sum(1, keepdim=True) * valid_px).sum() / \
+        torch.clamp(valid_px.sum(), min=1.0)
+    # the main losses reach the CSE net only after ftcse_steps
+    used = torch.where(torch.as_tensor(progress) > cfg.ftcse_steps, live, live.detach())
+    return used, loss
+
+
+def micro_batches(batch: Dict[str, torch.Tensor], accu_steps: int):
+    """accu_steps micro-batches of B // accu_steps pairs: the same slice of
+    both halves of every [2B] array."""
+    B = batch["frameid"].shape[0] // 2
+    mb = B // accu_steps
+    return [{k: torch.cat([v[j * mb:(j + 1) * mb], v[B + j * mb:B + (j + 1) * mb]], 0)
+             for k, v in batch.items()} for j in range(accu_steps)]
+
+
 def make_train_step(model, optimizer: MoDAOptimizer, *, nsample: int, ndepth: int,
                     use_fine: bool, use_dskin: bool, use_bones: bool,
-                    nsample_active: int = 0, accu_steps: int = 1, chunk_steps: int = 1,
-                    device: Device = None):
+                    nsample_active: int = 0, xyz_wt_snapshot=None, accu_steps: int = 1,
+                    chunk_steps: int = 1, device: Device = None):
     """Returns ``step(batch, extras, generator=None, draws=None) -> (aux,
     host_out)``, which updates ``model``'s parameters and
     ``optimizer.state`` in place. The step runs on the card unless
-    device="cpu" is passed (the model must already live there)."""
+    device="cpu" is passed (the model must already live there).
+
+    use_bones=False renders without the deformation model (the rays carry
+    no bone keys). xyz_wt_snapshot: {component: {layer: kernel}}, the
+    trunks' input-layer kernels at stage start, which freeze_coarse
+    distils against. accu_steps > 1 splits the batch into micro-batches
+    (``micro_batches``), averages their gradients and makes one update;
+    ``draws`` is then a list with one dict per micro-batch."""
     dev = resolve_device(device)
     if model.device.type != dev.type:
         raise ValueError(f"model lives on {model.device}, step asked for {dev}")
-    for flag, what in ((not use_bones, "use_bones=False"), (accu_steps > 1, "accu_steps > 1"),
-                       (chunk_steps > 1, "chunk_steps > 1")):
-        if flag:
-            raise NotImplementedError(f"{what} is ported in a later slice of moda_tpu_torch")
+    if chunk_steps > 1:
+        raise NotImplementedError("chunk_steps > 1 is ported in a later slice of "
+                                  "moda_tpu_torch (the host-side step slice)")
     cfg = model.cfg
     names = [n for n, _ in model.named_parameters()]
     params = dict(model.named_parameters())
     if getattr(optimizer, "state", None) is None:
         optimizer.state = optimizer.init({k: v.detach() for k, v in params.items()})
+    ft_cse = cfg.ft_cse and cfg.use_embed and not cfg.lineload
 
     def loss_fn(batch, extras: StepExtras, draws, generator):
         draws = draws or {}
         base_rt = extras.base_rt if cfg.use_cam else None
         rtk_all3 = model.compute_rts(base_rt=base_rt)
         rtk = batch_rtk(model, rtk_all3, batch)
+        csenet_loss = None
+        if ft_cse:
+            # batch mode only, as in the reference: line rows carry no crops
+            live, csenet_loss = live_cse_feats(model, batch, extras.progress)
+            batch = dict(batch, dp_feats=live)
         rays = build_rays(model, batch, rtk, nsample, nsample_active=nsample_active,
                           embed_alpha=extras.embed_alpha, generator=generator, draws=draws)
+        if not use_bones:
+            for k in ("bone_rts", "bone_rts_target", "bones_rst", "rest_pose_code"):
+                rays.pop(k, None)
         rendered = render_rays(model, rays, ndepth, use_fine=use_fine, use_dskin=use_dskin,
                                draws=draws, generator=generator)
         keep = torch.ones_like(rendered["sil_loss_samp"])
@@ -141,19 +190,53 @@ def make_train_step(model, optimizer: MoDAOptimizer, *, nsample: int, ndepth: in
             "shape_samp": extras.shape_samp, "shape_samp_valid": extras.shape_samp_valid,
             "progress": extras.progress,
         }
+        if cfg.freeze_coarse and xyz_wt_snapshot is not None:
+            loss_extras["xyz_wt_snapshot"] = xyz_wt_snapshot
         rtk_all = torch.cat([rtk_all3, torch.zeros(model.num_fr, 1, 4, device=dev)], 1)
         total, aux = L.total_loss(model, rendered, rays, rtk_all, loss_extras, draws=draws,
                                   generator=generator)
+        if csenet_loss is not None and cfg.mt_cse:
+            # distillation alone before mtcse_steps, added to the total after
+            total = torch.where(torch.as_tensor(extras.progress) < cfg.mtcse_steps,
+                                csenet_loss, total + csenet_loss)
+            aux["csenet_loss"] = csenet_loss
         return total, aux, {"rtk": rtk.detach(), "frame_err": frame_err.detach(),
                             "frame_cnt": frame_cnt.detach()}
 
-    def step(batch: Dict[str, torch.Tensor], extras: StepExtras,
-             generator: Optional[torch.Generator] = None,
-             draws: Optional[Dict[str, torch.Tensor]] = None):
-        total, aux, host_out = loss_fn(batch, extras, draws, generator)
+    def grads_of(total):
         plist = [params[n] for n in names]
         gl = torch.autograd.grad(total, plist, allow_unused=True)
-        grads = {n: (torch.zeros_like(p) if g is None else g) for n, p, g in zip(names, plist, gl)}
+        return {n: (torch.zeros_like(p) if g is None else g) for n, p, g in zip(names, plist, gl)}
+
+    def accumulate(batch, extras, draws, generator):
+        """One loss and gradient per micro-batch; the gradients' mean, the
+        auxiliaries' mean, this batch's rtk, the frames' worst error and
+        their summed counts."""
+        grads, auxs, hosts = None, [], []
+        for j, b in enumerate(micro_batches(batch, accu_steps)):
+            total, aux, host = loss_fn(b, extras, None if draws is None else draws[j],
+                                       generator)
+            g = grads_of(total)
+            grads = ({n: v / accu_steps for n, v in g.items()} if grads is None else
+                     {n: grads[n] + g[n] / accu_steps for n in names})
+            auxs.append({k: v.detach() for k, v in aux.items()})
+            hosts.append(host)
+        aux = {k: torch.stack([a[k] for a in auxs]).mean(0) for k in auxs[0]}
+        with torch.no_grad():
+            rtk = batch_rtk(model, model.compute_rts(
+                base_rt=extras.base_rt if cfg.use_cam else None), batch)
+        host_out = {"rtk": rtk,
+                    "frame_err": torch.stack([h["frame_err"] for h in hosts]).amax(0),
+                    "frame_cnt": torch.stack([h["frame_cnt"] for h in hosts]).sum(0)}
+        return grads, aux, host_out
+
+    def step(batch: Dict[str, torch.Tensor], extras: StepExtras,
+             generator: Optional[torch.Generator] = None, draws=None):
+        if accu_steps > 1:
+            grads, aux, host_out = accumulate(batch, extras, draws, generator)
+        else:
+            total, aux, host_out = loss_fn(batch, extras, draws, generator)
+            grads = grads_of(total)
         grads, finite = reject_nonfinite(grads)
         grads = apply_freeze_masks(grads, {
             "root_update": extras.root_update, "body_update": extras.body_update,

@@ -49,7 +49,7 @@ from moda_tpu_torch.render import losses as L
 from moda_tpu_torch.runtime import Device, resolve_device
 from moda_tpu_torch.train import ckpt as CK
 from moda_tpu_torch.train import schedule as SCH
-from moda_tpu_torch.train.optim import MoDAOptimizer, group_of
+from moda_tpu_torch.train.optim import INPUT_LAYERS, MoDAOptimizer, group_of
 from moda_tpu_torch.train.step import StepExtras, make_train_step
 from moda_tpu_torch.train.warmup_pose import (PoseWarmup, nearest_valid_substitution,
                                               ood_check_features)
@@ -65,18 +65,10 @@ SCALARS = ("progress", "loss_select", "root_update", "body_update", "shape_updat
 
 def check_ported(cfg: MoDAConfig):
     """Raise NotImplementedError, naming the later slice, for what the
-    port's trainer does not run yet. The model and the step refuse their
-    own unported flags (nerf_dis, flowbw, ft_cse; accu_steps > 1,
-    s3im_loss, freeze_coarse) when they are built or run."""
-    for flag, what, where in (
-            (cfg.steps_chunk > 1, "steps_chunk > 1 (K steps per dispatch)",
-             "the host-side step slice"),
-            (cfg.accu_steps > 1, "accu_steps > 1", "the step-branch slice"),
-            (cfg.s3im_loss, "s3im_loss", "the step-branch slice"),
-            (cfg.freeze_coarse, "freeze_coarse", "the step-branch slice")):
-        if flag:
-            raise NotImplementedError(f"{what} is ported in a later slice of moda_tpu_torch "
-                                      f"({where})")
+    port's trainer does not run yet: K steps per dispatch."""
+    if cfg.steps_chunk > 1:
+        raise NotImplementedError("steps_chunk > 1 (K steps per dispatch) is ported in a later "
+                                  "slice of moda_tpu_torch (the host-side step slice)")
 
 
 def sample_mesh_points(mesh: Mesh, n: int, rng: np.random.Generator) -> np.ndarray:
@@ -183,6 +175,7 @@ class Trainer:
         self.grid_query = make_grid_query(self.model)
         self._step_cache: Dict = {}
         self.optimizer: Optional[MoDAOptimizer] = None
+        self.xyz_wt_snapshot: Optional[Dict] = None  # freeze_coarse's, taken in train()
         self.log_path = os.path.join(self.save_dir, "log.jsonl")
         with open(os.path.join(self.save_dir, "opts.json"), "w") as f:
             f.write(cfg.to_json())
@@ -192,6 +185,13 @@ class Trainer:
     # ------------------------------------------------------------------ util
     @property
     def final_steps(self) -> int:
+        """Iterations of the run, micro-batches counted: an epoch is
+        ITERS_PER_EPOCH step calls, each of accu_steps micro-batches and one
+        optimizer update, so the schedule's total_steps (final_steps //
+        accu_steps) is the run's update count. (The JAX trainer makes
+        ITERS_PER_EPOCH * accu_steps calls an epoch, each a whole update, and
+        so runs its one-cycle schedule to its end after 1/accu_steps of the
+        run.)"""
         return self.cfg.num_epochs * ITERS_PER_EPOCH * self.cfg.accu_steps
 
     def _params(self) -> Dict[str, torch.Tensor]:
@@ -218,7 +218,8 @@ class Trainer:
             self._step_cache[sig] = make_train_step(
                 self.model, self.optimizer, nsample=ns_uniform, ndepth=cfg.ndepth,
                 use_fine=use_fine, use_dskin=use_dskin, use_bones=use_bones,
-                nsample_active=ns_active, accu_steps=cfg.accu_steps, device=self.device)
+                nsample_active=ns_active, xyz_wt_snapshot=self.xyz_wt_snapshot,
+                accu_steps=cfg.accu_steps, device=self.device)
         return self._step_cache[sig], ns_uniform, ns_active
 
     def _draw(self, kind: str, **info) -> torch.Tensor:
@@ -553,6 +554,13 @@ class Trainer:
         if not self.is_fine_tune:
             self.reset_nf()
         self.latest_vars["idk"][:] = 0
+        if cfg.freeze_coarse:
+            # the trunks' input-layer kernels at stage start, which the
+            # freeze_coarse loss pins (grab_xyz_weights, train_utils.py:680-688)
+            self.xyz_wt_snapshot = {
+                comp: {layer: getattr(self.model, comp).get_submodule(layer).kernel.detach()
+                       .clone() for layer in INPUT_LAYERS}
+                for comp in ("nerf_coarse", "nerf_skin", "nerf_feat") if hasattr(self.model, comp)}
 
         shape_samp = np.zeros((1000, 3), np.float32)
         shape_samp_valid = 0.0
@@ -587,11 +595,10 @@ class Trainer:
                     traceback.print_exc()
                     self._log({"eval_render_error": str(e)})
             t_eval = time.time() - t_eval0
-            n_steps = ITERS_PER_EPOCH * cfg.accu_steps
             self._log({"epoch": epoch, "epoch_time": time.time() - t_ep,
                        "t_mesh": round(t_mesh, 3), "t_save": round(t_save, 3),
                        "t_eval": round(t_eval, 3),
-                       "t_steps": round(t_loop, 3), "steps_per_s": n_steps / max(t_loop, 1e-9),
+                       "t_steps": round(t_loop, 3), "steps_per_s": ITERS_PER_EPOCH / max(t_loop, 1e-9),
                        "mesh_verts": len(self.mesh_rest.vertices),
                        "frac_occupied": round(self.mesh_rest.frac_occupied, 5),
                        "root_steps_rejected": round(getattr(self, "_root_rejected_ep", 0.0), 1),
@@ -680,9 +687,8 @@ class Trainer:
                                                      device=dev),
                  "base_rt": (torch.as_tensor(self.latest_vars["rt_raw"], device=dev)
                              if cfg.use_cam else None)}
-        total_iters = ITERS_PER_EPOCH * cfg.accu_steps
         self._t_load_ep = self._t_upload_ep = self._t_dispatch_ep = self._t_fetch_ep = 0.0
-        for i in range(total_iters):
+        for i in range(ITERS_PER_EPOCH):
             self.progress = self.total_steps_done / max(self.final_steps, 1)
             t0 = time.time()
             batch = next(self.loader)
@@ -714,8 +720,9 @@ class Trainer:
             self._pending = (np.asarray(batch["frameid"]), fetch, i)
             self._t_fetch_ep += time.time() - t3
 
-            self.total_steps_done += 1
-            self.counter_frz_rebone -= 1 / max(self.final_steps, 1)
+            # a call is accu_steps iterations of the run (final_steps)
+            self.total_steps_done += cfg.accu_steps
+            self.counter_frz_rebone -= cfg.accu_steps / max(self.final_steps, 1)
 
             # near-far re-estimation after nf_reset progress (moda.py:485-491)
             if self.progress >= cfg.nf_reset and len(self.mesh_rest.vertices) > 100 \

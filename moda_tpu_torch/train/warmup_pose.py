@@ -135,7 +135,7 @@ class PoseWarmup:
 
     def save(self, path: str):
         """Persist the pose CNN (pose_cnn_path artifact equivalent)."""
-        np.savez(path, **bridge.flatten({"cnn": bridge.export_pose_cnn(self.net)}))
+        np.savez(path, **bridge.flatten({"cnn": bridge.export_params(self.net)}))
 
     def load(self, path: str):
         """npz: a self-trained PoseCNN of either package. The reference's
@@ -144,7 +144,7 @@ class PoseWarmup:
         if path.endswith(".pth"):
             raise NotImplementedError("the reference's .pth posenet checkpoint is ported in a "
                                       "later slice of moda_tpu_torch (the preprocessing slice)")
-        bridge.load_pose_cnn(self.net, bridge.unflatten(dict(np.load(path)))["cnn"])
+        bridge.load_params(self.net, bridge.unflatten(dict(np.load(path)))["cnn"])
 
     @torch.no_grad()
     def predict(self, feats: np.ndarray) -> np.ndarray:

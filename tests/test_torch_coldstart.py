@@ -105,14 +105,14 @@ def test_pose_cnn_forward_matches_jax(jax_cnn):
     """PoseCNN on bridged parameters: the [N, 12] poses within 1e-5
     relative L2 of flax's; export gives the JAX tree back exactly."""
     net = TC.PoseCNN()
-    bridge.load_pose_cnn(net, jax_cnn)
+    bridge.load_params(net, jax_cnn)
     x = np.random.default_rng(1).normal(size=(2, CROP, CROP, 16)).astype(np.float32)
     want = np.asarray(JPoseCNN().apply({"params": jax_cnn}, jnp.asarray(x)))
     with torch.no_grad():
         got = net(torch.as_tensor(x)).numpy()
     assert got.shape == want.shape == (2, 12)
     assert _rel(got, want) <= 1e-5
-    back = bridge.flatten(bridge.export_pose_cnn(net))
+    back = bridge.flatten(bridge.export_params(net))
     ref = bridge.flatten(jax_cnn)
     assert back.keys() == ref.keys()
     for k in ref:
@@ -129,7 +129,7 @@ def test_pose_warmup_steps_in_lockstep(jax_warm, jax_cnn):
     jw.params = jax.tree_util.tree_map(jnp.asarray, jax_cnn)
     jw.opt_state = jw.opt.init(jw.params)
     tw = TW.PoseWarmup(v, f, e, d_mean=3.0, total_steps=4, device="cpu")
-    bridge.load_pose_cnn(tw.net, jax_cnn)
+    bridge.load_params(tw.net, jax_cnn)
     rng = np.random.default_rng(2)
     for _ in range(2):
         feats, rtk = TW.render_pose_batch(v, f, e, 3.0, 2, rng)
@@ -137,7 +137,7 @@ def test_pose_warmup_steps_in_lockstep(jax_warm, jax_cnn):
                                                  jnp.asarray(rtk))
         trot = tw.step(feats, rtk)
         assert abs(float(trot) - float(jrot)) <= 1e-5 * max(1.0, abs(float(jrot)))
-    got = bridge.flatten(bridge.export_pose_cnn(tw.net))
+    got = bridge.flatten(bridge.export_params(tw.net))
     want = bridge.flatten(jax.tree_util.tree_map(np.asarray, jw.params))
     keys = sorted(want)
     assert _rel(np.concatenate([got[k].ravel() for k in keys]),
@@ -160,7 +160,7 @@ def test_pose_cnn_npz_moves_between_packages(jax_warm, jax_cnn, tmp_path):
     tw = TW.PoseWarmup(v, f, e, d_mean=3.0, device="cpu")
     tw.load(str(tmp_path / "j.npz"))
     want = bridge.flatten(jax_cnn)
-    got = bridge.flatten(bridge.export_pose_cnn(tw.net))
+    got = bridge.flatten(bridge.export_params(tw.net))
     assert got.keys() == want.keys()
     for k in want:
         np.testing.assert_array_equal(got[k], want[k], err_msg=k)
@@ -204,7 +204,7 @@ def test_extract_cams_cnn_matches_jax(jax_warm, jax_cnn, tmp_path):
     tr.load_prior_mesh(prior)
     tr.pose_cnn = TW.PoseWarmup(tr.prior_verts_unit, tr.prior_faces, tr.prior_embeds, 3.0,
                                 device="cpu")
-    bridge.load_pose_cnn(tr.pose_cnn.net, jax_cnn)
+    bridge.load_params(tr.pose_cnn.net, jax_cnn)
     jw = jax_warm  # predict reads only the parameters
     jw.params = jax.tree_util.tree_map(jnp.asarray, jax_cnn)
     installed = []

@@ -273,3 +273,48 @@ def test_dw_gemm_is_deterministic(cuda_device):
     o1 = FM.dw_gemm(a, d, npad)
     o2 = FM.dw_gemm(a, d, npad)
     assert all(torch.equal(x, y) for x, y in zip(o1, o2))
+
+
+def test_kernel_matches_plain_at_the_dis_site(cuda_device):
+    """The displacement field nerf_dis's launch: D5 W128 with a 128-wide
+    per-ray trunk code and a 3-wide head, 128 samples a ray (the first site
+    pairing W = 128 with a code): K1/K2 against the plain version, two
+    backwards bit-identical, and the dW GEMM at its task shapes within 1e-4
+    (relative L2) of its plain version."""
+    from moda_tpu_torch.fields.nets import NeRFMLP, reset_denses
+    from moda_tpu_torch.ops import fused_mlp as FM
+
+    gen = torch.Generator().manual_seed(7)
+    S, R, ct = 128, 37, 128
+    m = NeRFMLP(D=5, W=128, in_channels_xyz=63 + ct, in_channels_dir=0, out_channels=3,
+                raw_feat=True)
+    reset_denses(m, gen)
+    m = m.to(cuda_device)
+    x = (torch.randn(R * S, 3, generator=gen) * 0.3).to(cuda_device).requires_grad_(True)
+    ctc = torch.randn(R, ct, generator=gen).to(cuda_device).requires_grad_(True)
+    leaves = [x, ctc] + list(m.parameters())
+    cot = torch.randn(R * S, 3, generator=gen).to(cuda_device)
+
+    def run(kernel):
+        out = FM.nerf_mlp_fused([(m, True, False)], x, code_trunk=ctc, samples_per_ray=S,
+                                embed_freqs=10, compute_dtype=torch.bfloat16,
+                                kernel=kernel, site="dis_test")[0]
+        return out.detach(), _grads(out, leaves, cot)
+
+    before = dict(FM.launches)
+    ko, kg = run(True)
+    _, kg2 = run(True)
+    torch.cuda.synchronize()
+    assert FM.launches["fwd"] == before["fwd"] + 2 and FM.launches["bwd"] == before["bwd"] + 2
+    assert all(torch.equal(a, b) for a, b in zip(kg, kg2))
+    po, pg = run(False)
+    assert float((ko - po).norm() / po.norm()) <= 1e-2
+    for a, b in zip(kg, pg):
+        assert float((a - b).norm() / (b.norm() + 1e-12)) <= 2e-2
+    shapes = [(k, n) for k, n, _ in FM.dw_task_shapes([(m, True, False)], 63, ct, 0, S,
+                                                      emb=(3, 10, True))]
+    npad = FM.bwd_geometry(R * S, S).npad
+    a, d = _dw_stacks(cuda_device, shapes, npad, npad, seed=8)
+    out = FM.dw_gemm(a, d, npad)
+    for o, r in zip(out, FM.dw_gemm_plain(a, d, npad)):
+        assert float((o - r).norm() / r.norm()) <= 1e-4

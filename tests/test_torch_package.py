@@ -1,16 +1,28 @@
 """Package rules of moda_tpu_torch: it imports neither JAX nor anything of
 moda_tpu, and its entry points run on the card unless asked for the CPU."""
 import ast
+import json
 import pathlib
 import subprocess
 import sys
 
+import numpy as np
 import pytest
 import torch
 
 PKG = pathlib.Path(__file__).resolve().parents[1] / "moda_tpu_torch"
 # the card's machine is not promised an image codec, so none may load either
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "moda_tpu", "cv2", "imageio", "PIL")
+
+
+@pytest.fixture(autouse=True)
+def _one_torch_thread():
+    """One intra-op thread for torch: the tests run in several processes at
+    once, and torch's thread pools on every core slow all of them down."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def test_import_loads_no_jax_and_no_moda_tpu():
@@ -22,6 +34,8 @@ def test_import_loads_no_jax_and_no_moda_tpu():
             "import moda_tpu_torch.render.evalrender, moda_tpu_torch.viz.render_vis\n"
             "import moda_tpu_torch.data.frames, moda_tpu_torch.data.imageio\n"
             "import moda_tpu_torch.train.warmup_pose, moda_tpu_torch.fields.cnn\n"
+            "import moda_tpu_torch.fields.cse, moda_tpu_torch.render.s3im\n"
+            "import moda_tpu_torch.train.cse_distill\n"
             f"bad = [m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r}]\n"
             "print(bad)\n"
             "assert not bad, bad\n")
@@ -76,41 +90,55 @@ def test_entry_points_need_a_card_unless_asked_for_cpu(monkeypatch):
 
 
 def test_later_slices_refuse_explicitly(tmp_path):
-    """What the ported slices do not run raises, naming a later slice:
-    nerf_dis, flowbw, ft_cse, s3im_loss, freeze_coarse, accu_steps and
-    chunk_steps > 1, use_bones=False, and the trainer's refusals."""
+    """The step's branches build and run: nerf_dis, flowbw without bones,
+    ft_cse, s3im_loss, freeze_coarse, accu_steps > 1 and use_bones=False in
+    the model, the step and the trainer. What the ported slices do not run
+    raises, naming a later slice: chunk_steps / steps_chunk > 1 and the
+    reference's .pth posenet (more than one process:
+    test_train_app_refuses_later_slices)."""
     from moda_tpu_torch.fields.model import MoDAModel
     from moda_tpu_torch.train.optim import MoDAOptimizer
-
-    from moda_tpu_torch.render.losses import total_loss
+    from moda_tpu_torch.train.step import StepExtras
 
     cfg, info = _tiny()
-    for flag in ("nerf_dis", "flowbw", "ft_cse"):
-        with pytest.raises(NotImplementedError, match="later slice"):
-            MoDAModel(cfg.replace(**{flag: True}), info, device="cpu")
-    for flag in ("s3im_loss", "freeze_coarse"):
-        with pytest.raises(NotImplementedError, match="later slice"):
-            total_loss(MoDAModel(cfg.replace(**{flag: True}), info, device="cpu"), {}, {}, None,
-                       {})
-    model = MoDAModel(cfg.replace(use_unc=True), info, device="cpu")
-    opt = MoDAOptimizer(cfg, total_steps=10)
+    t = torch.tensor
+    extras = StepExtras(progress=t(0.5), loss_select=t(1), root_update=t(1.0),
+                        body_update=t(1.0), shape_update=t(0.0), cvf_update=t(0.0),
+                        sil_err_median=t(1e9), shape_samp=torch.zeros(8, 3),
+                        shape_samp_valid=t(0.0), embed_alpha=t(10.0))
+    P, fid = cfg.img_size ** 2, t([0, 1, 1, 2])
+    batch = {"imgs": torch.rand(4, 3, P), "masks": torch.ones(4, 1, P),
+             "vis2d": torch.ones(4, 1, P), "flow": torch.zeros(4, 2, P),
+             "occ": torch.ones(4, 1, P), "dp_feats": torch.rand(4, 16, P),
+             "kaug": t([[1.0, 1.0, 0.0, 0.0]]).repeat(4, 1), "frameid": fid,
+             "frameid_sub": fid, "dataid": torch.zeros(4, dtype=torch.long)}
     build_step = _step_factory()
-    args = dict(nsample=2, ndepth=8, use_fine=True, use_dskin=True, use_bones=True,
-                nsample_active=2)
-    build_step(model, opt, device="cpu", **args)
-    for kw in (dict(accu_steps=2), dict(chunk_steps=2), dict(use_bones=False)):
-        with pytest.raises(NotImplementedError, match="later slice"):
-            build_step(model, opt, device="cpu", **dict(args, **kw))
+    args = dict(nsample=2, ndepth=8, use_fine=True, use_dskin=True, use_bones=True)
+    for kw, step_kw in ((dict(nerf_dis=True), {}), (dict(ft_cse=True, s3im_loss=True), {}),
+                        (dict(freeze_coarse=True), {}), ({}, dict(accu_steps=2)),
+                        (dict(flowbw=True, lbs=False, neudbs=False),
+                         dict(use_bones=False, use_dskin=False))):
+        model = MoDAModel(cfg.replace(**kw), info, device="cpu")
+        step = build_step(model, MoDAOptimizer(cfg, total_steps=10), device="cpu",
+                          **dict(args, **step_kw))
+        aux, _ = step(batch, extras, generator=torch.Generator().manual_seed(0))
+        assert float(aux["grad_finite"]) == 1.0 and torch.isfinite(aux["total_loss"]), kw
+    with pytest.raises(ValueError, match="nolbs"):
+        MoDAModel(cfg.replace(flowbw=True), info, device="cpu")
+    with pytest.raises(NotImplementedError, match="later slice"):
+        build_step(model, MoDAOptimizer(cfg, total_steps=10), device="cpu", chunk_steps=2,
+                   **args)
 
-    # the trainer: K steps per dispatch, gradient accumulation, s3im and
-    # freeze_coarse; the eval renders and the pose-CNN cold start run
+    # the trainer: K steps per dispatch waits; the branches, the eval renders
+    # and the pose-CNN cold start build
     from moda_tpu_torch.train.trainer import Trainer
     from moda_tpu_torch.train.warmup_pose import PoseWarmup
     tcfg = cfg.replace(checkpoint_dir=str(tmp_path))
-    for kw in (dict(steps_chunk=2), dict(accu_steps=2), dict(s3im_loss=True),
-               dict(freeze_coarse=True)):
-        with pytest.raises(NotImplementedError, match="later slice"):
-            Trainer(tcfg.replace(**kw), info, device="cpu")
+    with pytest.raises(NotImplementedError, match="later slice"):
+        Trainer(tcfg.replace(steps_chunk=2), info, device="cpu")
+    for kw in (dict(accu_steps=2), dict(s3im_loss=True), dict(freeze_coarse=True),
+               dict(ft_cse=True, nerf_dis=True)):
+        Trainer(tcfg.replace(**kw), info, device="cpu")
     tr = Trainer(tcfg.replace(warmup_pose_ep=1), info, device="cpu")
     assert tr.cfg.render_size == 64
     # the reference's .pth posenet checkpoint waits for the preprocessing slice
@@ -129,14 +157,18 @@ def test_config_loads_a_jax_config():
 
 
 def test_train_app_refuses_later_slices(tmp_path, monkeypatch):
-    """train_app refuses the trainer's unported flags and more than one
-    process, naming a later slice, on either data route; extract_app needs
-    a checkpoint. Datasets without line shards are read through the frame
-    route (tests/test_torch_frames.py), a video without frames raises."""
+    """train_app refuses steps_chunk > 1 and more than one process, naming
+    a later slice, on either data route, and runs the step's branches
+    (nerf_dis, S3IM, freeze_coarse and accu_steps together; flowbw without
+    bones; ft_cse on the frame route); extract_app needs a checkpoint.
+    Datasets without line shards are read through the frame route
+    (tests/test_torch_frames.py), a video without frames raises."""
     import shutil
 
     from moda_tpu_torch.cli import extract_app, train_app
-    from moda_tpu_torch.data.synthetic import SynthScene, write_line_dataset
+    from moda_tpu_torch.data.synthetic import (SynthScene, write_frame_dataset,
+                                               write_line_dataset)
+    from moda_tpu_torch.train import trainer as TT
 
     write_line_dataset(str(tmp_path / "db"), str(tmp_path / "cfg"), "syn",
                        SynthScene(img_size=8, num_frames=3))
@@ -145,6 +177,25 @@ def test_train_app_refuses_later_slices(tmp_path, monkeypatch):
     for route in ([], ["--lineload"]):
         with pytest.raises(NotImplementedError, match="later slice"):
             train_app.main(argv + route + ["--steps_chunk", "2"], device="cpu")
+    # the step's branches run through train_app (one two-step epoch); ft_cse
+    # on the frame route, whose batches carry the full crops its CSE net reads
+    monkeypatch.setattr(TT, "ITERS_PER_EPOCH", 2)
+    write_frame_dataset(str(tmp_path / "fdb"), str(tmp_path / "fcfg"), "synf",
+                        SynthScene(img_size=16, num_frames=3))
+    small = ["--checkpoint_dir", str(tmp_path), "--batch_size", "2", "--nsample", "4",
+             "--ndepth", "8", "--sample_grid3d", "8", "--feat_ndepth_grid", "4",
+             "--num_bones", "3", "--num_epochs", "1", "--render_size", "0",
+             "--n_data_workers", "1", "--use_rtk_file"]
+    lines = argv[:4] + ["--lineload", "--img_size", "8"]
+    for name, data, flags in (
+            ("dis", lines, ["--nerf_dis", "--s3im_loss", "--freeze_coarse", "--accu_steps", "2"]),
+            ("flowbw", lines, ["--flowbw", "--nolbs", "--noneudbs"]),
+            ("cse", ["--seqname", "synf", "--config_dir", str(tmp_path / "fcfg"),
+                     "--img_size", "16"], ["--ft_cse"])):
+        tr = train_app.main(data + small + flags + ["--logname", name], device="cpu")
+        steps = [json.loads(r) for r in open(tr.log_path) if '"total_loss"' in r]
+        assert steps and all(np.isfinite(r["total_loss"]) for r in steps), flags
+    assert "csenet_loss" in steps[0]
     with pytest.raises(SystemExit, match="model_path"):
         extract_app.main(argv + ["--lineload"], device="cpu")
     monkeypatch.setenv("WORLD_SIZE", "2")
@@ -154,6 +205,55 @@ def test_train_app_refuses_later_slices(tmp_path, monkeypatch):
     shutil.rmtree(tmp_path / "db" / "JPEGImages")
     with pytest.raises(FileNotFoundError):
         train_app.main(argv, device="cpu")
+
+
+def test_accu_steps_trainer_updates_once_per_call(tmp_path, monkeypatch):
+    """accu_steps = 2: the port's trainer makes ITERS_PER_EPOCH step calls an
+    epoch, each of two micro-batches and one optimizer update, and advances
+    its iteration count by 2 a call; after num_epochs the optimizer's count
+    is the one-cycle schedule's total_steps and the iterations reach
+    final_steps. The JAX trainer sizes the schedule the same way
+    (moda_tpu/train/trainer.py:168-171) but makes ITERS_PER_EPOCH *
+    accu_steps calls an epoch (:700), each a whole update: twice the
+    schedule's steps, so its learning rate ends its cycle half-way. (No
+    bone re-init after epoch 0, so the count runs over both epochs.)"""
+    from types import SimpleNamespace
+
+    from moda_tpu.config import MoDAConfig as JConfig
+    from moda_tpu.train import trainer as JT
+    from moda_tpu_torch.cli import train_app
+    from moda_tpu_torch.data.synthetic import SynthScene, write_line_dataset
+    from moda_tpu_torch.train import trainer as TT
+
+    monkeypatch.setattr(TT, "ITERS_PER_EPOCH", 2)
+    monkeypatch.setattr(JT, "ITERS_PER_EPOCH", 2)
+    write_line_dataset(str(tmp_path / "db"), str(tmp_path / "cfg"), "syn",
+                       SynthScene(img_size=8, num_frames=3))
+    calls = []
+    get_step = TT.Trainer.get_step_fn
+
+    def counted(self, *a, **k):
+        fn, ns_u, ns_a = get_step(self, *a, **k)
+        return (lambda *b, **kw: calls.append(1) or fn(*b, **kw)), ns_u, ns_a
+
+    monkeypatch.setattr(TT.Trainer, "get_step_fn", counted)
+    tr = train_app.main(["--seqname", "syn", "--config_dir", str(tmp_path / "cfg"),
+                         "--checkpoint_dir", str(tmp_path), "--lineload", "--img_size", "8",
+                         "--batch_size", "2", "--nsample", "4", "--ndepth", "8",
+                         "--sample_grid3d", "8", "--feat_ndepth_grid", "4", "--num_bones", "3",
+                         "--num_epochs", "2", "--accu_steps", "2", "--render_size", "0",
+                         "--reinit_bone_steps", "1",
+                         "--n_data_workers", "1", "--use_rtk_file"], device="cpu")
+    total = tr.optimizer.total_steps
+    assert total == 2 * TT.ITERS_PER_EPOCH and len(calls) == total
+    assert int(tr.optimizer.state.count) == total
+    assert tr.total_steps_done == tr.final_steps == 2 * total
+    jcfg = JConfig.from_json(tr.cfg.to_json())
+    jtr = SimpleNamespace(cfg=jcfg)
+    jtr.final_steps = JT.Trainer.final_steps.fget(jtr)
+    jax_updates = jcfg.num_epochs * JT.ITERS_PER_EPOCH * jcfg.accu_steps  # trainer.py:700
+    assert JT.Trainer.make_optimizer(jtr).total_steps == total
+    assert jax_updates == 2 * total
 
 
 def test_pair_loader_close_leaves_no_thread_exception(tmp_path, monkeypatch):

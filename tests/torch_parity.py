@@ -115,8 +115,13 @@ def jax_draws(key, cfg, batch, nsample: int, nsample_active: int = 0, use_fine: 
         "vis_neg": jax.random.uniform(kd[3], (R, S, 3), minval=-1.0, maxval=1.0),
         "eik_idx": jax.random.randint(k_loss, (1000,), 0, R * S),
     })
+    if cfg.s3im_loss:
+        # render/s3im.py: the identity, then 9 permutations of the 32 x 32
+        # virtual patch from split(keys[4], 10)[1:]
+        ks = jax.random.split(kd[4], 10)
+        draws["s3im_perm"] = jnp.stack([jax.random.permutation(k, 1024) for k in ks[1:]])
     out = {k: to_t(v) for k, v in draws.items()}
-    for k in ("pix_ids", "cand_ids", "eik_idx"):
+    for k in ("pix_ids", "cand_ids", "eik_idx", "s3im_perm"):
         if k in out:
             out[k] = out[k].long()
     return out
