@@ -43,7 +43,8 @@ Phases:
    less one; every warped mesh finite with the rest mesh's vertex count;
    ``make_warp_fw_frames`` on the card within 1e-5 (relative L2) of a CPU
    copy of the model, and one 64 px frame of ``make_frame_renderer`` with
-   flow within 1e-4; finite AMA and root-pose scores, F-scores in [0, 1];
+   flow within 1e-4; the rgb and silhouette GIFs with a frame per rendered
+   frame; finite AMA and root-pose scores, F-scores in [0, 1];
    no kernel launch in the phase. It prints the time of each part;
 8. the cold start and the frame-decoding route (``run_coldstart``): a
    16-frame 256 px articulated scene in the DAVIS layout, trained by
@@ -58,9 +59,16 @@ Phases:
    term at EKL_DIS_TOL), one step each of flowbw without bones, S3IM,
    freeze_coarse (frozen gradients exactly zero) and accu_steps 2 against
    the plain fp32 step, ft_cse through train_app on phase 8's dataset (the
-   frame route, 2 steps at batch 256) and CSEDistiller's loss falling.
-The main-path launch counts of phases 5, 6, 8 and 9 go into the kernel
-JSON's ``launches``; the dis cases of phases 3 and 4 are this phase's.
+   frame route, 2 steps at batch 256) and CSEDistiller's loss falling;
+10. the viz tools and the pretrained posenet (``run_viz``) on the artifacts
+   of phases 6-8: ``nvs_app.main`` replay and bullet time on phase 6's
+   checkpoint and its ctraj route on phase 7's exports (GIFs and PNGs, one
+   frame against a CPU copy, no kernel launch), ``match_app.main`` on
+   phase 8's scene (one K1 launch at feat_grid, points and pixels against
+   a CPU copy), and the ``--pose_cnn_path`` route with a reference-layout
+   posenet .pth (checks in its docstring).
+The main-path launch counts of phases 5, 6, 8, 9 and 10 go into the kernel
+JSON's ``launches``; the dis cases of phases 3 and 4 are phase 9's.
 Prints the kernel JSON line, then {"ok": true, "device": {...}} last.
 Exits non-zero without printing a result when there is no CUDA card.
 """
@@ -192,7 +200,8 @@ KERNEL_CASES = {
     "trunk_feat_coarse": (TRUNK_FEAT, 131072, 64, 0, 91, True, "raw", True, f"{P}:537",
                           [("ft2", "trunk_feat_coarse")]),
     "feat_grid": (FEAT, 8000, 1, 0, 0, False, "raw", False, f"{P}:215",
-                  [("init", "feat_grid"), ("ft1", "feat_grid"), ("ft2", "feat_grid")]),
+                  [("init", "feat_grid"), ("ft1", "feat_grid"), ("ft2", "feat_grid"),
+                   ("match", "feat_grid")]),
     "vis_r2048": (VIS, 524288, 1, 0, 0, False, "raw", False, f"{P}:502",
                   [("init", "vis"), ("ft2", "vis")]),
     "vis_r3072": (VIS, 786432, 1, 0, 0, False, "raw", False, f"{P}:502", [("ft1", "vis")]),
@@ -1302,7 +1311,6 @@ def run_extract(card: str, tmp: str) -> dict:
     warped = [ama.load_obj(os.path.join(export, f"{seq}-mesh-{i:05d}.obj")) for i in range(n_fr)]
     bad = [i for i, m in enumerate(warped)
            if m.vertices.shape != rest.vertices.shape or not np.isfinite(m.vertices).all()]
-    rgb = np.load(os.path.join(export, f"{seq}-rgb.npy"))
 
     # the card against a CPU copy of the model, on the same inputs
     model, cpu, lv = ex.model, cpu_copy(ex.model), ex.latest_vars
@@ -1335,8 +1343,8 @@ def run_extract(card: str, tmp: str) -> dict:
         fail.append(f"warped meshes {bad} not finite or not of the rest mesh's "
                     f"{len(rest.vertices)} vertices")
     n_rendered = int((lv["idk"][:n_fr] > 0).sum())  # frames the checkpoint has cameras for
-    if rgb.shape != (n_rendered, rs, rs, 3):
-        fail.append(f"rgb frames {rgb.shape}, not {n_rendered} at {rs} px")
+    for kind in ("rgb", "sil"):
+        fail += check_gif(os.path.join(export, f"{seq}-{kind}.gif"), n_rendered, rs, rs)
     if not warp_err <= 1e-5:
         fail.append(f"make_warp_fw_frames on the card is {warp_err:.2e} from the CPU's")
     if not max(render_err.values()) <= 1e-4:
@@ -1355,7 +1363,7 @@ def run_extract(card: str, tmp: str) -> dict:
            "ama": scores, "root": root, "card": card}
     parts = ", ".join(f"{k} {v:.3f} s" for k, v in timers.items())
     print(f"[extract] rest mesh {len(rest.vertices)} vertices at {ex.cfg.sample_grid3d}^3; "
-          f"{n_fr} frames exported {exported}, {len(rgb)} rendered at {rs} px; extract_app.main "
+          f"{n_fr} frames exported {exported}, {n_rendered} rendered at {rs} px; extract_app.main "
           f"{t_app:.2f} s, AMA {t_ama:.2f} s, root eval {t_root:.3f} s, phase {t_phase:.2f} s; "
           f"parts (extract_mesh holds grid_query and marching; the OBJ reads are AMA's): "
           f"{parts} ({card})", flush=True)
@@ -1858,6 +1866,310 @@ def run_branches(results: list, card: str, tmp: str, profile: bool = False) -> d
     return out
 
 
+# ------------------------------------------------------------ viz tools
+NVS_FRAMES = 9     # nvs_app's default --test_frames: replay and bullet-time frames
+CTRAJ_FRAMES = 4   # --maxframe of the ctraj route (phase 7 exports 15 trajectories)
+# rays a render chunk: one 64 px frame (the default 32,768 pads each frame's
+# 4,096 rays 8-fold, in both packages; the chunk's rays set VolSDF's
+# beta floor, so the CPU copy must render the same chunks)
+NVS_CHUNK = 4096
+MATCH_PAIR = "0 8"
+# match_app on the card (K1's bf16 feature head) against a CPU copy of the
+# model (the plain fp32 head; both read the Sinkhorn's kernel matrix in
+# bf16): relative L2 of the 64 canonical points and of their pixels. The
+# soft argmax over 8,000 grid points moves with every bf16 rounding of the
+# features. Phase 8's checkpoint differs from run to run; on two of them
+# the H100 read 6.1e-3 and 8.5e-3 (points) and 2.8e-3 and 5.0e-3 (pixels;
+# at most 2.3 px at 256 px), so the gates sit at ~3x the larger reads.
+MATCH_PTS_TOL, MATCH_PX_TOL = 2.5e-2, 1.5e-2
+POSENET_CROPS = 64
+
+
+def posenet_state_dict(seed: int = 0) -> dict:
+    """A state dict in the layout of the reference's posenet checkpoint
+    (Sequential(Encoder, RTHead) under ``module.nerf_root_rts.``, as
+    save_network writes mesh_material/posenet/*.pth): seeded random weights
+    (x 0.05) and BatchNorm running statistics (mean x 0.05, variance in
+    [0.75, 1.25)), as tests/test_posenet.py fills its torch copy of the
+    net."""
+    import torch
+
+    g = torch.Generator().manual_seed(seed)
+    shapes = {}
+
+    def conv(name, cout, cin, k, bias=False):
+        shapes[name + ".weight"] = (cout, cin, k, k)
+        if bias:
+            shapes[name + ".bias"] = (cout,)
+
+    def bn(name, c):
+        for k in ("weight", "bias", "running_mean", "running_var"):
+            shapes[f"{name}.{k}"] = (c,)
+        shapes[name + ".num_batches_tracked"] = ()
+
+    def lin(name, cout, cin):
+        shapes[name + ".weight"], shapes[name + ".bias"] = (cout, cin), (cout,)
+
+    r = "0.resnet_conv.resnet."
+    conv(r + "conv1", 64, 16, 7)
+    bn(r + "bn1", 64)
+    cin = 64
+    for li, c in enumerate((64, 128, 256, 512), 1):
+        for bi in range(2):
+            t = f"{r}layer{li}.{bi}."
+            conv(t + "conv1", c, cin if bi == 0 else c, 3)
+            bn(t + "bn1", c)
+            conv(t + "conv2", c, c, 3)
+            bn(t + "bn2", c)
+            if bi == 0 and li > 1:
+                conv(t + "downsample.0", c, cin, 1)
+                bn(t + "downsample.1", c)
+        cin = c
+    conv("0.conv1.0", 128, 512, 3, bias=True)
+    bn("0.conv1.1", 128)
+    lin("1.xyz_encoding_1.0", 256, 128)
+    lin("1.xyz_encoding_final", 256, 256)
+    lin("1.dir_encoding.0", 128, 256)
+    lin("1.sigma", 1, 256)
+    lin("1.rgb.0", 7, 128)
+    shapes["1.beta"] = (1,)
+    sd = {}
+    for k, shape in shapes.items():
+        if k.endswith("num_batches_tracked"):
+            v = torch.zeros((), dtype=torch.long)
+        elif k.endswith("running_var"):
+            v = torch.rand(shape, generator=g) * 0.5 + 0.75
+        else:
+            v = torch.randn(shape, generator=g) * 0.05
+        sd["module.nerf_root_rts." + k] = v
+    return sd
+
+
+def check_gif(path: str, frames: int, height: int, width: int, fps: int = 10) -> list:
+    """Failures of a GIF against its expected frame count, size and delay,
+    read from its block structure (the card's machine has no GIF reader)."""
+    from moda_tpu_torch.viz.render_vis import gif_info
+
+    try:
+        info = gif_info(path)
+    except (OSError, ValueError) as e:
+        return [f"{path}: {e}"]
+    with open(path, "rb") as f:
+        head = f.read(6)
+    want = {"frames": frames, "height": height, "width": width,
+            "delays": [100 // fps] * frames}
+    got = {k: info[k] for k in want}
+    return [] if head == b"GIF89a" and got == want else [f"{path}: {head} {got}, not {want}"]
+
+
+def run_viz(results: list, card: str, tmp: str) -> dict:
+    """Phase 10, the viz tools and the pretrained posenet on the artifacts
+    of phases 6-8 in ``tmp``, at full widths:
+
+    (a) ``nvs_app.main`` on phase 6's ``latest`` (replay and bullet time,
+        NVS_FRAMES frames each at render_size 64, ndepth 128, NVS_CHUNK
+        rays a chunk): replay.gif
+        and bullet.gif are GIF89a with the frame count, size and 1/10 s
+        delay; every frame finite; the first replay frame within 1e-4
+        (relative L2) of a CPU copy of the model; no kernel launch;
+    (b) the ctraj route on phase 7's ``-ctrajs-``/``-refsil-`` exports
+        (``--scale 1 --maxframe`` CTRAJ_FRAMES): an rgb, sil and vis PNG of
+        the composite's size per frame, values finite and in [0, 1] before
+        quantization, the rgb GIF; no kernel launch;
+    (c) ``match_app.main`` on phase 8's MeshScene and ``latest`` (frames
+        MATCH_PAIR, 64 mask pixels): exactly one K1 launch, at feat_grid
+        (added to K1:feat_grid's launches), the points and pixels within
+        MATCH_PTS_TOL / MATCH_PX_TOL of a CPU copy, the canvas PNG written;
+        K1's device time inside one match_frames call, profiled;
+    (d) the pretrained posenet: a reference-layout .pth from
+        ``posenet_state_dict``; the Trainer route of ``--pose_cnn_path``
+        through ``cold_start`` on phase 8's scene (the .pth loaded, no
+        warmup training, extract_cams_cnn's 16 cameras finite); its
+        ``PoseWarmup.predict`` on POSENET_CROPS crops of
+        ``render_pose_batch`` on the scene's prior mesh within 1e-4 of the
+        net on the CPU, and timed."""
+    import numpy as np
+    import torch
+    from moda_tpu_torch.cli import match_app, nvs_app
+    from moda_tpu_torch.cli.flags import parse_config
+    from moda_tpu_torch.config import DataInfo, load_seq_config
+    from moda_tpu_torch.data import dataset as D
+    from moda_tpu_torch.ops import fused_mlp as FM
+    from moda_tpu_torch.preproc.posenet import load_posenet, predict_rtk
+    from moda_tpu_torch.train.trainer import Trainer
+    from moda_tpu_torch.train.warmup_pose import render_pose_batch
+    from moda_tpu_torch.viz.nvs import render_nvs
+    from moda_tpu_torch.viz.render_vis import png_size
+
+    out, fail, t_phase = {"card": card}, [], time.perf_counter()
+
+    def capture(store, name, fn):
+        def wrapped(*a, **k):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = fn(*a, **k)
+            torch.cuda.synchronize()
+            store.setdefault(name, []).append((a, k, res, time.perf_counter() - t0))
+            return res
+        return wrapped
+
+    # (a) replay and bullet time on phase 6's checkpoint
+    log = os.path.join(tmp, "log")
+    base6 = ["--seqname", "syn-smoke", "--config_dir", os.path.join(tmp, "cfg"), "--logname",
+             "smoke", "--checkpoint_dir", log, "--model_path",
+             os.path.join(log, "smoke", "latest"), "--img_size", str(TRAINER_IMG),
+             "--chunk", str(NVS_CHUNK)]
+    seen = {}
+    FM.reset_launches()
+    t0 = time.perf_counter()
+    with _patched([(nvs_app, "render_nvs", capture(seen, "nvs", nvs_app.render_nvs))]):
+        tr = nvs_app.main(base6 + ["--test_frames", str(NVS_FRAMES)])
+    out["nvs_app_s"] = time.perf_counter() - t0
+    calls_a = dict(FM.launches_by_call)
+    rs, nvs_dir = tr.cfg.render_size, os.path.join(log, "smoke-nvs")
+    frames = [f for _, _, res, _ in seen["nvs"] for f in res]
+    out["render_nvs_ms_per_frame"] = sum(t for *_, t in seen["nvs"]) / len(frames) * 1e3
+    for name in ("replay", "bullet"):
+        fail += check_gif(os.path.join(nvs_dir, f"{name}.gif"), NVS_FRAMES, rs, rs)
+    if len(frames) != 2 * NVS_FRAMES or not all(np.isfinite(v).all() for f in frames
+                                                for v in f.values()):
+        fail.append(f"nvs: {len(frames)} frames, not all finite")
+    (_, cams, ids, *_), _, replay, _ = seen["nvs"][0]
+    t0 = time.perf_counter()
+    want = render_nvs(cpu_copy(tr.model), cams[:1], ids[:1], rs, tr.cfg.ndepth,
+                      chunk=tr.cfg.chunk)[0]
+    out["nvs_cpu_frame_s"] = time.perf_counter() - t0
+    out["nvs_rel_l2_vs_cpu"] = {k: rel_l2(replay[0][k], want[k]) for k in want}
+    if not max(out["nvs_rel_l2_vs_cpu"].values()) <= 1e-4:
+        fail.append(f"nvs frame on the card {out['nvs_rel_l2_vs_cpu']} from the CPU's")
+    print(f"[viz] nvs_app replay + bullet time: {len(frames)} frames at {rs} px in "
+          f"{out['nvs_app_s']:.2f} s, render_nvs {out['render_nvs_ms_per_frame']:.1f} ms a frame "
+          f"({card}); card against CPU {out['nvs_rel_l2_vs_cpu']} (tol 1e-4, CPU frame "
+          f"{out['nvs_cpu_frame_s']:.1f} s); launches {calls_a}", flush=True)
+
+    # (b) the ctraj route on phase 7's exports
+    seen, prefix = {}, os.path.join(nvs_dir, "ctraj")
+    FM.reset_launches()
+    t0 = time.perf_counter()
+    with _patched([(nvs_app, "render_nvs_ctraj",
+                    capture(seen, "ctraj", nvs_app.render_nvs_ctraj))]):
+        nvs_app.main(base6 + ["--rootdir", os.path.join(log, "smoke-export", "syn-smoke-ctrajs-"),
+                              "--nvs_outpath", prefix, "--scale", "1",
+                              "--maxframe", str(CTRAJ_FRAMES)])
+    out["ctraj_s"] = time.perf_counter() - t0
+    calls_b = dict(FM.launches_by_call)
+    cframes = seen["ctraj"][0][2]
+    out["ctraj_render_ms_per_frame"] = seen["ctraj"][0][3] / len(cframes) * 1e3
+    for i, f in enumerate(cframes):
+        for kind in ("rgb", "sil", "vis"):
+            v = f[kind]
+            if not (np.isfinite(v).all() and v.min() >= 0 and v.max() <= 1):
+                fail.append(f"ctraj frame {i} {kind} outside [0, 1]")
+            path = f"{prefix}-{kind}_{i:05d}.png"
+            if not os.path.exists(path) or png_size(path) != v.shape[:2]:
+                fail.append(f"{path} missing or not {v.shape[:2]}")
+    if len(cframes) != CTRAJ_FRAMES:
+        fail.append(f"ctraj: {len(cframes)} frames, not {CTRAJ_FRAMES}")
+    fail += check_gif(prefix + "-rgb.gif", CTRAJ_FRAMES, *cframes[0]["rgb"].shape[:2])
+    print(f"[viz] nvs_app ctraj route: {len(cframes)} frames of {cframes[0]['rgb'].shape[:2]} "
+          f"in {out['ctraj_s']:.2f} s (with the rest mesh's extraction), render "
+          f"{out['ctraj_render_ms_per_frame']:.1f} ms a frame; launches {calls_b}", flush=True)
+    if calls_a or calls_b:
+        fail.append(f"nvs_app launched kernels: {calls_a} {calls_b}")
+
+    # (c) match_app on phase 8's scene
+    seq, cfg_dir, clog = "flap-smoke", os.path.join(tmp, "ccfg"), os.path.join(tmp, "clog")
+    base8 = ["--seqname", seq, "--config_dir", cfg_dir, "--checkpoint_dir", clog,
+             "--img_size", str(COLDSTART_IMG)]
+    seen = {}
+    FM.reset_launches()
+    t0 = time.perf_counter()
+    with _patched([(match_app, "match_frames", capture(seen, "match", match_app.match_frames))]):
+        match_app.main(base8 + ["--logname", "cold", "--model_path",
+                                os.path.join(clog, "cold", "latest"),
+                                "--match_frames", MATCH_PAIR])
+    out["match_app_s"] = time.perf_counter() - t0
+    calls_c = dict(FM.launches_by_call)
+    (model, *args), kw, (pts, px), t_match = seen["match"][0]
+    want_key = f"fwd:feat_grid:{nets_of('feat_grid')}"
+    if calls_c != {want_key: 1}:
+        fail.append(f"match_app launches {calls_c}, not one {want_key}")
+    for r in results:
+        r["launches"] += sum(calls_c.get(f"{counter_kind(r['name'], False)}:{site}:"
+                                         f"{nets_of(site)}", 0)
+                             for stage, site in r["runs"] if stage == "match")
+    cpu_pts, cpu_px = match_app.match_frames(cpu_copy(model), *args, **kw)
+    out["match_pts_rel_l2_vs_cpu"] = rel_l2(pts, cpu_pts)
+    out["match_px_rel_l2_vs_cpu"] = rel_l2(px, cpu_px)
+    out["match_px_max_abs_vs_cpu"] = float(np.abs(px - cpu_px).max())
+    if not (out["match_pts_rel_l2_vs_cpu"] <= MATCH_PTS_TOL
+            and out["match_px_rel_l2_vs_cpu"] <= MATCH_PX_TOL):
+        fail.append(f"match_frames on the card: points {out['match_pts_rel_l2_vs_cpu']:.3e}, "
+                    f"pixels {out['match_px_rel_l2_vs_cpu']:.3e} from the CPU's")
+    f0, f1 = MATCH_PAIR.split()
+    canvas = os.path.join(clog, f"cold-match-{f0}-{f1}.png")
+    if not os.path.exists(canvas) or png_size(canvas) != (COLDSTART_IMG, 2 * COLDSTART_IMG):
+        fail.append(f"{canvas} missing or not {COLDSTART_IMG} x {2 * COLDSTART_IMG}")
+    _, dev, busy = profiled(lambda: match_app.match_frames(model, *args, **kw), 3)
+    out["match_k1_device_ms"] = device_ms(dev, 3, ["fmlp_fwd"])
+    out["match_device_busy_ms"] = busy
+    out["match_frames_ms"] = t_match * 1e3
+    k1 = next(r for r in results if r["name"] == "K1:feat_grid")
+    print(f"[viz] match_app {MATCH_PAIR}: {len(pts)} pixels, app {out['match_app_s']:.2f} s, "
+          f"match_frames {t_match * 1e3:.1f} ms (device busy {busy:.3f} ms a call); K1 at "
+          f"feat_grid {out['match_k1_device_ms']:.4f} ms device (kernel phase, same shape: "
+          f"{k1['device_ms']:.4f} ms device, plain {k1['plain_ms']:.4f} ms, bf16 F.linear "
+          f"chain {k1['layer_chain_ms']:.4f} ms, bound {k1['bound_ms']:.4f} ms) ({card}); card "
+          f"against CPU: points rel L2 {out['match_pts_rel_l2_vs_cpu']:.3e} (tol "
+          f"{MATCH_PTS_TOL}), pixels rel L2 {out['match_px_rel_l2_vs_cpu']:.3e} (tol "
+          f"{MATCH_PX_TOL}, max {out['match_px_max_abs_vs_cpu']:.3f} px); launches {calls_c}",
+          flush=True)
+    FM.reset_launches()  # the profiled calls are not the main path's
+
+    # (d) the pretrained posenet: the --pose_cnn_path route to extract_cams_cnn
+    pth = os.path.join(tmp, "posenet.pth")
+    torch.save(posenet_state_dict(0), pth)
+    cdb = os.path.join(tmp, "cdb")
+    prior = os.path.join(cdb, "Densepose", "Full-Resolution", seq, "prior.pkl")
+    cfg = parse_config(base8 + ["--logname", "posenet", "--pose_cnn_path", pth,
+                                "--warmup_pose_ep", "1", "--prior_mesh_path", prior])
+    datasets = D.build_datasets(seq, COLDSTART_IMG, cfg_dir)
+    info = DataInfo(offset=D.data_offsets(datasets),
+                    intrinsics=tuple(tuple(s.ks) for s in load_seq_config(seq, cfg_dir)))
+    t0 = time.perf_counter()
+    ptr = Trainer(cfg, info, loader=None, eval_datasets=datasets)
+    ptr.load_prior_mesh(prior)
+    ptr.cold_start()
+    torch.cuda.synchronize()
+    out["pose_cnn_path_cold_start_s"] = time.perf_counter() - t0
+    rows = [json.loads(line) for line in open(ptr.log_path)]
+    n_cams = [r["extract_cams_n"] for r in rows if "extract_cams_n" in r]
+    if ptr.pose_cnn.ref_net is None or any("warmup_pose_rot_loss" in r for r in rows) or \
+            n_cams != [COLDSTART_FRAMES] or not np.isfinite(ptr.latest_vars["rtk"]).all():
+        fail.append(f"--pose_cnn_path: cameras {n_cams}, rows {rows}")
+    feats, _ = render_pose_batch(ptr.prior_verts_unit, ptr.prior_faces, ptr.prior_embeds,
+                                 ptr.pose_cnn.d_mean, POSENET_CROPS, np.random.default_rng(0))
+    card_rtk = ptr.pose_cnn.predict(feats)
+    out["posenet_rel_l2_vs_cpu"] = rel_l2(card_rtk, predict_rtk(load_posenet(pth), feats))
+    if not out["posenet_rel_l2_vs_cpu"] <= 1e-4:
+        fail.append(f"posenet on the card {out['posenet_rel_l2_vs_cpu']:.2e} from the CPU's")
+    out["posenet_predict_ms"] = cuda_time(lambda: ptr.pose_cnn.predict(feats))
+    x = torch.as_tensor(feats, device=ptr.device).permute(0, 3, 1, 2).contiguous()
+    with torch.no_grad():
+        out["posenet_forward_ms"] = cuda_time(lambda: ptr.pose_cnn.ref_net(x))
+    print(f"[viz] posenet: --pose_cnn_path cold start {out['pose_cnn_path_cold_start_s']:.2f} s "
+          f"({COLDSTART_FRAMES} cameras, no warmup training); predict of {POSENET_CROPS} crops "
+          f"{out['posenet_predict_ms']:.2f} ms (forward on the card alone "
+          f"{out['posenet_forward_ms']:.2f} ms) ({card}); card against CPU rel L2 "
+          f"{out['posenet_rel_l2_vs_cpu']:.2e} (tol 1e-4)", flush=True)
+
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"[viz] phase {out['phase_s']:.1f} s", flush=True)
+    if fail:
+        raise SystemExit("viz: " + "; ".join(fail))
+    return out
+
+
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--profile", action="store_true",
@@ -1909,6 +2221,8 @@ def main():
         print(f"[time] cold start and frame route done at {time.time() - t0:.1f} s", flush=True)
         steps["branches"] = run_branches(results, card, tmp, profile=args.profile)
         print(f"[time] branches done at {time.time() - t0:.1f} s", flush=True)
+        steps["viz"] = run_viz(results, card, tmp)
+        print(f"[time] viz tools and posenet done at {time.time() - t0:.1f} s", flush=True)
     for r in results:
         if r["launches"] == 0:
             raise SystemExit(f"{r['name']} was not launched on the main path")

@@ -8,7 +8,9 @@ port's ``named_parameters()`` does with "." for "/", and Dense kernels are
 The conv nets (the pose CNN of fields/cnn.py, the CSE net of
 fields/cse.py) are torch modules: their Flax parameters move by name too,
 with conv kernels HWIO <-> OIHW, Dense kernels transposed and GroupNorm
-scale <-> weight, whether alone or inside ``MoDAModel`` (``csenet``).
+scale <-> weight, whether alone or inside ``MoDAModel`` (``csenet``). The
+reference posenet (preproc/posenet.py) moves the same way:
+``posenet_from_jax`` builds it from the JAX package's converted parameters.
 """
 from __future__ import annotations
 
@@ -45,7 +47,8 @@ def _leaves(module: torch.nn.Module):
     Parameters of the port's own modules (``nets.Dense``, tables) keep the
     JAX name and layout; torch conv nets (fields/cnn.py, fields/cse.py) map
     Conv kernels HWIO <-> OIHW ("conv"), Linear kernels [in, out] <->
-    [out, in] ("dense") and GroupNorm scale <-> weight."""
+    [out, in] ("dense") and GroupNorm scale <-> weight; a conv without a
+    bias has none on either side."""
     for mname, mod in module.named_modules():
         prefix = mname.replace(".", "/") + "/" if mname else ""
         if isinstance(mod, torch.nn.Conv2d):
@@ -58,7 +61,8 @@ def _leaves(module: torch.nn.Module):
             for n, p in mod.named_parameters(recurse=False):
                 yield prefix + n, p, None
             continue
-        yield prefix + "bias", mod.bias, None
+        if mod.bias is not None:
+            yield prefix + "bias", mod.bias, None
 
 
 def load_params(model: torch.nn.Module, params: Mapping[str, Any], strict: bool = True):
@@ -92,6 +96,17 @@ def export_params(model: torch.nn.Module) -> Dict[str, Any]:
             v = v.T
         flat[key] = np.ascontiguousarray(v)
     return unflatten(flat)
+
+
+def posenet_from_jax(params: Mapping[str, Any], device="cpu"):
+    """The port's RefPoseNet, in eval mode on ``device``, holding the JAX
+    package's RefPoseNet parameters (``moda_tpu.preproc.posenet.
+    convert_posenet_checkpoint``'s tree, as numpy)."""
+    from moda_tpu_torch.preproc.posenet import RefPoseNet
+
+    net = RefPoseNet()
+    load_params(net, params)
+    return net.eval().to(device)
 
 
 def load_mvars(model, mvars) -> None:

@@ -12,10 +12,10 @@ checkpoint has cameras for, and writes the JAX package's export layout to
 ``<checkpoint_dir>/<logname>-export/`` (extract.py:24-136's save_output):
 ``<seq>-mesh-rest.obj``, ``<seq>-mesh-skin.obj`` and per frame
 ``<seq>-mesh-%05d.obj``, ``-cam-%05d.txt``, ``-ctrajs-%05d.txt`` and
-``-refsil-%05d.png``. One difference, deliberate: the rgb and silhouette
-animations are uint8 ``<seq>-rgb.npy`` / ``<seq>-sil.npy`` frame stacks
-[N, H, W, 3], not gifs (no GIF encoder at hand). The refsil size is the
-first mask's ((render_size, render_size) where there is none), decoded by
+``-refsil-%05d.png``, and the rgb and silhouette animations
+``<seq>-rgb.gif`` / ``<seq>-sil.gif`` (the port's own GIF writer,
+``viz/render_vis.save_gif``). The refsil size is the first mask's
+((render_size, render_size) where there is none), decoded by
 ``data/imageio.py`` as the JAX package decodes it with cv2.
 
 It runs on the CUDA card; ``main(argv, device="cpu")`` runs on the CPU.
@@ -38,7 +38,7 @@ from moda_tpu_torch.data.imageio import imread
 from moda_tpu_torch.extract.mesh import Mesh, extract_mesh, make_warp_fw_frames, skin_colors
 from moda_tpu_torch.render.evalrender import make_frame_renderer
 from moda_tpu_torch.train.trainer import Trainer
-from moda_tpu_torch.viz.render_vis import mesh_silhouette, save_frames, save_png
+from moda_tpu_torch.viz.render_vis import mesh_silhouette, save_gif, save_png
 
 WARP_GROUP = 4  # frames per warp call (the JAX package's group on one device)
 
@@ -147,8 +147,8 @@ def main(argv=None, device=None) -> Trainer:
             rgb_frames.append(np.clip(o["img_coarse"], 0, 1))
             sil_frames.append(np.repeat(np.clip(o["sil_coarse"], 0, 1), 3, -1))
     if rgb_frames:
-        save_frames(out("rgb.npy"), rgb_frames)
-        save_frames(out("sil.npy"), sil_frames)
+        save_gif(out("rgb.gif"), rgb_frames)
+        save_gif(out("sil.gif"), sil_frames)
     print(f"exported {len(idx_render)} frames to {out_dir}")
     return trainer
 

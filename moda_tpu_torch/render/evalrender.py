@@ -28,12 +28,15 @@ from moda_tpu_torch.render.pipeline import Draws, render_rays
 
 
 def make_frame_renderer(model, render_size: int, ndepth: int, chunk: int = 32768,
-                        with_flow: bool = False):
+                        with_flow: bool = False, render_vis: bool = False):
     """Returns ``render_frame(rtk [1,4,4], kaug [1,4], frameid [1], dataid [1],
     rtk_target=None, frameid_target=None, draws=None, generator=None)`` ->
     dict of numpy images [render_size, render_size, C]. with_flow and a
     target camera render flo_coarse against the paired frame (the eval
-    grid, train_utils.py:500-505) through the full fine_iter pass."""
+    grid, train_utils.py:500-505) through the full fine_iter pass.
+    render_vis: the novel-view renders' culling by the object bound and the
+    visibility MLP, with the rendered visibility "vis_pred" (nvs.py:150; the
+    eval grid renders without it)."""
     view = model.precise()
 
     @torch.no_grad()
@@ -62,7 +65,7 @@ def make_frame_renderer(model, render_size: int, ndepth: int, chunk: int = 32768
                         v = torch.cat([v, v[-1:].expand((chunk - v.shape[0],) + v.shape[1:])])
                 piece[k] = v
             outs.append(render_rays(view, piece, ndepth, fine_iter=flow, perturb=0.0,
-                                    draws=draws, generator=generator))
+                                    draws=draws, generator=generator, render_vis=render_vis))
         return {k: torch.cat([o[k] for o in outs])[:R].cpu().numpy()
                 .reshape(render_size, render_size, -1) for k in outs[0]}
 

@@ -139,8 +139,10 @@ def _project_with_rtk_vec(xyz, rtk_vec):
 
 
 def _inference(model, rays, xyz, dir_, dir_embedded, z_vals, cfg, draws=None,
-               generator=None, site=None):
-    """Coarse and feature MLPs at the samples, then VolSDF compositing."""
+               generator=None, site=None, clip_bound=None, vis_pred=None):
+    """Coarse and feature MLPs at the samples, then VolSDF compositing.
+    clip_bound [3] zeroes the weights of samples outside the box, vis_pred
+    [R, S] those the visibility MLP calls hidden (< 0.5)."""
     S = xyz.shape[1]
     alpha = rays.get("embed_alpha", None)
     parts = [dir_embedded] + [rays[k] for k in ("env_code", "appearance_code") if k in rays]
@@ -162,6 +164,10 @@ def _inference(model, rays, xyz, dir_, dir_embedded, z_vals, cfg, draws=None,
     beta_min = 2.0 * torch.mean(rays["far"] - rays["near"]) / S
     sigmas = DN.sdf_to_sigma(sigmas_raw, model.nerf_beta[0], beta_min=beta_min)
     _, weights, alpha_prod = DN.compositing_weights(sigmas, deltas)
+    if clip_bound is not None:
+        weights = torch.where((xyz.abs() > clip_bound).any(-1), 0.0, weights)
+    if vis_pred is not None:
+        weights = torch.where(vis_pred < 0.5, 0.0, weights)
     visibility = alpha_prod.detach()
     if cfg.rgb_filter:
         rgb_final = ((weights[:, :-1] * semantic[:, :-1])[..., None] * rgbs[:, :-1, :]).sum(-2)
@@ -252,9 +258,12 @@ def visibility_loss(model, xyz_pos, w_pos, bound, alpha=None, draws=None, genera
 
 
 def inference_deform(model, rays, xyz_sampled, z_vals, cfg, fine_iter=True,
-                     use_dskin=False, draws=None, generator=None):
+                     use_dskin=False, draws=None, generator=None, render_vis=False):
     """Deform + render + per-sample losses. fine_iter=False (the fine
-    pass's coarse pass) returns after compositing."""
+    pass's coarse pass) returns after compositing. render_vis (novel-view
+    renders, the reference's nvs.py:150) culls samples outside the object
+    bound and those the visibility MLP calls hidden, and returns the
+    rendered visibility "vis_pred"."""
     result: Dict[str, torch.Tensor] = {}
     alpha = rays.get("embed_alpha", None)
     tag = "" if fine_iter else "_coarse"
@@ -304,15 +313,23 @@ def inference_deform(model, rays, xyz_sampled, z_vals, cfg, fine_iter=True,
         u = draw(draws, "symm_u", x.shape, generator, x.device)
         xyz_input = torch.cat([torch.where(u < 0.5, -x, x), xyz_canonical[..., 1:3]], -1)
 
+    clip_bound = vis_pred = None
+    if render_vis:
+        clip_bound = model.mvars.obj_bound
+        vis_pred = torch.sigmoid(model.apply_vis(xyz_canonical, need_dx=False, embed_raw=True,
+                                                 embed_alpha=alpha, site="vis_render")[..., 0])
     rgb, feat_rnd, depth_rnd, weights, vis_coarse = _inference(
         model, rays, xyz_input, rays["rays_d"], rays["dir_embedded"], z_vals, cfg,
-        draws=draws, generator=generator, site="trunk_feat" + tag)
+        draws=draws, generator=generator, site="trunk_feat" + tag, clip_bound=clip_bound,
+        vis_pred=vis_pred)
     sil = weights[:, :-1].sum(-1)
     result["img_coarse"] = rgb
     result["depth_rnd"] = depth_rnd[..., None]
     result["sil_coarse"] = sil[..., None]
     if cfg.use_embed:
         result["feat_rnd"] = feat_rnd / torch.clamp(Q.safe_norm(feat_rnd, keepdims=True), min=1e-9)
+    if render_vis:
+        result["vis_pred"] = (vis_pred * weights).sum(-1)[..., None]
     if not fine_iter:
         return result, weights
     result["xyz_canonical_vis"] = xyz_canonical
@@ -396,9 +413,10 @@ def inference_deform(model, rays, xyz_sampled, z_vals, cfg, fine_iter=True,
 def render_rays(model, rays: RayDict, n_samples: int, use_fine: bool = False,
                 fine_iter: bool = True, perturb: Optional[float] = None,
                 use_dskin: bool = False, draws: Optional[Draws] = None,
-                generator: Optional[torch.Generator] = None) -> Dict[str, torch.Tensor]:
+                generator: Optional[torch.Generator] = None,
+                render_vis: bool = False) -> Dict[str, torch.Tensor]:
     """Sample depths, with use_fine resample half of them by importance from
-    a no-grad coarse pass, and render."""
+    a no-grad coarse pass, and render (render_vis: see inference_deform)."""
     cfg = model.cfg
     perturb = cfg.perturb if perturb is None else perturb
     rays = dict(rays)
@@ -424,5 +442,6 @@ def render_rays(model, rays: RayDict, n_samples: int, use_fine: bool = False,
         z_vals = torch.sort(torch.cat([z_vals, z_fine], -1), -1).values
         xyz = rays["rays_o"][:, None, :] + rays["rays_d"][:, None, :] * z_vals[..., None]
     result, _ = inference_deform(model, rays, xyz, z_vals, cfg, fine_iter=fine_iter,
-                                 use_dskin=use_dskin, draws=draws, generator=generator)
+                                 use_dskin=use_dskin, draws=draws, generator=generator,
+                                 render_vis=render_vis)
     return result

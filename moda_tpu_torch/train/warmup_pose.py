@@ -15,8 +15,9 @@ moda_tpu/train/warmup_pose.py (train_utils.py:871-921 + moda.py:812-848,
    package calls).
 
 ``save``/``load`` use the JAX package's npz layout (``cnn/...`` keys), so a
-``pose_cnn.npz`` moves between the packages; the reference's ``.pth``
-posenet checkpoint is refused (the preprocessing slice ports its network).
+``pose_cnn.npz`` moves between the packages; ``load`` of a ``.pth`` takes
+the reference's pretrained posenet (preproc/posenet.py) instead, whose
+``predict`` gives the full rotation and translation.
 """
 from __future__ import annotations
 
@@ -31,6 +32,7 @@ from moda_tpu_torch.core import quat as Q
 from moda_tpu_torch.data import imageio as IO
 from moda_tpu_torch.fields.cnn import PoseCNN
 from moda_tpu_torch.native import rasterize
+from moda_tpu_torch.preproc.posenet import load_posenet, predict_rtk
 from moda_tpu_torch.runtime import Device, resolve_device
 
 CROP = 112
@@ -105,6 +107,7 @@ class PoseWarmup:
         self.rng = np.random.default_rng(seed)
         self.net = PoseCNN(embeds.shape[1], generator=torch.Generator().manual_seed(seed)
                            ).to(self.device)
+        self.ref_net = None  # the pretrained posenet, once a .pth is loaded
         # cosine decay over the full warmup (the reference reuses its
         # OneCycle init_training for the warmup phase, train_utils.py:886)
         total = max(total_steps, 1)
@@ -138,19 +141,23 @@ class PoseWarmup:
         np.savez(path, **bridge.flatten({"cnn": bridge.export_params(self.net)}))
 
     def load(self, path: str):
-        """npz: a self-trained PoseCNN of either package. The reference's
-        pretrained ``.pth`` posenet (template.sh --pose_cnn_path,
-        train_utils.py:899-904) is refused."""
+        """npz: a self-trained PoseCNN of either package. .pth: the
+        reference's pretrained posenet (template.sh --pose_cnn_path,
+        train_utils.py:899-904), as a RefPoseNet on the warmup's device."""
         if path.endswith(".pth"):
-            raise NotImplementedError("the reference's .pth posenet checkpoint is ported in a "
-                                      "later slice of moda_tpu_torch (the preprocessing slice)")
-        bridge.load_params(self.net, bridge.unflatten(dict(np.load(path)))["cnn"])
+            self.ref_net = load_posenet(path, self.device)
+        else:
+            bridge.load_params(self.net, bridge.unflatten(dict(np.load(path)))["cnn"])
 
     @torch.no_grad()
     def predict(self, feats: np.ndarray) -> np.ndarray:
-        """feats [N,112,112,16] -> rtk [N,4,4]: the CNN's rotation with the
-        base z=0.3 translation, since the from-scratch warmup trains the
-        rotation loss only (moda.py:841)."""
+        """feats [N,112,112,16] -> rtk [N,4,4]. The pretrained posenet (once
+        a .pth is loaded): its full rotation and translation composed with
+        the base, as refine_rt does (``predict_rtk``). The self-trained CNN:
+        its rotation with the base z=0.3 translation, since the from-scratch
+        warmup trains the rotation loss only (moda.py:841)."""
+        if self.ref_net is not None:
+            return predict_rtk(self.ref_net, feats)
         rts = self.net(torch.as_tensor(np.asarray(feats, np.float32), device=self.device))
         rts = rts.cpu().numpy()
         out = np.zeros((len(feats), 4, 4), np.float32)

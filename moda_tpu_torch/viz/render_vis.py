@@ -1,21 +1,21 @@
-"""Host-side helpers of the viz tools that training and extraction need:
-the icosphere of the default shape prior, the camera-trajectory mesh of
-the trainer's ``mesh_cam`` export, the mesh silhouette of the extraction's
-``refsil`` export, and image output. Counterpart of part of
-moda_tpu/viz/render_vis.py; plain numpy and the native rasterizer. The rest
-of the viz tools waits for the viz slice.
+"""Offline mesh rendering and image output: counterpart of
+moda_tpu/viz/render_vis.py (the reference's scripts/visualize/render_vis.py
+roles). Meshes are projected with rtk cameras and drawn by the port's native
+z-buffer rasterizer with lambertian toning; bones draw as icosphere meshes.
+Everything runs on the host in numpy.
 
 Image output needs no image library (the card's machine is not promised
-one): ``save_png`` encodes 8-bit RGB or grey PNGs with zlib and struct,
-and ``save_frames`` stores an animation as a uint8 ``.npy`` frame stack
-[N, H, W, 3], where the JAX package's ``save_gif`` writes a gif through
-imageio. No module of either package reads the gifs back.
+one): ``save_png`` encodes 8-bit RGB or grey PNGs with zlib and struct, and
+``save_gif`` writes a GIF89a animation of its own. The GIF has one
+256-colour palette per file: the file's colours where there are at most 256,
+otherwise a median cut over its colours (``quantize``), so the palette is
+not imageio/Pillow's; each frame waits 1/fps seconds.
 """
 from __future__ import annotations
 
 import struct
 import zlib
-from typing import List, Tuple
+from typing import List, Optional, Tuple
 
 import numpy as np
 
@@ -113,6 +113,75 @@ def mesh_silhouette(mesh: Mesh, rtk: np.ndarray, height: int, width: int) -> np.
     return (mask > 0).astype(np.float32)
 
 
+def bones_to_mesh(bones: np.ndarray, radius: float = 0.025) -> Mesh:
+    """Bone 10-vectors (center, wxyz quaternion, log scales) -> one coloured
+    icosphere of fixed radius a bone (utils/io.py:51-78)."""
+    from scipy.spatial.transform import Rotation as R
+
+    sv, sf = unit_sphere(1)
+    verts, faces, colors = [], [], []
+    rng = np.random.default_rng(0)
+    for i, b in enumerate(bones):
+        center, q = b[:3], b[3:7]
+        q = q / max(np.linalg.norm(q), 1e-9)
+        rot = R.from_quat(q[[1, 2, 3, 0]]).as_matrix()
+        verts.append((sv * radius) @ rot.T + center)
+        faces.append(sf + i * len(sv))
+        colors.append(np.tile(rng.uniform(0.2, 1.0, 3), (len(sv), 1)))
+    return Mesh(np.concatenate(verts).astype(np.float32),
+                np.concatenate(faces).astype(np.int32),
+                np.concatenate(colors).astype(np.float32))
+
+
+def vertex_normals(mesh: Mesh) -> np.ndarray:
+    """Unit area-weighted vertex normals [V, 3]."""
+    v, f = mesh.vertices, mesh.faces
+    fn = np.cross(v[f[:, 1]] - v[f[:, 0]], v[f[:, 2]] - v[f[:, 0]])
+    n = np.zeros_like(v)
+    for i in range(3):
+        np.add.at(n, f[:, i], fn)
+    return n / np.maximum(np.linalg.norm(n, axis=-1, keepdims=True), 1e-9)
+
+
+def render_mesh_view(mesh: Mesh, rtk: np.ndarray, size: int = 256,
+                     shade: bool = True) -> np.ndarray:
+    """The mesh drawn under camera rtk into a [size, size, 3] float32 image
+    on white; with ``shade`` the vertex colours are toned by the normals'
+    facing (0.4 + 0.6 x max(0, -n_z) in the camera frame)."""
+    if len(mesh.vertices) == 0:
+        return np.ones((size, size, 3), np.float32)
+    colors = mesh.colors if mesh.colors is not None else np.full_like(mesh.vertices, 0.7)
+    if shade:
+        n_cam = vertex_normals(mesh) @ rtk[:3, :3].T
+        light = np.clip(-n_cam[:, 2], 0.0, 1.0)[:, None]
+        colors = colors * (0.4 + 0.6 * light)
+    img, _, mask = rasterize(project_verts(mesh, rtk), mesh.faces, colors, size, size)
+    return np.where(mask[..., None] > 0, img, 1.0).astype(np.float32)
+
+
+def render_turntable(mesh: Mesh, num_views: int = 36, size: int = 256,
+                     cam_dist: Optional[float] = None) -> List[np.ndarray]:
+    """``num_views`` views on a circle about the y axis through the mesh's
+    centroid, at ``cam_dist`` (3x the mesh's radius by default), focal
+    length ``size`` pixels."""
+    if len(mesh.vertices) == 0:
+        return [np.ones((size, size, 3), np.float32)] * num_views
+    center = mesh.vertices.mean(0)
+    radius = np.linalg.norm(mesh.vertices - center, axis=-1).max()
+    d = cam_dist or 3.0 * radius
+    frames = []
+    for i in range(num_views):
+        ang = 2 * np.pi * i / num_views
+        c, s = np.cos(ang), np.sin(ang)
+        R_ = np.asarray([[c, 0, s], [0, 1, 0], [-s, 0, c]], np.float32)
+        rtk = np.zeros((4, 4), np.float32)
+        rtk[:3, :3] = R_
+        rtk[:3, 3] = -R_ @ center + np.asarray([0, 0, d], np.float32)
+        rtk[3] = [size, size, size / 2, size / 2]
+        frames.append(render_mesh_view(mesh, rtk, size))
+    return frames
+
+
 def _png_chunk(kind: bytes, data: bytes) -> bytes:
     return (struct.pack(">I", len(data)) + kind + data +
             struct.pack(">I", zlib.crc32(kind + data) & 0xFFFFFFFF))
@@ -144,7 +213,154 @@ def png_size(path: str) -> Tuple[int, int]:
     return h, w
 
 
-def save_frames(path: str, frames: List[np.ndarray]):
-    """Store float frames in [0, 1] as a uint8 ``.npy`` stack [N, H, W, C]
-    (the JAX package's save_gif quantizes the same way)."""
-    np.save(path, np.stack([(np.clip(f, 0, 1) * 255).astype(np.uint8) for f in frames]))
+def to_uint8(frame: np.ndarray) -> np.ndarray:
+    """Float image in [0, 1] -> uint8, truncating (as the JAX package's
+    writers quantize)."""
+    return (np.clip(frame, 0, 1) * 255).astype(np.uint8)
+
+
+def quantize(frames: List[np.ndarray]) -> Tuple[np.ndarray, np.ndarray]:
+    """One palette for a whole animation: float RGB frames [H, W, 3] in
+    [0, 1] -> (palette [256, 3] uint8, indices [N, H, W] uint8). The frames
+    are quantized to uint8 first; where they hold at most 256 colours the
+    palette is exactly those, otherwise a median cut: the box with the
+    widest channel range (the first such) is split at the pixel-weighted
+    median of that channel until there are 256 boxes, and each box's colour
+    is its pixels' mean, rounded. Deterministic: the same frames give the
+    same bytes."""
+    px = np.stack([to_uint8(f) for f in frames]).astype(np.int32)
+    keys = (px[..., 0] << 16) | (px[..., 1] << 8) | px[..., 2]
+    uniq, inv, counts = np.unique(keys.ravel(), return_inverse=True, return_counts=True)
+    cols = np.stack([uniq >> 16, (uniq >> 8) & 255, uniq & 255], -1)
+    palette = np.zeros((256, 3), np.uint8)
+    if len(uniq) <= 256:
+        palette[:len(uniq)] = cols
+        return palette, inv.reshape(keys.shape).astype(np.uint8)
+
+    def widest(box):  # (channel range, channel) of a box
+        span = cols[box].max(0) - cols[box].min(0)
+        return int(span.max()), int(span.argmax())
+
+    boxes = [np.arange(len(uniq))]
+    spans = [widest(boxes[0])]
+    while len(boxes) < 256:
+        bi = max(range(len(boxes)), key=lambda j: (spans[j][0], -j))
+        if spans[bi][0] == 0:
+            break  # every box is one colour
+        ch = spans[bi][1]
+        box = boxes[bi]
+        box = box[np.argsort(cols[box, ch], kind="stable")]
+        cum = np.cumsum(counts[box])
+        cut = min(max(int(np.searchsorted(cum, cum[-1] / 2.0)) + 1, 1), len(box) - 1)
+        boxes[bi], spans[bi] = box[:cut], widest(box[:cut])
+        boxes.append(box[cut:])
+        spans.append(widest(box[cut:]))
+    lut = np.zeros(len(uniq), np.uint8)
+    for j, box in enumerate(boxes):
+        w = counts[box].astype(np.float64)
+        palette[j] = np.round((cols[box] * w[:, None]).sum(0) / w.sum())
+        lut[box] = j
+    return palette, lut[inv].reshape(keys.shape)
+
+
+def _lzw(indices: bytes) -> bytes:
+    """GIF LZW code stream of 8-bit indices (minimum code size 8): a clear
+    code first, variable-width codes of 9 to 12 bits packed LSB first, a
+    clear code whenever the 4096-entry table is full, the end code last."""
+    clear, end = 256, 257
+    out = bytearray()
+    acc, nbits, width = clear, 9, 9
+    table: dict = {}
+    next_code = end + 1
+    prefix = indices[0]
+    for k in indices[1:]:
+        key = (prefix << 8) | k
+        code = table.get(key)
+        if code is not None:
+            prefix = code
+            continue
+        acc |= prefix << nbits
+        nbits += width
+        if next_code < 4096:
+            table[key] = next_code
+            if next_code == 1 << width:
+                width += 1
+            next_code += 1
+        else:
+            acc |= clear << nbits
+            nbits += width
+            table.clear()
+            next_code, width = end + 1, 9
+        while nbits >= 8:
+            out.append(acc & 255)
+            acc >>= 8
+            nbits -= 8
+        prefix = k
+    for code in (prefix, end):
+        acc |= code << nbits
+        nbits += width
+    while nbits > 0:
+        out.append(acc & 255)
+        acc >>= 8
+        nbits -= 8
+    return bytes(out)
+
+
+def _sub_blocks(data: bytes) -> bytes:
+    """GIF data sub-blocks (a length byte, at most 255 bytes) and the
+    terminator."""
+    return b"".join(bytes([len(data[i:i + 255])]) + data[i:i + 255]
+                    for i in range(0, len(data), 255)) + b"\x00"
+
+
+def save_gif(path: str, frames: List[np.ndarray], fps: int = 10):
+    """Write float RGB frames [H, W, 3] in [0, 1] as a looping GIF89a with
+    one global palette (``quantize``) and a delay of 1/fps seconds a frame
+    (in the format's hundredths)."""
+    palette, idx = quantize(frames)
+    h, w = idx.shape[1:]
+    delay = int(round(100.0 / fps))
+    parts = [b"GIF89a", struct.pack("<HHBBB", w, h, 0xF7, 0, 0), palette.tobytes(),
+             b"\x21\xff\x0bNETSCAPE2.0\x03\x01\x00\x00\x00"]
+    for frame in idx:
+        parts += [b"\x21\xf9\x04\x04" + struct.pack("<H", delay) + b"\x00\x00",
+                  b"\x2c" + struct.pack("<HHHHB", 0, 0, w, h, 0), b"\x08",
+                  _sub_blocks(_lzw(frame.tobytes()))]
+    with open(path, "wb") as f:
+        f.write(b"".join(parts) + b"\x3b")
+
+
+def gif_info(path: str) -> dict:
+    """Walk a GIF's block structure: {"height", "width", "frames", "delays"
+    (hundredths of a second, one a frame)}; raises ValueError where the
+    file is not a well-formed GIF89a/87a."""
+    with open(path, "rb") as f:
+        data = f.read()
+    if data[:6] not in (b"GIF89a", b"GIF87a") or len(data) < 13:
+        raise ValueError(f"{path} is not a GIF")
+    w, h, flags = struct.unpack("<HHB", data[6:11])
+    pos = 13 + (3 << ((flags & 7) + 1) if flags & 0x80 else 0)
+
+    def skip_sub_blocks(p):
+        while data[p]:
+            p += data[p] + 1
+        return p + 1
+
+    frames, delays, delay = 0, [], 0
+    try:
+        while data[pos] != 0x3B:
+            if data[pos] == 0x21:
+                if data[pos + 1] == 0xF9:
+                    delay = struct.unpack("<H", data[pos + 4:pos + 6])[0]
+                pos = skip_sub_blocks(pos + 2)
+            elif data[pos] == 0x2C:
+                iflags = data[pos + 9]
+                pos += 10 + (3 << ((iflags & 7) + 1) if iflags & 0x80 else 0)
+                pos = skip_sub_blocks(pos + 1)
+                frames += 1
+                delays.append(delay)
+            else:
+                raise ValueError(f"{path}: unknown block 0x{data[pos]:02x} at {pos}")
+    except IndexError:
+        raise ValueError(f"{path}: truncated GIF") from None
+    return {"height": h, "width": w, "frames": frames, "delays": delays}

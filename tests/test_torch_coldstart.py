@@ -32,8 +32,10 @@ from moda_tpu_torch.data import dataset as TD
 from moda_tpu_torch.data import synthetic as TS
 from moda_tpu_torch.data.synth_mesh import MeshScene
 from moda_tpu_torch.fields import cnn as TC
+from moda_tpu_torch.preproc.posenet import RefPoseNet
 from moda_tpu_torch.train import trainer as TT
 from moda_tpu_torch.train import warmup_pose as TW
+from tests.test_torch_posenet import write_reference_pth
 
 CROP = 112
 
@@ -151,8 +153,9 @@ def test_pose_warmup_steps_in_lockstep(jax_warm, jax_cnn):
 
 def test_pose_cnn_npz_moves_between_packages(jax_warm, jax_cnn, tmp_path):
     """pose_cnn.npz written by either package loads in the other with every
-    parameter equal (the forward's parity is the test above); the
-    reference's .pth posenet is refused, naming the later slice."""
+    parameter equal (the forward's parity is the test above); a .pth is the
+    reference's posenet and loads beside the CNN, leaving it as it was
+    (tests/test_torch_posenet.py holds that net against JAX's)."""
     v, f, e = _prior()
     jw = jax_warm
     jw.params = jax.tree_util.tree_map(jnp.asarray, jax_cnn)
@@ -172,8 +175,11 @@ def test_pose_cnn_npz_moves_between_packages(jax_warm, jax_cnn, tmp_path):
     back = bridge.flatten(jax.tree_util.tree_map(np.asarray, jw.params))
     for k in want:
         np.testing.assert_array_equal(back[k], 0.5 * want[k], err_msg=k)
-    with pytest.raises(NotImplementedError, match="later slice"):
-        tw.load(str(tmp_path / "posenet.pth"))
+    write_reference_pth(str(tmp_path / "posenet.pth"))
+    tw.load(str(tmp_path / "posenet.pth"))
+    assert isinstance(tw.ref_net, RefPoseNet)
+    for k, v in bridge.flatten(bridge.export_params(tw.net)).items():
+        np.testing.assert_array_equal(v, 0.5 * want[k], err_msg=k)
 
 
 # ----------------------------------------------------- cameras from the CNN

@@ -301,7 +301,7 @@ def test_extract_app_ama_and_eval_root_run_on_the_cpu(tmp_path, monkeypatch):
     for kind, ext in (("mesh", "obj"), ("cam", "txt"), ("ctrajs", "txt"), ("refsil", "png")):
         assert sorted(f for f in files if f.startswith(f"syn-{kind}-0")) == \
             [f"syn-{kind}-{i:05d}.{ext}" for i in range(5)], kind
-    assert {"syn-mesh-rest.obj", "syn-mesh-skin.obj", "syn-rgb.npy", "syn-sil.npy"} <= set(files)
+    assert {"syn-mesh-rest.obj", "syn-mesh-skin.obj", "syn-rgb.gif", "syn-sil.gif"} <= set(files)
     rest = TA.load_obj(os.path.join(out, "syn-mesh-rest.obj"))
     assert len(rest.vertices) > 20
     for i in range(5):
@@ -312,8 +312,9 @@ def test_extract_app_ama_and_eval_root_run_on_the_cpu(tmp_path, monkeypatch):
         cam = np.loadtxt(os.path.join(out, f"syn-cam-{i:05d}.txt"))
         np.testing.assert_allclose(cam, np.loadtxt(os.path.join(
             db, "Cameras", "Full-Resolution", "syn", "%05d.txt" % i)), rtol=1e-5, atol=1e-6)
-    rgb = np.load(os.path.join(out, "syn-rgb.npy"))
-    assert rgb.shape == (5, 8, 8, 3) and rgb.dtype == np.uint8
+    for kind in ("rgb", "sil"):
+        gif = RV.gif_info(os.path.join(out, f"syn-{kind}.gif"))
+        assert (gif["frames"], gif["height"], gif["width"]) == (5, 8, 8), kind
     assert ex.model.device.type == "cpu"
 
     # 1,000 samples a mesh instead of 10,000: ICP over 10,000^2 pairs takes

@@ -35,7 +35,9 @@ def test_import_loads_no_jax_and_no_moda_tpu():
             "import moda_tpu_torch.data.frames, moda_tpu_torch.data.imageio\n"
             "import moda_tpu_torch.train.warmup_pose, moda_tpu_torch.fields.cnn\n"
             "import moda_tpu_torch.fields.cse, moda_tpu_torch.render.s3im\n"
-            "import moda_tpu_torch.train.cse_distill\n"
+            "import moda_tpu_torch.train.cse_distill, moda_tpu_torch.viz.nvs\n"
+            "import moda_tpu_torch.viz.match, moda_tpu_torch.cli.nvs_app\n"
+            "import moda_tpu_torch.cli.match_app, moda_tpu_torch.preproc.posenet\n"
             f"bad = [m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r}]\n"
             "print(bad)\n"
             "assert not bad, bad\n")
@@ -93,9 +95,9 @@ def test_later_slices_refuse_explicitly(tmp_path):
     """The step's branches build and run: nerf_dis, flowbw without bones,
     ft_cse, s3im_loss, freeze_coarse, accu_steps > 1 and use_bones=False in
     the model, the step and the trainer. What the ported slices do not run
-    raises, naming a later slice: chunk_steps / steps_chunk > 1 and the
-    reference's .pth posenet (more than one process:
-    test_train_app_refuses_later_slices)."""
+    raises, naming a later slice: chunk_steps / steps_chunk > 1 (more than
+    one process: test_train_app_refuses_later_slices). The reference's .pth
+    posenet, refused before its slice, now loads."""
     from moda_tpu_torch.fields.model import MoDAModel
     from moda_tpu_torch.train.optim import MoDAOptimizer
     from moda_tpu_torch.train.step import StepExtras
@@ -141,10 +143,12 @@ def test_later_slices_refuse_explicitly(tmp_path):
         Trainer(tcfg.replace(**kw), info, device="cpu")
     tr = Trainer(tcfg.replace(warmup_pose_ep=1), info, device="cpu")
     assert tr.cfg.render_size == 64
-    # the reference's .pth posenet checkpoint waits for the preprocessing slice
+    # the reference's .pth posenet checkpoint loads (tests/test_torch_posenet.py)
+    from tests.test_torch_posenet import write_reference_pth
     w = PoseWarmup(tr.prior_verts_unit, tr.prior_faces, tr.prior_embeds, 3.0, device="cpu")
-    with pytest.raises(NotImplementedError, match="later slice"):
-        w.load(str(tmp_path / "posenet.pth"))
+    write_reference_pth(str(tmp_path / "posenet.pth"))
+    w.load(str(tmp_path / "posenet.pth"))
+    assert w.ref_net is not None
 
 
 def test_config_loads_a_jax_config():
