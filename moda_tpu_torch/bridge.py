@@ -11,6 +11,8 @@ with conv kernels HWIO <-> OIHW, Dense kernels transposed and GroupNorm
 scale <-> weight, whether alone or inside ``MoDAModel`` (``csenet``). The
 reference posenet (preproc/posenet.py) moves the same way:
 ``posenet_from_jax`` builds it from the JAX package's converted parameters.
+VCN+ (preproc/vcn_flow.py) is functional on both sides, with torch's conv
+layouts in the JAX tree too: ``vcn_from_jax`` turns each leaf into a tensor.
 """
 from __future__ import annotations
 
@@ -107,6 +109,14 @@ def posenet_from_jax(params: Mapping[str, Any], device="cpu"):
     net = RefPoseNet()
     load_params(net, params)
     return net.eval().to(device)
+
+
+def vcn_from_jax(params: Mapping[str, Any], device="cpu") -> Dict[str, Any]:
+    """The JAX package's VCN+ parameter tree (``moda_tpu.preproc.vcn_flow.
+    convert_vcn_checkpoint``'s, as numpy) with float32 tensors on ``device``
+    for leaves, as ``moda_tpu_torch.preproc.vcn_flow`` takes them."""
+    return unflatten({k: torch.as_tensor(np.asarray(v, np.float32), device=device)
+                      for k, v in flatten(params).items()})
 
 
 def load_mvars(model, mvars) -> None:

@@ -5,8 +5,8 @@ the semantics of the cv2 build the JAX package runs against. The pixel work
 is host C++ (``native/imgcodec.cpp``, built with g++ at first use); PNG
 inflate is Python's zlib.
 
-- ``imread(path, gray=False)`` tells JPEG from PNG by the file's first
-  bytes, as cv2.imread does, and returns uint8 [H, W, 3] in RGB order (cv2
+- ``imread(path, gray=False)`` tells JPEG, PNG and PBM apart by the file's
+  first bytes, as cv2.imread does, and returns uint8 [H, W, 3] in RGB order (cv2
   gives BGR) or [H, W] with ``gray=True``; None for a missing, empty or
   non-image file. JPEG: baseline and extended sequential Huffman with
   libjpeg-turbo's arithmetic (grey = the Y plane); progressive, lossless
@@ -14,13 +14,18 @@ inflate is Python's zlib.
   PNG: 8-bit grey, grey+alpha, RGB, RGBA and palette colour (1-8 bits),
   not interlaced; colour read as grey goes through libpng's rgb_to_gray
   with the coefficients OpenCV sets (0.299, 0.587: (9797 R + 19234 G +
-  3737 B) >> 15); alpha is dropped. Anything else raises ValueError.
+  3737 B) >> 15); alpha is dropped. PBM (netpbm P1 text and P4 binary, the
+  AMA silhouettes): a set bit is black (0), a clear one white (255), as
+  cv2 reads them. Anything else raises ValueError.
 - ``resize(img, (width, height), interpolation)`` and ``remap(img, map_x,
   map_y, interpolation)`` take float32 images [H, W] or [H, W, C] with any
   channel count and return float32 of the same layout: cv2.resize and
   cv2.remap (float maps, BORDER_CONSTANT 0) with INTER_NEAREST or
   INTER_LINEAR (see imgcodec.cpp for the exact rules); ``remap_planes``
-  remaps [C, H, W] planes as cv2.remap does each plane alone.
+  remaps [C, H, W] planes as cv2.remap does each plane alone. A uint8
+  image through ``resize`` with INTER_LINEAR takes cv2's 8-bit fixed-point
+  path and stays uint8, bit-equal to cv2.resize of that image (VCN's
+  inputs are resized so, before they become floats).
 """
 from __future__ import annotations
 
@@ -37,6 +42,7 @@ INTER_NEAREST, INTER_LINEAR = 0, 1  # cv2's values
 
 _JPEG_MAGIC = b"\xff\xd8\xff"
 _PNG_MAGIC = b"\x89PNG\r\n\x1a\n"
+_PBM_MAGICS = (b"P1", b"P4")
 _U8P = ctypes.POINTER(ctypes.c_uint8)
 _F32P = ctypes.POINTER(ctypes.c_float)
 
@@ -53,7 +59,50 @@ def imread(path: str, gray: bool = False) -> Optional[np.ndarray]:
         return decode_jpeg(data, gray)
     if data.startswith(_PNG_MAGIC):
         return decode_png(data, gray)
+    if data[:2] in _PBM_MAGICS and data[2:3].isspace():
+        return decode_pbm(data, gray)
     return None
+
+
+def _pbm_header(data: bytes):
+    """(width, height, offset of the raster) of a PBM: the magic, then two
+    decimal fields separated by whitespace and '#' comments, then one
+    whitespace byte."""
+    pos, fields = 2, []
+    while len(fields) < 2:
+        while pos < len(data) and (data[pos:pos + 1].isspace() or data[pos:pos + 1] == b"#"):
+            if data[pos:pos + 1] == b"#":
+                end = data.find(b"\n", pos)
+                pos = len(data) if end < 0 else end
+            pos += 1
+        start = pos
+        while pos < len(data) and data[pos:pos + 1].isdigit():
+            pos += 1
+        if pos == start:
+            raise ValueError("PBM header without its width and height")
+        fields.append(int(data[start:pos]))
+    return fields[0], fields[1], pos + 1
+
+
+def decode_pbm(data: bytes, gray: bool = False) -> np.ndarray:
+    w, h, pos = _pbm_header(data)
+    if w <= 0 or h <= 0:
+        raise ValueError(f"PBM of size {w} x {h}")
+    if data[:2] == b"P4":
+        rowbytes = (w + 7) // 8
+        raw = np.frombuffer(data, np.uint8, count=h * rowbytes, offset=pos) \
+            if len(data) - pos >= h * rowbytes else None
+        if raw is None:
+            raise ValueError("truncated PBM image data")
+        bits = np.unpackbits(raw.reshape(h, rowbytes), axis=1)[:, :w]
+    else:
+        digits = np.frombuffer(data[pos:], np.uint8)
+        digits = digits[(digits == ord("0")) | (digits == ord("1"))]
+        if digits.size < w * h:
+            raise ValueError("truncated PBM image data")
+        bits = (digits[:w * h] - ord("0")).reshape(h, w)
+    img = np.where(bits > 0, 0, 255).astype(np.uint8)
+    return img if gray else np.repeat(img[..., None], 3, axis=-1)
 
 
 def decode_jpeg(data: bytes, gray: bool = False) -> np.ndarray:
@@ -141,7 +190,11 @@ def _interp(interpolation: int) -> int:
 
 def resize(img: np.ndarray, dsize: Tuple[int, int],
            interpolation: int = INTER_LINEAR) -> np.ndarray:
-    """cv2.resize(img, dsize=(width, height), interpolation) on float32."""
+    """cv2.resize(img, dsize=(width, height), interpolation) on float32, or
+    on uint8 with INTER_LINEAR (uint8 out, cv2's fixed-point arithmetic)."""
+    if isinstance(img, np.ndarray) and img.dtype == np.uint8 \
+            and _interp(interpolation) == INTER_LINEAR:
+        return _resize_u8(img, dsize)
     src, cn = _as_f32(img)
     dw, dh = int(dsize[0]), int(dsize[1])
     if dw <= 0 or dh <= 0 or src.shape[0] == 0 or src.shape[1] == 0:
@@ -149,6 +202,20 @@ def resize(img: np.ndarray, dsize: Tuple[int, int],
     out = np.empty((dh, dw) + src.shape[2:], np.float32)
     _load("imgcodec").resize_f32(src.ctypes.data_as(_F32P), src.shape[0], src.shape[1], cn,
                                  out.ctypes.data_as(_F32P), dh, dw, _interp(interpolation))
+    return out
+
+
+def _resize_u8(img: np.ndarray, dsize: Tuple[int, int]) -> np.ndarray:
+    src = np.ascontiguousarray(img)
+    if src.ndim not in (2, 3):
+        raise ValueError(f"image of shape {src.shape}: expected [H, W] or [H, W, C]")
+    dw, dh = int(dsize[0]), int(dsize[1])
+    if dw <= 0 or dh <= 0 or src.shape[0] == 0 or src.shape[1] == 0:
+        raise ValueError(f"resize of {src.shape[:2]} to {(dh, dw)}")
+    out = np.empty((dh, dw) + src.shape[2:], np.uint8)
+    _load("imgcodec").resize_u8(src.ctypes.data_as(_U8P), src.shape[0], src.shape[1],
+                                src.shape[2] if src.ndim == 3 else 1,
+                                out.ctypes.data_as(_U8P), dh, dw)
     return out
 
 

@@ -2,9 +2,9 @@
 The port's copy of moda_tpu/data/synthetic.py, plus three writers of
 on-disk datasets for the trainer: ``write_line_dataset`` (line shards of
 full frames), ``write_frame_dataset`` (the DAVIS layout that
-tools/make_synth_dataset.py writes) and ``write_lines`` (line shards cut
-from a frame dataset through the frame reader, preproc/pipeline.py's
-``write_lines``).
+tools/make_synth_dataset.py writes), and, imported from
+preproc/pipeline.py where it lives, ``write_lines`` (line shards cut from
+a frame dataset through the frame reader).
 
 Role of scripts/synthetic/render_synthetic.py in the reference (which
 rasterizes eagle/hands meshes with SoftRas to produce GT cameras/flow for
@@ -24,6 +24,7 @@ import numpy as np
 from moda_tpu_torch.data.pfm import write_pfm
 from moda_tpu_torch.extract.mesh import Mesh
 from moda_tpu_torch.native import marching_cubes
+from moda_tpu_torch.preproc.pipeline import write_lines  # noqa: F401  (the callers' import)
 
 # Fixed random direction bank for the CSE stand-in feature (see
 # surface_feat): 8 unit directions -> sin+cos = 16-d embedding with no
@@ -377,40 +378,3 @@ def write_frame_dataset(root: str, config_dir: str, seqname: str, scene: SynthSc
     else:
         _write_sdf_meshes(dirs["Meshes"], scene)
     return _write_config(config_dir, seqname, dirs["JPEGImages"], scene)
-
-
-def write_lines(database_root: str, seqname: str, img_size: int, datasets) -> None:
-    """Line shards (preprocess/img2lines.py:33-107) cut from frame datasets
-    (data/dataset.py::VideoDataset): ``Pixels/Full-Resolution/<seq>/1_%05d/
-    %04d.npy`` per row of the pair (i, i+1) read through the frame reader
-    at dframe 1, reference key names, pair-stacked [1, 2, C, W], plus
-    ``rtk.npy`` {'rtk', 'kaug'}. The JAX package's preproc/pipeline.py::
-    write_lines stores ``sample_pair(rng(i), idx=i)`` there, a pair of
-    random direction and dframe under the dframe-1 name; this one stores
-    the pair its name says."""
-    out_base = os.path.join(database_root, "Pixels", "Full-Resolution", seqname)
-    for ds in datasets:
-        reader = ds.reader
-        for i in range(ds.num_frames - 1):
-            d0 = reader.read_raw(i, flowfw=True, dframe=1)
-            d1 = reader.read_raw(i + 1, flowfw=False, dframe=1)
-            flow, flown, occ, occn = reader.flow_process(d0, d1)
-            rows = {}
-            for k, (a, b) in {"img": (d0["img"], d1["img"]), "flow": (flow, flown),
-                              "mask": ((d0["mask"] * d0["vis2d"] > 0),
-                                       (d1["mask"] * d1["vis2d"] > 0)),
-                              "vis2d": (d0["vis2d"], d1["vis2d"]), "occ": (occ, occn),
-                              "dp_feat_rsmp": (d0["dp_feat_rsmp"].transpose(1, 2, 0),
-                                               d1["dp_feat_rsmp"].transpose(1, 2, 0)),
-                              "dp": (d0["dp"], d1["dp"])}.items():
-                # [S, S(, C)] -> [S rows, 2, C, S]
-                pair = np.stack([np.asarray(a, np.float32), np.asarray(b, np.float32)], 1)
-                rows[k] = pair.reshape(img_size, 2, img_size, -1).transpose(0, 1, 3, 2)
-            dirname = os.path.join(out_base, f"1_{i:05d}")
-            os.makedirs(dirname, exist_ok=True)
-            np.save(os.path.join(dirname, "rtk.npy"),
-                    {"rtk": np.stack([d0["rtk"], d1["rtk"]]).astype(np.float32)[None],
-                     "kaug": np.stack([d0["kaug"], d1["kaug"]])[None]})
-            for row in range(img_size):
-                np.save(os.path.join(dirname, "%04d.npy" % row),
-                        {k: v[row][None] for k, v in rows.items()})

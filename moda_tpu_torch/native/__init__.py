@@ -75,6 +75,9 @@ def _declare(name: str, lib):
         lib.resize_f32.restype = None
         lib.resize_f32.argtypes = [f32p, ctypes.c_int, ctypes.c_int, ctypes.c_int, f32p,
                                    ctypes.c_int, ctypes.c_int, ctypes.c_int]
+        lib.resize_u8.restype = None
+        lib.resize_u8.argtypes = [u8p, ctypes.c_int, ctypes.c_int, ctypes.c_int, u8p,
+                                  ctypes.c_int, ctypes.c_int]
         lib.remap_f32.restype = None
         lib.remap_f32.argtypes = [f32p, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
                                   f32p, f32p, ctypes.c_int64, f32p, ctypes.c_int, ctypes.c_int]

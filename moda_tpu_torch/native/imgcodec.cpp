@@ -17,6 +17,13 @@
 // - resize_f32: cv2.resize on float32 images with any channel count.
 //   INTER_LINEAR: half-pixel centres, border replicated, no antialiasing when
 //   shrinking; INTER_NEAREST: source index floor(dst * scale).
+// - resize_u8: cv2.resize INTER_LINEAR on uint8 images with any channel
+//   count, in OpenCV's fixed point (not its float path): 11-bit weights
+//   rounded from the float fractions, the horizontal pass in int32, the
+//   vertical pass as its SIMD kernel computes it for every column,
+//   ((S0 >> 4) * b0 >> 16) + ((S1 >> 4) * b1 >> 16) rounded by 2 bits.
+//   An exact 2x shrink on both axes is OpenCV's INTER_AREA: the 2x2 mean
+//   rounded half up.
 // - remap_f32: cv2.remap with float maps and BORDER_CONSTANT 0, any channel
 //   count. INTER_LINEAR: bilinear weights from the map's fractional part; as
 //   in OpenCV 5, that fraction is exact for images of 1, 3 and 4 channels
@@ -745,6 +752,79 @@ void resize_f32(const float* src, int sh, int sw, int cn, float* dst, int dh, in
     hrow(y1, r1.data());
     float* d = dst + static_cast<size_t>(y) * dw * cn;
     for (int i = 0; i < dw * cn; ++i) d[i] = r0[i] * b0 + r1[i] * b1;
+  }
+}
+
+// The source index and its weights (11 fraction bits) of each destination
+// column or row, as cv2.resize computes them for INTER_LINEAR on 8-bit
+// images. Columns past a border take that border's pixel with weight 1;
+// rows keep their index and fraction, and the caller clamps the two rows
+// read (so a border row is weighted by the two rounded weights, as in
+// OpenCV). fp-contract off keeps (d + 0.5) * scale - 0.5 two roundings.
+#pragma GCC push_options
+#pragma GCC optimize("fp-contract=off")
+static void linear_u8_coefs(int d, int s, bool clamp, std::vector<int>& idx,
+                            std::vector<int>& a0, std::vector<int>& a1) {
+  const double scale = 1.0 / (static_cast<double>(d) / s);
+  idx.resize(static_cast<size_t>(d));
+  a0.resize(static_cast<size_t>(d));
+  a1.resize(static_cast<size_t>(d));
+  for (int i = 0; i < d; ++i) {
+    float f = static_cast<float>((i + 0.5) * scale - 0.5);
+    int si = static_cast<int>(std::floor(f));
+    f -= static_cast<float>(si);
+    if (clamp && si < 0) {
+      f = 0.f;
+      si = 0;
+    }
+    if (clamp && si >= s - 1) {
+      f = 0.f;
+      si = s - 1;
+    }
+    idx[i] = si;
+    // saturate_cast<short>: round half to even
+    a0[i] = static_cast<int>(std::nearbyint((1.f - f) * 2048.f));
+    a1[i] = static_cast<int>(std::nearbyint(f * 2048.f));
+  }
+}
+#pragma GCC pop_options
+
+// cv2.resize(INTER_LINEAR) of a uint8 image [sh, sw, cn] to [dh, dw, cn].
+void resize_u8(const uint8_t* src, int sh, int sw, int cn, uint8_t* dst, int dh, int dw) {
+  const size_t srow = static_cast<size_t>(sw) * cn, drow = static_cast<size_t>(dw) * cn;
+  if (sw == 2 * dw && sh == 2 * dh) {
+    for (int y = 0; y < dh; ++y) {
+      const uint8_t* s0 = src + 2 * y * srow;
+      const uint8_t* s1 = s0 + srow;
+      uint8_t* d = dst + y * drow;
+      for (int x = 0; x < dw; ++x)
+        for (int k = 0; k < cn; ++k) {
+          const size_t o = static_cast<size_t>(2 * x) * cn + k;
+          d[x * cn + k] = static_cast<uint8_t>((s0[o] + s0[o + cn] + s1[o] + s1[o + cn] + 2) >> 2);
+        }
+    }
+    return;
+  }
+  std::vector<int> xi, xa0, xa1, yi, ya0, ya1;
+  linear_u8_coefs(dw, sw, true, xi, xa0, xa1);
+  linear_u8_coefs(dh, sh, false, yi, ya0, ya1);
+  std::vector<int32_t> r0(drow), r1(drow);
+  auto hrow = [&](int sy, int32_t* r) {
+    const uint8_t* s = src + static_cast<size_t>(sy) * srow;
+    for (int x = 0; x < dw; ++x) {
+      const int x0 = xi[x] * cn, x1 = std::min(xi[x] + 1, sw - 1) * cn;
+      for (int k = 0; k < cn; ++k) r[x * cn + k] = s[x0 + k] * xa0[x] + s[x1 + k] * xa1[x];
+    }
+  };
+  for (int y = 0; y < dh; ++y) {
+    hrow(std::min(std::max(yi[y], 0), sh - 1), r0.data());
+    hrow(std::min(std::max(yi[y] + 1, 0), sh - 1), r1.data());
+    const int b0 = ya0[y], b1 = ya1[y];
+    uint8_t* d = dst + y * drow;
+    for (size_t i = 0; i < drow; ++i) {
+      const int v = (((r0[i] >> 4) * b0) >> 16) + (((r1[i] >> 4) * b1) >> 16);
+      d[i] = clamp255((v + 2) >> 2);
+    }
   }
 }
 

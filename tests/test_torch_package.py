@@ -46,6 +46,24 @@ def test_import_loads_no_jax_and_no_moda_tpu():
     assert res.returncode == 0, res.stdout + res.stderr
 
 
+def test_preprocessing_loads_no_jax_no_cv2_and_no_moda_tpu():
+    """The preprocessing entry point and every module it imports (VCN+, the
+    pipeline, AMA conversion, the checkpoint loaders, the uint8 resize and
+    PBM reader of data/imageio.py, scipy's labelling) load none of
+    FORBIDDEN: the card's machine has no cv2 and no JAX."""
+    code = ("import sys, moda_tpu_torch.cli.preproc_app, moda_tpu_torch.preproc.pipeline\n"
+            "import moda_tpu_torch.preproc.ama, moda_tpu_torch.preproc.vcn_flow\n"
+            "import moda_tpu_torch.preproc.checkpoints, moda_tpu_torch.bridge\n"
+            "import numpy as np\n"
+            "from moda_tpu_torch.preproc.pipeline import largest_cc\n"
+            "largest_cc(np.eye(4, dtype=np.uint8))\n"
+            f"bad = [m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r}]\n"
+            "assert not bad, bad\n")
+    res = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                         cwd=PKG.parent, timeout=300)
+    assert res.returncode == 0, res.stdout + res.stderr
+
+
 def test_sources_import_nothing_forbidden():
     for path in sorted(PKG.rglob("*.py")):
         tree = ast.parse(path.read_text(), str(path))
