@@ -71,7 +71,13 @@ Phases:
    weights, one pair on the card against a CPU copy and pairs timed at the
    ~2 MP protocol, then ``preproc_app.main`` on phase 8's scene (frames,
    masks, zero CSE features, VCN flow, config, line shards; no fused-MLP
-   launch) and its refusals (checks in its docstring).
+   launch) and its refusals (checks in its docstring);
+12. the detectron2 preprocessing graphs (``run_preproc_graphs``): PointRend
+   and DensePose-CSE on the ResNet-50 + FPN backbone at their published
+   widths with seeded weights, each on one frame on the card against a CPU
+   copy and timed over phase 8's 16 frames, then ``preproc_app.main`` with
+   their npz files and no --mask_dir: PointRend's masks, CSE features, VCN
+   flow, line shards, no fused-MLP launch (checks in its docstring).
 The main-path launch counts of phases 5, 6, 8, 9 and 10 go into the kernel
 JSON's ``launches``; the dis cases of phases 3 and 4 are phase 9's.
 Prints the kernel JSON line, then {"ok": true, "device": {...}} last.
@@ -81,7 +87,9 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import glob
 import hashlib
+import io
 import json
 import math
 import os
@@ -92,6 +100,7 @@ import time
 
 # H100 SXM published dense peaks (NVIDIA data sheet)
 PEAK_BF16_FLOPS = 989e12
+PEAK_FP32_FLOPS = 67e12  # outside the tensor cores: the preprocessing graphs (TF32 off)
 PEAK_BYTES = 3.35e12
 
 
@@ -2298,6 +2307,73 @@ def profile_vcn(params, im, card: str) -> dict:
             "cudnn_benchmark_ms": times[True]}
 
 
+def listing(db: str, seq: str, kind: str, pattern: str) -> list:
+    return sorted(glob.glob(os.path.join(db, kind, "Full-Resolution", seq, pattern)))
+
+
+def check_database(db: str, seq: str, cfg_dir: str, res: dict, fail: list):
+    """The checks of a database that ``preproc_app.main`` wrote from phase
+    8's scene: the frames and masks, FlowFW_d/FlowBW_d flo-/occ- PFMs for
+    each d of pipeline.DFRAMES with pipeline.py:89-96's pair counts (finite
+    flows, occlusion in [0, 1]) and one VCN call a pair each way, the
+    config, one line-shard dir of COLDSTART_IMG rows a pair, and one line
+    batch read back through the port's line loader. Appends to ``fail``;
+    returns (readings, the batch)."""
+    import numpy as np
+    from moda_tpu_torch.data import dataset as D
+    from moda_tpu_torch.data.pfm import read_pfm
+    from moda_tpu_torch.preproc.pipeline import DFRAMES
+
+    n = COLDSTART_FRAMES
+    pairs = {d: sum(1 for i in range(n - d) if i % d == 0) for d in DFRAMES}
+    if len(listing(db, seq, "JPEGImages", "*.jpg")) != n \
+            or len(listing(db, seq, "Annotations", "*.png")) != n:
+        fail.append("frames or masks missing")
+    flo_min, flo_max, occ_lo, occ_hi = np.inf, -np.inf, np.inf, -np.inf
+    for d, k in pairs.items():
+        for kind in (f"FlowFW_{d}", f"FlowBW_{d}"):
+            flo, occ = listing(db, seq, kind, "flo-*.pfm"), listing(db, seq, kind, "occ-*.pfm")
+            if len(flo) != k or len(occ) != k:
+                fail.append(f"{kind}: {len(flo)} flo and {len(occ)} occ files, want {k}")
+            for p in flo:
+                f = read_pfm(p)[0]
+                if f.shape != (COLDSTART_IMG, COLDSTART_IMG, 3) or not np.isfinite(f).all():
+                    fail.append(f"{p}: shape {f.shape}, finite {np.isfinite(f).all()}")
+                flo_min, flo_max = min(flo_min, f[..., :2].min()), max(flo_max, f[..., :2].max())
+            for p in occ:
+                o = read_pfm(p)[0]
+                occ_lo, occ_hi = min(occ_lo, o.min()), max(occ_hi, o.max())
+    if not (0 <= occ_lo <= occ_hi <= 1):
+        fail.append(f"occlusion in [{occ_lo}, {occ_hi}]")
+    if res["flow_calls"] != 2 * sum(pairs.values()):
+        fail.append(f"{res['flow_calls']} VCN pairs, want {2 * sum(pairs.values())}")
+    if not os.path.exists(os.path.join(cfg_dir, seq + ".config")):
+        fail.append("no config")
+    shards = sorted(glob.glob(os.path.join(db, "Pixels", "Full-Resolution", seq, "1_*")))
+    rows = [len(glob.glob(os.path.join(s, "0*.npy"))) for s in shards]
+    if len(shards) != n - 1 or set(rows) != {COLDSTART_IMG}:
+        fail.append(f"{len(shards)} shard dirs, rows {sorted(set(rows))}")
+    loader = D.PairLoader(D.build_line_datasets(seq, COLDSTART_IMG, cfg_dir), 8,
+                          num_threads=1, num_prefetch=1)
+    try:
+        batch = next(loader)
+    finally:
+        loader.close()
+    if not all(np.isfinite(v).all() for v in batch.values() if v.dtype.kind == "f"):
+        fail.append("a line batch holds non-finite values")
+    return {"frame_pairs": sum(pairs.values()), "shard_dirs": len(shards),
+            "flow_range": [float(flo_min), float(flo_max)],
+            "occ_range": [float(occ_lo), float(occ_hi)]}, batch
+
+
+def database_line(res: dict, info: dict) -> str:
+    return (f"{res['flow_calls']} VCN pairs ({info['frame_pairs']} frame pairs both ways, "
+            f"{res['times']['flow'] / max(res['flow_calls'], 1) * 1e3:.0f} ms a pair in the "
+            f"stage); flow in [{info['flow_range'][0]:.1f}, {info['flow_range'][1]:.1f}] px, "
+            f"occlusion in [{info['occ_range'][0]:.3f}, {info['occ_range'][1]:.3f}]; "
+            f"{info['shard_dirs']} shard dirs; one line batch read back")
+
+
 def run_preproc(card: str, tmp: str, profile: bool = False) -> dict:
     """Phase 11, the preprocessing entry point with VCN+ flow, at VCN's
     published widths (seeded weights in the reference's layout,
@@ -2320,22 +2396,19 @@ def run_preproc(card: str, tmp: str, profile: bool = False) -> dict:
         rows, one batch read back through the port's line loader; the
         fused-MLP launch counters still 0 after the phase. Each stage's
         time and the VCN pairs run are printed;
-    (c) the refusals raise: a video input, no vcn*.npz, a cse*.npz and a
-        pointrend*.npz under --weights_dir.
+    (c) the refusals raise: a video input and no vcn*.npz (a cse*.npz and
+        a pointrend*.npz run: phase 12).
     --profile: ``profile_vcn`` on the ~2 MP input of (a).
     No failure is caught: any exits non-zero."""
-    import glob
-
     import numpy as np
     import torch
     from moda_tpu_torch.bridge import flatten, vcn_from_jax
     from moda_tpu_torch.cli import preproc_app
-    from moda_tpu_torch.data import dataset as D
     from moda_tpu_torch.data.pfm import read_pfm
     from moda_tpu_torch.ops import fused_mlp as FM
     from moda_tpu_torch.preproc import vcn_flow as V
     from moda_tpu_torch.preproc.checkpoints import save_pytree_npz
-    from moda_tpu_torch.preproc.pipeline import DFRAMES, read_bgr
+    from moda_tpu_torch.preproc.pipeline import read_bgr
 
     t_phase = time.perf_counter()
     out, fail = {}, []
@@ -2404,60 +2477,16 @@ def run_preproc(card: str, tmp: str, profile: bool = False) -> dict:
     out["stage_s"] = res["times"]
     out["vcn_calls"] = res["flow_calls"]
     launches = sum(FM.launches_by_call.values())
-    n = COLDSTART_FRAMES
-    pairs = {d: sum(1 for i in range(n - d) if i % d == 0) for d in DFRAMES}
-
-    def listing(kind, pattern):
-        return sorted(glob.glob(os.path.join(db, kind, "Full-Resolution", seq, pattern)))
-
-    if len(listing("JPEGImages", "*.jpg")) != n or len(listing("Annotations", "*.png")) != n:
-        fail.append("frames or masks missing")
-    dp = [listing("Densepose", f) for f in ("0*.pfm", "feat-*.pfm", "bbox-*.txt")]
-    if [len(x) for x in dp] != [n] * 3 or any(read_pfm(p)[0].any() for p in dp[1]):
+    info, batch = check_database(db, seq, cfg_dir, res, fail)
+    dp = [listing(db, seq, "Densepose", f) for f in ("0*.pfm", "feat-*.pfm", "bbox-*.txt")]
+    if [len(x) for x in dp] != [COLDSTART_FRAMES] * 3 or any(read_pfm(p)[0].any() for p in dp[1]):
         fail.append(f"Densepose files {[len(x) for x in dp]}")
-    flo_min, flo_max, occ_lo, occ_hi = np.inf, -np.inf, np.inf, -np.inf
-    for d, k in pairs.items():
-        for kind in (f"FlowFW_{d}", f"FlowBW_{d}"):
-            flo, occ = listing(kind, "flo-*.pfm"), listing(kind, "occ-*.pfm")
-            if len(flo) != k or len(occ) != k:
-                fail.append(f"{kind}: {len(flo)} flo and {len(occ)} occ files, want {k}")
-            for p in flo:
-                f = read_pfm(p)[0]
-                if f.shape != (COLDSTART_IMG, COLDSTART_IMG, 3) or not np.isfinite(f).all():
-                    fail.append(f"{p}: shape {f.shape}, finite {np.isfinite(f).all()}")
-                flo_min, flo_max = min(flo_min, f[..., :2].min()), max(flo_max, f[..., :2].max())
-            for p in occ:
-                o = read_pfm(p)[0]
-                occ_lo, occ_hi = min(occ_lo, o.min()), max(occ_hi, o.max())
-    if not (0 <= occ_lo <= occ_hi <= 1):
-        fail.append(f"occlusion in [{occ_lo}, {occ_hi}]")
-    if res["flow_calls"] != 2 * sum(pairs.values()):
-        fail.append(f"{res['flow_calls']} VCN pairs, want {2 * sum(pairs.values())}")
-    if not os.path.exists(os.path.join(cfg_dir, seq + ".config")):
-        fail.append("no config")
-    shards = sorted(glob.glob(os.path.join(db, "Pixels", "Full-Resolution", seq, "1_*")))
-    rows = [len(glob.glob(os.path.join(s, "0*.npy"))) for s in shards]
-    if len(shards) != n - 1 or set(rows) != {COLDSTART_IMG}:
-        fail.append(f"{len(shards)} shard dirs, rows {sorted(set(rows))}")
-    loader = D.PairLoader(D.build_line_datasets(seq, COLDSTART_IMG, cfg_dir), 8,
-                          num_threads=1, num_prefetch=1)
-    try:
-        batch = next(loader)
-    finally:
-        loader.close()
-    if not all(np.isfinite(v).all() for v in batch.values() if v.dtype.kind == "f"):
-        fail.append("a line batch holds non-finite values")
     if launches:
         fail.append(f"{launches} fused-MLP launches in the preprocessing phase")
-    out["flow_range"] = [float(flo_min), float(flo_max)]
-    out["occ_range"] = [float(occ_lo), float(occ_hi)]
+    out.update(info)
     print(f"[preproc] preproc_app.main {out['app_s']:.1f} s: stages "
           + ", ".join(f"{k} {v:.2f} s" for k, v in res["times"].items())
-          + f"; {res['flow_calls']} VCN pairs ({sum(pairs.values())} frame pairs both ways, "
-          f"{out['stage_s']['flow'] / max(res['flow_calls'], 1) * 1e3:.0f} ms a pair in the "
-          f"stage); flow in [{flo_min:.1f}, {flo_max:.1f}] px, occlusion in "
-          f"[{occ_lo:.3f}, {occ_hi:.3f}]; {len(shards)} shard dirs; one line batch of "
-          f"{len(batch['imgs'])} read back; {launches} fused-MLP launches", flush=True)
+          + f"; {database_line(res, info)}; {launches} fused-MLP launches", flush=True)
 
     # (c) what the port refuses
     refusals = []
@@ -2465,14 +2494,7 @@ def run_preproc(card: str, tmp: str, profile: bool = False) -> dict:
     open(video, "wb").close()
     empty = os.path.join(tmp, "no_weights")
     os.makedirs(empty, exist_ok=True)
-    cases = [("video", [video, empty]), ("no vcn", [src["JPEGImages"], empty])]
-    for name in ("cse_rob.npz", "pointrend.npz"):
-        d = os.path.join(tmp, "w_" + name.split(".")[0])
-        os.makedirs(d, exist_ok=True)
-        np.savez(os.path.join(d, name), x=np.zeros(1))
-        os.symlink(os.path.join(wdir, "vcn_rob.npz"), os.path.join(d, "vcn_rob.npz"))
-        cases.append((name, [src["JPEGImages"], d]))
-    for name, (inp, weights) in cases:
+    for name, (inp, weights) in (("video", [video, empty]), ("no vcn", [src["JPEGImages"], empty])):
         case_argv = ["--seqname", "refused", "--input", inp, "--mask_dir", src["Annotations"],
                      "--weights_dir", weights, "--database", os.path.join(tmp, "rdb"),
                      "--config_dir", os.path.join(tmp, "rcfg")]
@@ -2488,6 +2510,282 @@ def run_preproc(card: str, tmp: str, profile: bool = False) -> dict:
     if fail:
         raise SystemExit("preproc: " + "; ".join(fail))
     return out
+
+
+PR_DETECT = 16  # the seeded PointRend's raised class: dog, one of preproc_app's animals
+PR_KEEP = tuple(range(14, 24))  # preproc_app's animal classes (preprocess/mask.py:50-126)
+CSE_VERTICES = 5000
+GRAPH_FPN_TOL = 1e-4   # relative L2 of each FPN level, card against CPU
+GRAPH_SCORE_TOL = 1e-5
+GRAPH_BOX_TOL = 1e-2   # px
+GRAPH_MASK_TOL = 1e-3  # share of pixels
+GRAPH_COS_TOL = 1e-5
+
+
+def params_count(tree) -> int:
+    from moda_tpu_torch.bridge import flatten
+    return int(sum(v.size for v in flatten(tree).values()))
+
+
+def run_preproc_graphs(card: str, tmp: str) -> dict:
+    """Phase 12, the detectron2 preprocessing graphs at their published
+    widths with seeded detectron2-layout weights (``pointrend_infer.
+    reference_state_dict`` with class PR_DETECT raised above the score
+    threshold, ``cse_infer.reference_state_dict`` with a unit-norm table of
+    CSE_VERTICES vertices), on phase 8's 16-frame 256 px scene in ``tmp``:
+
+    (a) PointRend (R50-FPN, 80 classes, input 512, 5 subdivision steps of
+        784 points, the animal classes kept) on frame 0, on the card and on
+        a CPU copy, both fp32 (resolve_device turns TF32 off): every FPN
+        level within GRAPH_FPN_TOL (relative L2), the same class, the score
+        within GRAPH_SCORE_TOL, the box within GRAPH_BOX_TOL px, the masks
+        differing on at most GRAPH_MASK_TOL of the pixels; the score's
+        margin over the threshold is printed. Then the 16 frames: wall ms a
+        frame, the backbone + RPN's device ms (CUDA events, the input
+        already on the card), the host share of the wall (everything but
+        the device parts: NMS, the subdivision's resizes and point choice,
+        the uploads and downloads), the peak device memory;
+    (b) DensePose-CSE (R50-FPN, 8 convs of 512, E = 16, input 448) on frame
+        0 with the scene's mask, card against CPU: per-pixel cosine >= 1 -
+        GRAPH_COS_TOL, the vertex map equal on >= 99.9% of the mask, the
+        box equal; the 16 frames' wall ms a frame, ``embed``'s device ms
+        (CUDA events), the peak memory;
+    (c) ``preproc_app.main`` with ``pointrend.npz``, ``cse.npz`` and phase
+        11's ``vcn_rob.npz`` under --weights_dir, no --mask_dir, a fresh
+        database: PointRend's 16 masks (the non-empty ones counted), 16
+        feature PFMs unit-norm at every pixel where the frame's mask is
+        not empty (zero where it is), 16 box files and 16 vertex maps, the
+        "train with" line without --nouse_embed, phase 11's flow, shard and
+        line-batch checks, the batch's dp_feats non-zero wherever its mask
+        is, and no fused-MLP launch. Each stage's time is printed.
+    No failure is caught: any exits non-zero."""
+    import types
+
+    import numpy as np
+    import torch
+    from moda_tpu_torch.cli import preproc_app
+    from moda_tpu_torch.data import imageio as IO
+    from moda_tpu_torch.data.pfm import read_pfm
+    from moda_tpu_torch.ops import fused_mlp as FM
+    from moda_tpu_torch.preproc import cse_infer as CI
+    from moda_tpu_torch.preproc import pointrend_infer as PR
+    from moda_tpu_torch.preproc.checkpoints import save_pytree_npz
+    from moda_tpu_torch.preproc.pipeline import read_bgr
+
+    t_phase = time.perf_counter()
+    out, fail = {}, []
+    src = {k: os.path.join(tmp, "cdb", k, "Full-Resolution", "flap-smoke")
+           for k in ("JPEGImages", "Annotations")}
+    frames = [read_bgr(p) for p in sorted(glob.glob(os.path.join(src["JPEGImages"], "*.jpg")))]
+    masks = [(IO.imread(p, gray=True) > 0).astype(np.uint8)
+             for p in sorted(glob.glob(os.path.join(src["Annotations"], "*.png")))]
+
+    # (a) PointRend
+    pr_tree = PR.convert_pointrend_checkpoint(PR.reference_state_dict(0, detect_class=PR_DETECT))
+    card_p = PR.PointRendPredictor(pr_tree, keep_classes=PR_KEEP, device="cuda")
+    cpu_p = PR.PointRendPredictor(pr_tree, keep_classes=PR_KEEP, device="cpu")
+    imp, _, hw = CI.pad_resized(frames[0], card_p.input_size)
+    fc, fh = card_p.features(imp), cpu_p.features(imp)
+    fpn_err = {k: rel_l2(fc[k].cpu(), fh[k]) for k in fc}
+    dc, dh = card_p._detect(fc, hw), cpu_p._detect(fh, hw)
+    (mc, sc, bc), (mh, sh, bh) = card_p(frames[0]), cpu_p(frames[0])
+    if dc is None or dh is None or bc is None or bh is None:
+        raise SystemExit(f"preproc graphs: no detection (card {dc}, CPU {dh})")
+    box_err = float(np.abs(bc - bh).max())
+    mask_diff = float((mc != mh).mean())
+    out["pointrend"] = {
+        "params": params_count(pr_tree), "fpn_rel_l2": max(fpn_err.values()),
+        "class": [dc[1], dh[1]], "score": [sc, sh], "margin": sc - card_p.score_thresh,
+        "box_max_err_px": box_err, "mask_diff_share": mask_diff,
+        "mask_share": float(mc.mean())}
+    if max(fpn_err.values()) > GRAPH_FPN_TOL or dc[1] != dh[1] \
+            or abs(sc - sh) > GRAPH_SCORE_TOL or box_err > GRAPH_BOX_TOL \
+            or mask_diff > GRAPH_MASK_TOL:
+        fail.append(f"PointRend on the card against the CPU: {out['pointrend']}")
+    print(f"[graphs] PointRend ({out['pointrend']['params']} parameters, input "
+          f"{card_p.input_size}): card against CPU, FPN levels rel L2 "
+          + ", ".join(f"{k} {v:.2e}" for k, v in fpn_err.items())
+          + f" (gate {GRAPH_FPN_TOL:g}); class {dc[1]} / {dh[1]}, score {sc:.7f} / {sh:.7f} "
+          f"(margin {sc - card_p.score_thresh:.4f} over {card_p.score_thresh}), box "
+          f"{np.round(bc, 2).tolist()} max err {box_err:.2e} px (gate {GRAPH_BOX_TOL:g}), masks "
+          f"differ on {mask_diff:.2e} of the pixels (gate {GRAPH_MASK_TOL:g}), mask "
+          f"{mc.mean():.3f} of the frame", flush=True)
+
+    x = CI.normalize_image(imp, "cuda")
+
+    def backbone_rpn():
+        f = card_p.net.backbone(x)
+        f["p6"] = f["p5"][:, :, ::2, ::2]
+        return [card_p.net.rpn(f[k]) for k in ("p2", "p3", "p4", "p5", "p6")]
+
+    with torch.inference_mode():
+        dev_ms = cuda_time(backbone_rpn, iters=5, warmup=2)
+        flops = layer_flops(card_p.net, backbone_rpn)
+    stats, outs = timed_frames(card_p, frames, lambda p, f, i: p(f))
+    out["pointrend"].update(stats, device_ms=dev_ms, gflop=flops / 1e9,
+                            bound_ms=flops / PEAK_FP32_FLOPS * 1e3,
+                            detections=sum(o[2] is not None for o in outs))
+    out["pointrend"]["host_share"] = 1 - dev_ms / out["pointrend"]["wall_ms"]
+    # a second pass with the host's NMS and float resizes (the subdivision's
+    # 2 a step, the mask's paste and frame resizes) timed on the host clock
+    host: dict = {}
+
+    def host_timed(name, fn):
+        def timed(*a, **k):
+            t = time.perf_counter()
+            r = fn(*a, **k)
+            host[name] = host.get(name, 0.0) + time.perf_counter() - t
+            return r
+        return timed
+
+    io_split = types.SimpleNamespace(resize=host_timed("resize", IO.resize),
+                                     INTER_LINEAR=IO.INTER_LINEAR)
+    with _patched([(PR, "nms", host_timed("nms", PR.nms)), (PR, "IO", io_split)]):
+        for f in frames:
+            card_p(f)
+    out["pointrend"].update({f"{k}_ms": v / len(frames) * 1e3 for k, v in host.items()})
+    print(f"[graphs] PointRend over {len(frames)} frames: {out['pointrend']['wall_ms']:.1f} ms "
+          f"wall a frame, backbone + RPN {dev_ms:.2f} ms device (CUDA events; "
+          f"{flops / 1e9:.1f} GFLOP, bound {out['pointrend']['bound_ms']:.2f} ms at "
+          f"{PEAK_FP32_FLOPS / 1e12:g} TFLOP/s fp32), the rest "
+          f"{out['pointrend']['host_share']:.2f} of the wall (host clock a frame: NMS "
+          f"{out['pointrend']['nms_ms']:.1f} ms, float resizes {out['pointrend']['resize_ms']:.1f}"
+          f" ms; the ROI and point heads, transfers); {out['pointrend']['detections']} "
+          f"detections; peak {out['pointrend']['peak_gib']:.2f} GiB ({card})", flush=True)
+
+    # (b) DensePose-CSE
+    cse_tree = CI.convert_cse_checkpoint(CI.reference_state_dict(0, n_vertices=CSE_VERTICES))
+    card_c = CI.CSEPredictor(cse_tree["backbone"], cse_tree["head"],
+                             cse_tree["vertex_embeddings"], device="cuda")
+    cpu_c = CI.CSEPredictor(cse_tree["backbone"], cse_tree["head"],
+                            cse_tree["vertex_embeddings"], device="cpu")
+    (ec, vc, bxc), (eh, vh, bxh) = card_c(frames[0], masks[0]), cpu_c(frames[0], masks[0])
+    norms = np.linalg.norm(ec, axis=0) * np.linalg.norm(eh, axis=0)
+    cos = float(((ec * eh).sum(0) / norms).min())
+    inside = masks[0] > 0
+    vert_eq = float((vc[inside] == vh[inside]).mean())
+    out["cse"] = {"params": params_count({k: cse_tree[k] for k in ("backbone", "head")}),
+                  "cos_min": cos, "vert_equal": vert_eq,
+                  "box_equal": bool(np.array_equal(bxc, bxh))}
+    if cos < 1 - GRAPH_COS_TOL or vert_eq < 0.999 or not out["cse"]["box_equal"]:
+        fail.append(f"CSE on the card against the CPU: {out['cse']}")
+    print(f"[graphs] CSE ({out['cse']['params']} parameters, {CSE_VERTICES} vertices, input "
+          f"{card_c.input_size}): card against CPU, cosine >= {cos:.8f} (gate "
+          f"{1 - GRAPH_COS_TOL}), vertex map equal on {vert_eq:.5f} of the mask (gate 0.999), "
+          f"box equal {out['cse']['box_equal']}", flush=True)
+    imp_c, scale_c, _ = CI.pad_resized(frames[0], card_c.input_size)
+    with torch.inference_mode():
+        dev_c = cuda_time(lambda: card_c.embed(imp_c, bxc * scale_c), iters=5, warmup=2)
+        flops_c = layer_flops(card_c.backbone, lambda: card_c.embed(imp_c, bxc * scale_c)) \
+            + layer_flops(card_c.head, lambda: card_c.embed(imp_c, bxc * scale_c))
+    stats, _ = timed_frames(card_c, frames, lambda p, f, i: p(f, masks[i]))
+    out["cse"].update(stats, device_ms=dev_c, gflop=flops_c / 1e9,
+                      bound_ms=flops_c / PEAK_FP32_FLOPS * 1e3)
+    print(f"[graphs] CSE over {len(frames)} frames: {out['cse']['wall_ms']:.1f} ms wall a "
+          f"frame, embed {dev_c:.2f} ms device (CUDA events, the input's upload included; "
+          f"{flops_c / 1e9:.1f} GFLOP, bound {out['cse']['bound_ms']:.2f} ms); peak "
+          f"{out['cse']['peak_gib']:.2f} GiB ({card})", flush=True)
+    del card_p, cpu_p, card_c, cpu_c
+
+    # (c) the entry point, masks by PointRend and features by CSE
+    wdir = os.path.join(tmp, "graph_weights")
+    os.makedirs(wdir, exist_ok=True)
+    save_pytree_npz(os.path.join(wdir, "pointrend.npz"), pr_tree)
+    save_pytree_npz(os.path.join(wdir, "cse.npz"), cse_tree)
+    os.symlink(os.path.join(tmp, "vcn_weights", "vcn_rob.npz"),
+               os.path.join(wdir, "vcn_rob.npz"))
+    seq, db, cfg_dir = "flap-graphs", os.path.join(tmp, "gdb"), os.path.join(tmp, "gcfg")
+    argv = ["--seqname", seq, "--input", src["JPEGImages"], "--weights_dir", wdir,
+            "--database", db, "--config_dir", cfg_dir, "--img_size", str(COLDSTART_IMG)]
+    FM.reset_launches()
+    printed = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(printed):
+        res = preproc_app.main(argv)
+    out["app_s"] = time.perf_counter() - t0
+    print(printed.getvalue(), end="", flush=True)
+    launches = sum(FM.launches_by_call.values())
+    out["stage_s"] = res["times"]
+    info, batch = check_database(db, seq, cfg_dir, res, fail)
+    out.update(info)
+    n = COLDSTART_FRAMES
+    made = [IO.imread(p, gray=True) > 0 for p in listing(db, seq, "Annotations", "*.png")]
+    dp = [listing(db, seq, "Densepose", f) for f in ("0*.pfm", "feat-*.pfm", "bbox-*.txt")]
+    if [len(x) for x in dp] != [n] * 3 or len(made) != n:
+        fail.append(f"{len(made)} masks, Densepose files {[len(x) for x in dp]}")
+    norm_err = 0.0
+    for m, p in zip(made, dp[1]):
+        norms = np.linalg.norm(read_pfm(p)[0].reshape(16, -1), axis=0)
+        err = float(np.abs(norms - 1).max()) if m.any() else float(norms.max())
+        norm_err = max(norm_err, err)
+    if norm_err > 1e-4:
+        fail.append(f"feature norms off by {norm_err:.2e}")
+    line = [x for x in printed.getvalue().splitlines() if "train with" in x]
+    if not res["have_cse"] or len(line) != 1 or "--nouse_embed" in line[0]:
+        fail.append(f"have_cse {res['have_cse']}, closing line {line}")
+    fg = batch["masks"][:, 0] > 0
+    feat_norm = np.linalg.norm(batch["dp_feats"], axis=1)
+    if fg.any() and not (feat_norm[fg] > 0).all():
+        fail.append(f"{int((feat_norm[fg] == 0).sum())} masked line pixels with zero features")
+    if launches:
+        fail.append(f"{launches} fused-MLP launches in the preprocessing-graphs phase")
+    out["masks_nonempty"] = int(sum(m.any() for m in made))
+    out["feature_norm_err"] = norm_err
+    out["line_mask_pixels"] = int(fg.sum())
+    print(f"[graphs] preproc_app.main {out['app_s']:.1f} s: stages "
+          + ", ".join(f"{k} {v:.2f} s" for k, v in res["times"].items())
+          + f"; {out['masks_nonempty']} of {n} PointRend masks non-empty, feature norms off "
+          f"by {norm_err:.2e} at most; {database_line(res, info)}, {out['line_mask_pixels']} "
+          f"masked pixels with CSE features; {launches} fused-MLP launches", flush=True)
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"[graphs] phase {out['phase_s']:.1f} s", flush=True)
+    if fail:
+        raise SystemExit("preproc graphs: " + "; ".join(fail))
+    return out
+
+
+def timed_frames(pred, frames, call):
+    """``call(pred, frame, i)`` over every frame after one warm-up call, the
+    peak device memory reset before: ({wall ms a frame, peak GiB above what
+    was held, GiB held}, the calls' outputs)."""
+    import torch
+
+    call(pred, frames[0], 0)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    outs = [call(pred, f, i) for i, f in enumerate(frames)]
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) / len(frames) * 1e3
+    return {"wall_ms": wall, "peak_gib": (torch.cuda.max_memory_allocated() - base) / 2 ** 30,
+            "held_gib": base / 2 ** 30}, outs
+
+
+def layer_flops(module, fn) -> int:
+    """Operations (2 a multiply-add) of the Conv2d, ConvTranspose2d and
+    Linear layers of ``module`` in one call of ``fn``, counted from the
+    shapes they see."""
+    import torch
+
+    total = [0]
+
+    def hook(mod, inp, out):
+        if isinstance(mod, torch.nn.ConvTranspose2d):
+            total[0] += 2 * inp[0].numel() * mod.out_channels * math.prod(mod.kernel_size)
+        elif isinstance(mod, torch.nn.Conv2d):
+            total[0] += 2 * out.numel() * mod.in_channels // mod.groups * math.prod(
+                mod.kernel_size)
+        else:
+            total[0] += 2 * out.numel() * mod.in_features
+    handles = [m.register_forward_hook(hook) for m in module.modules()
+               if isinstance(m, (torch.nn.Conv2d, torch.nn.ConvTranspose2d, torch.nn.Linear))]
+    try:
+        fn()
+    finally:
+        for h in handles:
+            h.remove()
+    return total[0]
 
 
 def main():
@@ -2545,6 +2843,8 @@ def main():
         print(f"[time] viz tools and posenet done at {time.time() - t0:.1f} s", flush=True)
         steps["preproc"] = run_preproc(card, tmp, profile=args.profile)
         print(f"[time] preprocessing done at {time.time() - t0:.1f} s", flush=True)
+        steps["preproc_graphs"] = run_preproc_graphs(card, tmp)
+        print(f"[time] preprocessing graphs done at {time.time() - t0:.1f} s", flush=True)
     for r in results:
         if r["launches"] == 0:
             raise SystemExit(f"{r['name']} was not launched on the main path")

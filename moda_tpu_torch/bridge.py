@@ -13,6 +13,12 @@ reference posenet (preproc/posenet.py) moves the same way:
 ``posenet_from_jax`` builds it from the JAX package's converted parameters.
 VCN+ (preproc/vcn_flow.py) is functional on both sides, with torch's conv
 layouts in the JAX tree too: ``vcn_from_jax`` turns each leaf into a tensor.
+The detectron2 preprocessing graphs move by name as well:
+``resnet_fpn_from_jax`` (the ResNet-50 + FPN backbone), ``cse_from_jax``
+(backbone + CSE head, whose ConvTranspose crosses as the JAX head's
+spatially flipped ``predictor_kernel``) and ``pointrend_from_jax``
+(backbone, RPN, box, coarse and point heads; the box and coarse ``fc1``
+rows go from the JAX tree's HWC flatten back to torch's CHW).
 """
 from __future__ import annotations
 
@@ -50,9 +56,16 @@ def _leaves(module: torch.nn.Module):
     JAX name and layout; torch conv nets (fields/cnn.py, fields/cse.py) map
     Conv kernels HWIO <-> OIHW ("conv"), Linear kernels [in, out] <->
     [out, in] ("dense") and GroupNorm scale <-> weight; a conv without a
-    bias has none on either side."""
+    bias has none on either side. A ConvTranspose2d ``m`` is the JAX CSE
+    head's input-dilated conv, with its parameters beside the module's:
+    ``m_kernel`` [kh, kw, I, O] spatially flipped <-> [I, O, kh, kw]
+    ("deconv") and ``m_bias``."""
     for mname, mod in module.named_modules():
         prefix = mname.replace(".", "/") + "/" if mname else ""
+        if isinstance(mod, torch.nn.ConvTranspose2d):
+            yield prefix[:-1] + "_kernel", mod.weight, "deconv"
+            yield prefix[:-1] + "_bias", mod.bias, None
+            continue
         if isinstance(mod, torch.nn.Conv2d):
             yield prefix + "kernel", mod.weight, "conv"
         elif isinstance(mod, torch.nn.Linear):
@@ -82,6 +95,8 @@ def load_params(model: torch.nn.Module, params: Mapping[str, Any], strict: bool 
                 v = v.transpose(3, 2, 0, 1)
             elif layout == "dense":
                 v = v.T
+            elif layout == "deconv":
+                v = v.transpose(2, 3, 0, 1)[:, :, ::-1, ::-1]
             if tuple(v.shape) != tuple(p.shape):
                 raise ValueError(f"{key}: JAX shape {v.shape} != port shape {tuple(p.shape)}")
             p.copy_(torch.as_tensor(np.array(v), dtype=p.dtype))
@@ -96,6 +111,8 @@ def export_params(model: torch.nn.Module) -> Dict[str, Any]:
             v = v.transpose(2, 3, 1, 0)
         elif layout == "dense":
             v = v.T
+        elif layout == "deconv":
+            v = v[:, :, ::-1, ::-1].transpose(2, 3, 0, 1)
         flat[key] = np.ascontiguousarray(v)
     return unflatten(flat)
 
@@ -117,6 +134,48 @@ def vcn_from_jax(params: Mapping[str, Any], device="cpu") -> Dict[str, Any]:
     for leaves, as ``moda_tpu_torch.preproc.vcn_flow`` takes them."""
     return unflatten({k: torch.as_tensor(np.asarray(v, np.float32), device=device)
                       for k, v in flatten(params).items()})
+
+
+def resnet_fpn_from_jax(params: Mapping[str, Any], device="cpu"):
+    """The port's ResNetFPN, in eval mode on ``device``, holding the JAX
+    package's tree (``convert_resnet50_fpn``'s, as numpy)."""
+    from moda_tpu_torch.fields.resnet_fpn import ResNetFPN
+
+    net = ResNetFPN()
+    load_params(net, params)
+    return net.eval().to(device)
+
+
+def cse_from_jax(params: Mapping[str, Any], device="cpu"):
+    """cse.npz's {backbone, head} trees -> (ResNetFPN, CSEHead) in eval mode
+    on ``device``; the head's depth and widths are read from its tree."""
+    from moda_tpu_torch.preproc.cse_infer import CSEHead
+
+    hp = params["head"]
+    n_convs = sum(1 for k in hp if k.startswith("conv"))
+    k1 = np.asarray(hp["conv1"]["kernel"])
+    head = CSEHead(n_convs, hidden=k1.shape[3], embed_dim=np.asarray(hp["predictor_bias"]).size,
+                   cin=k1.shape[2])
+    load_params(head, hp)
+    return resnet_fpn_from_jax(params["backbone"], device), head.eval().to(device)
+
+
+def pointrend_from_jax(params: Mapping[str, Any], device="cpu"):
+    """pointrend.npz's tree -> the port's PointRendNet (backbone, rpn,
+    box_head, coarse, point) in eval mode on ``device``; the class count and
+    head widths are read from the tree."""
+    from moda_tpu_torch.preproc.pointrend_infer import PointRendNet, chw_rows
+
+    tree = unflatten(flatten(params))
+    for head in ("box_head", "coarse"):
+        tree[head]["fc1"]["kernel"] = chw_rows(tree[head]["fc1"]["kernel"])
+    point = tree["point"]
+    net = PointRendNet(num_classes=np.asarray(point["predictor"]["bias"]).size,
+                       fc_dim=np.asarray(tree["box_head"]["fc2"]["bias"]).size,
+                       point_dim=np.asarray(point["fc1"]["bias"]).size,
+                       point_fc=sum(1 for k in point if k.startswith("fc")))
+    load_params(net, tree)
+    return net.eval().to(device)
 
 
 def load_mvars(model, mvars) -> None:

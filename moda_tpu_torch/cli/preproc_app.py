@@ -10,17 +10,20 @@ Chains the pipeline stages over one sequence:
       [--database database/DAVIS] [--config_dir configs] [--img_size 512] \\
       [--nolines]
 
-The flags and stages are the JAX package's. The flow stage runs VCN+ from
-the converted ``vcn*.npz`` under --weights_dir (tools/convert_all_
-checkpoints.py's layout) on the CUDA card; ``main(argv, device="cpu")``
-runs it on the CPU. Masks come from --mask_dir or the existing
-Annotations, and the DensePose stage writes zero features (train with
---nouse_embed). What the JAX package does and the port does not yet, each
-raising with the reason instead of falling back:
+The flags and stages are the JAX package's. The converted weights under
+--weights_dir (the layout of tools/convert_all_checkpoints.py, or of the
+port's own ``python -m moda_tpu_torch.cli.convert_app``) run on the CUDA
+card; ``main(argv, device="cpu")`` runs them on the CPU:
+- masks: PointRend from a ``pointrend*.npz`` (the person class with
+  --use_human, else the animal classes 14-23), else --mask_dir, else the
+  existing Annotations;
+- DensePose: CSE features from a ``cse*.npz``, else zero features (train
+  with --nouse_embed);
+- flow: VCN+ from a ``vcn*.npz``.
+What the JAX package does and the port does not, each raising with the
+reason instead of falling back:
 - video input (cv2.VideoCapture): pass a directory of frames;
-- flow without a vcn*.npz (OpenCV's DIS in the JAX package);
-- a pointrend*.npz or cse*.npz under --weights_dir: those graphs come in a
-  later slice (ROADMAP.md §1 item 4).
+- flow without a vcn*.npz (OpenCV's DIS in the JAX package).
 Frames: .jpg inputs are copied byte for byte; other images are stored as
 8-bit RGB PNGs under the DAVIS .jpg names (the JAX package re-encodes them
 as JPEG; the frame reader, like cv2.imread, goes by the first bytes).
@@ -49,7 +52,7 @@ def build_argparser() -> argparse.ArgumentParser:
     ap.add_argument("--config_dir", default="configs")
     ap.add_argument("--weights_dir", default="",
                     help="dir of converted npz checkpoints "
-                         "(tools/convert_all_checkpoints.py)")
+                         "(python -m moda_tpu_torch.cli.convert_app)")
     ap.add_argument("--img_size", type=int, default=512,
                     help="line-shard crop size (img2lines img_size)")
     ap.add_argument("--fps", type=int, default=10)
@@ -90,14 +93,18 @@ def stage_frames(args) -> str:
     return seq_dir
 
 
-def stage_masks(args, seq_dir: str) -> None:
+def stage_masks(args, seq_dir: str, device=None) -> None:
     from moda_tpu_torch.preproc import checkpoints
+    from moda_tpu_torch.preproc.pipeline import write_masks
 
     w = _weights(args, "pointrend*.npz")
     if w:
         # person class 0 vs animal classes 14-23 (preprocess/mask.py:50-126)
         keep = (0,) if args.use_human else tuple(range(14, 24))
-        checkpoints.load_pointrend_predictor(w[0], keep_classes=keep)  # raises until ported
+        pred = checkpoints.load_pointrend_predictor(w[0], device=device, keep_classes=keep)
+        write_masks(seq_dir, args.database, args.seqname, pred.as_mask_fn())
+        print(f"[masks] PointRend ({os.path.basename(w[0])}) on {pred.device}")
+        return
     out_dir = os.path.join(args.database, "Annotations", "Full-Resolution", args.seqname)
     if args.mask_dir:
         os.makedirs(out_dir, exist_ok=True)
@@ -118,16 +125,22 @@ def stage_masks(args, seq_dir: str) -> None:
              "(reference preprocess/mask.py)")
 
 
-def stage_densepose(args, seq_dir: str) -> None:
+def stage_densepose(args, seq_dir: str, device=None) -> bool:
+    """CSE features from a cse*.npz, else zero features; returns whether CSE
+    ran."""
     from moda_tpu_torch.preproc import checkpoints
     from moda_tpu_torch.preproc.pipeline import write_dp_features
 
     w = _weights(args, "cse*.npz")
+    cse_fn = None
     if w:
-        checkpoints.load_cse_predictor(w[0])  # raises until the CSE graph is ported
-    print("[densepose] no CSE weights: writing zero features "
-          "(train with --nouse_embed, or distill via train/cse_distill.py)")
-    write_dp_features(seq_dir, args.database, args.seqname)
+        cse_fn = checkpoints.load_cse_predictor(w[0], device=device)
+        print(f"[densepose] CSE ({os.path.basename(w[0])}) on {cse_fn.device}")
+    else:
+        print("[densepose] no CSE weights: writing zero features "
+              "(train with --nouse_embed, or distill via train/cse_distill.py)")
+    write_dp_features(seq_dir, args.database, args.seqname, cse_fn=cse_fn)
+    return cse_fn is not None
 
 
 def stage_flow(args, seq_dir: str, device=None):
@@ -147,7 +160,8 @@ def stage_flow(args, seq_dir: str, device=None):
 
 def main(argv=None, device=None) -> dict:
     """Run every stage; returns each stage's seconds (``times``), the VCN
-    pairs run (``flow_calls``), the config's path and the frame directory."""
+    pairs run (``flow_calls``), whether CSE features were written
+    (``have_cse``), the config's path and the frame directory."""
     from moda_tpu_torch.runtime import resolve_device
 
     args = build_argparser().parse_args(argv)
@@ -161,8 +175,8 @@ def main(argv=None, device=None) -> dict:
         return out
 
     seq_dir = timed("frames", stage_frames, args)
-    timed("masks", stage_masks, args, seq_dir)
-    timed("densepose", stage_densepose, args, seq_dir)
+    timed("masks", stage_masks, args, seq_dir, device=dev)
+    have_cse = timed("densepose", stage_densepose, args, seq_dir, device=dev)
     pred = timed("flow", stage_flow, args, seq_dir, device=dev)
 
     from moda_tpu_torch.preproc.pipeline import write_config
@@ -184,9 +198,11 @@ def main(argv=None, device=None) -> dict:
         timed("lines", lines)
         print(f"[lines] Pixels shards @ {args.img_size}")
 
+    extra = "" if have_cse else " --nouse_embed"
     print(f"done. train with: python -m moda_tpu_torch.cli.train_app "
-          f"--seqname {args.seqname} --lineload --nouse_embed ...")
-    return {"times": times, "flow_calls": pred.calls, "config": cfg_path, "seq_dir": seq_dir}
+          f"--seqname {args.seqname} --lineload{extra} ...")
+    return {"times": times, "flow_calls": pred.calls, "have_cse": have_cse, "config": cfg_path,
+            "seq_dir": seq_dir}
 
 
 if __name__ == "__main__":

@@ -7,21 +7,18 @@ parameter dict (vcn_rob.npz: {params, mean}; pointrend.npz: the parameter
 tree; cse.npz: {backbone, head[, vertex_embeddings]}), as
 tools/convert_all_checkpoints.py writes them.
 
-The VCN+ flow predictor loads here. The PointRend and DensePose-CSE graphs
-are ported in the next slice (ROADMAP.md §1 item 4); their loaders raise
-until then, so that preproc_app never writes zero features or skips
-segmentation where their weights were given.
+The loaders build the VCN+ flow, PointRend and DensePose-CSE predictors
+on ``device`` (the card unless ``device="cpu"``); a missing key raises.
 """
 from __future__ import annotations
 
 import numpy as np
 
 from moda_tpu_torch.bridge import flatten, unflatten, vcn_from_jax
+from moda_tpu_torch.preproc.cse_infer import CSEPredictor
+from moda_tpu_torch.preproc.pointrend_infer import PointRendPredictor
 from moda_tpu_torch.preproc.vcn_flow import VCNFlowPredictor
 from moda_tpu_torch.runtime import resolve_device
-
-NEXT_SLICE = ("is ported in a later slice, with the ResNet-50 + FPN backbone "
-              "(ROADMAP.md §1 item 4)")
 
 
 flatten_tree = flatten
@@ -48,11 +45,16 @@ def load_vcn_predictor(npz_path: str, device=None, **kw):
     return VCNFlowPredictor(vcn_from_jax(t["params"], dev), mean=t["mean"], **kw)
 
 
-def load_pointrend_predictor(npz_path: str, **kw):
-    raise NotImplementedError(f"the PointRend graph ({npz_path}) {NEXT_SLICE}; pass "
-                              "--mask_dir, or keep the Annotations, and no pointrend*.npz")
+def load_pointrend_predictor(npz_path: str, device=None, **kw) -> PointRendPredictor:
+    """The PointRend predictor of a converted ``pointrend.npz`` on
+    ``device``; ``kw`` as PointRendPredictor takes them (keep_classes,
+    score_thresh, input_size, ...)."""
+    return PointRendPredictor(load_pytree_npz(npz_path), device=device, **kw)
 
 
-def load_cse_predictor(npz_path: str, **kw):
-    raise NotImplementedError(f"the DensePose-CSE graph ({npz_path}) {NEXT_SLICE}; without "
-                              "a cse*.npz the stage writes zero features (--nouse_embed)")
+def load_cse_predictor(npz_path: str, device=None, **kw) -> CSEPredictor:
+    """The DensePose-CSE predictor of a converted ``cse.npz`` ({backbone,
+    head[, vertex_embeddings]}) on ``device``."""
+    t = load_pytree_npz(npz_path)
+    return CSEPredictor(t["backbone"], t["head"], vertex_embeddings=t.get("vertex_embeddings"),
+                        device=device, **kw)

@@ -49,11 +49,15 @@ def test_import_loads_no_jax_and_no_moda_tpu():
 def test_preprocessing_loads_no_jax_no_cv2_and_no_moda_tpu():
     """The preprocessing entry point and every module it imports (VCN+, the
     pipeline, AMA conversion, the checkpoint loaders, the uint8 resize and
-    PBM reader of data/imageio.py, scipy's labelling) load none of
-    FORBIDDEN: the card's machine has no cv2 and no JAX."""
+    PBM reader of data/imageio.py, scipy's labelling), the detectron2
+    graphs (ResNet-50 + FPN, DensePose-CSE, PointRend) and the checkpoint
+    converter load none of FORBIDDEN: the card's machine has no cv2 and no
+    JAX."""
     code = ("import sys, moda_tpu_torch.cli.preproc_app, moda_tpu_torch.preproc.pipeline\n"
             "import moda_tpu_torch.preproc.ama, moda_tpu_torch.preproc.vcn_flow\n"
             "import moda_tpu_torch.preproc.checkpoints, moda_tpu_torch.bridge\n"
+            "import moda_tpu_torch.preproc.cse_infer, moda_tpu_torch.preproc.pointrend_infer\n"
+            "import moda_tpu_torch.fields.resnet_fpn, moda_tpu_torch.cli.convert_app\n"
             "import numpy as np\n"
             "from moda_tpu_torch.preproc.pipeline import largest_cc\n"
             "largest_cc(np.eye(4, dtype=np.uint8))\n"

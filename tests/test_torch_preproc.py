@@ -226,9 +226,11 @@ def test_ama_to_davis(tmp_path):
     assert IO.imread(str(tmp_path / "t/Annotations/Full-Resolution/a/00002.png")).max() == 0
 
 
-def test_checkpoint_npz_crosses_both_ways(tmp_path):
+def test_checkpoint_npz_crosses_both_ways(tmp_path, monkeypatch):
     """A tree saved by either package loads in the other; the CSE and
-    PointRend loaders raise, naming the slice that ports them."""
+    PointRend loaders build their predictors from the JAX package's files
+    (seeded detectron2-layout weights through its converters), on the card
+    unless asked for the CPU."""
     tree = {"params": {"a": {"w": np.arange(6, dtype=np.float32).reshape(2, 3)},
                        "b": np.ones(2)}, "mean": np.asarray([0.1, 0.2, 0.3])}
     JC.save_pytree_npz(str(tmp_path / "j.npz"), tree)
@@ -239,9 +241,26 @@ def test_checkpoint_npz_crosses_both_ways(tmp_path):
         assert got.keys() == want.keys()
         assert all(np.array_equal(got[k], want[k]) for k in got)
     assert TC.unflatten_tree(TC.flatten_tree(tree)).keys() == tree.keys()
-    for load in (TC.load_cse_predictor, TC.load_pointrend_predictor):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md §1 item 4"):
-            load(str(tmp_path / "j.npz"))
+    from moda_tpu.preproc import cse_infer as JCSE
+    from moda_tpu.preproc import pointrend_infer as JPR
+    from moda_tpu_torch.preproc import cse_infer, pointrend_infer
+
+    cse = JCSE.convert_cse_checkpoint(cse_infer.reference_state_dict(0, hidden=8, n_vertices=5))
+    JC.save_pytree_npz(str(tmp_path / "cse.npz"), {"backbone": cse.bp, "head": cse.hp,
+                                                  "vertex_embeddings": cse.vertex_embeddings})
+    JC.save_pytree_npz(str(tmp_path / "pointrend.npz"), JPR.convert_pointrend_checkpoint(
+        pointrend_infer.reference_state_dict(0, num_classes=4)))
+    pred = TC.load_cse_predictor(str(tmp_path / "cse.npz"), device="cpu", input_size=64)
+    assert isinstance(pred, cse_infer.CSEPredictor) and pred.input_size == 64
+    assert pred.head.conv8.out_channels == 8 and pred.vertex_embeddings.shape == (5, 16)
+    pred = TC.load_pointrend_predictor(str(tmp_path / "pointrend.npz"), device="cpu",
+                                       num_classes=4, keep_classes=(1,))
+    assert isinstance(pred, pointrend_infer.PointRendPredictor) and pred.keep_classes == (1,)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for load, name in ((TC.load_cse_predictor, "cse.npz"),
+                       (TC.load_pointrend_predictor, "pointrend.npz")):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            load(str(tmp_path / name))
 
 
 def test_refusals():

@@ -10,8 +10,19 @@ equal pixels, the Densepose files and the config text equal, the flo-/occ-
 PFMs within the flow gate. The port's line shards must hold the pair (i,
 i+1) of the port's frame reader and read back through its line loader. The
 refusals raise.
+
+With a pointrend.npz and a cse.npz beside the vcn_rob.npz (seeded
+detectron2-layout weights at the published widths through the JAX
+package's converters; the animal class 16 raised above the score
+threshold) and no --mask_dir, two 48 x 60 frames go through both packages,
+both predictors at input 128: PointRend's masks equal on >= 99.9% of the
+pixels, the CSE features unit-norm and within a cosine of 1 - 1e-5 of the
+JAX package's, the boxes equal, the vertex maps equal on >= 99.9% of the
+mask, and the closing "train with" line without --nouse_embed.
 """
+import contextlib
 import glob
+import io
 import os
 
 import cv2
@@ -29,6 +40,7 @@ from moda_tpu_torch.preproc import checkpoints as TC
 from tests.test_torch_preproc import TESTRES, _flow_gate, write_frames, write_vcn_npz
 
 N_FRAMES, IMG_SIZE = 4, 16
+GRAPH_FRAMES, GRAPH_INPUT, DETECT = 2, 128, 16
 
 
 @pytest.fixture(autouse=True)
@@ -71,6 +83,92 @@ def both(tmp_path_factory):
     finally:
         mp.undo()
     return d, out
+
+
+@pytest.fixture(scope="module")
+def graphs(tmp_path_factory):
+    """Both packages' preproc_app with PointRend and CSE weights and no
+    --mask_dir; returns the root, the port's result and each package's
+    printed output."""
+    from moda_tpu.preproc import cse_infer as JCSE
+    from moda_tpu.preproc import pointrend_infer as JPR
+    from moda_tpu_torch.preproc import cse_infer, pointrend_infer
+
+    d = tmp_path_factory.mktemp("preproc_graphs")
+    frames = write_frames(d, n=GRAPH_FRAMES, w=60)
+    os.makedirs(d / "w")
+    write_vcn_npz(str(d / "w" / "vcn_rob.npz"))
+    JC.save_pytree_npz(str(d / "w" / "pointrend.npz"), JPR.convert_pointrend_checkpoint(
+        pointrend_infer.reference_state_dict(0, detect_class=DETECT)))
+    cse = JCSE.convert_cse_checkpoint(cse_infer.reference_state_dict(0, n_vertices=50))
+    JC.save_pytree_npz(str(d / "w" / "cse.npz"), {"backbone": cse.bp, "head": cse.hp,
+                                                 "vertex_embeddings": cse.vertex_embeddings})
+    mp = pytest.MonkeyPatch()
+    loaders = {(pkg, name): getattr(pkg, name) for pkg in (JC, TC)
+               for name in ("load_vcn_predictor", "load_pointrend_predictor",
+                            "load_cse_predictor")}
+
+    def jax_vcn(path):
+        pred = loaders[JC, "load_vcn_predictor"](path)
+        pred.testres = TESTRES
+        return pred
+
+    mp.setattr(JC, "load_vcn_predictor", jax_vcn)
+    mp.setattr(TC, "load_vcn_predictor",
+               lambda path, **k: loaders[TC, "load_vcn_predictor"](path, testres=TESTRES, **k))
+    for pkg in (JC, TC):
+        for name in ("load_pointrend_predictor", "load_cse_predictor"):
+            mp.setattr(pkg, name, lambda path, _f=loaders[pkg, name], **k:
+                       _f(path, input_size=GRAPH_INPUT, **k))
+    printed = {}
+    try:
+        for tag, run in (("j", lambda a: JAPP.main(a)),
+                         ("t", lambda a: TAPP.main(a, device="cpu"))):
+            buf = io.StringIO()
+            with contextlib.redirect_stdout(buf):
+                out = run(_argv(d / tag, frames, str(d / "w")))
+            printed[tag] = buf.getvalue()
+    finally:
+        mp.undo()
+    return d, out, printed
+
+
+def test_pointrend_masks_and_cse_features_match_the_jax_packages(graphs):
+    d, out, _ = graphs
+    j, t = str(d / "j/db"), str(d / "t/db")
+    masks = _files(j, "Annotations/Full-Resolution/s/*.png")
+    assert len(masks) == GRAPH_FRAMES and masks == _files(t, "Annotations/Full-Resolution/s/*")
+    for i, f in enumerate(masks):
+        tm = IO.imread(os.path.join(t, f), gray=True)
+        jm = cv2.imread(os.path.join(j, f), 0)
+        assert tm.any() and set(np.unique(tm)) <= {0, 128}
+        assert (tm == jm).mean() >= 0.999, f
+        dp = "Densepose/Full-Resolution/s/"
+        tf = read_pfm(os.path.join(t, dp + "feat-%05d.pfm" % i))[0].reshape(16, 112, 112)
+        jf = read_pfm(os.path.join(j, dp + "feat-%05d.pfm" % i))[0].reshape(16, 112, 112)
+        np.testing.assert_allclose(np.linalg.norm(tf, axis=0), 1.0, atol=1e-5)
+        assert (tf * jf).sum(0).min() >= 1 - 1e-5
+        np.testing.assert_array_equal(np.loadtxt(os.path.join(t, dp + "bbox-%05d.txt" % i)),
+                                      np.loadtxt(os.path.join(j, dp + "bbox-%05d.txt" % i)))
+        tv = read_pfm(os.path.join(t, dp + "%05d.pfm" % i))[0]
+        jv = read_pfm(os.path.join(j, dp + "%05d.pfm" % i))[0]
+        inside = tm > 0
+        assert tv[inside].any() and (tv[inside] == jv[inside]).mean() >= 0.999
+        assert not tv[~inside].any()
+    assert out["have_cse"] and set(out["times"]) == {"frames", "masks", "densepose", "flow",
+                                                     "config", "lines"}
+
+
+def test_train_line_drops_nouse_embed_after_cse(graphs, both):
+    """With CSE features the closing line asks for none of --nouse_embed,
+    as the JAX package's does; with zero features it keeps it."""
+    _, out, printed = graphs
+    for tag in ("j", "t"):
+        line = [x for x in printed[tag].splitlines() if "train with" in x]
+        assert len(line) == 1 and "--nouse_embed" not in line[0], printed[tag]
+    assert "[masks] PointRend (pointrend.npz) on cpu" in printed["t"]
+    assert "[densepose] CSE (cse.npz) on cpu" in printed["t"]
+    assert not both[1]["have_cse"]
 
 
 def _files(root, pattern):
@@ -151,9 +249,10 @@ def test_png_frames_are_stored_as_png_bytes(tmp_path):
 
 
 def test_refusals(tmp_path, monkeypatch):
-    """Video input, no vcn*.npz, a cse*.npz or a pointrend*.npz: each raises
-    with the reason; nothing falls back. Without a card, main needs
-    device='cpu'."""
+    """Video input and no vcn*.npz each raise with the reason; nothing falls
+    back. Without a card, main needs device='cpu'. (A cse*.npz and a
+    pointrend*.npz run: test_pointrend_masks_and_cse_features_match_the_
+    jax_packages.)"""
     frames = write_frames(tmp_path, n=2)
     masks = str(tmp_path / "masks")
     os.makedirs(tmp_path / "w")
@@ -163,12 +262,6 @@ def test_refusals(tmp_path, monkeypatch):
     with pytest.raises(NotImplementedError, match="vcn"):
         TAPP.main(_argv(tmp_path / "n", frames, str(tmp_path / "w"), mask_dir=masks),
                   device="cpu")
-    for name, what in (("cse_rob.npz", "DensePose-CSE"), ("pointrend.npz", "PointRend")):
-        np.savez(tmp_path / "w" / name, x=np.zeros(1))
-        with pytest.raises(NotImplementedError, match=what):
-            TAPP.main(_argv(tmp_path / name, frames, str(tmp_path / "w"), mask_dir=masks),
-                      device="cpu")
-        os.remove(tmp_path / "w" / name)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         TAPP.main(_argv(tmp_path / "c", frames, str(tmp_path / "w"), mask_dir=masks))
