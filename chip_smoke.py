@@ -2,6 +2,8 @@
 
     python3 chip_smoke.py            # every phase (needs one CUDA card)
     python3 chip_smoke.py --profile  # plus torch.profiler device-time tables
+    python3 chip_smoke.py --plant gather  # phase 13 (b) alone, with a planted
+                                          # fault (PLANTS); exits 0 iff caught
 
 Phases:
 1. print the card's name and power limit, torch and CUDA versions;
@@ -77,9 +79,14 @@ Phases:
    widths with seeded weights, each on one frame on the card against a CPU
    copy and timed over phase 8's 16 frames, then ``preproc_app.main`` with
    their npz files and no --mask_dir: PointRend's masks, CSE features, VCN
-   flow, line shards, no fused-MLP launch (checks in its docstring).
-The main-path launch counts of phases 5, 6, 8, 9 and 10 go into the kernel
-JSON's ``launches``; the dis cases of phases 3 and 4 are phase 9's.
+   flow, line shards, no fused-MLP launch (checks in its docstring);
+13. K optimizer steps a call and data parallelism (``run_parallel``): the
+   chunked init step against K calls, two ranks on the one card (gloo)
+   against the one-process step and a one-rank NCCL world, and
+   ``train_app.main`` as two ranks with --steps_chunk 10 on phase 6's
+   dataset (checks and cuts in its docstring).
+The main-path launch counts of phases 5, 6, 8, 9, 10 and 13 go into the
+kernel JSON's ``launches``; the dis cases of phases 3 and 4 are phase 9's.
 Prints the kernel JSON line, then {"ok": true, "device": {...}} last.
 Exits non-zero without printing a result when there is no CUDA card.
 """
@@ -751,11 +758,19 @@ def print_table(tag: str, events, n: int, self_only: bool, rows: int):
                   f"{e.key[:110]}", flush=True)
 
 
+def one_step(step, batch, extras, generator=None, draws=None):
+    """One optimizer step through a step of chunk_steps=1: the batch stacked
+    [1, ...] in, the outputs' slice 0 out."""
+    auxs, hosts = step({k: v[None] for k, v in batch.items()}, extras, generator=generator,
+                       draws=None if draws is None else [draws])
+    return {k: v[0] for k, v in auxs.items()}, {k: v[0] for k, v in hosts.items()}
+
+
 def profile_steps(tag, step, batch, extras, gen, step_s: float, n: int = 2):
     """Where the step's time goes on the device: torch.profiler over n
     kernel-path steps; prints device time by kernel and by PyTorch op and
     the device's idle share of the step."""
-    ops, dev, busy = profiled(lambda: step(batch, extras, generator=gen), n)
+    ops, dev, busy = profiled(lambda: one_step(step, batch, extras, generator=gen), n)
     n_dev = sum(e.count for e in dev) / n
     print(f"[profile {tag}] device busy {busy:.2f} ms of {step_s * 1e3:.2f} ms/step "
           f"(idle share {1 - busy / (step_s * 1e3):.3f}); {n_dev:.0f} device activities "
@@ -831,8 +846,8 @@ def run_stage(name: str, results: list, card: str, profile: bool = False) -> dic
     step_k = make_train_step(model, MoDAOptimizer(cfg, total_steps=24000), **kw)
     step_p = make_train_step(plain, MoDAOptimizer(cfg, total_steps=24000), **kw)
     draws = stage_draws(name, cfg, model, plain, batch, extras, rays)
-    aux_p, _ = step_p(batch, extras, draws=draws)
-    aux_k, _ = step_k(batch, extras, draws=draws)
+    aux_p, _ = one_step(step_p, batch, extras, draws=draws)
+    aux_k, _ = one_step(step_k, batch, extras, draws=draws)
     torch.cuda.synchronize()
     lk, lp = float(aux_k["total_loss"]), float(aux_p["total_loss"])
     # bf16 kernel path against the fp32 plain path from the same parameters
@@ -870,13 +885,13 @@ def run_stage(name: str, results: list, card: str, profile: bool = False) -> dic
     gen = torch.Generator(device="cuda").manual_seed(2)
     n_warm, n_timed = 2, 10
     for _ in range(n_warm):
-        step_k(batch, extras, generator=gen)
+        one_step(step_k, batch, extras, generator=gen)
     torch.cuda.synchronize()
     FM.reset_launches()
     t0 = time.perf_counter()
     losses = []
     for _ in range(n_timed):
-        aux, _ = step_k(batch, extras, generator=gen)
+        aux, _ = one_step(step_k, batch, extras, generator=gen)
         losses.append(aux["total_loss"])
         finite = aux["grad_finite"]
     torch.cuda.synchronize()
@@ -897,12 +912,12 @@ def run_stage(name: str, results: list, card: str, profile: bool = False) -> dic
                                        f"{nets_of(site)}", 0)
                              for stage, site in r["runs"] if stage == name)
     busy = profile_steps(name, step_k, batch, extras, gen, dt) if profile else None
-    step_p(batch, extras, generator=gen)
+    one_step(step_p, batch, extras, generator=gen)
     torch.cuda.synchronize()
     n_plain = 3
     t0 = time.perf_counter()
     for _ in range(n_plain):
-        step_p(batch, extras, generator=gen)
+        one_step(step_p, batch, extras, generator=gen)
     torch.cuda.synchronize()
     dtp = (time.perf_counter() - t0) / n_plain
     print(f"[{name}] plain path: {dtp * 1e3:.2f} ms/step, {rays / dtp:.1f} rays/s ({card})",
@@ -931,7 +946,7 @@ def run_stash(start, cfg, kw, batch, extras, draws, rays, results, card) -> dict
     aux = {}
     for m in ("remat", "stash"):
         with stash_mode(m == "stash"):
-            aux[m], _ = steps[m](batch, extras, draws=draws)
+            aux[m], _ = one_step(steps[m], batch, extras, draws=draws)
     torch.cuda.synchronize()
     lr, ls = float(aux["remat"]["total_loss"]), float(aux["stash"]["total_loss"])
     same = all(torch.equal(a, b) for a, b in zip(models["remat"].parameters(),
@@ -947,13 +962,13 @@ def run_stash(start, cfg, kw, batch, extras, draws, rays, results, card) -> dict
     calls = {}
     for turn in ("remat", "stash", "stash", "remat"):
         with stash_mode(turn == "stash"):
-            steps[turn](batch, extras, generator=gen)
+            one_step(steps[turn], batch, extras, generator=gen)
             torch.cuda.synchronize()
             if turn == "stash" and not times["stash"]:
                 FM.reset_launches()
             t0 = time.perf_counter()
             for _ in range(n):
-                steps[turn](batch, extras, generator=gen)
+                one_step(steps[turn], batch, extras, generator=gen)
             torch.cuda.synchronize()
             times[turn].append((time.perf_counter() - t0) / n * 1e3)
             if turn == "stash" and len(times["stash"]) == 1:
@@ -993,7 +1008,8 @@ MIN_MESH_VERTS = 100
 class _ProfiledLoader:
     """Wraps the trainer's loader: torch.profiler runs from the ``start``-th
     batch to the ``stop``-th (the device has finished every step before it
-    then), so the window holds stop - start whole steps of the epoch."""
+    then), so the window holds stop - start whole steps of the epoch; both
+    ends must fall on a chunk's first batch."""
 
     def __init__(self, loader, start: int, stop: int):
         self.loader, self.start, self.stop, self.n = loader, start, stop, 0
@@ -1003,7 +1019,7 @@ class _ProfiledLoader:
     def __getattr__(self, name):
         return getattr(self.loader, name)
 
-    def __next__(self):
+    def next_chunk(self, k: int):
         import torch
         from torch.profiler import ProfilerActivity, profile
         t0 = time.perf_counter()
@@ -1018,8 +1034,8 @@ class _ProfiledLoader:
             self.prof.__exit__(None, None, None)
         if self.n in (self.start, self.stop):
             self.overhead += time.perf_counter() - t0
-        self.n += 1
-        return next(self.loader)
+        self.n += k
+        return self.loader.next_chunk(k)
 
 
 def check_grid_query(model, G: int = 32) -> float:
@@ -1700,11 +1716,11 @@ def run_branch_step(name: str, results: list, card: str) -> dict:
                  for j, mb in enumerate(micro_batches(batch, cfg.accu_steps))]
     else:
         draws = stage_draws(name, cfg, model, plain, batch, extras, rays)
-    aux_p, _ = step_p(batch, extras, draws=draws)
+    aux_p, _ = one_step(step_p, batch, extras, draws=draws)
     torch.cuda.synchronize()
     FM.reset_launches()
     t0 = time.perf_counter()
-    aux_k, _ = step_k(batch, extras, draws=draws)
+    aux_k, _ = one_step(step_k, batch, extras, draws=draws)
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     calls = dict(FM.launches_by_call)
@@ -1785,9 +1801,9 @@ def run_ft_cse(results: list, card: str, tmp: str) -> dict:
     def recorded(self, *a, **k):
         fn, ns_u, ns_a = get_step(self, *a, **k)
 
-        def step(*b, **kw):
+        def step(*b, **kw):  # one step a call (steps_chunk 0)
             aux, host = fn(*b, **kw)
-            seen.append((self.progress, {k: aux[k].detach() for k in
+            seen.append((self.progress, {k: aux[k][0].detach() for k in
                                          ("csenet_loss", "csenet_g", "total_loss")}))
             return aux, host
         return step, ns_u, ns_a
@@ -2744,6 +2760,415 @@ def run_preproc_graphs(card: str, tmp: str) -> dict:
     return out
 
 
+# ------------------------------------- K steps a call, data parallelism
+CHUNK_K = 4           # (a): one chunked call of K init steps against K calls
+PARALLEL_STEPS = 3    # (b): steps a rank makes; the replicas must then be bit-identical
+DP_ITERS = 50         # (c): ITERS_PER_EPOCH of the entry-point run, cut from 200
+DP_CHUNK = 10         # (c): --steps_chunk
+# (a) chunked against sequential on the card: the same kernels in the same
+# order, but scatter-adds (index_add_ and indexing backwards) add in the
+# order their atomics land, so the steps part in the last bits and Adam
+# (~lr x sign(g) per step) can flip a near-zero component: losses at
+# CHUNK_LOSS_TOL, group norms at CHUNK_NORM_TOL, parameters at 2 lr x the
+# group LR multiplier (10 at most) a step
+CHUNK_LOSS_TOL, CHUNK_NORM_TOL = 1e-4, 1e-3
+# (b) two ranks against one process: the losses read the gathered global
+# tensors in the one-process order, but each rank's per-ray products run on
+# half the rows, where the library may pick other kernels and roundings
+# (the first card run read the loss 3.24e-5 apart; a one-rank world reads
+# it bit-equal): losses at DP_LOSS_TOL. The gradients add the ranks' shares
+# in another order, which the feat-match transport's backward magnifies
+# (2.1e-4 of nerf_feat's norm at the CPU tests' widths, 2.2e-3 on the
+# card): group norms at DP_NORM_TOL, parameters at 20 lr0 (non-finite or
+# runaway updates only: one Adam step moves a component ~lr at most).
+# What the gates read for a broken step (--plant, H100 80GB HBM3, 700 W):
+# plain DDP of local losses ("gather") the loss 7.2e-2 (norms 7.6e-3); no
+# gradient all-reduce ("mean") the norms 0.54 (loss 3.2e-5, as correct)
+DP_LOSS_TOL, DP_NORM_TOL = 1e-4, 1e-2
+# faults --plant sets in (b)'s two ranks (monkeypatched in the rank's
+# process), to read what the gates read for a broken data-parallel step
+PLANTS = {"gather": "no gather of the rendered rays: each rank's own loss, "
+                    "gradients averaged (plain DDP); the eikonal term samples the "
+                    "rank's own points",
+          "mean": "no all-reduce of the gradients: each rank's own gradient"}
+LOSS_TERMS = ("img_loss", "sil_loss", "flo_loss", "feat_loss", "feat_rnd_loss", "proj_loss",
+              "visibility_loss", "ekl_loss", "bone_loc_loss", "cyc_loss", "root_sm_loss")
+
+
+def _norms(aux, j=None) -> dict:
+    return {k: float(v if j is None else v[j]) for k, v in aux.items() if k.endswith("_g")}
+
+
+def _rel(a: float, b: float) -> float:
+    return abs(a - b) / max(abs(b), 1e-12)
+
+
+def _add_launches(results: list, calls: dict, stage: str = "init") -> int:
+    """Add the init-stage call sites' launches in ``calls`` to the kernel
+    JSON's counts; returns their sum."""
+    total = 0
+    for r in results:
+        n = sum(calls.get(f"{counter_kind(r['name'], False)}:{site}:{nets_of(site)}", 0)
+                for st, site in r["runs"] if st == stage)
+        r["launches"] += n
+        total += n
+    return total
+
+
+def run_chunk(results: list, card: str, fail: list, profile: bool) -> dict:
+    """(a) one call of the chunked step (CHUNK_K init steps at full width)
+    against CHUNK_K calls of the step, from the same parameters, batch,
+    per-step scalars (progress moves each step) and generator state."""
+    import copy
+    import torch
+    from moda_tpu_torch.ops import fused_mlp as FM
+    from moda_tpu_torch.train.optim import MoDAOptimizer
+    from moda_tpu_torch.train.step import CHUNK_STEP_FIELDS, make_train_step
+
+    K = CHUNK_K
+    t_a = time.perf_counter()
+    _, ns, na, use_fine, use_dskin = STAGES["init"]
+    cfg, model, batch, extras, rays = make_stage("init", "cuda")
+    kw = dict(nsample=ns, ndepth=cfg.ndepth, use_fine=use_fine, use_dskin=use_dskin,
+              use_bones=True, nsample_active=na)
+    m_seq, m_ch = model, copy.deepcopy(model)
+    seq = make_train_step(m_seq, MoDAOptimizer(cfg, total_steps=24000), **kw)
+    chunk = make_train_step(m_ch, MoDAOptimizer(cfg, total_steps=24000), chunk_steps=K, **kw)
+    per_step = {f: torch.stack([torch.as_tensor(getattr(extras, f), dtype=torch.float32,
+                                                device="cuda")] * K) for f in CHUNK_STEP_FIELDS}
+    per_step["progress"] = torch.linspace(0.4, 0.6, K, device="cuda")
+    stacked = {k: torch.stack([v] * K) for k, v in batch.items()}
+
+    def run_seq(gen):
+        return [one_step(seq, batch, extras._replace(progress=per_step["progress"][j]),
+                         generator=gen)[0]
+                for j in range(K)]
+
+    def run_chunked(gen):
+        return chunk(stacked, extras, per_step, generator=gen)[0]
+
+    FM.reset_launches()
+    a_seq = run_seq(torch.Generator(device="cuda").manual_seed(4))
+    torch.cuda.synchronize()
+    seq_calls = dict(FM.launches_by_call)
+    FM.reset_launches()
+    a_ch = run_chunked(torch.Generator(device="cuda").manual_seed(4))
+    torch.cuda.synchronize()
+    ch_calls = dict(FM.launches_by_call)
+    loss_s = [float(a["total_loss"]) for a in a_seq]
+    loss_c = [float(v) for v in a_ch["total_loss"]]
+    worst_loss = max(_rel(c, s) for c, s in zip(loss_c, loss_s))
+    worst_norm = max(_rel(_norms(a_ch, j)[k], v) for j, a in enumerate(a_seq)
+                     for k, v in _norms(a).items())
+    lr0 = cfg.learning_rate / 25.0
+    worst_p = max(float((p.detach() - q.detach()).abs().max())
+                  for p, q in zip(m_ch.parameters(), m_seq.parameters()))
+    t_gates = time.perf_counter() - t_a
+    bit = all(torch.equal(p, q) for p, q in zip(m_ch.parameters(), m_seq.parameters()))
+    print(f"[parallel] (a) {K} init steps in one call against {K} calls ({t_gates:.1f} s with "
+          f"the builds): losses "
+          f"{[round(v, 6) for v in loss_c]} / {[round(v, 6) for v in loss_s]}, worst rel "
+          f"{worst_loss:.2e} (tol {CHUNK_LOSS_TOL}); group norms worst rel {worst_norm:.2e} "
+          f"(tol {CHUNK_NORM_TOL}); parameters max abs {worst_p:.3e} (tol "
+          f"{2 * K * 10 * lr0:.1e}); bit-identical parameters: {bit}", flush=True)
+    if not (worst_loss <= CHUNK_LOSS_TOL and all(math.isfinite(v) for v in loss_c)):
+        fail.append(f"(a) chunked losses {loss_c} against {loss_s}")
+    if not worst_norm <= CHUNK_NORM_TOL:
+        fail.append(f"(a) chunked group norms {worst_norm:.2e} from the sequential steps'")
+    if not worst_p <= 2 * K * 10 * lr0:
+        fail.append(f"(a) chunked parameters {worst_p:.3e} from the sequential steps'")
+    want = expected_calls("init", K)
+    print(f"[parallel] (a) launches by call site: chunked {ch_calls}, sequential {seq_calls}",
+          flush=True)
+    if ch_calls != want or seq_calls != want:
+        fail.append(f"(a) launches {ch_calls} / {seq_calls} != {want}")
+    launches = _add_launches(results, ch_calls)
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn(gen)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) / K * 1e3
+
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    t = {"seq": [], "chunk": []}
+    for name in ("seq", "chunk", "chunk", "seq"):
+        t[name].append(timed(run_seq if name == "seq" else run_chunked))
+    out = {"ms_per_step_seq": t["seq"], "ms_per_step_chunk": t["chunk"], "losses": loss_c,
+           "part_s": time.perf_counter() - t_a,
+           "worst_loss_rel": worst_loss, "worst_norm_rel": worst_norm, "param_max_abs": worst_p,
+           "bit_identical": bit, "launches": launches}
+    print(f"[parallel] (a) ms per step, host clock ending in a sync (seq, chunk, chunk, seq): "
+          f"sequential {[round(v, 2) for v in t['seq']]}, chunked "
+          f"{[round(v, 2) for v in t['chunk']]} ({card})", flush=True)
+    if profile:
+        for name, fn in (("seq", run_seq), ("chunk", run_chunked)):
+            _, dev, busy = profiled(lambda: fn(gen), 1)
+            wall = min(t[name]) * K
+            out[f"idle_share_{name}"] = 1 - busy / wall
+            print(f"[profile parallel] (a) {name}: device busy {busy / K:.2f} ms/step of "
+                  f"{wall / K:.2f}, idle share {out[f'idle_share_{name}']:.3f}", flush=True)
+    return out
+
+
+def _rank_main(rank: int, world: int, port: int, job: str, out_dir: str, args):
+    """A spawned rank of phase 13 on cuda:0: job "step" runs the init stage's
+    data-parallel step (args: backend, steps, plant: None or a fault of
+    PLANTS, set in this process alone), job "app" runs train_app (args:
+    argv per rank)."""
+    import traceback
+    import torch
+    try:
+        from moda_tpu_torch.ops import fused_mlp as FM
+        if job == "step":
+            from moda_tpu_torch.parallel import dist
+            from moda_tpu_torch.train.optim import MoDAOptimizer
+            from moda_tpu_torch.train.step import make_train_step
+            backend, steps, plant = args
+            if plant == "gather":  # each rank's loss on its own rays (plain DDP)
+                dist.Shard.gather_dict = lambda self, d, keys: dict(d)
+            elif plant == "mean":  # each rank updates with its own gradient
+                dist.Comm.mean_ = lambda self, grads: grads
+            comm = dist.init_process(rank, world, port=port, device="cuda:0", backend=backend,
+                                     timeout_s=300)
+            try:
+                _, ns, na, use_fine, use_dskin = STAGES["init"]
+                cfg, model, batch, extras, rays = make_stage("init", "cuda")
+                step = make_train_step(model, MoDAOptimizer(cfg, total_steps=24000),
+                                       nsample=ns, ndepth=cfg.ndepth, use_fine=use_fine,
+                                       use_dskin=use_dskin, use_bones=True, nsample_active=na,
+                                       comm=comm)
+                draws = stage_draws("init", cfg, model, model, batch, extras, rays)
+                if plant == "gather":  # the eikonal points: this rank's alone
+                    draws["eik_idx"] %= rays // world * cfg.ndepth
+                local = dist.shard_batch(batch, rank, world)
+                FM.reset_launches()
+                aux, _ = one_step(step, local, extras, draws=draws)
+                torch.cuda.synchronize()
+                res = {"aux": {k: float(v) for k, v in aux.items() if v.dim() == 0},
+                       "calls": dict(FM.launches_by_call), "backend": comm.backend,
+                       "params1": {n: p.detach().cpu().clone()
+                                   for n, p in model.named_parameters()}}
+                gen = torch.Generator(device="cuda").manual_seed(2)
+                t0 = time.perf_counter()
+                for _ in range(steps - 1):
+                    one_step(step, local, extras, generator=gen)
+                torch.cuda.synchronize()
+                res["ms_per_step"] = (time.perf_counter() - t0) / max(steps - 1, 1) * 1e3
+                res["digest"] = (comm.check_same(dict(model.named_parameters()), "phase 13")
+                                 if plant is None else None)
+            finally:
+                comm.close()
+        else:
+            from moda_tpu_torch.cli import train_app
+            from moda_tpu_torch.train import trainer as TT
+            os.environ.update({"RANK": str(rank), "WORLD_SIZE": str(world),
+                               "LOCAL_RANK": str(rank), "MASTER_ADDR": "localhost",
+                               "MASTER_PORT": str(port)})
+            TT.ITERS_PER_EPOCH = DP_ITERS
+            FM.reset_launches()
+            t0 = time.time()
+            tr = train_app.main(args[rank], device="cuda:0", backend="gloo")
+            torch.cuda.synchronize()
+            h = hashlib.sha256()
+            for _, p in sorted(tr.model.named_parameters()):
+                h.update(p.detach().cpu().numpy().tobytes())
+            res = {"calls": dict(FM.launches_by_call), "run_s": time.time() - t0,
+                   "save_dir": tr.save_dir, "log_path": tr.log_path,
+                   "digest": h.hexdigest()[:16], "steps": tr.total_steps_done}
+        torch.save(res, os.path.join(out_dir, f"rank{rank}.pt"))
+    except BaseException:
+        with open(os.path.join(out_dir, f"rank{rank}.err"), "w") as f:
+            f.write(traceback.format_exc())
+        raise
+
+
+def spawn_ranks(world: int, job: str, out_dir: str, args, timeout: float) -> list:
+    """``world`` spawned ranks of ``job``; their results in rank order.
+    Every rank is killed when one fails or the run outlasts ``timeout``."""
+    import socket
+    import torch
+    import torch.multiprocessing as mp
+
+    with socket.socket() as sk:
+        sk.bind(("localhost", 0))
+        port = sk.getsockname()[1]
+    os.makedirs(out_dir, exist_ok=True)
+    ctx = mp.start_processes(_rank_main, args=(world, port, job, out_dir, args), nprocs=world,
+                             join=False, start_method="spawn")
+    t0 = time.time()
+    try:
+        while not ctx.join(timeout=1.0):
+            if time.time() - t0 > timeout:
+                raise TimeoutError(f"{job}: {world} ranks ran past {timeout} s")
+    except Exception as e:
+        errs = [open(os.path.join(out_dir, f)).read() for f in sorted(os.listdir(out_dir))
+                if f.endswith(".err")]
+        raise SystemExit(f"phase 13 {job}: {e}\n" + "\n".join(errs))
+    finally:
+        for pr in ctx.processes:
+            if pr.is_alive():
+                pr.kill()
+    return [torch.load(os.path.join(out_dir, f"rank{r}.pt"), weights_only=False)
+            for r in range(world)]
+
+
+def run_ranks(results: list, card: str, tmp: str, fail: list, plant=None) -> dict:
+    """(b) two ranks on the one card (gloo), one init step at full width on
+    the global batch of 256 pairs (128 a rank) against the one-process step
+    on the same batch and draws, then PARALLEL_STEPS - 1 more steps with
+    the generator, after which the replicas must be bit-identical; then a
+    one-rank NCCL world runs the same step. The loss and group-norm gates
+    hold the step to the one-process step; the parameter gate (20 lr0
+    after one Adam step of at most ~10 lr0 a component either way) catches
+    only non-finite or runaway updates. plant (``--plant``): the first step
+    alone, with a fault of PLANTS planted in both ranks, to read what the
+    gates read for it."""
+    import torch
+    from moda_tpu_torch.train.optim import MoDAOptimizer
+    from moda_tpu_torch.train.step import make_train_step
+
+    t_b = time.perf_counter()
+    _, ns, na, use_fine, use_dskin = STAGES["init"]
+    cfg, model, batch, extras, rays = make_stage("init", "cuda")
+    step = make_train_step(model, MoDAOptimizer(cfg, total_steps=24000), nsample=ns,
+                           ndepth=cfg.ndepth, use_fine=use_fine, use_dskin=use_dskin,
+                           use_bones=True, nsample_active=na)
+    aux1, _ = one_step(step, batch, extras,
+                       draws=stage_draws("init", cfg, model, model, batch, extras, rays))
+    torch.cuda.synchronize()
+    one = {"loss": float(aux1["total_loss"]), "norms": _norms(aux1),
+           "terms": {k: float(aux1[k]) for k in LOSS_TERMS if k in aux1},
+           "params": {n: p.detach().cpu().clone() for n, p in model.named_parameters()}}
+    del model, step, batch
+    torch.cuda.empty_cache()
+    t0 = time.time()
+    r0, r1 = spawn_ranks(2, "step", os.path.join(tmp, "ranks"),
+                         ("gloo", 1 if plant else PARALLEL_STEPS, plant), 300)
+    t_two = time.time() - t0
+    worst_norm = max(_rel(r0["aux"][k], v) for k, v in one["norms"].items())
+    loss_rel = _rel(r0["aux"]["total_loss"], one["loss"])
+    lr0 = cfg.learning_rate / 25.0
+    worst_p = max(float((r0["params1"][n] - p).abs().max()) for n, p in one["params"].items())
+    out = {"loss_one": one["loss"], "loss_two": r0["aux"]["total_loss"], "loss_rel": loss_rel,
+           "worst_norm_rel": worst_norm, "param_max_abs": worst_p}
+    print(f"[parallel] (b) two ranks (gloo, one card{', planted: ' + plant if plant else ''}) "
+          f"against one process, one init step on 256 pairs: loss "
+          f"{r0['aux']['total_loss']:.6f} / {one['loss']:.6f} rel {loss_rel:.2e} "
+          f"(tol {DP_LOSS_TOL}; bit-equal: {r0['aux']['total_loss'] == one['loss']}); group "
+          f"norms worst rel {worst_norm:.2e} (tol {DP_NORM_TOL}); parameters max abs "
+          f"{worst_p:.3e} (tol {20 * lr0:.1e}) ({card})", flush=True)
+    print("[parallel] (b) loss terms, two ranks / one process (rel): " + ", ".join(
+        f"{k} {r0['aux'][k]:.6g} / {v:.6g} ({_rel(r0['aux'][k], v):.1e})"
+        for k, v in one["terms"].items()), flush=True)
+    print("[parallel] (b) group norms, two ranks / one process (rel): " + ", ".join(
+        f"{k} {_rel(r0['aux'][k], v):.1e}" for k, v in one["norms"].items()), flush=True)
+    if not (loss_rel <= DP_LOSS_TOL and worst_norm <= DP_NORM_TOL and worst_p <= 20 * lr0):
+        fail.append(f"(b) two ranks against one process: loss {loss_rel:.2e}, norms "
+                    f"{worst_norm:.2e}, parameters {worst_p:.3e}")
+    if plant:
+        return out
+    print(f"[parallel] (b) after {PARALLEL_STEPS} steps the replicas' digests {r0['digest']} / "
+          f"{r1['digest']}; {r0['ms_per_step']:.1f} / {r1['ms_per_step']:.1f} ms a step a "
+          f"rank; {t_two:.1f} s with the spawn ({card})", flush=True)
+    for r, res in enumerate((r0, r1)):
+        print(f"[parallel] (b) rank {r} launches by call site, one step: {res['calls']}",
+              flush=True)
+        if res["calls"] != expected_calls("init", 1):
+            fail.append(f"(b) rank {r} launches {res['calls']}")
+    if r0["digest"] != r1["digest"]:
+        fail.append("(b) the replicas parted")
+    launches = _add_launches(results, r0["calls"]) + _add_launches(results, r1["calls"])
+    t0 = time.time()
+    (nc,) = spawn_ranks(1, "step", os.path.join(tmp, "nccl"), (None, 1, None), 300)
+    nccl_rel = _rel(nc["aux"]["total_loss"], one["loss"])
+    print(f"[parallel] (b) one-rank {nc['backend']} world: loss {nc['aux']['total_loss']:.6f} "
+          f"rel {nccl_rel:.2e} from one process (bit-equal: "
+          f"{nc['aux']['total_loss'] == one['loss']}); {time.time() - t0:.1f} s with the spawn",
+          flush=True)
+    if nc["backend"] != "nccl" or not nccl_rel <= DP_LOSS_TOL:
+        fail.append(f"(b) the one-rank NCCL step: {nc['backend']}, loss rel {nccl_rel:.2e}")
+    launches += _add_launches(results, nc["calls"])
+    return dict(out, ms_per_step_rank=[r0["ms_per_step"], r1["ms_per_step"]], spawn_s=t_two,
+                nccl_loss_rel=nccl_rel, launches=launches, part_s=time.perf_counter() - t_b)
+
+
+def run_app(results: list, card: str, tmp: str, fail: list) -> dict:
+    """(c) ``train_app.main`` as two ranks (gloo, one card) on phase 6's
+    dataset with its flags, --steps_chunk DP_CHUNK, at a global batch of
+    256 pairs; ITERS_PER_EPOCH cut from 200 to DP_ITERS (the shape warmup
+    too). Rank 1 gets a checkpoint directory of its own, which must stay
+    absent: rank 0 alone writes."""
+    argv = ["--seqname", "syn-smoke", "--config_dir", os.path.join(tmp, "cfg"), "--logname",
+            "dp", "--img_size", str(TRAINER_IMG)] + TRAINER_FLAGS + ["--steps_chunk",
+                                                                    str(DP_CHUNK)]
+    dirs = [os.path.join(tmp, "log13"), os.path.join(tmp, "log13_rank1")]
+    t_c = time.perf_counter()
+    r0, r1 = spawn_ranks(2, "app", os.path.join(tmp, "app"),
+                         [argv + ["--checkpoint_dir", d] for d in dirs], 600)
+    rows = [json.loads(line) for line in open(r0["log_path"])]
+    ep = [r for r in rows if "epoch_time" in r]
+    step_rows = [r for r in rows if "total_loss" in r]
+    for r, res in enumerate((r0, r1)):
+        print(f"[parallel] (c) rank {r}: train_app.main {res['run_s']:.1f} s, launches "
+              f"{res['calls']}", flush=True)
+        if res["calls"] != expected_calls("init", DP_ITERS):
+            fail.append(f"(c) rank {r} launches {res['calls']}")
+    if os.path.exists(dirs[1]):
+        fail.append(f"(c) rank 1 wrote {os.listdir(dirs[1])}")
+    if len(ep) != 1 or ep[0].get("world_size") != 2 or not ep[0].get("replica_digest"):
+        fail.append(f"(c) epoch lines {ep}")
+    if r0["digest"] != r1["digest"] or r0["steps"] != DP_ITERS:
+        fail.append(f"(c) digests {r0['digest']} / {r1['digest']}, steps {r0['steps']}")
+    if not step_rows or not all(math.isfinite(r["total_loss"]) and r["grad_finite"] == 1.0
+                                for r in step_rows):
+        fail.append("(c) a logged step has a non-finite loss or gradient")
+    e = ep[0] if ep else {}
+    print(f"[parallel] (c) epoch {e.get('epoch_time', float('nan')):.2f} s ({DP_ITERS} steps, "
+          f"steps_chunk {e.get('steps_chunk')}, t_mesh {e.get('t_mesh')} t_save "
+          f"{e.get('t_save')} t_eval {e.get('t_eval')}); per rank "
+          f"{e.get('ranks')}; replica digest {e.get('replica_digest')}; losses "
+          f"{[round(r['total_loss'], 5) for r in step_rows]} ({card})", flush=True)
+    launches = _add_launches(results, r0["calls"]) + _add_launches(results, r1["calls"])
+    return {"epoch_s": e.get("epoch_time"), "ranks": e.get("ranks"), "launches": launches,
+            "part_s": time.perf_counter() - t_c,
+            "run_s": [r0["run_s"], r1["run_s"]], "losses": [r["total_loss"] for r in step_rows]}
+
+
+def run_parallel(results: list, card: str, tmp: str, profile: bool = False) -> dict:
+    """Phase 13: K optimizer steps a call and data parallelism over
+    processes, at full widths (the init stage of bench.py's shapes: 256
+    pairs x 4 px x 128 samples, D8 W256 trunk):
+    (a) ``run_chunk``: one call of CHUNK_K chunked steps against CHUNK_K
+        calls (losses, group norms, parameters; launches per call site
+        CHUNK_K times one step's); ms per step both ways, with --profile
+        the device idle share both ways;
+    (b) ``run_ranks``: two ranks on the one card with gloo (NCCL refuses two
+        ranks on one device) against the one-process step on the same
+        global batch and draws; PARALLEL_STEPS steps, then the replicas
+        bit-identical; launches per rank per call site; then a one-rank
+        NCCL world's step against the one-process step;
+    (c) ``run_app``: train_app.main as two ranks on phase 6's dataset with
+        --steps_chunk DP_CHUNK at batch 256. Cut: ITERS_PER_EPOCH 50
+        instead of 200 (one epoch, and the shape warmup's 50 steps).
+    A two-card run waits for a machine with two cards."""
+    t0 = time.perf_counter()
+    fail: list = []
+    out = {"card": card, "chunk": run_chunk(results, card, fail, profile)}
+    import torch
+    torch.cuda.empty_cache()
+    out["ranks"] = run_ranks(results, card, tmp, fail)
+    out["app"] = run_app(results, card, tmp, fail)
+    out["phase_s"] = time.perf_counter() - t0
+    print(f"[parallel] phase {out['phase_s']:.1f} s: (a) {out['chunk']['part_s']:.1f} s, (b) "
+          f"{out['ranks']['part_s']:.1f} s, (c) {out['app']['part_s']:.1f} s ({card})",
+          flush=True)
+    if fail:
+        raise SystemExit("parallel: " + "; ".join(fail))
+    return out
+
+
 def timed_frames(pred, frames, call):
     """``call(pred, frame, i)`` over every frame after one warm-up call, the
     peak device memory reset before: ({wall ms a frame, peak GiB above what
@@ -2792,6 +3217,9 @@ def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--profile", action="store_true",
                     help="also profile the kernels and each stage's kernel-path step")
+    ap.add_argument("--plant", choices=sorted(PLANTS),
+                    help="run phase 13 (b) alone with this fault planted in both ranks; "
+                         "exit 0 iff its gates catch it")
     args = ap.parse_args()
 
     import torch
@@ -2819,6 +3247,16 @@ def main():
         if "registers" in line or "spill" in line or "Compiling entry" in line:
             print(f"[build] {line.strip()}", flush=True)
 
+    if args.plant:
+        base = os.path.join(os.path.dirname(os.path.abspath(__file__)), "logdir")
+        os.makedirs(base, exist_ok=True)
+        fail: list = []
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_plant_", dir=base) as tmp:
+            out = run_ranks([], card, tmp, fail, plant=args.plant)
+        print(json.dumps({"plant": args.plant, "fault": PLANTS[args.plant], "caught": fail,
+                          **out}))
+        raise SystemExit(0 if fail else 1)
+
     results: list = []
     check_kernels(results, profile=args.profile)
     print(f"[time] kernel phase done at {time.time() - t0:.1f} s", flush=True)
@@ -2845,6 +3283,9 @@ def main():
         print(f"[time] preprocessing done at {time.time() - t0:.1f} s", flush=True)
         steps["preproc_graphs"] = run_preproc_graphs(card, tmp)
         print(f"[time] preprocessing graphs done at {time.time() - t0:.1f} s", flush=True)
+        steps["parallel"] = run_parallel(results, card, tmp, profile=args.profile)
+        print(f"[time] K steps a call and data parallelism done at {time.time() - t0:.1f} s",
+              flush=True)
     for r in results:
         if r["launches"] == 0:
             raise SystemExit(f"{r['name']} was not launched on the main path")

@@ -16,8 +16,19 @@ grid without them (logged where frames are missing).
 With ``--warmup_pose_ep`` > 0 and a template prior, the trainer's cold start
 trains the pose CNN and takes the cameras from it. With ``--ft_cse`` the
 batches carry full crops (the trainable CSE net reads them; batch mode).
-Refused, naming the later slice that ports it: more than one process and
-``--steps_chunk`` > 1 (``train/trainer.py::check_ported``).
+``--steps_chunk K`` makes K optimizer steps a call (rounded down to divide
+50 and the epoch; ``Trainer.steps_chunk``).
+
+Data parallelism, one process per card:
+
+  torchrun --nproc_per_node N -m moda_tpu_torch.cli.train_app <flags>
+
+Each rank trains on cuda:LOCAL_RANK (``parallel/dist.py``; NCCL), draws
+``--batch_size / N`` pairs a step from its own loader stream
+(``process_index``), and the step makes the update one process makes on the
+global batch of ``--batch_size`` pairs; rank 0 alone writes. A batch that N
+(times ``--accu_steps``) does not divide raises: the JAX package replicates
+it instead. ``main(argv, device="cpu")`` runs the ranks on the CPU (gloo).
 """
 from __future__ import annotations
 
@@ -28,11 +39,7 @@ import numpy as np
 
 from moda_tpu_torch.data.dataset import (PairLoader, build_datasets, build_line_datasets,
                                          data_offsets)
-
-
-def _num_processes() -> int:
-    """The process count that torch's launchers (torchrun) set."""
-    return int(os.environ.get("WORLD_SIZE") or 1)
+from moda_tpu_torch.parallel import dist
 
 
 def _eval_datasets(cfg):
@@ -50,17 +57,31 @@ def _eval_datasets(cfg):
         return None
 
 
-def main(argv=None, device=None):
-    """Train from the flags in ``argv``; returns the Trainer."""
+def main(argv=None, device=None, backend=None):
+    """Train from the flags in ``argv``; returns the Trainer. Under torchrun
+    (WORLD_SIZE > 1) this process joins the data-parallel group first, on
+    ``device`` (cuda:LOCAL_RANK by default) with ``backend`` (NCCL on a
+    card, gloo on the CPU by default; ranks that share one card need
+    gloo)."""
     from moda_tpu_torch.cli.flags import parse_config
-    from moda_tpu_torch.config import DataInfo, load_seq_config
-    from moda_tpu_torch.train.trainer import Trainer, check_ported
 
-    if _num_processes() > 1:
-        raise NotImplementedError("training in more than one process is ported in a later "
-                                  "slice of moda_tpu_torch (the multi-GPU slice)")
     cfg = parse_config(argv)
-    check_ported(cfg)
+    world = dist.world_size()
+    if world > 1 and cfg.batch_size % (world * cfg.accu_steps):
+        raise ValueError(f"--batch_size {cfg.batch_size} does not divide into {world} ranks x "
+                         f"--accu_steps {cfg.accu_steps}")
+    comm = dist.init_from_env(device=device, backend=backend) if world > 1 else None
+    try:
+        return _train(cfg, comm, device if comm is None else comm.device)
+    finally:
+        if comm is not None:
+            comm.close()
+
+
+def _train(cfg, comm, device):
+    from moda_tpu_torch.config import DataInfo, load_seq_config
+    from moda_tpu_torch.train.trainer import Trainer
+
     seqs = load_seq_config(cfg.seqname, cfg.config_dir)
     imgs = seqs[0].image_list()
     if not imgs:
@@ -76,13 +97,15 @@ def main(argv=None, device=None):
     info = DataInfo(offset=data_offsets(datasets), intrinsics=tuple(tuple(s.ks) for s in seqs))
     # host-side pixel sampling: nsample uniform slots + the 4x active
     # candidate pool per entry; ft_cse's CSE net needs the full crops
-    loader = PairLoader(datasets, cfg.batch_size, seed=cfg.seed,
+    world = 1 if comm is None else comm.world
+    loader = PairLoader(datasets, cfg.batch_size // world, seed=cfg.seed,
+                        process_index=0 if comm is None else comm.rank,
                         num_threads=cfg.n_data_workers,
                         num_prefetch=max(4, cfg.n_data_workers),
                         npix=None if cfg.ft_cse else 5 * cfg.nsample)
     try:
         trainer = Trainer(cfg, info, loader=loader, seed=cfg.seed, device=device,
-                          eval_datasets=_eval_datasets(cfg))
+                          eval_datasets=_eval_datasets(cfg), comm=comm)
         # canonical template prior (moda.py:405-445)
         if cfg.prior_mesh_path:
             trainer.load_prior_mesh(cfg.prior_mesh_path)

@@ -16,9 +16,12 @@
   of ``next``; the JAX loader substitutes pair 0 for a pair that fails to
   load (dataset.py:251-255), the port does not.
 
-``PairLoader`` has no ``next_chunk``: the port's trainer dispatches one
-step at a time. ``close()`` stops and joins its workers, and a worker never
-drops a batch it drew, so one worker gives one batch sequence per seed.
+``PairLoader.next_chunk(k)`` stacks the k batches that k calls of ``next``
+would return, on the caller's thread: the JAX loader's assembler thread,
+started anew (and the old one left running) whenever k changes, is not
+copied. ``close()`` stops and joins its workers, after which ``next`` and
+``next_chunk`` raise; a worker never drops a batch it drew, so one worker
+gives one batch sequence per seed.
 """
 from __future__ import annotations
 
@@ -287,10 +290,19 @@ class PairLoader:
         while True:
             if self._error is not None:
                 raise RuntimeError("a PairLoader worker failed") from self._error
+            if self._stop.is_set():
+                raise RuntimeError("the PairLoader is closed")
             try:
                 return self.q.get(timeout=1.0)
             except queue.Empty:
                 continue
+
+    def next_chunk(self, k: int):
+        """The next k batches stacked: ({field: [k, 2B, ...]}, [each batch's
+        frameid]), the batches k calls of ``next`` would return, in order."""
+        bl = [next(self) for _ in range(k)]
+        return ({f: np.stack([b[f] for b in bl]) for f in bl[0]},
+                [np.asarray(b["frameid"]) for b in bl])
 
     def __iter__(self):
         return self

@@ -15,6 +15,15 @@ otherwise draw from a ``torch.Generator``:
 The fine pass's no-grad coarse pass reads its own "symm_u" and
 "sigma_noise" ([R, S / 2, ...]) under the names "coarse_symm_u" and
 "coarse_sigma_noise".
+
+Data parallelism (parallel/dist.py): with ``shard``, a Shard of the ray
+axis, the rays are this rank's rows of the global bundle. Per-ray draws are
+made (or read from ``draws``) at the global shape and sliced to the rank's
+rows; every reduction across rays (beta_min, the feat-match transport and
+its correlation, the silhouette balance and flow-confidence normalizers,
+S3IM) reads the gathered global tensors, so each rank computes what one
+process computes on the whole bundle. The per-ray outputs stay the rank's
+rows; "s3im_loss" (REPLICATED_OUTPUTS) is the global one.
 """
 from __future__ import annotations
 
@@ -32,21 +41,42 @@ from moda_tpu_torch.render.s3im import s3im_loss
 
 RayDict = Dict[str, torch.Tensor]
 Draws = Dict[str, torch.Tensor]
+# outputs that are already global under a shard (not per ray)
+REPLICATED_OUTPUTS = ("s3im_loss",)
 
 
 def draw(draws: Optional[Draws], name: str, shape, generator: Optional[torch.Generator],
-         device) -> torch.Tensor:
-    """The named draw from ``draws``, else a fresh one from ``generator``."""
+         device, shard=None) -> torch.Tensor:
+    """The named draw from ``draws``, else a fresh one from ``generator``.
+    With ``shard`` (a per-ray draw under data parallelism) the draw has the
+    global ray count and the rank's rows are returned."""
+    if shard is not None:
+        shape = (shard.n,) + tuple(shape[1:])
     if draws is not None and name in draws:
-        return draws[name].to(device)
-    gdev = generator.device if generator is not None else device
-    if name.endswith("_u"):
-        t = torch.rand(shape, generator=generator, device=gdev)
-    elif name == "vis_neg":
-        t = torch.rand(shape, generator=generator, device=gdev) * 2.0 - 1.0
+        t = draws[name].to(device)
     else:
-        t = torch.randn(shape, generator=generator, device=gdev)
-    return t.to(device)
+        gdev = generator.device if generator is not None else device
+        if name.endswith("_u"):
+            t = torch.rand(shape, generator=generator, device=gdev)
+        elif name == "vis_neg":
+            t = torch.rand(shape, generator=generator, device=gdev) * 2.0 - 1.0
+        else:
+            t = torch.randn(shape, generator=generator, device=gdev)
+        t = t.to(device)
+    return _own(shard, t)
+
+
+def _global(shard, *xs: torch.Tensor):
+    """The global tensors of per-ray ``xs`` (``xs`` themselves without a
+    shard); one tensor for one."""
+    if shard is not None:
+        return shard.gather(*xs)
+    return xs[0] if len(xs) == 1 else xs
+
+
+def _own(shard, x: torch.Tensor) -> torch.Tensor:
+    """This rank's rows of a global per-ray tensor (``x`` without a shard)."""
+    return x if shard is None else shard.rows(x)
 
 
 def compute_pts_exp(pts_prob: torch.Tensor, pts: torch.Tensor) -> torch.Tensor:
@@ -139,7 +169,7 @@ def _project_with_rtk_vec(xyz, rtk_vec):
 
 
 def _inference(model, rays, xyz, dir_, dir_embedded, z_vals, cfg, draws=None,
-               generator=None, site=None, clip_bound=None, vis_pred=None):
+               generator=None, site=None, clip_bound=None, vis_pred=None, shard=None):
     """Coarse and feature MLPs at the samples, then VolSDF compositing.
     clip_bound [3] zeroes the weights of samples outside the box, vis_pred
     [R, S] those the visibility MLP calls hidden (< 0.5)."""
@@ -159,9 +189,9 @@ def _inference(model, rays, xyz, dir_, dir_embedded, z_vals, cfg, draws=None,
     deltas = DN.ray_deltas(z_vals, dir_)
     if cfg.noise_std > 0:
         sigmas_raw = sigmas_raw + draw(draws, "sigma_noise", sigmas_raw.shape, generator,
-                                       sigmas_raw.device) * cfg.noise_std
+                                       sigmas_raw.device, shard) * cfg.noise_std
     semantic = cfg.scale_rgb * torch.sigmoid(-10.0 * sigmas_raw)
-    beta_min = 2.0 * torch.mean(rays["far"] - rays["near"]) / S
+    beta_min = 2.0 * torch.mean(_global(shard, rays["far"] - rays["near"])) / S
     sigmas = DN.sdf_to_sigma(sigmas_raw, model.nerf_beta[0], beta_min=beta_min)
     _, weights, alpha_prod = DN.compositing_weights(sigmas, deltas)
     if clip_bound is not None:
@@ -240,13 +270,15 @@ def kp_reproj(model, rays, pts_pred, to_target: bool, embed_alpha=None, use_dski
     return _project_with_rtk_vec(xyz, rtk_vec)
 
 
-def visibility_loss(model, xyz_pos, w_pos, bound, alpha=None, draws=None, generator=None):
+def visibility_loss(model, xyz_pos, w_pos, bound, alpha=None, draws=None, generator=None,
+                    shard=None):
     """Positive/negative visibility supervision, per ray [R] (normalized by
     S only: the caller means over rays)."""
     xyz_pos = xyz_pos.detach()
     w_pos = w_pos.detach()
     R, S = w_pos.shape
-    xyz_neg = draw(draws, "vis_neg", (R, S, 3), generator, xyz_pos.device) * bound[None, None, :]
+    xyz_neg = draw(draws, "vis_neg", (R, S, 3), generator, xyz_pos.device, shard) * \
+        bound[None, None, :]
     # inputs carry no gradient: need_dx=False; negatives and positives in
     # one launch
     vis_both = model.apply_vis(torch.cat([xyz_neg, xyz_pos], 0), need_dx=False,
@@ -258,7 +290,8 @@ def visibility_loss(model, xyz_pos, w_pos, bound, alpha=None, draws=None, genera
 
 
 def inference_deform(model, rays, xyz_sampled, z_vals, cfg, fine_iter=True,
-                     use_dskin=False, draws=None, generator=None, render_vis=False):
+                     use_dskin=False, draws=None, generator=None, render_vis=False,
+                     shard=None):
     """Deform + render + per-sample losses. fine_iter=False (the fine
     pass's coarse pass) returns after compositing. render_vis (novel-view
     renders, the reference's nvs.py:150) culls samples outside the object
@@ -310,7 +343,7 @@ def inference_deform(model, rays, xyz_sampled, z_vals, cfg, fine_iter=True,
     if cfg.symm_shape:
         # rigid-shape symmetrization: mirror x at a random half of the samples
         x = xyz_canonical[..., :1]
-        u = draw(draws, "symm_u", x.shape, generator, x.device)
+        u = draw(draws, "symm_u", x.shape, generator, x.device, shard)
         xyz_input = torch.cat([torch.where(u < 0.5, -x, x), xyz_canonical[..., 1:3]], -1)
 
     clip_bound = vis_pred = None
@@ -321,7 +354,7 @@ def inference_deform(model, rays, xyz_sampled, z_vals, cfg, fine_iter=True,
     rgb, feat_rnd, depth_rnd, weights, vis_coarse = _inference(
         model, rays, xyz_input, rays["rays_d"], rays["dir_embedded"], z_vals, cfg,
         draws=draws, generator=generator, site="trunk_feat" + tag, clip_bound=clip_bound,
-        vis_pred=vis_pred)
+        vis_pred=vis_pred, shard=shard)
     sil = weights[:, :-1].sum(-1)
     result["img_coarse"] = rgb
     result["depth_rnd"] = depth_rnd[..., None]
@@ -338,16 +371,21 @@ def inference_deform(model, rays, xyz_sampled, z_vals, cfg, fine_iter=True,
                                to_target=True, embed_alpha=alpha, use_dskin=use_dskin)
     if cfg.use_embed and "feats_at_samp" in rays:
         pts_exp = compute_pts_exp(weights, xyz_canonical)
-        pts_pred, prob_vol = feat_match(model, rays["feats_at_samp"], model.mvars.obj_bound,
-                                        cfg.feat_ndepth_grid, cfg.use_ot, is_training=True,
-                                        embed_alpha=alpha, draws=draws, generator=generator)
-        result["pts_pred"] = pts_pred
-        result["pts_exp"] = pts_exp
-        result["feat_err"] = Q.safe_norm(pts_pred - pts_exp)[..., None]
+        # the transport couples every ray: it runs on the global features
+        # (the same on every rank) and each rank keeps its rows
+        pts_pred, prob_vol = feat_match(model, _global(shard, rays["feats_at_samp"]),
+                                        model.mvars.obj_bound, cfg.feat_ndepth_grid,
+                                        cfg.use_ot, is_training=True, embed_alpha=alpha,
+                                        draws=draws, generator=generator)
         if cfg.use_corr:
             TT = prob_vol @ prob_vol.T
             I = torch.eye(prob_vol.shape[0], dtype=TT.dtype, device=TT.device)
-            result["corr_err"] = torch.linalg.norm(TT - I, dim=-1)[..., None]
+            corr_err = torch.linalg.norm(TT - I, dim=-1)[..., None]
+            result["corr_err"] = _own(shard, corr_err)
+        pts_pred = _own(shard, pts_pred)
+        result["pts_pred"] = pts_pred
+        result["pts_exp"] = pts_exp
+        result["feat_err"] = Q.safe_norm(pts_pred - pts_exp)[..., None]
         if cfg.use_proj:
             xy_reproj = kp_reproj(model, rays, pts_pred, to_target=False, embed_alpha=alpha,
                                   use_dskin=use_dskin)
@@ -360,7 +398,7 @@ def inference_deform(model, rays, xyz_sampled, z_vals, cfg, fine_iter=True,
     if cfg.nerf_vis:
         result["vis_loss"] = visibility_loss(model, xyz_canonical, vis_coarse,
                                              model.mvars.obj_bound, alpha, draws=draws,
-                                             generator=generator)[..., None]
+                                             generator=generator, shard=shard)[..., None]
     if "rtk_vec_target" in rays:
         if cfg.dist_corresp:
             flo, flo_valid = vrender_flo(weights, xyz_coarse_target, rays["xys"], cfg.img_size)
@@ -380,9 +418,10 @@ def inference_deform(model, rays, xyz_sampled, z_vals, cfg, fine_iter=True,
         flo_at_samp = rays["flo_at_samp"]
         cfd_at_samp = rays["cfd_at_samp"]
         img_loss_samp = torch.mean((rgb - img_at_samp) ** 2, -1, keepdim=True)
-        pos_count = (sil_at_samp * vis_at_samp).sum()
-        neg_count = ((1 - sil_at_samp) * vis_at_samp).sum()
-        vis_count = vis_at_samp.sum()
+        sil_g, vis_g = _global(shard, sil_at_samp, vis_at_samp)
+        pos_count = (sil_g * vis_g).sum()
+        neg_count = ((1 - sil_g) * vis_g).sum()
+        vis_count = vis_g.sum()
         balanced = (pos_count > 0) & (neg_count > 0)
         one = torch.ones((), device=rgb.device)
         pos_wt = torch.where(balanced, vis_count / torch.clamp(pos_count, min=1.0), one)
@@ -391,16 +430,17 @@ def inference_deform(model, rays, xyz_sampled, z_vals, cfg, fine_iter=True,
         sil_loss_samp = (sil[..., None] - sil_at_samp) ** 2 * sil_balance_wt * vis_at_samp
         flo_loss_samp = ((flo - flo_at_samp) ** 2).sum(-1, keepdim=True)
         sil_at_samp_flo = (sil_at_samp > 0) & (flo_valid == 1) & (cfd_at_samp != 0)
+        cfd_g, flo_mask_g = _global(shard, cfd_at_samp, sil_at_samp_flo)
         cfd_norm = cfd_at_samp / torch.clamp(
-            (cfd_at_samp * sil_at_samp_flo).sum() / torch.clamp(sil_at_samp_flo.sum(), min=1.0),
-            min=1e-9)
+            (cfd_g * flo_mask_g).sum() / torch.clamp(flo_mask_g.sum(), min=1.0), min=1e-9)
         flo_loss_samp = flo_loss_samp * cfd_norm
         result["img_loss_samp"] = img_loss_samp * sil_at_samp
         result["sil_loss_samp"] = sil_loss_samp
         result["flo_loss_samp"] = flo_loss_samp * sil_at_samp
         result["sil_at_samp_flo"] = sil_at_samp_flo.to(rgb.dtype)
         if cfg.s3im_loss:
-            result["s3im_loss"] = s3im_loss(rgb, img_at_samp, sil_at_samp,
+            # virtual patches across rays: the global colours
+            result["s3im_loss"] = s3im_loss(*_global(shard, rgb, img_at_samp, sil_at_samp),
                                             perms=(draws or {}).get("s3im_perm"),
                                             generator=generator)[None, None]
         if cfg.use_embed and "feats_at_samp" in rays:
@@ -414,9 +454,10 @@ def render_rays(model, rays: RayDict, n_samples: int, use_fine: bool = False,
                 fine_iter: bool = True, perturb: Optional[float] = None,
                 use_dskin: bool = False, draws: Optional[Draws] = None,
                 generator: Optional[torch.Generator] = None,
-                render_vis: bool = False) -> Dict[str, torch.Tensor]:
+                render_vis: bool = False, shard=None) -> Dict[str, torch.Tensor]:
     """Sample depths, with use_fine resample half of them by importance from
-    a no-grad coarse pass, and render (render_vis: see inference_deform)."""
+    a no-grad coarse pass, and render (render_vis: see inference_deform;
+    shard: the module docstring)."""
     cfg = model.cfg
     perturb = cfg.perturb if perturb is None else perturb
     rays = dict(rays)
@@ -425,7 +466,7 @@ def render_rays(model, rays: RayDict, n_samples: int, use_fine: bool = False,
     rays["dir_embedded"] = model.embed_dir(d_norm, rays.get("embed_alpha"))
     R = d.shape[0]
     n_coarse = n_samples // 2 if use_fine else n_samples
-    u = draw(draws, "z_u", (R, n_coarse), generator, d.device) if perturb > 0 else None
+    u = draw(draws, "z_u", (R, n_coarse), generator, d.device, shard) if perturb > 0 else None
     z_vals = SP.stratified_zvals(rays["near"], rays["far"], n_coarse, u=u, perturb=perturb)
     xyz = rays["rays_o"][:, None, :] + rays["rays_d"][:, None, :] * z_vals[..., None]
     if use_fine:
@@ -434,14 +475,15 @@ def render_rays(model, rays: RayDict, n_samples: int, use_fine: bool = False,
         with torch.no_grad():
             _, w_coarse = inference_deform(model, rays, xyz, z_vals, cfg, fine_iter=False,
                                            use_dskin=use_dskin, draws=coarse_draws,
-                                           generator=generator)
+                                           generator=generator, shard=shard)
         z_mid = 0.5 * (z_vals[:, :-1] + z_vals[:, 1:])
         det = perturb == 0
-        u_pdf = None if det else draw(draws, "pdf_u", (R, n_coarse), generator, d.device)
+        u_pdf = None if det else draw(draws, "pdf_u", (R, n_coarse), generator, d.device,
+                                      shard)
         z_fine = SP.sample_pdf(z_mid, w_coarse[:, 1:-1], n_coarse, u=u_pdf, det=det)
         z_vals = torch.sort(torch.cat([z_vals, z_fine], -1), -1).values
         xyz = rays["rays_o"][:, None, :] + rays["rays_d"][:, None, :] * z_vals[..., None]
     result, _ = inference_deform(model, rays, xyz, z_vals, cfg, fine_iter=fine_iter,
                                  use_dskin=use_dskin, draws=draws, generator=generator,
-                                 render_vis=render_vis)
+                                 render_vis=render_vis, shard=shard)
     return result

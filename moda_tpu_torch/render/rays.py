@@ -12,6 +12,14 @@ the generator when absent):
   "active_idx" [B * nsample_active] the top-k selection itself, indices into
                the reference half's flattened pool (the uncertainty MLP is
                then not run)
+
+Data parallelism (parallel/dist.py): with ``pairs``, a Shard of the [2B]
+batch rows, the batch is this rank's share of a global batch. Pixel draws
+have the global shape and the rank takes its pairs' rows; the top-k ranks
+the global pool (the scores are gathered) and the rank keeps the
+selections that fall on its pairs. The rays are then the rank's rows of
+the one-process bundle, whose global row ids build_rays returns in
+``rays["ray_index"]`` (``ray_count`` gives the global count).
 """
 from __future__ import annotations
 
@@ -69,6 +77,11 @@ def _check_index(idx: torch.Tensor, size: int, what: str):
         raise IndexError(f"{what} out of range [0, {size})")
 
 
+def ray_count(n_pairs: int, nsample: int, nsample_active: int = 0) -> int:
+    """Rays of a bundle of ``n_pairs`` pairs."""
+    return 2 * n_pairs * (nsample + nsample_active)
+
+
 def _unc_scores(model, xys, ts, vid_code, Kinv, embed_alpha):
     """No-grad uncertainty at candidate pixels. xys [..., 2]; Kinv
     [..., 3, 3]. The MLP reads the embedded xyt and the video code per
@@ -82,10 +95,12 @@ def _unc_scores(model, xys, ts, vid_code, Kinv, embed_alpha):
 
 def active_sample_ids(model, batch: Dict[str, torch.Tensor], Kinv: torch.Tensor,
                       cand_ids: torch.Tensor, nsample_active: int,
-                      embed_alpha=None) -> torch.Tensor:
+                      embed_alpha=None, pairs=None) -> torch.Tensor:
     """Uncertainty-guided selection: the global top B * nsample_active
     candidates of the reference half (the paired half takes the same slots),
-    as indices into its flattened [B, pool] candidates, highest first."""
+    as indices into its flattened [B, pool] candidates, highest first. With
+    ``pairs`` the scores of every rank's pool are ranked together, and the
+    indices are into the global pool."""
     B, pool = cand_ids.shape[0] // 2, cand_ids.shape[1]
     cand_xys = ids_to_xys(cand_ids, model.cfg.img_size, batch.get("lineid"))
     ts = batch["frameid_sub"].float() / model.max_ts * 2.0 - 1.0
@@ -93,21 +108,42 @@ def active_sample_ids(model, batch: Dict[str, torch.Tensor], Kinv: torch.Tensor,
     scores = _unc_scores(model, cand_xys[:B], ts[:B, None, None].expand(B, pool, 1),
                          vid[:, None, :].expand(B, pool, vid.shape[-1]),
                          Kinv[:B, None].expand(B, pool, 3, 3), embed_alpha)
+    scores = scores.reshape(-1)
+    n_sel = B * nsample_active
+    if pairs is not None:
+        gp = pairs.index[:B]
+        scores = pairs.sub((gp[:, None] * pool + torch.arange(pool, device=gp.device))
+                           .reshape(-1), pairs.n // 2 * pool).gather(scores)
+        n_sel = pairs.n // 2 * nsample_active
     # a pool may hold one pixel twice: ties go to the lower index, as in
     # jax.lax.top_k (a stable descending sort; torch.topk leaves ties unordered)
-    order = torch.sort(scores.reshape(-1), descending=True, stable=True).indices
-    return order[:B * nsample_active]
+    order = torch.sort(scores, descending=True, stable=True).indices
+    return order[:n_sel]
+
+
+def _own_selection(pairs, top: torch.Tensor, pool: int):
+    """This rank's part of a global top-k ``top`` (indices into the global
+    [B, pool] pool): (their positions in ``top``, their indices into the
+    rank's [b, pool] pool)."""
+    B = pairs.n // 2
+    gp = pairs.index[:pairs.index.shape[0] // 2]
+    local = torch.full((B,), -1, dtype=torch.long, device=top.device)
+    local[gp] = torch.arange(gp.shape[0], device=top.device)
+    ent = local[torch.div(top, pool, rounding_mode="floor")]
+    pos = torch.nonzero(ent >= 0)[:, 0]
+    return pos, ent[pos] * pool + top[pos] % pool
 
 
 def build_rays(model, batch: Dict[str, torch.Tensor], rtk: torch.Tensor, nsample: int,
                nsample_active: int = 0, embed_alpha=None,
                generator: Optional[torch.Generator] = None,
-               draws: Optional[Dict[str, torch.Tensor]] = None) -> RayDict:
+               draws: Optional[Dict[str, torch.Tensor]] = None, pairs=None) -> RayDict:
     """Flat per-ray bundle [R = 2B * (nsample + nsample_active)].
 
     The pixel ids come from batch["pix_ids"] (host-sampled sparse batches:
     the uniform slots first, the candidate pool in the last columns), else
-    from ``draws`` (module docstring), else from ``generator``."""
+    from ``draws`` (module docstring), else from ``generator``. ``pairs``:
+    data parallelism (module docstring)."""
     draws = draws or {}
     cfg = model.cfg
     dev = rtk.device
@@ -118,17 +154,26 @@ def build_rays(model, batch: Dict[str, torch.Tensor], rtk: torch.Tensor, nsample
     B = bs2 // 2
     Rmat, Tmat, Kinv = cam.prepare_ray_cams(rtk, kaug)
     _check_index(frameid, model.num_fr, "frameid")
+    # the pixel draws of the global batch (rows: pairs)
+    n_rows = bs2 if pairs is None else pairs.n
+
+    def own(t):
+        return t if pairs is None else pairs.rows(t)
 
     if packed is not None:
         rand_inds = packed[:, :nsample]
     elif "pix_ids" in draws:
-        rand_inds = draws["pix_ids"].to(dev)
+        rand_inds = own(draws["pix_ids"].to(dev))
     else:
-        rand_inds = sample_pixel_ids(generator, bs2, nsample, cfg.img_size, lineid, device=dev)
+        rand_inds = own(sample_pixel_ids(generator, n_rows, nsample, cfg.img_size, lineid,
+                                         device=dev))
     ent_first = torch.arange(B, device=dev).repeat_interleave(nsample)
     loc_first = torch.arange(nsample, device=dev).repeat(B)
     pix_first = rand_inds[:B].reshape(-1)
     pix_second = rand_inds[B:].reshape(-1)
+    if pairs is not None:  # global ids of the rank's rays in the first half
+        gp = pairs.index[:B]
+        gid_first = (gp[:, None] * nsample + torch.arange(nsample, device=dev)).reshape(-1)
 
     if nsample_active > 0:
         pool = 4 * (nsample + nsample_active)
@@ -137,13 +182,18 @@ def build_rays(model, batch: Dict[str, torch.Tensor], rtk: torch.Tensor, nsample
             cand_ids = packed[:, cand_loc0:]
         else:
             cand_loc0 = 0
-            cand_ids = (draws["cand_ids"].to(dev) if "cand_ids" in draws else
-                        sample_pixel_ids(generator, bs2, pool, cfg.img_size, lineid, device=dev))
+            cand_ids = own(draws["cand_ids"].to(dev) if "cand_ids" in draws else
+                           sample_pixel_ids(generator, n_rows, pool, cfg.img_size, lineid,
+                                            device=dev))
         if "active_idx" in draws:
             top = draws["active_idx"].to(dev)
-            _check_index(top, B * pool, "active_idx")
+            _check_index(top, n_rows // 2 * pool, "active_idx")
         else:
-            top = active_sample_ids(model, batch, Kinv, cand_ids, nsample_active, embed_alpha)
+            top = active_sample_ids(model, batch, Kinv, cand_ids, nsample_active, embed_alpha,
+                                    pairs=pairs)
+        if pairs is not None:  # the global selections on this rank's pairs
+            pos, top = _own_selection(pairs, top, pool)
+            gid_first = torch.cat([gid_first, pairs.n // 2 * nsample + pos])
         ent_first = torch.cat([ent_first, torch.div(top, pool, rounding_mode="floor")])
         loc_first = torch.cat([loc_first, cand_loc0 + top % pool])
         pix_first = torch.cat([pix_first, cand_ids[:B].reshape(-1)[top]])
@@ -151,6 +201,9 @@ def build_rays(model, batch: Dict[str, torch.Tensor], rtk: torch.Tensor, nsample
 
     ray_entry = torch.cat([ent_first, ent_first + B])
     ray_pix = torch.cat([pix_first, pix_second])
+    if pairs is not None:
+        half = ray_count(pairs.n // 2, nsample, nsample_active) // 2
+        ray_index = torch.cat([gid_first, gid_first + half])
     ray_loc = torch.cat([loc_first, loc_first]) if packed is not None else ray_pix
     n_cols = batch["imgs"].shape[-1]
     _check_index(ray_loc, n_cols, "pixel id")
@@ -207,6 +260,8 @@ def build_rays(model, batch: Dict[str, torch.Tensor], rtk: torch.Tensor, nsample
         feats = feats / torch.clamp(torch.linalg.norm(feats, dim=-1, keepdim=True), min=1e-9)
         rays["feats_at_samp"] = feats
     rays["frameid"] = rf
+    if pairs is not None:
+        rays["ray_index"] = ray_index
     if ray_lineid is not None:
         rays["errid"] = rf * cfg.img_size + ray_lineid.to(rf.dtype)
     elif "errid" in batch:

@@ -3,10 +3,13 @@
 Counterpart of moda_tpu/train/step.py: the init, ft1 and ft2 stages (fine
 pass, delta-skin MLP, uncertainty-guided active sampling) and the step's
 branches (ft_cse's live CSE features, training without bones, the
-freeze_coarse snapshot, gradient accumulation). The step
-updates the model's parameters and the optimizer state in place and
-returns (aux, host_out). Random draws come from a ``torch.Generator`` or,
-for tests, from an explicit ``draws`` dict (see render/rays.py,
+freeze_coarse snapshot, gradient accumulation), K optimizer steps per call
+(``chunk_steps``, the JAX step's lax.scan) and data parallelism over
+processes (``comm``, parallel/dist.py). Each call makes K >= 1 steps:
+each updates the model's parameters and the optimizer state in place, and
+the call returns their (aux, host_out) stacked [K, ...]. Random draws come
+from a ``torch.Generator`` or, for tests, from an explicit ``draws`` dict
+per step (see render/rays.py,
 render/pipeline.py and "eik_idx" [1000]).
 """
 from __future__ import annotations
@@ -16,9 +19,10 @@ from typing import Dict, NamedTuple, Optional
 import torch
 import torch.nn.functional as Fn
 
+from moda_tpu_torch.parallel.dist import Shard, pair_index
 from moda_tpu_torch.render import losses as L
-from moda_tpu_torch.render.pipeline import render_rays
-from moda_tpu_torch.render.rays import build_rays
+from moda_tpu_torch.render.pipeline import REPLICATED_OUTPUTS, render_rays
+from moda_tpu_torch.render.rays import build_rays, ray_count
 from moda_tpu_torch.runtime import Device, resolve_device
 from moda_tpu_torch.train.optim import (MoDAOptimizer, OptState, apply_freeze_masks,
                                         clip_by_group, reject_nonfinite)
@@ -81,6 +85,15 @@ def sil_loss_filter_line(sil_loss_samp, errid, frameid, num_fr, img_size, progre
     return keep, frame_err, fr_cnt
 
 
+# StepExtras fields that vary per step inside a chunk (stacked [K]); the
+# others (shape_samp, base_rt, ...) hold for the epoch
+CHUNK_STEP_FIELDS = ("progress", "loss_select", "root_update", "body_update",
+                     "shape_update", "cvf_update", "sil_err_median",
+                     "embed_alpha")
+# the rays' fields the losses and the silhouette filters read
+LOSS_RAY_KEYS = ("sil_at_samp", "vis_at_samp", "frameid", "errid")
+
+
 class StepExtras(NamedTuple):
     """Per-step scalars/arrays prepared by the trainer."""
 
@@ -97,13 +110,13 @@ class StepExtras(NamedTuple):
     base_rt: Optional[torch.Tensor] = None
 
 
-def live_cse_feats(model, batch, progress):
+def live_cse_feats(model, batch, progress, pairs=None):
     """ft_cse: the trainable CSE net on the batch's full crops, resized to
     img_size as jax.image.resize's "linear" upsampling (half-pixel centres,
     the bilinear of align_corners=False). Returns (live features [2B, 16,
     S*S] for the renderer, detached until ftcse_steps, and the 1e-5
     distillation loss against the precomputed features on the pixels that
-    have them)."""
+    have them; with ``pairs`` over every rank's pixels)."""
     cfg = model.cfg
     S = cfg.img_size
     imgs = batch["imgs"].reshape(-1, 3, S, S).permute(0, 2, 3, 1)
@@ -112,8 +125,12 @@ def live_cse_feats(model, batch, progress):
     live = live.reshape(live.shape[0], live.shape[1], -1)
     pre = batch["dp_feats"]
     valid_px = (pre.abs().sum(1, keepdim=True) > 0).to(live.dtype)
-    loss = 1e-5 * (((live - pre) ** 2).sum(1, keepdim=True) * valid_px).sum() / \
-        torch.clamp(valid_px.sum(), min=1.0)
+    sq = ((live - pre) ** 2).sum(1, keepdim=True) * valid_px
+    if pairs is None:
+        loss = 1e-5 * sq.sum() / torch.clamp(valid_px.sum(), min=1.0)
+    else:  # every rank's crops: their per-crop sums, gathered
+        num, cnt = pairs.gather(sq.sum((1, 2)), valid_px.sum((1, 2)))
+        loss = 1e-5 * num.sum() / torch.clamp(cnt.sum(), min=1.0)
     # the main losses reach the CSE net only after ftcse_steps
     used = torch.where(torch.as_tensor(progress) > cfg.ftcse_steps, live, live.detach())
     return used, loss
@@ -131,24 +148,34 @@ def micro_batches(batch: Dict[str, torch.Tensor], accu_steps: int):
 def make_train_step(model, optimizer: MoDAOptimizer, *, nsample: int, ndepth: int,
                     use_fine: bool, use_dskin: bool, use_bones: bool,
                     nsample_active: int = 0, xyz_wt_snapshot=None, accu_steps: int = 1,
-                    chunk_steps: int = 1, device: Device = None):
-    """Returns ``step(batch, extras, generator=None, draws=None) -> (aux,
-    host_out)``, which updates ``model``'s parameters and
-    ``optimizer.state`` in place. The step runs on the card unless
-    device="cpu" is passed (the model must already live there).
+                    chunk_steps: int = 1, comm=None, device: Device = None):
+    """Returns ``step(batches, extras0, per_step=None, generator=None,
+    draws=None) -> (auxs, host_outs)``: K = chunk_steps whole optimizer
+    steps, one after the other (the JAX step's lax.scan), on ``batches``
+    (every field stacked [K, 2B, ...]). Step j reads ``extras0`` with its
+    CHUNK_STEP_FIELDS replaced by ``per_step``'s slice j ({field: [K]};
+    None keeps extras0's) and ``draws[j]`` (``draws``: None or a list of
+    K). Each step updates ``model``'s parameters and ``optimizer.state`` in
+    place before the next reads them; the outputs come back stacked [K,
+    ...]. The step runs on the card unless device="cpu" is passed (the
+    model must already live there).
 
     use_bones=False renders without the deformation model (the rays carry
     no bone keys). xyz_wt_snapshot: {component: {layer: kernel}}, the
     trunks' input-layer kernels at stage start, which freeze_coarse
-    distils against. accu_steps > 1 splits the batch into micro-batches
-    (``micro_batches``), averages their gradients and makes one update;
-    ``draws`` is then a list with one dict per micro-batch."""
+    distils against. accu_steps > 1 splits each step's batch into
+    micro-batches (``micro_batches``), averages their gradients and makes
+    one update; each step's draws are then a list with one dict per
+    micro-batch.
+
+    comm (parallel/dist.py): data parallelism. ``batches`` hold this rank's
+    share of the global batch (``dist.shard_batch``), draws are the global
+    batch's, and the step computes what one process computes on the global
+    batch; aux and host_out (with the global batch's "rtk" and "frameid")
+    are the same on every rank."""
     dev = resolve_device(device)
     if model.device.type != dev.type:
         raise ValueError(f"model lives on {model.device}, step asked for {dev}")
-    if chunk_steps > 1:
-        raise NotImplementedError("chunk_steps > 1 is ported in a later slice of "
-                                  "moda_tpu_torch (the host-side step slice)")
     cfg = model.cfg
     names = [n for n, _ in model.named_parameters()]
     params = dict(model.named_parameters())
@@ -156,23 +183,39 @@ def make_train_step(model, optimizer: MoDAOptimizer, *, nsample: int, ndepth: in
         optimizer.state = optimizer.init({k: v.detach() for k, v in params.items()})
     ft_cse = cfg.ft_cse and cfg.use_embed and not cfg.lineload
 
+    def pairs_of(n_local: int, accu: int):
+        """The Shard of this rank's rows of a global [2B] batch."""
+        if comm is None:
+            return None
+        idx = torch.as_tensor(pair_index(comm.rank, comm.world, n_local, accu), device=dev)
+        return Shard(comm, idx, 2 * n_local * comm.world)
+
     def loss_fn(batch, extras: StepExtras, draws, generator):
         draws = draws or {}
+        pairs = pairs_of(batch["frameid"].shape[0] // 2, 1)
         base_rt = extras.base_rt if cfg.use_cam else None
         rtk_all3 = model.compute_rts(base_rt=base_rt)
         rtk = batch_rtk(model, rtk_all3, batch)
         csenet_loss = None
         if ft_cse:
             # batch mode only, as in the reference: line rows carry no crops
-            live, csenet_loss = live_cse_feats(model, batch, extras.progress)
+            live, csenet_loss = live_cse_feats(model, batch, extras.progress, pairs)
             batch = dict(batch, dp_feats=live)
         rays = build_rays(model, batch, rtk, nsample, nsample_active=nsample_active,
-                          embed_alpha=extras.embed_alpha, generator=generator, draws=draws)
+                          embed_alpha=extras.embed_alpha, generator=generator, draws=draws,
+                          pairs=pairs)
         if not use_bones:
             for k in ("bone_rts", "bone_rts_target", "bones_rst", "rest_pose_code"):
                 rays.pop(k, None)
+        shard = None if pairs is None else pairs.sub(
+            rays["ray_index"], ray_count(pairs.n // 2, nsample, nsample_active))
         rendered = render_rays(model, rays, ndepth, use_fine=use_fine, use_dskin=use_dskin,
-                               draws=draws, generator=generator)
+                               draws=draws, generator=generator, shard=shard)
+        if shard is not None:
+            # the losses and filters read every rank's rays: the global bundle
+            rendered = shard.gather_dict(rendered, [k for k in rendered
+                                                    if k not in REPLICATED_OUTPUTS])
+            rays = shard.gather_dict(rays, LOSS_RAY_KEYS)
         keep = torch.ones_like(rendered["sil_loss_samp"])
         frame_err = torch.zeros(model.num_fr, device=dev)
         frame_cnt = torch.zeros(model.num_fr, device=dev)
@@ -230,13 +273,20 @@ def make_train_step(model, optimizer: MoDAOptimizer, *, nsample: int, ndepth: in
                     "frame_cnt": torch.stack([h["frame_cnt"] for h in hosts]).sum(0)}
         return grads, aux, host_out
 
-    def step(batch: Dict[str, torch.Tensor], extras: StepExtras,
-             generator: Optional[torch.Generator] = None, draws=None):
+    def one_step(batch: Dict[str, torch.Tensor], extras: StepExtras, generator, draws):
         if accu_steps > 1:
             grads, aux, host_out = accumulate(batch, extras, draws, generator)
         else:
             total, aux, host_out = loss_fn(batch, extras, draws, generator)
             grads = grads_of(total)
+        if comm is not None:
+            grads = comm.mean_(grads)
+            # the global batch's cameras; the frames' errors from rank 0
+            # (a scatter-add's order may differ between ranks on the card)
+            pairs = pairs_of(batch["frameid"].shape[0] // 2, accu_steps)
+            host_out["rtk"], host_out["frameid"] = pairs.gather(host_out["rtk"],
+                                                                batch["frameid"])
+            comm.broadcast_([host_out["frame_err"], host_out["frame_cnt"]])
         grads, finite = reject_nonfinite(grads)
         grads = apply_freeze_masks(grads, {
             "root_update": extras.root_update, "body_update": extras.body_update,
@@ -264,5 +314,21 @@ def make_train_step(model, optimizer: MoDAOptimizer, *, nsample: int, ndepth: in
         aux["lr"] = optimizer.sched(state.count.float())
         aux["shape_frozen"] = torch.as_tensor(extras.shape_update, dtype=torch.float32)
         return aux, host_out
+
+    def step(batches: Dict[str, torch.Tensor], extras0: StepExtras,
+             per_step: Optional[Dict[str, torch.Tensor]] = None,
+             generator: Optional[torch.Generator] = None, draws=None):
+        if batches["frameid"].shape[0] != chunk_steps:
+            raise ValueError(f"batches stack {batches['frameid'].shape[0]} steps, the step "
+                             f"makes {chunk_steps}")
+        outs = []
+        for j in range(chunk_steps):
+            ex = extras0 if per_step is None else \
+                extras0._replace(**{f: v[j] for f, v in per_step.items()})
+            outs.append(one_step({k: v[j] for k, v in batches.items()}, ex, generator,
+                                 None if draws is None else draws[j]))
+        auxs = {k: torch.stack([torch.as_tensor(a[k]) for a, _ in outs]) for k in outs[0][0]}
+        hosts = {k: torch.stack([h[k] for _, h in outs]) for k in outs[0][1]}
+        return auxs, hosts
 
     return step

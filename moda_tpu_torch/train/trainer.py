@@ -12,10 +12,24 @@ reference (train/step.py), so everything that writes them here (shape
 warmup, bone re-init, root preset, checkpoint load, rollback) copies into
 the existing tensors under ``torch.no_grad()`` and never rebinds them.
 
-Host bookkeeping runs one step behind without a sync per step: each
-step's outputs are packed into one tensor, copied to pinned host memory
-asynchronously and read after the next step is dispatched, once its
-CUDA event has completed.
+An epoch is ITERS_PER_EPOCH optimizer steps in calls of K = ``steps_chunk``
+steps each (the JAX trainer's chunked dispatch): a chunk's K batches
+come from ``PairLoader.next_chunk`` in one upload, its K per-step scalars
+are computed at its start, and its outputs come back in one packed fetch.
+Host bookkeeping runs one chunk behind without a sync per call: each
+call's outputs are packed into one tensor, copied to pinned host memory
+asynchronously and read after the next call is dispatched, once its CUDA
+event has completed; the chunk's K steps are then consumed in order.
+
+Data parallelism (``comm``, parallel/dist.py): every rank runs this loop on
+its own share of each batch, and the step makes the update one process
+would make on the global batch, with the same aux and host outputs on
+every rank. Every host decision reads those (or seeded draws), so it is the
+same on every rank; parameters, optimizer state, model variables and the
+host records are still broadcast from rank 0 at the start and after every
+reload and re-initialization, and compared by digest at every epoch's end.
+Rank 0 alone writes files (options, log, checkpoints, meshes, cameras,
+eval renders, the pose CNN) and reads the checkpoint of a reload.
 
 Random draws (shape-warmup points, k-means initial centres, the body
 head's re-init and the step's draws) come from one ``torch.Generator`` on
@@ -50,7 +64,7 @@ from moda_tpu_torch.runtime import Device, resolve_device
 from moda_tpu_torch.train import ckpt as CK
 from moda_tpu_torch.train import schedule as SCH
 from moda_tpu_torch.train.optim import INPUT_LAYERS, MoDAOptimizer, group_of
-from moda_tpu_torch.train.step import StepExtras, make_train_step
+from moda_tpu_torch.train.step import CHUNK_STEP_FIELDS, StepExtras, make_train_step
 from moda_tpu_torch.train.warmup_pose import (PoseWarmup, nearest_valid_substitution,
                                               ood_check_features)
 from moda_tpu_torch.viz.render_vis import draw_cams, save_png, unit_sphere
@@ -58,17 +72,8 @@ from moda_tpu_torch.viz.render_vis import draw_cams, save_png, unit_sphere
 ITERS_PER_EPOCH = 200  # train_utils.py:933
 
 MVAR_FIELDS = ("near_far", "alpha", "obj_bound", "vis_min", "vis_len", "beta_is_active")
-# StepExtras' per-step scalars, in the order they are packed for upload
-SCALARS = ("progress", "loss_select", "root_update", "body_update", "shape_update",
-           "cvf_update", "sil_err_median", "embed_alpha")
-
-
-def check_ported(cfg: MoDAConfig):
-    """Raise NotImplementedError, naming the later slice, for what the
-    port's trainer does not run yet: K steps per dispatch."""
-    if cfg.steps_chunk > 1:
-        raise NotImplementedError("steps_chunk > 1 (K steps per dispatch) is ported in a later "
-                                  "slice of moda_tpu_torch (the host-side step slice)")
+# the epoch's host-time split, per rank in the epoch line under data parallelism
+T_SPLIT = ("t_steps", "t_load", "t_upload", "t_dispatch", "t_fetch")
 
 
 def sample_mesh_points(mesh: Mesh, n: int, rng: np.random.Generator) -> np.ndarray:
@@ -120,20 +125,24 @@ class Trainer:
                  loader: Optional[Iterator] = None, save_dir: Optional[str] = None,
                  prior_verts: Optional[np.ndarray] = None, seed: int = 0,
                  device: Device = None, draws: Optional[Callable] = None,
-                 eval_datasets: Optional[list] = None):
+                 eval_datasets: Optional[list] = None, comm=None):
         """Runs on the card unless device="cpu" is passed. eval_datasets:
         frame datasets at render_size whose ``reader.read_raw`` gives the
         eval grid its observed columns and crop kaug (train_utils.py:140);
-        without them the grid renders the full raw frame."""
-        check_ported(cfg)
+        without them the grid renders the full raw frame. comm: this
+        process's data-parallel group (module docstring); ``loader`` then
+        gives this rank's share of each batch."""
         self.cfg = cfg
+        self.comm = comm
+        self.is_main = comm is None or comm.rank == 0
         self.data_info = data_info
         self.loader = loader
         self.eval_datasets = eval_datasets
         self._eval_unreadable: list = []  # eval frames that could not be read this epoch
         self.draws = draws
         self.save_dir = save_dir or os.path.join(cfg.checkpoint_dir, cfg.logname)
-        os.makedirs(self.save_dir, exist_ok=True)
+        if self.is_main:
+            os.makedirs(self.save_dir, exist_ok=True)
 
         self.device = resolve_device(device)
         self.model = MoDAModel(cfg, data_info, device=self.device,
@@ -168,7 +177,7 @@ class Trainer:
         self.total_steps_done = 0
         self.progress = 0.0
         self.counter_frz_rebone = 0.0
-        self._pending = None  # (fid, fetch handle, step in epoch) of the step in flight
+        self._pending = None  # (fids, fetch handle, first step) of the chunk in flight
         # the epoch's host-time split (train_one_epoch)
         self._t_load_ep = self._t_upload_ep = self._t_dispatch_ep = self._t_fetch_ep = 0.0
         self.np_rng = np.random.default_rng(seed)
@@ -177,8 +186,9 @@ class Trainer:
         self.optimizer: Optional[MoDAOptimizer] = None
         self.xyz_wt_snapshot: Optional[Dict] = None  # freeze_coarse's, taken in train()
         self.log_path = os.path.join(self.save_dir, "log.jsonl")
-        with open(os.path.join(self.save_dir, "opts.json"), "w") as f:
-            f.write(cfg.to_json())
+        if self.is_main:
+            with open(os.path.join(self.save_dir, "opts.json"), "w") as f:
+                f.write(cfg.to_json())
         if cfg.model_path:
             self.load_model(cfg.model_path)
 
@@ -186,13 +196,28 @@ class Trainer:
     @property
     def final_steps(self) -> int:
         """Iterations of the run, micro-batches counted: an epoch is
-        ITERS_PER_EPOCH step calls, each of accu_steps micro-batches and one
+        ITERS_PER_EPOCH steps, each of accu_steps micro-batches and one
         optimizer update, so the schedule's total_steps (final_steps //
         accu_steps) is the run's update count. (The JAX trainer makes
         ITERS_PER_EPOCH * accu_steps calls an epoch, each a whole update, and
         so runs its one-cycle schedule to its end after 1/accu_steps of the
         run.)"""
         return self.cfg.num_epochs * ITERS_PER_EPOCH * self.cfg.accu_steps
+
+    @property
+    def steps_chunk(self) -> int:
+        """Optimizer steps a call (config.steps_chunk): 0 gives 1 (the JAX
+        trainer's 10 is for a TPU's round trips), as does debug (per-step
+        timing), and K is rounded down until it divides 50 (the period of
+        the near/far re-estimation and of the step log) and the epoch's
+        ITERS_PER_EPOCH steps (the JAX trainer counts ITERS_PER_EPOCH x
+        accu_steps: see final_steps)."""
+        k = self.cfg.steps_chunk
+        if k <= 0 or self.cfg.debug:
+            k = 1
+        while k > 1 and (ITERS_PER_EPOCH % k or 50 % k):
+            k -= 1
+        return k
 
     def _params(self) -> Dict[str, torch.Tensor]:
         return dict(self.model.named_parameters())
@@ -203,9 +228,49 @@ class Trainer:
     def _reset_opt_state(self):
         self.optimizer.state = self.optimizer.init(
             {k: v.detach() for k, v in self._params().items()})
+        self._sync_replicas()
+
+    def _replica_state(self) -> Dict[str, torch.Tensor]:
+        """What every replica must hold alike: parameters and optimizer state."""
+        out = {f"param.{k}": v for k, v in self._params().items()}
+        st = getattr(self.optimizer, "state", None)
+        if st is not None:
+            out["opt.count"] = st.count
+            out.update({f"opt.mu.{k}": v for k, v in st.mu.items()})
+            out.update({f"opt.nu.{k}": v for k, v in st.nu.items()})
+        return out
+
+    def _sync_replicas(self):
+        """Rank 0's parameters, optimizer state, model variables and host
+        records on every rank (no-op in one process)."""
+        if self.comm is None:
+            return
+        lv = {k: torch.from_numpy(np.array(v)) for k, v in self.latest_vars.items()}
+        self.comm.broadcast_(list(self._replica_state().values())
+                             + [getattr(self.model.mvars, f) for f in MVAR_FIELDS]
+                             + list(lv.values()))
+        self.latest_vars.update({k: v.numpy() for k, v in lv.items()})
+        self.mvars_host = {f: getattr(self.model.mvars, f).cpu().numpy() for f in MVAR_FIELDS}
+
+    def _check_replicas(self, epoch: int) -> Optional[str]:
+        """Raise unless every rank holds rank 0's parameters and optimizer
+        state; returns their digest (None in one process)."""
+        if self.comm is None:
+            return None
+        return self.comm.check_same(self._replica_state(), f"epoch {epoch}")
+
+    def _per_rank(self, values: list) -> list:
+        """``values`` of every rank, in rank order (this rank's alone in one
+        process)."""
+        if self.comm is None:
+            return [values]
+        t = torch.zeros(self.comm.world, len(values), dtype=torch.float64,
+                        device=self.comm.device)
+        t[self.comm.rank] = torch.tensor(values, dtype=torch.float64)
+        return self.comm.all_reduce_(t).cpu().tolist()
 
     def get_step_fn(self, use_fine: bool, use_dskin: bool, use_bones: bool,
-                    is_active: bool = False):
+                    is_active: bool = False, chunk: int = 1):
         cfg = self.cfg
         # active sampling splits the budget (moda.py:1066-1071)
         if is_active:
@@ -213,13 +278,14 @@ class Trainer:
             ns_uniform = int(cfg.nsample * (1 - cfg.nactive))
         else:
             ns_active, ns_uniform = 0, cfg.nsample
-        sig = (use_fine, use_dskin, use_bones, ns_uniform, ns_active, cfg.ndepth)
+        sig = (use_fine, use_dskin, use_bones, ns_uniform, ns_active, cfg.ndepth, chunk)
         if sig not in self._step_cache:
             self._step_cache[sig] = make_train_step(
                 self.model, self.optimizer, nsample=ns_uniform, ndepth=cfg.ndepth,
                 use_fine=use_fine, use_dskin=use_dskin, use_bones=use_bones,
                 nsample_active=ns_active, xyz_wt_snapshot=self.xyz_wt_snapshot,
-                accu_steps=cfg.accu_steps, device=self.device)
+                accu_steps=cfg.accu_steps, chunk_steps=chunk, comm=self.comm,
+                device=self.device)
         return self._step_cache[sig], ns_uniform, ns_active
 
     def _draw(self, kind: str, **info) -> torch.Tensor:
@@ -309,7 +375,8 @@ class Trainer:
                            round(float(np.mean(losses[max(0, i - 5):i + 1])), 4)
                            for i in range(0, len(losses), max(1, len(losses) // 20))],
                        "warmup_pose_time": time.time() - t0, "warmup_pose_steps": steps})
-            w.save(os.path.join(self.save_dir, "pose_cnn.npz"))
+            if self.is_main:
+                w.save(os.path.join(self.save_dir, "pose_cnn.npz"))
         self.pose_cnn = w
         return w
 
@@ -346,7 +413,7 @@ class Trainer:
                 rtks.append(rtk)
                 valids.append(bool(valid[i]))
         rtks = np.stack(rtks)
-        if save:
+        if save and self.is_main:
             cam_dir = os.path.join(self.save_dir, "init-cam")
             os.makedirs(cam_dir, exist_ok=True)
             for i, rtk in enumerate(rtks):
@@ -452,6 +519,7 @@ class Trainer:
         else:
             stored = SK.bone_transform_rts(bones_desired, rts_rst)[0]
         self.model.bones.copy_(stored)
+        self._sync_replicas()  # k-means on the card may part in the last bits
 
     # ---------------------------------------------------------- eval grid
     def _eval_frame_obs(self, fi: int):
@@ -554,6 +622,9 @@ class Trainer:
         if not self.is_fine_tune:
             self.reset_nf()
         self.latest_vars["idk"][:] = 0
+        # the warmups, the root preset and the near/far reset ran on every
+        # rank alike, but the card may part them in the last bits
+        self._sync_replicas()
         if cfg.freeze_coarse:
             # the trunks' input-layer kernels at stage start, which the
             # freeze_coarse loss pins (grab_xyz_weights, train_utils.py:680-688)
@@ -579,33 +650,41 @@ class Trainer:
             t_loop = time.time()
             self.train_one_epoch(epoch, shape_samp, shape_samp_valid)
             t_loop = time.time() - t_loop
+            split = [t_loop, self._t_load_ep, self._t_upload_ep, self._t_dispatch_ep,
+                     self._t_fetch_ep]
+            ranks = self._per_rank(split)
+            digest = self._check_replicas(epoch)
             t_save0 = time.time()
-            self.save("latest")
-            CK.copy_checkpoint(os.path.join(self.save_dir, "latest"),
-                               os.path.join(self.save_dir, str(epoch + 1)))
+            if self.is_main:
+                self.save("latest")
+                CK.copy_checkpoint(os.path.join(self.save_dir, "latest"),
+                                   os.path.join(self.save_dir, str(epoch + 1)))
             t_save = time.time() - t_save0
             t_eval0 = time.time()
             render_now = (epoch in (0, cfg.num_epochs // 2, cfg.num_epochs - 1)
                           or (cfg.num_epochs >= 20
                               and epoch % max(1, cfg.num_epochs // 20) == 0))
-            if cfg.render_size > 0 and self.latest_vars["idk"].sum() > 0 and render_now:
+            if cfg.render_size > 0 and self.is_main and self.latest_vars["idk"].sum() > 0 \
+                    and render_now:
                 try:
                     self.eval_renders(epoch)
                 except Exception as e:  # rendering must never end training
                     traceback.print_exc()
                     self._log({"eval_render_error": str(e)})
             t_eval = time.time() - t_eval0
-            self._log({"epoch": epoch, "epoch_time": time.time() - t_ep,
-                       "t_mesh": round(t_mesh, 3), "t_save": round(t_save, 3),
-                       "t_eval": round(t_eval, 3),
-                       "t_steps": round(t_loop, 3), "steps_per_s": ITERS_PER_EPOCH / max(t_loop, 1e-9),
-                       "mesh_verts": len(self.mesh_rest.vertices),
-                       "frac_occupied": round(self.mesh_rest.frac_occupied, 5),
-                       "root_steps_rejected": round(getattr(self, "_root_rejected_ep", 0.0), 1),
-                       "t_load": round(self._t_load_ep, 3),
-                       "t_upload": round(self._t_upload_ep, 3),
-                       "t_dispatch": round(self._t_dispatch_ep, 3),
-                       "t_fetch": round(self._t_fetch_ep, 3)})
+            line = {"epoch": epoch, "epoch_time": time.time() - t_ep,
+                    "t_mesh": round(t_mesh, 3), "t_save": round(t_save, 3),
+                    "t_eval": round(t_eval, 3), "steps_chunk": self.steps_chunk,
+                    "steps_per_s": ITERS_PER_EPOCH / max(t_loop, 1e-9),
+                    "mesh_verts": len(self.mesh_rest.vertices),
+                    "frac_occupied": round(self.mesh_rest.frac_occupied, 5),
+                    "root_steps_rejected": round(getattr(self, "_root_rejected_ep", 0.0), 1)}
+            line.update({k: round(v, 3) for k, v in zip(T_SPLIT, split)})
+            if self.comm is not None:
+                line["world_size"] = self.comm.world
+                line["ranks"] = [{k: round(v, 3) for k, v in zip(T_SPLIT, r)} for r in ranks]
+                line["replica_digest"] = digest
+            self._log(line)
             self._root_rejected_ep = 0.0
 
     def reset_hparams(self, epoch: int):
@@ -638,7 +717,7 @@ class Trainer:
                 self.latest_vars["sil_err"][:] = 0
 
     def _extras_scalars(self, progress: float, step_in_epoch: int) -> Dict[str, np.ndarray]:
-        """The step's per-step scalars (SCALARS order)."""
+        """The step's per-step scalars (CHUNK_STEP_FIELDS order)."""
         cfg = self.cfg
         ind = SCH.compute_indicators(cfg, progress, step_in_epoch,
                                      self.counter_frz_rebone, self.is_fine_tune)
@@ -656,6 +735,15 @@ class Trainer:
             "embed_alpha": np.float32(SCH.embedding_alpha(cfg, progress)),
         }
 
+    def _chunk_scalars(self, i: int, K: int) -> list:
+        """The per-step scalars of the K steps of the chunk that starts at
+        step i of the epoch, from the state at its start: counter_frz_rebone
+        and the silhouette history lag by up to a chunk, as in the JAX
+        trainer."""
+        final = max(self.final_steps, 1)
+        return [self._extras_scalars((self.total_steps_done + j * self.cfg.accu_steps) / final,
+                                     i + j) for j in range(K)]
+
     def _to_device(self, a: np.ndarray) -> torch.Tensor:
         """Host array -> device tensor; through pinned memory, without
         waiting, on the card. Integer arrays become int64 (index tensors)."""
@@ -667,11 +755,15 @@ class Trainer:
     def _upload_batch(self, batch: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
         return {k: self._to_device(np.asarray(v)) for k, v in batch.items()}
 
-    def _upload_extras(self, scal: Dict[str, np.ndarray], fixed: Dict) -> StepExtras:
-        """One upload for the per-step scalars; the epoch's arrays in
-        ``fixed`` are already on the device."""
-        packed = self._to_device(np.asarray([scal[k] for k in SCALARS], np.float32))
-        return StepExtras(**{k: packed[i] for i, k in enumerate(SCALARS)}, **fixed)
+    def _upload_scalars(self, scal: list) -> Dict[str, torch.Tensor]:
+        """One upload for a chunk's per-step scalars: {field: [K]}."""
+        packed = self._to_device(np.asarray([[s[k] for k in CHUNK_STEP_FIELDS] for s in scal],
+                                            np.float32))
+        return {k: packed[:, i] for i, k in enumerate(CHUNK_STEP_FIELDS)}
+
+    def _step_draws(self, batch, ns_u: int, ns_a: int, use_fine: bool):
+        return {k: v.to(self.device) for k, v in self.draws(
+            "step", batch=batch, nsample=ns_u, nsample_active=ns_a, use_fine=use_fine).items()}
 
     def train_one_epoch(self, epoch: int, shape_samp, shape_samp_valid):
         cfg, dev = self.cfg, self.device
@@ -679,7 +771,9 @@ class Trainer:
         use_dskin = SCH.use_dskin(cfg, epoch, cfg.num_epochs)
         use_bones = SCH.use_bones(cfg, epoch, self.is_fine_tune)
         is_active = cfg.use_unc and self.progress >= cfg.warmup_steps
-        step_fn, ns_u, ns_a = self.get_step_fn(use_fine, use_dskin, use_bones, is_active)
+        K = self.steps_chunk
+        step_fn, ns_u, ns_a = self.get_step_fn(use_fine, use_dskin, use_bones, is_active,
+                                               chunk=K)
 
         # epoch-invariant device arrays, uploaded once
         fixed = {"shape_samp": torch.as_tensor(shape_samp, dtype=torch.float32, device=dev),
@@ -688,20 +782,22 @@ class Trainer:
                  "base_rt": (torch.as_tensor(self.latest_vars["rt_raw"], device=dev)
                              if cfg.use_cam else None)}
         self._t_load_ep = self._t_upload_ep = self._t_dispatch_ep = self._t_fetch_ep = 0.0
-        for i in range(ITERS_PER_EPOCH):
+        for i in range(0, ITERS_PER_EPOCH, K):
             self.progress = self.total_steps_done / max(self.final_steps, 1)
+            scal = self._chunk_scalars(i, K)
             t0 = time.time()
-            batch = next(self.loader)
+            batch, fids = self.loader.next_chunk(K)  # K batches, stacked [K, 2B, ...]
             t1 = time.time()
-            extras = self._upload_extras(self._extras_scalars(self.progress, i), fixed)
+            per_step = self._upload_scalars(scal)
             batch_dev = self._upload_batch(batch)
+            extras = StepExtras(**{k: v[0] for k, v in per_step.items()}, **fixed)
             draws = None
             if self.draws is not None:
-                draws = {k: v.to(dev) for k, v in self.draws(
-                    "step", batch=batch, nsample=ns_u, nsample_active=ns_a,
-                    use_fine=use_fine).items()}
+                draws = [self._step_draws({k: v[j] for k, v in batch.items()}, ns_u, ns_a,
+                                          use_fine) for j in range(K)]
             t2 = time.time()
-            aux, host_out = step_fn(batch_dev, extras, generator=self.gen, draws=draws)
+            aux, host_out = step_fn(batch_dev, extras, per_step, generator=self.gen,
+                                    draws=draws)
             fetch = self._start_fetch(aux, host_out)
             t3 = time.time()
             if cfg.debug:  # per-step timing: wait for this step
@@ -713,16 +809,16 @@ class Trainer:
             self._t_upload_ep += t2 - t1
             self._t_dispatch_ep += t3 - t2
 
-            # host bookkeeping runs one step behind: the previous step's
-            # outputs are read once this step is queued behind it
+            # host bookkeeping runs one chunk behind: the previous chunk's
+            # outputs are read once this one is queued behind it
             if self._pending is not None:
-                self._consume_pending(epoch)
-            self._pending = (np.asarray(batch["frameid"]), fetch, i)
+                self._process_chunk_outputs(epoch)
+            self._pending = (fids, fetch, i)
             self._t_fetch_ep += time.time() - t3
 
             # a call is accu_steps iterations of the run (final_steps)
-            self.total_steps_done += cfg.accu_steps
-            self.counter_frz_rebone -= cfg.accu_steps / max(self.final_steps, 1)
+            self.total_steps_done += K * cfg.accu_steps
+            self.counter_frz_rebone -= K * cfg.accu_steps / max(self.final_steps, 1)
 
             # near-far re-estimation after nf_reset progress (moda.py:485-491)
             if self.progress >= cfg.nf_reset and len(self.mesh_rest.vertices) > 100 \
@@ -732,10 +828,10 @@ class Trainer:
                                   self.latest_vars["idk"], corners)
                 self._set_mvars(near_far=nf)
 
-        # flush the last step's outputs at epoch end
+        # flush the last chunk's outputs at epoch end
         if self._pending is not None:
             t3 = time.time()
-            self._consume_pending(epoch)
+            self._process_chunk_outputs(epoch)
             self._pending = None
             self._t_fetch_ep += time.time() - t3
 
@@ -777,16 +873,23 @@ class Trainer:
             off += n
         return out["aux"], out["host"]
 
-    def _consume_pending(self, epoch: int):
-        fid, handle, i = self._pending
+    def _process_chunk_outputs(self, epoch: int):
+        """Fetch the pending chunk's stacked outputs once, then consume its
+        K steps' slices in order."""
+        fids, handle, i0 = self._pending
         aux, host_out = self._finish_fetch(handle)
-        self._consume_step_outputs(fid, aux, host_out, epoch, i)
+        for j in range(len(fids)):
+            self._consume_step_outputs(fids[j], {k: v[j] for k, v in aux.items()},
+                                       {k: v[j] for k, v in host_out.items()}, epoch, i0 + j)
 
     def _consume_step_outputs(self, fid, aux, host_out, epoch: int, step_in_epoch: int):
         """Deferred host-side consumption of a finished step's outputs
         (save_latest_vars, sil_err history, rollback check, logging);
-        aux/host_out are host numpy."""
+        aux/host_out are host numpy. Under data parallelism host_out holds
+        the global batch's frame ids, which replace the rank's ``fid``."""
         cfg = self.cfg
+        if "frameid" in host_out:
+            fid = np.asarray(host_out["frameid"]).astype(np.int64)
         # rtk = current composed estimate; rt_raw stays the raw prior
         # (moda.py:1356,1511-1512)
         self.latest_vars["rtk"][fid] = np.asarray(host_out["rtk"])
@@ -807,7 +910,11 @@ class Trainer:
                 and self.total_steps_done > 200 * cfg.accu_steps
                 and self.total_steps_done - getattr(self, "_last_rollback", -10**9) > 20):
             latest = os.path.join(self.save_dir, "latest")
-            if os.path.exists(latest + ".params.npz"):
+            # rank 0 wrote it, and reads it back for every rank (load_model)
+            exists = os.path.exists(latest + ".params.npz")
+            if self.comm is not None:
+                exists = self.comm.agree(exists)
+            if exists:
                 self._last_rollback = self.total_steps_done
                 self._log({"rollback_at": self.total_steps_done, "root_g": root_g})
                 self.load_model(latest)
@@ -837,6 +944,8 @@ class Trainer:
 
     # ---------------------------------------------------------- persistence
     def save(self, tag: str):
+        if not self.is_main:
+            return
         mv = {f: self.mvars_host[f] for f in MVAR_FIELDS if f != "beta_is_active"}
         CK.save_checkpoint(os.path.join(self.save_dir, tag), bridge.export_params(self.model),
                            self.latest_vars, mv,
@@ -855,7 +964,13 @@ class Trainer:
                 os.path.join(self.save_dir, f"mesh_cam-{tag}.obj"))
 
     def load_model(self, path: str):
-        """Graft a checkpoint (either package's) onto the model, in place."""
+        """Graft a checkpoint (either package's) onto the model, in place;
+        under data parallelism rank 0 reads it and broadcasts the result."""
+        if self.is_main:
+            self._load_model(path)
+        self._sync_replicas()
+
+    def _load_model(self, path: str):
         loaded, lv, mv, meta = CK.load_checkpoint(path)
         num_fr_match = meta is None or meta.get("num_fr") == self.data_info.num_fr
         num_bones_match = meta is None or meta.get("num_bones") == self.cfg.num_bones
@@ -871,5 +986,7 @@ class Trainer:
             self._set_mvars(near_far=mv["near_far"])
 
     def _log(self, d: Dict):
+        if not self.is_main:
+            return
         with open(self.log_path, "a") as f:
             f.write(json.dumps(d) + "\n")

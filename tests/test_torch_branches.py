@@ -38,7 +38,7 @@ from moda_tpu_torch.render.rays import build_rays as t_build_rays
 from moda_tpu_torch.train import optim as TO
 from moda_tpu_torch.train import step as TS
 from tests.torch_parity import (both_models, jax_batch, jax_draws,
-                                jax_grads_by_name, tiny_batch, to_t, torch_batch)
+                                jax_grads_by_name, one_step, tiny_batch, to_t, torch_batch)
 
 # the configuration with bones: nerf_dis beside the delta-skin MLP, and
 # ft_cse's csenet among the parameters
@@ -400,7 +400,7 @@ def test_accumulated_step_averages_micro_batch_gradients(rng):
         for b, d in zip(batches, ds):
             mm = copy.deepcopy(m)
             opt = TO.MoDAOptimizer(cfg_t, total_steps=100)
-            aux, host = _build_step()(mm, opt, accu_steps=accu, **kw)(b, ex, draws=d)
+            aux, host = one_step(_build_step()(mm, opt, accu_steps=accu, **kw), b, ex, draws=d)
             out.append((opt.state.mu, aux, host))
         runs[name] = out
     (mu_w, aux_w, host_w), = runs["whole"]
@@ -488,9 +488,9 @@ def test_whole_step_matches_jax(rng, case):
                  for k, mb in zip(jax.random.split(key, 2), mbs)]
     else:
         draws = jax_draws(key, cfg, nb, cfg.nsample)
-    taux, _ = TS.make_train_step(tmodel, TO.MoDAOptimizer(tmodel.cfg, total_steps=100),
-                                 accu_steps=cfg.accu_steps, device="cpu", **skw)(
-        torch_batch(nb), ex, draws=draws)
+    taux, _ = one_step(TS.make_train_step(tmodel, TO.MoDAOptimizer(tmodel.cfg, total_steps=100),
+                                          accu_steps=cfg.accu_steps, device="cpu", **skw),
+                       torch_batch(nb), ex, draws=draws)
     np.testing.assert_allclose(float(taux["ekl_loss"]), float(aux["ekl_loss"]), rtol=1e-3)
     terms = ["img_loss", "sil_loss", "flo_loss", "grad_finite"] + \
         (["csenet_loss"] if "csenet_loss" in aux else [])

@@ -38,6 +38,7 @@ def test_import_loads_no_jax_and_no_moda_tpu():
             "import moda_tpu_torch.train.cse_distill, moda_tpu_torch.viz.nvs\n"
             "import moda_tpu_torch.viz.match, moda_tpu_torch.cli.nvs_app\n"
             "import moda_tpu_torch.cli.match_app, moda_tpu_torch.preproc.posenet\n"
+            "import moda_tpu_torch.parallel, moda_tpu_torch.parallel.dist\n"
             f"bad = [m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r}]\n"
             "print(bad)\n"
             "assert not bad, bad\n")
@@ -116,13 +117,15 @@ def test_entry_points_need_a_card_unless_asked_for_cpu(monkeypatch):
 def test_later_slices_refuse_explicitly(tmp_path):
     """The step's branches build and run: nerf_dis, flowbw without bones,
     ft_cse, s3im_loss, freeze_coarse, accu_steps > 1 and use_bones=False in
-    the model, the step and the trainer. What the ported slices do not run
-    raises, naming a later slice: chunk_steps / steps_chunk > 1 (more than
-    one process: test_train_app_refuses_later_slices). The reference's .pth
-    posenet, refused before its slice, now loads."""
+    the model, the step and the trainer; so do K steps a call
+    (chunk_steps / steps_chunk > 1), refused before their slice. (The name
+    is older: the training routes refuse nothing now; more than one process:
+    test_train_app_refuses_later_slices.) The reference's .pth posenet,
+    refused before its slice, now loads."""
     from moda_tpu_torch.fields.model import MoDAModel
     from moda_tpu_torch.train.optim import MoDAOptimizer
     from moda_tpu_torch.train.step import StepExtras
+    from tests.torch_dist import one_step
 
     cfg, info = _tiny()
     t = torch.tensor
@@ -145,21 +148,29 @@ def test_later_slices_refuse_explicitly(tmp_path):
         model = MoDAModel(cfg.replace(**kw), info, device="cpu")
         step = build_step(model, MoDAOptimizer(cfg, total_steps=10), device="cpu",
                           **dict(args, **step_kw))
-        aux, _ = step(batch, extras, generator=torch.Generator().manual_seed(0))
+        aux, _ = one_step(step, batch, extras, generator=torch.Generator().manual_seed(0))
         assert float(aux["grad_finite"]) == 1.0 and torch.isfinite(aux["total_loss"]), kw
     with pytest.raises(ValueError, match="nolbs"):
         MoDAModel(cfg.replace(flowbw=True), info, device="cpu")
-    with pytest.raises(NotImplementedError, match="later slice"):
-        build_step(model, MoDAOptimizer(cfg, total_steps=10), device="cpu", chunk_steps=2,
-                   **args)
+    # two steps in one call: stacked batches and per-step scalars in,
+    # stacked outputs out
+    from moda_tpu_torch.train.step import CHUNK_STEP_FIELDS
+    model = MoDAModel(cfg, info, device="cpu")
+    step = build_step(model, MoDAOptimizer(cfg, total_steps=10), device="cpu", chunk_steps=2,
+                      **args)
+    per_step = {f: torch.stack([torch.as_tensor(getattr(extras, f), dtype=torch.float32)] * 2)
+                for f in CHUNK_STEP_FIELDS}
+    aux, host = step({k: torch.stack([v, v]) for k, v in batch.items()}, extras, per_step,
+                     generator=torch.Generator().manual_seed(0))
+    assert aux["total_loss"].shape == (2,) and host["rtk"].shape == (2, 4, 4, 4)
+    assert torch.isfinite(aux["total_loss"]).all() and (aux["grad_finite"] == 1).all()
 
-    # the trainer: K steps per dispatch waits; the branches, the eval renders
-    # and the pose-CNN cold start build
+    # the trainer: K steps a call, the branches, the eval renders and the
+    # pose-CNN cold start build
     from moda_tpu_torch.train.trainer import Trainer
     from moda_tpu_torch.train.warmup_pose import PoseWarmup
     tcfg = cfg.replace(checkpoint_dir=str(tmp_path))
-    with pytest.raises(NotImplementedError, match="later slice"):
-        Trainer(tcfg.replace(steps_chunk=2), info, device="cpu")
+    assert Trainer(tcfg.replace(steps_chunk=2), info, device="cpu").steps_chunk == 2
     for kw in (dict(accu_steps=2), dict(s3im_loss=True), dict(freeze_coarse=True),
                dict(ft_cse=True, nerf_dis=True)):
         Trainer(tcfg.replace(**kw), info, device="cpu")
@@ -183,11 +194,12 @@ def test_config_loads_a_jax_config():
 
 
 def test_train_app_refuses_later_slices(tmp_path, monkeypatch):
-    """train_app refuses steps_chunk > 1 and more than one process, naming
-    a later slice, on either data route, and runs the step's branches
-    (nerf_dis, S3IM, freeze_coarse and accu_steps together; flowbw without
-    bones; ft_cse on the frame route); extract_app needs a checkpoint.
-    Datasets without line shards are read through the frame route
+    """train_app runs the step's branches (nerf_dis, S3IM, freeze_coarse and
+    accu_steps together; flowbw without bones; ft_cse on the frame route),
+    --steps_chunk 2 on either data route and two ranks (WORLD_SIZE 2),
+    which it refused before their slice (the name is older: it refuses
+    none of them now); extract_app needs a checkpoint. Datasets without
+    line shards are read through the frame route
     (tests/test_torch_frames.py), a video without frames raises."""
     import shutil
 
@@ -200,9 +212,6 @@ def test_train_app_refuses_later_slices(tmp_path, monkeypatch):
                        SynthScene(img_size=8, num_frames=3))
     argv = ["--seqname", "syn", "--config_dir", str(tmp_path / "cfg"),
             "--checkpoint_dir", str(tmp_path)]
-    for route in ([], ["--lineload"]):
-        with pytest.raises(NotImplementedError, match="later slice"):
-            train_app.main(argv + route + ["--steps_chunk", "2"], device="cpu")
     # the step's branches run through train_app (one two-step epoch); ft_cse
     # on the frame route, whose batches carry the full crops its CSE net reads
     monkeypatch.setattr(TT, "ITERS_PER_EPOCH", 2)
@@ -217,15 +226,30 @@ def test_train_app_refuses_later_slices(tmp_path, monkeypatch):
             ("dis", lines, ["--nerf_dis", "--s3im_loss", "--freeze_coarse", "--accu_steps", "2"]),
             ("flowbw", lines, ["--flowbw", "--nolbs", "--noneudbs"]),
             ("cse", ["--seqname", "synf", "--config_dir", str(tmp_path / "fcfg"),
-                     "--img_size", "16"], ["--ft_cse"])):
+                     "--img_size", "16"], ["--ft_cse"]),
+            ("chunk_lines", lines, ["--steps_chunk", "2"]),
+            ("chunk_frames", ["--seqname", "synf", "--config_dir", str(tmp_path / "fcfg"),
+                              "--img_size", "16"], ["--steps_chunk", "2"])):
         tr = train_app.main(data + small + flags + ["--logname", name], device="cpu")
         steps = [json.loads(r) for r in open(tr.log_path) if '"total_loss"' in r]
         assert steps and all(np.isfinite(r["total_loss"]) for r in steps), flags
-    assert "csenet_loss" in steps[0]
+        if name == "cse":
+            assert "csenet_loss" in steps[0]
+        if name.startswith("chunk"):
+            assert tr.steps_chunk == 2 and tr.total_steps_done == 2
     with pytest.raises(SystemExit, match="model_path"):
         extract_app.main(argv + ["--lineload"], device="cpu")
-    monkeypatch.setenv("WORLD_SIZE", "2")
-    with pytest.raises(NotImplementedError, match="later slice"):
+    # two ranks (torchrun's variables, gloo on the CPU): both train and agree
+    from tests import torch_dist as TD
+    out = tmp_path / "ranks"
+    out.mkdir()
+    two = [lines + small + ["--logname", "dp", "--batch_size", "4"]] * 2
+    r0, r1 = TD.spawn(2, str(out), "app", (two, 2, False), timeout=300)
+    assert r0["total_steps_done"] == r1["total_steps_done"] == 2
+    for n, p in r0["params"].items():
+        assert torch.equal(p, r1["params"][n]), n
+    monkeypatch.setenv("WORLD_SIZE", "2")  # without torchrun's other variables
+    with pytest.raises(RuntimeError, match="torchrun"):
         train_app.main(argv + ["--lineload"], device="cpu")
     monkeypatch.delenv("WORLD_SIZE")
     shutil.rmtree(tmp_path / "db" / "JPEGImages")
@@ -285,7 +309,8 @@ def test_accu_steps_trainer_updates_once_per_call(tmp_path, monkeypatch):
 def test_pair_loader_close_leaves_no_thread_exception(tmp_path, monkeypatch):
     """close() stops and joins the workers; none dies with an unhandled
     exception, also when closed with the queue full, and the loader has no
-    chunk assembler that could outlive it."""
+    chunk assembler that could outlive it: next_chunk starts no thread and
+    raises once the loader is closed."""
     import threading
 
     from moda_tpu_torch.data.dataset import PairLoader, build_line_datasets
@@ -298,9 +323,13 @@ def test_pair_loader_close_leaves_no_thread_exception(tmp_path, monkeypatch):
     ds = build_line_datasets("syn", 8, str(tmp_path / "cfg"))
     for npix in (6, None):
         loader = PairLoader(ds, 2, num_threads=3, num_prefetch=2, npix=npix)
+        before = threading.active_count()
         next(loader)
+        loader.next_chunk(2)
+        assert threading.active_count() == before
         loader.close()
         assert not any(t.is_alive() for t in loader.threads)
-        assert not hasattr(loader, "next_chunk")
+        with pytest.raises(RuntimeError, match="closed"):
+            loader.next_chunk(2)
     assert errors == []
 

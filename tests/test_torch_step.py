@@ -18,7 +18,8 @@ from moda_tpu.train import step as JS
 from moda_tpu_torch import bridge
 from moda_tpu_torch.train import optim as TO
 from moda_tpu_torch.train import step as TS
-from tests.torch_parity import both_models, jax_batch, jax_draws, tiny_batch, torch_batch
+from tests.torch_parity import (both_models, jax_batch, jax_draws, one_step, tiny_batch,
+                                torch_batch)
 
 
 def _flat_params(tmodel):
@@ -148,9 +149,9 @@ def test_whole_step_matches_jax(rng):
     topt = TO.MoDAOptimizer(cfg, total_steps=100)
     tstep = TS.make_train_step(tmodel, topt, nsample=cfg.nsample, ndepth=cfg.ndepth,
                                use_fine=False, use_dskin=False, use_bones=True, device="cpu")
-    taux, _ = tstep(torch_batch(nb), TS.StepExtras(**{k: torch.tensor(v)
-                                                       for k, v in ex_np.items()}),
-                    draws=jax_draws(key, cfg, nb, cfg.nsample))
+    taux, _ = one_step(tstep, torch_batch(nb), TS.StepExtras(**{k: torch.tensor(v)
+                                                                 for k, v in ex_np.items()}),
+                       draws=jax_draws(key, cfg, nb, cfg.nsample))
     for k in ("total_loss", "img_loss", "sil_loss", "flo_loss", "grad_finite"):
         np.testing.assert_allclose(float(taux[k]), float(jaux[k]), rtol=1e-4, err_msg=k)
     # Tolerances with reasons. The skinning softmax (logits x -1000 e^ls)
@@ -207,9 +208,9 @@ def test_whole_step_matches_jax_ft(rng, stage):
     topt = TO.MoDAOptimizer(cfg, total_steps=100)
     tstep = TS.make_train_step(tmodel, topt, nsample=ns, ndepth=cfg.ndepth, use_fine=use_fine,
                                use_dskin=True, use_bones=True, nsample_active=na, device="cpu")
-    taux, _ = tstep(torch_batch(nb), TS.StepExtras(**{k: torch.tensor(v)
-                                                       for k, v in ex_np.items()}),
-                    draws=jax_draws(key, cfg, nb, ns, na, use_fine=use_fine))
+    taux, _ = one_step(tstep, torch_batch(nb), TS.StepExtras(**{k: torch.tensor(v)
+                                                                 for k, v in ex_np.items()}),
+                       draws=jax_draws(key, cfg, nb, ns, na, use_fine=use_fine))
     terms = ["img_loss", "sil_loss", "flo_loss", "proj_loss", "grad_finite"]
     if stage == "ft2":
         # eikonal 0.1 at the full frequency window makes the eikonal term

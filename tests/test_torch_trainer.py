@@ -278,13 +278,13 @@ def test_step_aux_holds_the_values_the_loss_saw(tmp_path):
     ttr.optimizer = ttr.make_optimizer()
     ttr._reset_opt_state()
     step, ns, _ = ttr.get_step_fn(False, False, True)
-    from tests.torch_parity import tiny_batch, torch_batch
+    from tests.torch_parity import one_step, tiny_batch, torch_batch
     batch = torch_batch(tiny_batch(np.random.default_rng(0), ttr.cfg, lineload=True))
     scal = ttr._extras_scalars(0.5, 1)
     extras = StepExtras(**{k: torch.tensor(v) for k, v in scal.items()},
                         shape_samp=torch.zeros(8, 3), shape_samp_valid=torch.tensor(0.0))
     before = {k: getattr(ttr.model, k).detach().clone() for k in ("skin_aux", "nerf_beta_feat")}
-    aux, _ = step(batch, extras, generator=torch.Generator().manual_seed(0))
+    aux, _ = one_step(step, batch, extras, generator=torch.Generator().manual_seed(0))
     assert float(aux["grad_finite"]) == 1.0
     assert not torch.equal(ttr.model.skin_aux, before["skin_aux"])  # the step moved it
     assert float(aux["skin_scale"]) == float(before["skin_aux"][0])
@@ -477,7 +477,16 @@ def test_two_trainers_agree_over_two_epochs(tmp_path, monkeypatch):
     kw = dict(num_epochs=2, lineload=True, warmup_shape_ep=1, warmup_rootmlp=True,
               dskin_steps=1.0, nf_reset=0.0)
     jtr, ttr = _trainers(tmp_path, draws=True, **kw)
-    jtr.loader, ttr.loader = iter(list(batches)), iter(list(batches))
+    class Batches:  # the recorded batches, through PairLoader's next_chunk
+        next_chunk = PairLoader.next_chunk
+
+        def __init__(self):
+            self.it = iter(list(batches))
+
+        def __next__(self):
+            return next(self.it)
+
+    jtr.loader, ttr.loader = iter(list(batches)), Batches()
     losses = ("total_loss", "img_loss", "sil_loss", "flo_loss", "feat_rnd_loss", "proj_loss",
               "cyc_loss", "root_sm_loss", "ekl_loss", "bone_loc_loss", "visibility_loss")
 
@@ -510,7 +519,9 @@ def test_two_trainers_agree_over_two_epochs(tmp_path, monkeypatch):
     def tget_rec(*a, **k):
         fn, ns_u, ns_a = tget(*a, **k)
 
-        def rec(batch, extras, generator=None, draws=None):
+        def rec(batches, extras0, per_step, generator=None, draws=None):
+            # the port's trainer makes one step a call here (steps_chunk 0)
+            extras = extras0._replace(**{f: v[0] for f, v in per_step.items()})
             j = jrec[len(readings)]
             base = jrec[len(readings) - 1]["params"] if readings else None
             st = ttr.optimizer.state
@@ -535,9 +546,9 @@ def test_two_trainers_agree_over_two_epochs(tmp_path, monkeypatch):
                 count=torch.tensor(j["count"], dtype=torch.int32),
                 mu={n: torch.as_tensor(j["mu"][n.replace(".", "/")]).clone() for n in st.mu},
                 nu={n: torch.as_tensor(j["nu"][n.replace(".", "/")]).clone() for n in st.nu})
-            aux, host_out = fn(batch, extras, generator=generator, draws=draws)
-            got = {k: float(aux[k]) for k in losses}
-            got["total-ekl"] = float(aux["total_loss"] - aux["ekl_loss"])
+            aux, host_out = fn(batches, extras0, per_step, generator=generator, draws=draws)
+            got = {k: float(aux[k][0]) for k in losses}
+            got["total-ekl"] = float(aux["total_loss"][0] - aux["ekl_loss"][0])
             r["loss"] = {k: abs(v - j["loss"][k]) / max(abs(j["loss"][k]), 1e-12)
                          for k, v in got.items()}
             readings.append(r)

@@ -17,6 +17,7 @@ from moda_tpu.config import DataInfo, MoDAConfig
 from moda_tpu.fields.model import MoDAModel
 from moda_tpu.render import rays as RB
 from moda_tpu_torch import bridge
+from tests.torch_dist import one_step  # noqa: F401 (the tests' one-step call)
 from moda_tpu_torch.config import MoDAConfig as TMoDAConfig
 from moda_tpu_torch.fields.model import MoDAModel as TMoDAModel
 
