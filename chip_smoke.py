@@ -7,7 +7,8 @@
 
 Phases:
 1. print the card's name and power limit, torch and CUDA versions;
-2. build the fused-MLP kernels from moda_tpu_torch/csrc;
+2. build the kernels from moda_tpu_torch/csrc (fused_mlp.cu and dis.cu, one
+   nvcc each, in parallel);
 3. hold K1 (forward) and K2 (backward) against the plain PyTorch version in
    bf16 mode at every call site of the init, ft1 and ft2 steps, at the
    shapes those steps give them, and K1s/K2s (the activation-stash mode)
@@ -38,8 +39,8 @@ Phases:
    (the eval renders launch none);
 7. extraction and scoring (``run_extract``) on the trainer's dataset and
    ``latest`` checkpoint, with the flags of scripts/eval_synth.sh:
-   ``extract_app.main`` (``--lineload --test_frames {0} --sample_grid3d
-   128``), then ``evals.ama.main`` against the dataset's ground-truth
+   ``extract_app.main`` (``--lineload --test_frames {0}``, the grid cut
+   to ``--sample_grid3d 64``), then ``evals.ama.main`` against the dataset's ground-truth
    meshes and ``eval_root_app.main`` against its cameras. Checks: as many
    exported meshes, cameras and camera trajectories as video 0 has frames
    less one; every warped mesh finite with the rest mesh's vertex count;
@@ -52,7 +53,7 @@ Phases:
    16-frame 256 px articulated scene in the DAVIS layout, trained by
    train_app from the pose CNN's cameras (pose warmup, extract_cams_cnn,
    root preset, one 200-step epoch, the eval grid with observed columns),
-   then 3 steps of the frame-decoding route at batch 256; read_raw timed at
+   then 1 step of the frame-decoding route at batch 256; read_raw timed at
    img_size 512 and the tests' JPEG fixture decoded (checks in its
    docstring);
 9. the step's branches (``run_branches``): the ft2 stage with the
@@ -61,7 +62,7 @@ Phases:
    term at EKL_DIS_TOL), one step each of flowbw without bones, S3IM,
    freeze_coarse (frozen gradients exactly zero) and accu_steps 2 against
    the plain fp32 step, ft_cse through train_app on phase 8's dataset (the
-   frame route, 2 steps at batch 256) and CSEDistiller's loss falling;
+   frame route, 2 steps at batch 128) and CSEDistiller's loss falling;
 10. the viz tools and the pretrained posenet (``run_viz``) on the artifacts
    of phases 6-8: ``nvs_app.main`` replay and bullet time on phase 6's
    checkpoint and its ctraj route on phase 7's exports (GIFs and PNGs, one
@@ -84,8 +85,13 @@ Phases:
    chunked init step against K calls, two ranks on the one card (gloo)
    against the one-process step and a one-rank NCCL world, and
    ``train_app.main`` as two ranks with --steps_chunk 10 on phase 6's
-   dataset (checks and cuts in its docstring).
-The main-path launch counts of phases 5, 6, 8, 9, 10 and 13 go into the
+   dataset (checks and cuts in its docstring);
+14. OpenCV's DIS flow (``run_dis``): build csrc/dis.cu, hold the kernel
+   dis_patch_search against ``patch_search_plain`` at every scale of a
+   480 x 640 pair and the card's whole DIS against a CPU copy, time DIS at
+   1920 x 1080, then ``preproc_app.main`` on phase 8's scene with no
+   vcn*.npz (DIS flow; checks in its docstring).
+The main-path launch counts of phases 5, 6, 8, 9, 10, 13 and 14 go into the
 kernel JSON's ``launches``; the dis cases of phases 3 and 4 are phase 9's.
 Prints the kernel JSON line, then {"ok": true, "device": {...}} last.
 Exits non-zero without printing a result when there is no CUDA card.
@@ -103,6 +109,7 @@ import os
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 
 # H100 SXM published dense peaks (NVIDIA data sheet)
@@ -1230,9 +1237,11 @@ def run_trainer(results: list, card: str, tmp: str, profile: bool = False) -> di
 
 
 # ------------------------------------------------------- extraction + eval
-# scripts/eval_synth.sh:40-42's extract_app flags
+# scripts/eval_synth.sh:40-42's extract_app flags, the grid cut from 128 to 64 (the
+# OBJ text I/O and the CPU copy's warps scale with the mesh: 128^3 took 150-245 s of
+# the script's 1200 s)
 EXTRACT_FLAGS = ["--lineload", "--nouse_human", "--nosymm_shape", "--test_frames", "{0}",
-                 "--sample_grid3d", "128"]
+                 "--sample_grid3d", "64"]
 # the card-against-CPU render: one 64 px frame with flow (4096 rays) in
 # chunks of this many rays, the second padded, on both devices
 CHECK_CHUNK = 3072
@@ -1274,13 +1283,13 @@ def _patched(patches):
 def run_extract(card: str, tmp: str) -> dict:
     """Extraction and scoring, as scripts/eval_synth.sh runs them after
     training, on run_trainer's dataset and ``latest`` checkpoint in ``tmp``
-    at full widths: ``extract_app.main`` with EXTRACT_FLAGS (128^3 grid,
+    at full widths: ``extract_app.main`` with EXTRACT_FLAGS (64^3 grid,
     every frame of video 0 but its last, 64 px renders with ndepth 128 in
     chunks of 32,768 rays), ``evals.ama.main`` against the dataset's
     Meshes/ (10,000 samples a mesh, 20 ICP iterations) and
     ``eval_root_app.main`` against its Cameras/. Cuts against a real run:
     the checkpoint has one epoch of training behind it; 16 frames at
-    128 px. Checks are listed in the module docstring; any failure exits
+    128 px; the grid 64^3 instead of 128^3. Checks are listed in the module docstring; any failure exits
     non-zero. The launch counters are set to 0 before the phase and must
     read 0 after it: extraction, eval renders and scoring run the plain
     fp32 path."""
@@ -1415,7 +1424,7 @@ COLDSTART_FLAGS = ["--batch_size", "256", "--nsample", "4", "--warmup_shape_ep",
                    "--warmup_rootmlp", "--eikonal_wt", "0.001", "--noppr_eikonal",
                    "--num_epochs", "1", "--dskin_steps", "1"]
 COLDSTART_FRAMES, COLDSTART_IMG = 16, 256
-FRAME_ROUTE_STEPS = 3  # the frame-decoding route's epoch, cut from 200 steps
+FRAME_ROUTE_STEPS = 1  # the frame-decoding route's epoch, cut from 200 steps
 # frames whose CSE features are mirrored left to right (DensePose's typical
 # failure), so that the OOD check rejects them and their rotations are
 # substituted from the nearest accepted frame
@@ -1674,7 +1683,9 @@ def run_coldstart(results: list, card: str, tmp: str) -> dict:
 
 
 # ------------------------------------------------------------- branches
-FT_CSE_BATCH = 256  # pairs: 512 full 256 px crops through the CSE net a step
+# pairs: 256 full 256 px crops through the CSE net a step (the recipe's 256 pairs, cut
+# to keep the script within its time: their host collation took ~47 s a step)
+FT_CSE_BATCH = 128
 FT_CSE_STEPS = 2    # the ft_cse epoch, cut from 200 steps (the frame route's t_load)
 DISTILL_STEPS, DISTILL_SIZE = 20, 224
 
@@ -2331,7 +2342,7 @@ def check_database(db: str, seq: str, cfg_dir: str, res: dict, fail: list):
     """The checks of a database that ``preproc_app.main`` wrote from phase
     8's scene: the frames and masks, FlowFW_d/FlowBW_d flo-/occ- PFMs for
     each d of pipeline.DFRAMES with pipeline.py:89-96's pair counts (finite
-    flows, occlusion in [0, 1]) and one VCN call a pair each way, the
+    flows, occlusion in [0, 1]) and one flow call a pair each way, the
     config, one line-shard dir of COLDSTART_IMG rows a pair, and one line
     batch read back through the port's line loader. Appends to ``fail``;
     returns (readings, the batch)."""
@@ -2362,7 +2373,7 @@ def check_database(db: str, seq: str, cfg_dir: str, res: dict, fail: list):
     if not (0 <= occ_lo <= occ_hi <= 1):
         fail.append(f"occlusion in [{occ_lo}, {occ_hi}]")
     if res["flow_calls"] != 2 * sum(pairs.values()):
-        fail.append(f"{res['flow_calls']} VCN pairs, want {2 * sum(pairs.values())}")
+        fail.append(f"{res['flow_calls']} flow calls, want {2 * sum(pairs.values())}")
     if not os.path.exists(os.path.join(cfg_dir, seq + ".config")):
         fail.append("no config")
     shards = sorted(glob.glob(os.path.join(db, "Pixels", "Full-Resolution", seq, "1_*")))
@@ -2412,8 +2423,8 @@ def run_preproc(card: str, tmp: str, profile: bool = False) -> dict:
         rows, one batch read back through the port's line loader; the
         fused-MLP launch counters still 0 after the phase. Each stage's
         time and the VCN pairs run are printed;
-    (c) the refusals raise: a video input and no vcn*.npz (a cse*.npz and
-        a pointrend*.npz run: phase 12).
+    (c) the refusal raises: a video input (a cse*.npz and a pointrend*.npz
+        run: phase 12; no vcn*.npz runs DIS: phase 14).
     --profile: ``profile_vcn`` on the ~2 MP input of (a).
     No failure is caught: any exits non-zero."""
     import numpy as np
@@ -2510,7 +2521,7 @@ def run_preproc(card: str, tmp: str, profile: bool = False) -> dict:
     open(video, "wb").close()
     empty = os.path.join(tmp, "no_weights")
     os.makedirs(empty, exist_ok=True)
-    for name, (inp, weights) in (("video", [video, empty]), ("no vcn", [src["JPEGImages"], empty])):
+    for name, (inp, weights) in (("video", [video, empty]),):
         case_argv = ["--seqname", "refused", "--input", inp, "--mask_dir", src["Annotations"],
                      "--weights_dir", weights, "--database", os.path.join(tmp, "rdb"),
                      "--config_dir", os.path.join(tmp, "rcfg")]
@@ -3212,6 +3223,263 @@ def layer_flops(module, fn) -> int:
             h.remove()
     return total[0]
 
+DIS_CHECK_HW = (480, 640)    # (a), (b): kernel against plain, card against CPU
+DIS_TIMED_HW = (1080, 1920)  # (c): DIS timed a pair
+DIS_TIMED_PAIRS = 2
+# float32 operations of one patch evaluation (dis.cu::eval_patch): per pixel 8
+# for the bilinear sample less I0 and 3 for the squared and plain sums, 4 more
+# with the two gradient sums; plus the patch's own scalar work
+DIS_SSD_OPS = 64 * 11 + 24
+DIS_GRAD_OPS = 64 * 15 + 40
+DIS_KERNEL_TOL = (1e-4, 0.999, 0.05)  # px: within a on a share b of the patches, c at most
+DIS_CARD_TOL = (1e-3, 0.999, 0.5)     # px: phase 11's card-against-CPU gate for VCN
+
+
+def synth_pair(h: int, w: int, seed: int):
+    """Two BGR uint8 frames made on the card from a seed, with no image
+    library: a random texture blurred by a Gaussian of sigma 2, and the same
+    texture moved by a smooth non-rigid flow (a sine field of up to 4 px at
+    640 px wide, scaled with the width)."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    pad = 32
+    noise = torch.rand(3, 1, h + 2 * pad, w + 2 * pad, generator=g, device="cuda") * 255
+    x = torch.arange(-6, 7, device="cuda", dtype=torch.float32)
+    k = torch.exp(-x * x / 8)
+    k = k / k.sum()
+    tex = F.conv2d(F.conv2d(noise, k.view(1, 1, 1, -1), padding=(0, 6)), k.view(1, 1, -1, 1),
+                   padding=(6, 0))[:, 0]
+    ys, xs = torch.meshgrid(torch.arange(h, device="cuda", dtype=torch.float32),
+                            torch.arange(w, device="cuda", dtype=torch.float32), indexing="ij")
+    amp = w / 640
+    fx = 3 * amp * torch.sin(2 * math.pi * ys / h) + amp
+    fy = 2 * amp * torch.cos(2 * math.pi * xs / w)
+    H, W = tex.shape[1:]
+    grid = torch.stack([(xs + pad - fx) / (W - 1) * 2 - 1, (ys + pad - fy) / (H - 1) * 2 - 1], -1)
+    moved = F.grid_sample(tex[None], grid[None], align_corners=True)[0]
+    img0 = tex[:, pad:pad + h, pad:pad + w]
+    to_u8 = lambda t: t.round().clamp(0, 255).to(torch.uint8).permute(1, 2, 0).cpu().numpy()
+    return np.ascontiguousarray(to_u8(img0)), np.ascontiguousarray(to_u8(moved))
+
+
+@contextlib.contextmanager
+def recorded_searches(D):
+    """Records each ``patch_search`` call of the DIS code inside the block:
+    its arguments and its result."""
+    calls, orig = [], D.patch_search
+
+    def recording(I0, I1e, gx, gy, U, st, p=D.PRESET_MEDIUM):
+        S = orig(I0, I1e, gx, gy, U, st, p)
+        calls.append(((I0, I1e, gx, gy, U.clone(), st, p), S.clone()))
+        return S
+
+    D.patch_search = recording
+    try:
+        yield calls
+    finally:
+        D.patch_search = orig
+
+
+def dis_search_cost(D, args) -> tuple:
+    """(operations, bytes, the plain version's result) of one patch search:
+    the evaluations this input needs (counted by the plain version) at
+    DIS_SSD_OPS / DIS_GRAD_OPS each, and each input read and the output
+    written once."""
+    stats = {"ssd": 0, "grad": 0}
+    plain = D.patch_search_plain(*args, stats=stats)
+    I0, I1e, gx, gy, U, st, _ = args
+    nbytes = sum(t.numel() * t.element_size() for t in (I0, I1e, gx, gy, U, st)) \
+        + plain.numel() * 4
+    stats = {k: int(v) for k, v in stats.items()}
+    return stats["ssd"] * DIS_SSD_OPS + stats["grad"] * DIS_GRAD_OPS, nbytes, plain, stats
+
+
+def dis_checks(card: str, profile: bool = False):
+    """Phase 14 (a)-(c) (``run_dis``): returns the readings, the kernel's
+    entry of the kernel line (launches still 0) and the failures."""
+    import numpy as np
+    import torch
+    from moda_tpu_torch.preproc import dis_flow as D
+
+    out, fail = {}, []
+    t_chk = time.perf_counter()
+    D.build_library()
+    out["build_s"] = time.perf_counter() - t_chk
+    print(f"[dis] dis.cu ready in {out['build_s']:.1f} s", flush=True)
+    for line in D.ptxas_report().splitlines():
+        if "registers" in line or "spill" in line or "Compiling entry" in line:
+            print(f"[dis] {line.strip()}", flush=True)
+
+    # (a) the kernel against the plain version at every scale
+    a, b = synth_pair(*DIS_CHECK_HW, seed=0)
+    with recorded_searches(D) as calls:
+        card_flow = D.dis_flow(a, b, device="cuda")
+    torch.cuda.synchronize()
+    worst, share_min = 0.0, 1.0
+    for args, S in calls:  # coarse to fine: the finest scale's numbers are kept
+        t_p = time.perf_counter()
+        ops, nbytes, plain, stats = dis_search_cost(D, args)
+        torch.cuda.synchronize()
+        t_p = (time.perf_counter() - t_p) * 1e3
+        e = (S - plain).abs().amax(0).flatten()
+        worst = max(worst, float(e.max()))
+        share_min = min(share_min, float((e <= DIS_KERNEL_TOL[0]).float().mean()))
+    args = calls[-1][0]
+    h, w = args[0].shape
+    t_k = cuda_time(lambda: D.patch_search(*args), iters=5, warmup=1)
+    t_ops, t_bytes = ops / PEAK_FP32_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
+    out.update(kernel_max_vs_plain=worst, kernel_share_within=share_min, scales=len(calls),
+               finest=[h, w], finest_evals=stats)
+    if worst > DIS_KERNEL_TOL[2] or share_min < DIS_KERNEL_TOL[1]:
+        fail.append(f"dis_patch_search against the plain version: max {worst:.2e} px, "
+                    f"{share_min:.4f} of the patches within {DIS_KERNEL_TOL[0]}")
+    print(f"[dis] dis_patch_search against patch_search_plain on the card, {len(calls)} scales "
+          f"of a {DIS_CHECK_HW[0]} x {DIS_CHECK_HW[1]} pair: max {worst:.2e} px, "
+          f"{share_min:.4f} of the patches within {DIS_KERNEL_TOL[0]} (gate "
+          f"{DIS_KERNEL_TOL[1]}, max {DIS_KERNEL_TOL[2]}); finest scale {h} x {w}: kernel "
+          f"{t_k:.3f} ms, plain {t_p:.1f} ms, bound {max(t_ops, t_bytes):.4f} ms "
+          f"({stats['ssd']} candidate and {stats['grad']} descent evaluations, "
+          f"{ops / 1e9:.3f} GFLOP; {nbytes / 1e6:.2f} MB) ({card})", flush=True)
+    entry = {"name": "dis_patch_search", "route": "cuda", "source": "moda_tpu_torch/csrc/dis.cu",
+             "replaces": "none (cv2's host C++ in moda_tpu/preproc/pipeline.py:60-65)",
+             "launches": 0, "max_abs_err": worst, "ms": t_k, "plain_ms": t_p,
+             "bound_ms": max(t_ops, t_bytes),
+             "bound_by": "operations" if t_ops >= t_bytes else "bytes", "library_ms": None,
+             "shape": [h, w], "runs": []}
+
+    # (b) the card against the CPU
+    out["a_s"] = time.perf_counter() - t_chk
+    cpu_flow = D.dis_flow(a, b, device="cpu")
+    d = np.abs(card_flow - cpu_flow)
+    share = float((d.max(-1) <= DIS_CARD_TOL[0]).mean())
+    out.update(card_share_within=share, card_max_vs_cpu=float(d.max()))
+    if not (np.isfinite(card_flow).all() and share >= DIS_CARD_TOL[1]
+            and d.max() <= DIS_CARD_TOL[2]):
+        fail.append(f"DIS on the card against the CPU: {share:.4f} within {DIS_CARD_TOL[0]}, "
+                    f"max {d.max():.2e}")
+    print(f"[dis] DIS on the card against a CPU copy at {DIS_CHECK_HW[0]} x {DIS_CHECK_HW[1]}: "
+          f"{share:.4f} of the pixels within {DIS_CARD_TOL[0]} px, max {d.max():.2e} px (gate "
+          f"{DIS_CARD_TOL[1]}, {DIS_CARD_TOL[2]}); flow in [{card_flow.min():.2f}, "
+          f"{card_flow.max():.2f}] px", flush=True)
+
+    # (c) timed at 1920 x 1080
+    out["b_s"] = time.perf_counter() - t_chk - out["a_s"]
+    a, b = synth_pair(*DIS_TIMED_HW, seed=1)
+    g0 = D.bgr_to_gray(torch.from_numpy(a).cuda())
+    g1 = D.bgr_to_gray(torch.from_numpy(b).cuda())
+    n0 = D.launches["patch_search"]
+    with recorded_searches(D) as calls:
+        D.calc(g0, g1)
+    per_pair = D.launches["patch_search"] - n0
+    out["pair_event_ms"] = cuda_time(lambda: D.calc(g0, g1), iters=DIS_TIMED_PAIRS, warmup=0)
+    t0 = time.perf_counter()
+    for _ in range(DIS_TIMED_PAIRS):
+        D.dis_flow(a, b)
+    out["pair_wall_ms"] = (time.perf_counter() - t0) / DIS_TIMED_PAIRS * 1e3
+    scale_ms = [cuda_time(lambda: D.patch_search(*args), iters=1, warmup=0)
+                for args, _ in calls]
+    out.update(launches_a_pair=per_pair, kernel_scale_ms=scale_ms,
+               kernel_ms_a_pair=sum(scale_ms), finest_kernel_ms=scale_ms[-1])
+    print(f"[dis] DIS at {DIS_TIMED_HW[0]} x {DIS_TIMED_HW[1]}: {out['pair_event_ms']:.1f} event "
+          f"ms a pair (grey frames on the card), {out['pair_wall_ms']:.1f} ms wall a pair "
+          f"through dis_flow; dis_patch_search {per_pair} launches a pair, "
+          f"{out['kernel_ms_a_pair']:.1f} ms by events over the scales "
+          f"({', '.join(f'{t:.2f}' for t in scale_ms)}; "
+          f"{out['kernel_ms_a_pair'] / out['pair_event_ms']:.3f} of the pair's time) ({card})",
+          flush=True)
+    if profile:
+        _, dev, busy = profiled(lambda: D.calc(g0, g1), 1)
+        k_dev = sum(_dev_us(e, True) for e in dev if "dis_search" in e.key) / 1e3
+        n_dev = sum(e.count for e in dev)
+        out.update(device_busy_ms=busy, kernel_device_ms=k_dev, device_activities_a_pair=n_dev)
+        print(f"[dis] profiled: device busy {busy:.1f} ms a pair over {n_dev} kernels and "
+              f"copies, dis_patch_search {k_dev:.1f} ms of it ({k_dev / busy:.3f}), idle share "
+              f"{1 - busy / out['pair_event_ms']:.3f} of the event time", flush=True)
+    out["c_s"] = time.perf_counter() - t_chk - out["a_s"] - out["b_s"]
+    print(f"[dis] (a) {out['a_s']:.1f} s, (b) {out['b_s']:.1f} s, (c) {out['c_s']:.1f} s",
+          flush=True)
+    return out, entry, fail
+
+
+def run_dis(results: list, card: str, tmp: str, profile: bool = False) -> dict:
+    """Phase 14, OpenCV's DIS flow (preproc/dis_flow.py, PRESET_MEDIUM), its
+    patch search in the kernel dis_patch_search (csrc/dis.cu):
+
+    (a) one DIS of a DIS_CHECK_HW pair (``synth_pair``) on the card with every
+        patch_search call recorded; at each scale the kernel's sparse flow
+        against ``patch_search_plain`` on the same inputs on the card, within
+        DIS_KERNEL_TOL; the finest scale's launch timed (events) beside the
+        plain version (host clock to a sync: it syncs at every step) and the
+        bound (operations the input needs, DIS_*_OPS, at the fp32 peak;
+        bytes at the card's rate; no PyTorch call computes this function,
+        so no library time);
+    (b) the card's flow against a CPU copy of the port on that pair, within
+        DIS_CARD_TOL;
+    (c) DIS on a DIS_TIMED_HW pair: CUDA-event ms a pair (grey frames on the
+        card), wall ms a pair through ``dis_flow`` (BGR upload, grey, flow
+        download), the kernel's launches a pair and its time at each scale
+        (events); with --profile, the device's busy time a pair and the
+        kernel's share of it (torch.profiler);
+    (d) ``preproc_app.main`` on phase 8's scene with an empty --weights_dir:
+        the "[flow] no VCN weights" route, DIS on the card, the database
+        checks of phase 11 (check_database), the kernel's launches counted
+        from 0 (one a scale a flow call) and no fused-MLP launch.
+    No failure is caught: any exits non-zero."""
+    from moda_tpu_torch.cli import preproc_app
+    from moda_tpu_torch.ops import fused_mlp as FM
+    from moda_tpu_torch.preproc import dis_flow as D
+
+    t_phase = time.perf_counter()
+    out, entry, fail = dis_checks(card, profile)
+
+    # (d) the entry point without VCN weights on phase 8's scene
+    src = {k: os.path.join(tmp, "cdb", k, "Full-Resolution", "flap-smoke")
+           for k in ("JPEGImages", "Annotations")}
+    empty = os.path.join(tmp, "dis_no_weights")
+    os.makedirs(empty, exist_ok=True)
+    seq, db, cfg_dir = "flap-dis", os.path.join(tmp, "ddb"), os.path.join(tmp, "dcfg")
+    argv = ["--seqname", seq, "--input", src["JPEGImages"], "--mask_dir", src["Annotations"],
+            "--weights_dir", empty, "--database", db, "--config_dir", cfg_dir,
+            "--img_size", str(COLDSTART_IMG)]
+    FM.reset_launches()
+    D.reset_launches()
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        res = preproc_app.main(argv)
+    out["app_s"] = time.perf_counter() - t0
+    printed = buf.getvalue()
+    entry["launches"] = D.launches["patch_search"]
+    scales = D.coarsest_scale(COLDSTART_IMG, COLDSTART_IMG) - D.FINEST_SCALE + 1
+    fmlp = sum(FM.launches_by_call.values())
+    info, _ = check_database(db, seq, cfg_dir, res, fail)
+    if "[flow] no VCN weights: OpenCV DIS + fb-confidence on cuda" not in printed:
+        fail.append("preproc_app did not take the DIS route on the card")
+    if entry["launches"] != res["flow_calls"] * scales:
+        fail.append(f"{entry['launches']} dis_patch_search launches for {res['flow_calls']} "
+                    f"flow calls of {scales} scales")
+    if fmlp:
+        fail.append(f"{fmlp} fused-MLP launches in the DIS phase")
+    out.update(info, stage_s=res["times"], dis_calls=res["flow_calls"],
+               kernel_launches=entry["launches"])
+    print(f"[dis] preproc_app.main without VCN weights {out['app_s']:.1f} s: stages "
+          + ", ".join(f"{k} {v:.2f} s" for k, v in res["times"].items())
+          + f"; {res['flow_calls']} DIS calls ({info['frame_pairs']} frame pairs both ways, "
+          f"{res['times']['flow'] / max(res['flow_calls'], 1) * 1e3:.0f} ms a call in the stage); "
+          f"flow in [{info['flow_range'][0]:.1f}, {info['flow_range'][1]:.1f}] px, occlusion in "
+          f"[{info['occ_range'][0]:.3f}, {info['occ_range'][1]:.3f}]; {entry['launches']} "
+          f"dis_patch_search launches, {fmlp} fused-MLP launches", flush=True)
+    results.append(entry)
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"[dis] phase {out['phase_s']:.1f} s", flush=True)
+    if fail:
+        raise SystemExit("dis: " + "; ".join(fail))
+    return out
+
+
 
 def main():
     ap = argparse.ArgumentParser()
@@ -3240,9 +3508,29 @@ def main():
     print(card, flush=True)
     print(f"torch {torch.__version__} cuda {torch.version.cuda} python {sys.version.split()[0]}",
           flush=True)
+    from moda_tpu_torch.preproc import dis_flow as DIS
+
+    # every kernel source builds at once, one nvcc each
     t0 = time.time()
-    FM.build_library()
-    print(f"[build] fused_mlp.cu built and loaded in {time.time() - t0:.1f} s", flush=True)
+    built = {}
+
+    def build(name, fn):
+        t = time.time()
+        try:
+            fn()
+            built[name] = time.time() - t
+        except Exception as e:  # re-raised below, in the main thread
+            built[name] = e
+
+    thread = threading.Thread(target=build, args=("dis.cu", DIS.build_library))
+    thread.start()
+    build("fused_mlp.cu", FM.build_library)
+    thread.join()
+    for name, r in built.items():
+        if isinstance(r, Exception):
+            raise RuntimeError(f"{name} did not build") from r
+    print(f"[build] fused_mlp.cu built and loaded in {built['fused_mlp.cu']:.1f} s, dis.cu in "
+          f"{built['dis.cu']:.1f} s, in parallel ({time.time() - t0:.1f} s)", flush=True)
     for line in FM.ptxas_report().splitlines():
         if "registers" in line or "spill" in line or "Compiling entry" in line:
             print(f"[build] {line.strip()}", flush=True)
@@ -3286,6 +3574,8 @@ def main():
         steps["parallel"] = run_parallel(results, card, tmp, profile=args.profile)
         print(f"[time] K steps a call and data parallelism done at {time.time() - t0:.1f} s",
               flush=True)
+        steps["dis"] = run_dis(results, card, tmp, profile=args.profile)
+        print(f"[time] DIS flow done at {time.time() - t0:.1f} s", flush=True)
     for r in results:
         if r["launches"] == 0:
             raise SystemExit(f"{r['name']} was not launched on the main path")

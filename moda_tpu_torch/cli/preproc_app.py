@@ -19,11 +19,11 @@ card; ``main(argv, device="cpu")`` runs them on the CPU:
   existing Annotations;
 - DensePose: CSE features from a ``cse*.npz``, else zero features (train
   with --nouse_embed);
-- flow: VCN+ from a ``vcn*.npz``.
-What the JAX package does and the port does not, each raising with the
-reason instead of falling back:
-- video input (cv2.VideoCapture): pass a directory of frames;
-- flow without a vcn*.npz (OpenCV's DIS in the JAX package).
+- flow: VCN+ from a ``vcn*.npz``, else OpenCV's DIS (preproc/dis_flow.py,
+  its patch search in the CUDA kernel dis_patch_search) on the same device.
+What the JAX package does and the port does not, raising with the reason
+instead of falling back: video input (cv2.VideoCapture): pass a directory
+of frames.
 Frames: .jpg inputs are copied byte for byte; other images are stored as
 8-bit RGB PNGs under the DAVIS .jpg names (the JAX package re-encodes them
 as JPEG; the frame reader, like cv2.imread, goes by the first bytes).
@@ -143,24 +143,33 @@ def stage_densepose(args, seq_dir: str, device=None) -> bool:
     return cse_fn is not None
 
 
-def stage_flow(args, seq_dir: str, device=None):
-    """VCN+ flow for every pair of pipeline.compute_flows; returns the
-    predictor (its ``calls`` counts the pairs it ran)."""
+def stage_flow(args, seq_dir: str, device=None) -> int:
+    """Flow for every pair of pipeline.compute_flows, by VCN+ from a
+    vcn*.npz or else by DIS; returns the number of flow calls (two a
+    pair)."""
     from moda_tpu_torch.preproc import checkpoints
     from moda_tpu_torch.preproc.pipeline import compute_flows, dis_flow
 
     w = _weights(args, "vcn*.npz")
-    if not w:
-        dis_flow(None, None)  # raises: the JAX package's flow without VCN weights
-    pred = checkpoints.load_vcn_predictor(w[0], device=device)
-    print(f"[flow] VCN+ ({os.path.basename(w[0])}) on {pred.device}")
-    compute_flows(seq_dir, args.database, args.seqname, flow_fn=pred.as_flow_fn())
-    return pred
+    if w:
+        pred = checkpoints.load_vcn_predictor(w[0], device=device)
+        print(f"[flow] VCN+ ({os.path.basename(w[0])}) on {pred.device}")
+        compute_flows(seq_dir, args.database, args.seqname, flow_fn=pred.as_flow_fn())
+        return pred.calls
+    print(f"[flow] no VCN weights: OpenCV DIS + fb-confidence on {device}")
+    calls = [0]
+
+    def dis(a, b):
+        calls[0] += 1
+        return dis_flow(a, b, device=device)
+
+    compute_flows(seq_dir, args.database, args.seqname, flow_fn=dis)
+    return calls[0]
 
 
 def main(argv=None, device=None) -> dict:
-    """Run every stage; returns each stage's seconds (``times``), the VCN
-    pairs run (``flow_calls``), whether CSE features were written
+    """Run every stage; returns each stage's seconds (``times``), the flow
+    calls run (``flow_calls``, VCN+ or DIS, two a pair), whether CSE features were written
     (``have_cse``), the config's path and the frame directory."""
     from moda_tpu_torch.runtime import resolve_device
 
@@ -177,7 +186,7 @@ def main(argv=None, device=None) -> dict:
     seq_dir = timed("frames", stage_frames, args)
     timed("masks", stage_masks, args, seq_dir, device=dev)
     have_cse = timed("densepose", stage_densepose, args, seq_dir, device=dev)
-    pred = timed("flow", stage_flow, args, seq_dir, device=dev)
+    flow_calls = timed("flow", stage_flow, args, seq_dir, device=dev)
 
     from moda_tpu_torch.preproc.pipeline import write_config
 
@@ -201,7 +210,7 @@ def main(argv=None, device=None) -> dict:
     extra = "" if have_cse else " --nouse_embed"
     print(f"done. train with: python -m moda_tpu_torch.cli.train_app "
           f"--seqname {args.seqname} --lineload{extra} ...")
-    return {"times": times, "flow_calls": pred.calls, "have_cse": have_cse, "config": cfg_path,
+    return {"times": times, "flow_calls": flow_calls, "have_cse": have_cse, "config": cfg_path,
             "seq_dir": seq_dir}
 
 

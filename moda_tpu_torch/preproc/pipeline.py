@@ -16,10 +16,12 @@ and a flow ``flow_fn`` (``VCNFlowPredictor.as_flow_fn()``). The callbacks
 see frames in BGR order, as cv2.imread gives them to the JAX package's;
 the port's ``imread`` decodes RGB, so the frames are flipped first.
 
-What needs cv2 and has no counterpart here raises, naming what to pass
-instead: video input (``extract_frames``: pass a directory of frames) and
-OpenCV's DIS flow (``dis_flow``, the JAX package's flow without VCN
-weights: pass a ``vcn*.npz``).
+Without a ``flow_fn`` the flow is OpenCV's DIS (PRESET_MEDIUM), as in the
+JAX package: ``dis_flow`` runs preproc/dis_flow.py, its patch search in the
+CUDA kernel dis_patch_search, on the card unless ``device`` says otherwise.
+
+Video input (``extract_frames``, cv2.VideoCapture in the JAX package) has
+no counterpart here and raises: pass a directory of frames.
 """
 from __future__ import annotations
 
@@ -43,11 +45,13 @@ def extract_frames(video_path: str, out_dir: str, fps: int = 10) -> List[str]:
         "(*.jpg or *.png) as --input")
 
 
-def dis_flow(img0: np.ndarray, img1: np.ndarray) -> np.ndarray:
-    raise NotImplementedError(
-        "optical flow without VCN+ weights is OpenCV's DIS in the JAX package, which the "
-        "port does not have; put a converted vcn*.npz (tools/convert_all_checkpoints.py) "
-        "under --weights_dir")
+def dis_flow(img0: np.ndarray, img1: np.ndarray, device=None) -> np.ndarray:
+    """Dense flow img0 -> img1 of two BGR uint8 frames by OpenCV's DIS
+    (PRESET_MEDIUM): float32 [H, W, 2], as cv2's calc gives it (VCN+
+    stand-in). Runs on the CUDA card unless ``device`` says otherwise."""
+    from moda_tpu_torch.preproc import dis_flow as D
+
+    return D.dis_flow(img0, img1, device=device)
 
 
 def read_bgr(path: str) -> np.ndarray:
@@ -75,11 +79,15 @@ def fb_confidence(flow_fw: np.ndarray, flow_bw: np.ndarray) -> np.ndarray:
 
 def compute_flows(seq_dir: str, database_root: str, seqname: str,
                   flow_fn: Optional[Callable] = None,
-                  dframes=DFRAMES) -> None:
+                  dframes=DFRAMES, device=None) -> None:
     """Write FlowFW_<d>/FlowBW_<d> flo-/occ- PFM pairs for a sequence: the
-    pairs (i, i + d) with d | i, each through ``flow_fn`` both ways."""
+    pairs (i, i + d) with d | i, each through ``flow_fn`` both ways (DIS on
+    ``device``, the card by default, without one)."""
     if flow_fn is None:
-        dis_flow(None, None)  # raises: the JAX package's default
+        from moda_tpu_torch.runtime import resolve_device
+
+        dev = resolve_device(device)
+        flow_fn = lambda a, b: dis_flow(a, b, device=dev)
     imgs = sorted(glob.glob(os.path.join(seq_dir, "*.jpg")))
     frames = [read_bgr(p) for p in imgs]
     n = len(frames)

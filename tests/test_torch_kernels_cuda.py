@@ -6,7 +6,9 @@ CPU or interpret mode, so these tests need a CUDA card: they carry the
 
 Tolerance: relative L2 error against the plain version in bf16 mode, 1e-2
 on outputs and 2e-2 on gradients (both round the same operands and
-cotangents to bf16; only fp32 summation order differs).
+cotangents to bf16; only fp32 summation order differs). DIS's patch search
+(csrc/dis.cu) is bit-equal to its plain version: both round each float32
+operation once, in the same order.
 """
 import pytest
 import torch
@@ -318,3 +320,28 @@ def test_kernel_matches_plain_at_the_dis_site(cuda_device):
     out = FM.dw_gemm(a, d, npad)
     for o, r in zip(out, FM.dw_gemm_plain(a, d, npad)):
         assert float((o - r).norm() / r.norm()) <= 1e-4
+
+
+@pytest.mark.parametrize("prop", [True, False])
+def test_dis_patch_search_matches_plain(cuda_device, prop):
+    """dis_patch_search against patch_search_plain on one 120 x 160 scale
+    (a seeded smooth texture and a shifted copy): the same float32
+    operations in the same order, so bit-equal."""
+    import torch.nn.functional as F
+    from moda_tpu_torch.preproc import dis_flow as D
+
+    gen = torch.Generator().manual_seed(0)
+    tex = F.avg_pool2d(torch.rand(1, 1, 140, 180, generator=gen) * 255, 5, 1)[0, 0]
+    g0 = tex[4:124, 4:164].round().to(torch.uint8)
+    g1 = tex[5:125, 6:166].round().to(torch.uint8)
+    p = D.DISParams(use_spatial_propagation=prop)
+    gx, gy = D.spatial_gradient(g0)
+    st = D.structure_tensor(gx, gy)
+    ext = F.pad(g1[None, None].float(), (D.BORDER,) * 4, mode="replicate")[0, 0].to(torch.uint8)
+    U = torch.randn(2, 120, 160, generator=gen) * 0.5
+    args = [t.to(cuda_device) for t in (g0, ext, gx, gy, U, st)]
+    before = D.launches["patch_search"]
+    S = D.patch_search(*args, p)
+    torch.cuda.synchronize()
+    assert D.launches["patch_search"] == before + 1
+    assert torch.equal(S, D.patch_search_plain(*args, p))

@@ -263,13 +263,46 @@ def test_checkpoint_npz_crosses_both_ways(tmp_path, monkeypatch):
             load(str(tmp_path / name))
 
 
-def test_refusals():
+def _dis_gate(a, b, tag):
+    """DIS flo-/occ- PFMs against the JAX package's (cv2's DIS): the
+    endpoint (or confidence) difference with median <= 1e-3 and p99 <= 0.05
+    (tests/test_torch_dis.py's gate)."""
+    a, b = np.asarray(a), np.asarray(b)
+    d = np.linalg.norm(a - b, axis=-1) if a.ndim == 3 else np.abs(a - b)
+    assert np.median(d) <= 1e-3 and np.percentile(d, 99) <= 0.05, \
+        f"{tag}: median {np.median(d):.2e}, p99 {np.percentile(d, 99):.2e}"
+
+
+def test_refusals(tmp_path, monkeypatch):
+    """Video input raises; DIS, the JAX package's flow without VCN weights,
+    runs (on the CPU when asked; without a card and without the request,
+    compute_flows raises instead of falling back)."""
     with pytest.raises(NotImplementedError, match="directory of frames"):
         TP.extract_frames("video.mp4", "/nonexistent")
-    with pytest.raises(NotImplementedError, match="vcn"):
-        TP.dis_flow(np.zeros((4, 4, 3), np.uint8), np.zeros((4, 4, 3), np.uint8))
-    with pytest.raises(NotImplementedError, match="vcn"):
-        TP.compute_flows("/nonexistent", "/nonexistent", "s", flow_fn=None)
+    frames = write_frames(tmp_path, n=2)
+    img0, img1 = (TP.read_bgr(p) for p in sorted(glob.glob(os.path.join(frames, "*.jpg"))))
+    flow = TP.dis_flow(img0, img1, device="cpu")
+    assert flow.shape == (48, 64, 2) and flow.dtype == np.float32 and np.isfinite(flow).all()
+    _dis_gate(flow, JP.dis_flow(img0, img1), "dis_flow")
+    TP.compute_flows(frames, str(tmp_path / "t"), "s", flow_fn=None, device="cpu")
+    assert len(glob.glob(str(tmp_path / "t/Flow*/Full-Resolution/s/*.pfm"))) == 4
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        TP.compute_flows(frames, str(tmp_path / "c"), "s", flow_fn=None)
+
+
+def test_compute_flows_with_dis_matches_the_jax_packages(tmp_path):
+    """Three frames, no flow_fn: DIS both ways for the pairs (0, 1), (1, 2)
+    and (0, 2) in both packages; flo- and occ- PFMs within the DIS gate."""
+    frames = write_frames(tmp_path)
+    JP.compute_flows(frames, str(tmp_path / "j"), "s")
+    TP.compute_flows(frames, str(tmp_path / "t"), "s", device="cpu")
+    files = sorted(glob.glob(str(tmp_path / "j/Flow*/Full-Resolution/s/*.pfm")))
+    assert len(files) == 12
+    for p in files:
+        a, b = read_pfm(p)[0], read_pfm(p.replace("/j/", "/t/"))[0]
+        assert a.shape == b.shape and np.isfinite(b).all()
+        _dis_gate(a, b, os.path.relpath(p, tmp_path))
 
 
 def test_compute_flows_with_one_vcn_npz(tmp_path):

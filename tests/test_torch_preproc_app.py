@@ -37,7 +37,8 @@ from moda_tpu_torch.data import imageio as IO
 from moda_tpu_torch.data.dataset import build_datasets, build_line_datasets
 from moda_tpu_torch.data.pfm import read_pfm
 from moda_tpu_torch.preproc import checkpoints as TC
-from tests.test_torch_preproc import TESTRES, _flow_gate, write_frames, write_vcn_npz
+from tests.test_torch_preproc import (TESTRES, _dis_gate, _flow_gate, write_frames,
+                                      write_vcn_npz)
 
 N_FRAMES, IMG_SIZE = 4, 16
 GRAPH_FRAMES, GRAPH_INPUT, DETECT = 2, 128, 16
@@ -249,9 +250,10 @@ def test_png_frames_are_stored_as_png_bytes(tmp_path):
 
 
 def test_refusals(tmp_path, monkeypatch):
-    """Video input and no vcn*.npz each raise with the reason; nothing falls
-    back. Without a card, main needs device='cpu'. (A cse*.npz and a
-    pointrend*.npz run: test_pointrend_masks_and_cse_features_match_the_
+    """Video input raises with the reason; nothing falls back. Without a
+    card, main needs device='cpu'. (No vcn*.npz runs DIS:
+    test_dis_flow_without_vcn_npz_matches_the_jax_packages; a cse*.npz and
+    a pointrend*.npz run: test_pointrend_masks_and_cse_features_match_the_
     jax_packages.)"""
     frames = write_frames(tmp_path, n=2)
     masks = str(tmp_path / "masks")
@@ -259,9 +261,33 @@ def test_refusals(tmp_path, monkeypatch):
     with pytest.raises(NotImplementedError, match="directory of frames"):
         TAPP.main(_argv(tmp_path / "v", str(tmp_path / "clip.mp4"), "", mask_dir=masks),
                   device="cpu")
-    with pytest.raises(NotImplementedError, match="vcn"):
-        TAPP.main(_argv(tmp_path / "n", frames, str(tmp_path / "w"), mask_dir=masks),
-                  device="cpu")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         TAPP.main(_argv(tmp_path / "c", frames, str(tmp_path / "w"), mask_dir=masks))
+
+
+def test_dis_flow_without_vcn_npz_matches_the_jax_packages(tmp_path):
+    """No vcn*.npz under --weights_dir: both packages print the DIS line and
+    write DIS flo-/occ- PFMs (pipeline.py:89-96's pairs for 3 frames, each
+    both ways), the port's within the DIS gate of the JAX package's."""
+    frames = write_frames(tmp_path, n=3)
+    masks = str(tmp_path / "masks")
+    os.makedirs(tmp_path / "w")
+    printed = {}
+    for tag, run in (("j", lambda a: JAPP.main(a)), ("t", lambda a: TAPP.main(a, device="cpu"))):
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            out = run(_argv(tmp_path / tag, frames, str(tmp_path / "w"), mask_dir=masks))
+        printed[tag] = buf.getvalue()
+    assert "[flow] no VCN weights: OpenCV DIS + fb-confidence" in printed["j"]
+    assert "[flow] no VCN weights: OpenCV DIS + fb-confidence on cpu" in printed["t"]
+    j, t = str(tmp_path / "j/db"), str(tmp_path / "t/db")
+    pfms = _files(j, "Flow*/Full-Resolution/s/*.pfm")
+    assert pfms == _files(t, "Flow*/Full-Resolution/s/*.pfm")
+    assert len(pfms) == 4 * (2 + 1) and out["flow_calls"] == 2 * (2 + 1)
+    for f in pfms:
+        a, b = read_pfm(os.path.join(j, f))[0], read_pfm(os.path.join(t, f))[0]
+        assert a.shape == b.shape and np.isfinite(b).all()
+        if "occ-" in f:
+            assert b.min() >= 0 and b.max() <= 1
+        _dis_gate(a, b, f)
