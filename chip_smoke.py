@@ -4,6 +4,10 @@
     python3 chip_smoke.py --profile  # plus torch.profiler device-time tables
     python3 chip_smoke.py --plant gather  # phase 13 (b) alone, with a planted
                                           # fault (PLANTS); exits 0 iff caught
+    python3 chip_smoke.py --phases 15     # phases 1-2 and the listed ones
+                                          # ("3,4", "11-15"), with the earlier
+                                          # phases whose artifacts they read
+                                          # (PHASE_NEEDS)
 
 Phases:
 1. print the card's name and power limit, torch and CUDA versions;
@@ -90,9 +94,17 @@ Phases:
    dis_patch_search against ``patch_search_plain`` at every scale of a
    480 x 640 pair and the card's whole DIS against a CPU copy, time DIS at
    1920 x 1080, then ``preproc_app.main`` on phase 8's scene with no
-   vcn*.npz (DIS flow; checks in its docstring).
-The main-path launch counts of phases 5, 6, 8, 9, 10, 13 and 14 go into the
-kernel JSON's ``launches``; the dis cases of phases 3 and 4 are phase 9's.
+   vcn*.npz (DIS flow; checks in its docstring);
+15. video input (``run_video``): the Motion-JPEG clips of tests/goldens
+   (1080p MOV, small AVI and MP4) through preproc/video.py against cv2's
+   recorded rate, count, kept indices, raw-packet and pixel digests, demux
+   and decode timed, then ``preproc_app.main --input`` the 1080p clip (DIS
+   on the card) against the same call on a directory of its frames, the
+   MPEG-4 Part 2 refusal and whether NVDEC's library loads (checks in its
+   docstring).
+The main-path launch counts of phases 5, 6, 8, 9, 10, 13, 14 and 15 go into
+the kernel JSON's ``launches``; the dis cases of phases 3 and 4 are phase 9's.
+With ``--phases`` the JSON holds the kernels of the phases run.
 Prints the kernel JSON line, then {"ok": true, "device": {...}} last.
 Exits non-zero without printing a result when there is no CUDA card.
 """
@@ -2423,8 +2435,10 @@ def run_preproc(card: str, tmp: str, profile: bool = False) -> dict:
         rows, one batch read back through the port's line loader; the
         fused-MLP launch counters still 0 after the phase. Each stage's
         time and the VCN pairs run are printed;
-    (c) the refusal raises: a video input (a cse*.npz and a pointrend*.npz
-        run: phase 12; no vcn*.npz runs DIS: phase 14).
+    (c) the refusal raises: a video in a codec the port does not decode
+        (the MPEG-4 Part 2 fixture ``VIDEO_REFUSED``; a cse*.npz and a
+        pointrend*.npz run: phase 12; no vcn*.npz runs DIS: phase 14; a
+        Motion-JPEG clip runs: phase 15).
     --profile: ``profile_vcn`` on the ~2 MP input of (a).
     No failure is caught: any exits non-zero."""
     import numpy as np
@@ -2517,18 +2531,19 @@ def run_preproc(card: str, tmp: str, profile: bool = False) -> dict:
 
     # (c) what the port refuses
     refusals = []
-    video = os.path.join(tmp, "clip.mp4")
-    open(video, "wb").close()
+    video = os.path.join(GOLDENS, VIDEO_REFUSED)
     empty = os.path.join(tmp, "no_weights")
     os.makedirs(empty, exist_ok=True)
-    for name, (inp, weights) in (("video", [video, empty]),):
+    for name, (inp, weights) in (("mpeg4_video", [video, empty]),):
         case_argv = ["--seqname", "refused", "--input", inp, "--mask_dir", src["Annotations"],
                      "--weights_dir", weights, "--database", os.path.join(tmp, "rdb"),
                      "--config_dir", os.path.join(tmp, "rcfg")]
         try:
             preproc_app.main(case_argv)
             fail.append(f"preproc_app ran with {name}")
-        except NotImplementedError as e:
+        except ValueError as e:
+            if "codec mp4v (objectTypeIndication 0x20)" not in str(e):
+                raise
             refusals.append(name)
             print(f"[preproc] refused ({name}): {str(e)[:120]}", flush=True)
     out["refused"] = refusals
@@ -3481,6 +3496,247 @@ def run_dis(results: list, card: str, tmp: str, profile: bool = False) -> dict:
 
 
 
+GOLDENS = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests", "goldens")
+# cv2.VideoWriter's Motion-JPEG clips and cv2's readings of them
+# (tests/torch_video.py::write_fixtures); the first goes through preproc_app
+VIDEO_CLIPS = ("clip_1080p.mov", "clip_small.avi", "clip_small.mp4")
+VIDEO_REFUSED = "clip_mpeg4.mp4"  # MPEG-4 Part 2: mp4v, objectTypeIndication 0x20
+VIDEO_IMG_SIZE = 128  # line shards of the app run (phase 14: 256 px frames at 256)
+VIDEO_APP_FPS = 5     # the app's --fps: 3 of the 1080p clip's 15 frames, 6 DIS calls a run
+# (at --fps 10, 5 frames and 14 calls a run took the phase to 46.1 s on an NVIDIA H100
+# 80GB HBM3 at 700 W, past its 40 s budget)
+NVDEC_SYMBOLS = ("cuvidCreateDecoder", "cuvidGetDecoderCaps", "cuvidCreateVideoParser")
+
+
+def nvdec_reading() -> dict:
+    """Whether NVDEC's library loads on this machine, and which of the
+    decoder's entry points it exports. Installs and calls nothing."""
+    import ctypes
+
+    try:
+        lib = ctypes.CDLL("libnvcuvid.so.1")
+    except OSError as e:
+        return {"loads": False, "error": str(e)[:200]}
+    return {"loads": True, **{name: hasattr(lib, name) for name in NVDEC_SYMBOLS}}
+
+
+def check_clip(path: str, want: dict, out_dir: str, card: str) -> dict:
+    """(a) of phase 15 on one clip: the port's readings against cv2's
+    recorded ones, every stage timed on the host."""
+    import numpy as np
+    from moda_tpu_torch.data import imageio as IO
+    from moda_tpu_torch.preproc import video as VI
+    from moda_tpu_torch.preproc.pipeline import extract_frames
+
+    fail = []
+    t0 = time.perf_counter()
+    clip = VI.open_video(path)
+    demux_ms = (time.perf_counter() - t0) * 1e3
+    VI.require_mjpeg(clip)
+    t0 = time.perf_counter()
+    packets = [hashlib.sha256(clip.sample(i)).hexdigest() for i in range(len(clip))]
+    read_ms = (time.perf_counter() - t0) * 1e3
+    step = max(int(round((clip.fps or 30.0) / want["kept_at_fps"])), 1)
+    kept = list(range(0, len(clip), step))
+    jpegs = [clip.jpeg(i) for i in kept]
+    IO.decode_jpeg(jpegs[0])  # the library's first load
+    t0 = time.perf_counter()
+    frames = [IO.decode_jpeg(j) for j in jpegs]
+    decode_ms = (time.perf_counter() - t0) * 1e3 / len(frames)
+    pixels = [hashlib.sha256(np.ascontiguousarray(f[..., ::-1]).tobytes()).hexdigest()
+              for f in frames]
+    t0 = time.perf_counter()
+    paths = extract_frames(path, out_dir, fps=want["kept_at_fps"])
+    extract_s = time.perf_counter() - t0
+    stored = []
+    for p in paths:
+        with open(p, "rb") as f:
+            stored.append(hashlib.sha256(f.read()).hexdigest())
+    for key, got, ref in (("fps", clip.fps, want["fps"]), ("frames", len(clip), want["frames"]),
+                          ("kept", kept, want["kept"]), ("packets", packets, want["packet_sha256"]),
+                          ("pixels", pixels, want["pixels_sha256"]),
+                          ("stored", stored, [want["packet_sha256"][i] for i in want["kept"]])):
+        if got != ref:
+            fail.append(f"{os.path.basename(path)}: {key} differ from cv2's")
+    name = os.path.basename(path)
+    print(f"[video] {name}: {clip.container} {clip.codec} {clip.width} x {clip.height} @ "
+          f"{clip.rate[0]}/{clip.rate[1]} fps, {len(clip)} samples, {len(kept)} kept at "
+          f"--fps {want['kept_at_fps']}; demux {demux_ms:.2f} ms, reading the samples "
+          f"{read_ms:.2f} ms, JPEG decode {decode_ms:.2f} ms a frame (host, imgcodec), "
+          f"extract_frames {extract_s * 1e3:.1f} ms; packet, pixel and stored digests "
+          f"{'equal cv2' if not fail else 'DIFFER'}'s ({card})", flush=True)
+    return {"demux_ms": demux_ms, "read_ms": read_ms, "decode_ms": decode_ms,
+            "extract_s": extract_s, "kept": len(kept), "fail": fail}
+
+
+def run_video(results: list, card: str, tmp: str) -> dict:
+    """Phase 15, video input (preproc/video.py: the port's own AVI and
+    MP4/MOV demuxer for Motion-JPEG clips), on the host but for the flow:
+
+    (a) each of VIDEO_CLIPS (tests/goldens, written by cv2.VideoWriter; cv2's
+        readings in video_readings.json): ``open_video``'s rate, sample
+        count and kept indices at --fps 10 against cv2's, each sample's
+        SHA-256 against cv2's raw packet's, each kept frame's pixels
+        (imgcodec's decode, in BGR order) against cv2.imdecode's digest,
+        ``extract_frames``'s stored files against the kept packets; demux,
+        sample reading, JPEG decode (a frame) and extract_frames timed;
+    (b) ``preproc_app.main`` on the 1080p clip at --fps VIDEO_APP_FPS (DIS
+        flow on the card, masks from a --mask_dir this phase writes, line
+        shards at VIDEO_IMG_SIZE), then the same call on a directory of the
+        extracted frames (--no-lines): the "[frames] extracted" line, flo-/
+        occ- PFMs of the two runs bit-equal, dis_patch_search's launches
+        counted from 0 in the clip's run (one a scale a flow call, more than
+        0) and no fused-MLP launch; each stage's seconds printed, the flow
+        stage's split into the DIS calls' wall and the rest (fb-confidence,
+        PFM writes);
+    (c) the MPEG-4 Part 2 fixture raises ValueError naming its codec;
+    (d) the NVDEC reading (``nvdec_reading``; not a gate).
+    No failure is caught: any exits non-zero."""
+    import numpy as np
+    from moda_tpu_torch.cli import preproc_app
+    from moda_tpu_torch.data.pfm import read_pfm
+    from moda_tpu_torch.ops import fused_mlp as FM
+    from moda_tpu_torch.preproc import dis_flow as D
+    from moda_tpu_torch.preproc import pipeline as PL
+    from moda_tpu_torch.preproc import video as VI
+    from moda_tpu_torch.viz.render_vis import save_png
+
+    t_phase = time.perf_counter()
+    with open(os.path.join(GOLDENS, "video_readings.json")) as f:
+        recorded = json.load(f)
+    out, fail = {"clips": {}}, []
+    for name in VIDEO_CLIPS:
+        r = check_clip(os.path.join(GOLDENS, name), recorded[name],
+                       os.path.join(tmp, "video_frames", name), card)
+        fail += r.pop("fail")
+        out["clips"][name] = r
+
+    # (b) the entry point on the 1080p clip, then on a directory of its frames
+    clip_path = os.path.join(GOLDENS, VIDEO_CLIPS[0])
+    h, w = recorded[VIDEO_CLIPS[0]]["size"]
+    n_kept = len(range(0, recorded[VIDEO_CLIPS[0]]["frames"],
+                       max(int(round(recorded[VIDEO_CLIPS[0]]["fps"] / VIDEO_APP_FPS)), 1)))
+    masks, empty = os.path.join(tmp, "video_masks"), os.path.join(tmp, "video_no_weights")
+    os.makedirs(masks, exist_ok=True)
+    os.makedirs(empty, exist_ok=True)
+    for i in range(n_kept):
+        m = np.zeros((h, w), np.uint8)
+        m[h // 4:3 * h // 4, w // 5 + 8 * i:w // 2 + 8 * i] = 255
+        save_png(os.path.join(masks, "%05d.png" % i), m)
+    runs = {}
+    dis_s = []
+
+    def timed_dis(a, b, device=None, _dis=PL.dis_flow):
+        t = time.perf_counter()
+        flow = _dis(a, b, device=device)  # a host array: the flow is on the host
+        dis_s.append(time.perf_counter() - t)
+        return flow
+
+    for tag, src, extra in (("clip", clip_path, ["--img_size", str(VIDEO_IMG_SIZE),
+                                                 "--fps", str(VIDEO_APP_FPS)]),
+                            ("dir", None, ["--no-lines"])):
+        db = os.path.join(tmp, f"vdb_{tag}")
+        argv = ["--seqname", "clip", "--input", src or runs["clip"]["res"]["seq_dir"],
+                "--mask_dir", masks, "--weights_dir", empty, "--database", db,
+                "--config_dir", os.path.join(tmp, f"vcfg_{tag}")] + extra
+        FM.reset_launches()
+        D.reset_launches()
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        dis_s.clear()
+        with contextlib.redirect_stdout(buf), _patched([(PL, "dis_flow", timed_dis)]):
+            res = preproc_app.main(argv)
+        runs[tag] = {"res": res, "app_s": time.perf_counter() - t0, "printed": buf.getvalue(),
+                     "db": db, "launches": D.launches["patch_search"],
+                     "fmlp": sum(FM.launches_by_call.values()), "dis_s": sum(dis_s)}
+    clip_run, dir_run = runs["clip"], runs["dir"]
+    line = (f"[frames] extracted {n_kept} frames @ {VIDEO_APP_FPS}fps -> "
+            f"{clip_run['res']['seq_dir']}")
+    if line not in clip_run["printed"]:
+        fail.append(f"preproc_app did not print {line!r}")
+    if "[flow] no VCN weights: OpenCV DIS + fb-confidence on cuda" not in clip_run["printed"]:
+        fail.append("preproc_app did not take the DIS route on the card")
+    scales = D.coarsest_scale(h, w) - D.FINEST_SCALE + 1
+    launches = clip_run["launches"]
+    if launches <= 0 or launches != clip_run["res"]["flow_calls"] * scales:
+        fail.append(f"{launches} dis_patch_search launches for "
+                    f"{clip_run['res']['flow_calls']} flow calls of {scales} scales")
+    if clip_run["fmlp"] or dir_run["fmlp"]:
+        fail.append(f"{clip_run['fmlp'] + dir_run['fmlp']} fused-MLP launches in the video phase")
+    pfms = sorted(os.path.relpath(p, clip_run["db"]) for p in
+                  glob.glob(os.path.join(clip_run["db"], "Flow*", "*", "clip", "*.pfm")))
+    unequal = [f for f in pfms if not np.array_equal(
+        read_pfm(os.path.join(clip_run["db"], f))[0], read_pfm(os.path.join(dir_run["db"], f))[0])]
+    if not pfms or unequal:
+        fail.append(f"{len(unequal)} of {len(pfms)} PFMs differ between the clip and its frames")
+    lines = glob.glob(os.path.join(clip_run["db"], "Pixels", "*", "clip", "1_*"))
+    if len(lines) != n_kept - 1:
+        fail.append(f"{len(lines)} line-shard dirs for {n_kept} frames")
+    for e in results:
+        if e["name"] == "dis_patch_search":
+            e["launches"] += launches
+    out.update(app_s=clip_run["app_s"], dir_app_s=dir_run["app_s"],
+               stage_s=clip_run["res"]["times"], dir_stage_s=dir_run["res"]["times"],
+               flow_calls=clip_run["res"]["flow_calls"], kernel_launches=launches,
+               dis_calls_s=clip_run["dis_s"], dir_dis_calls_s=dir_run["dis_s"],
+               pfms=len(pfms), pfms_equal=not unequal)
+    print(f"[video] preproc_app.main --input {VIDEO_CLIPS[0]} {clip_run['app_s']:.1f} s: stages "
+          + ", ".join(f"{k} {v:.2f} s" for k, v in clip_run["res"]["times"].items())
+          + f"; on the directory of its frames {dir_run['app_s']:.1f} s ("
+          + ", ".join(f"{k} {v:.2f} s" for k, v in dir_run["res"]["times"].items())
+          + f"); {clip_run['res']['flow_calls']} DIS calls at {w} x {h}, "
+          f"{clip_run['dis_s'] / max(clip_run['res']['flow_calls'], 1) * 1e3:.0f} ms wall a "
+          f"call, {clip_run['res']['times']['flow'] - clip_run['dis_s']:.2f} s of the flow "
+          f"stage outside them (fb-confidence, PFM writes); {len(pfms)} PFMs "
+          f"{'bit-equal' if not unequal else 'UNEQUAL'} between the two runs; {launches} "
+          f"dis_patch_search launches, {clip_run['fmlp']} fused-MLP launches ({card})",
+          flush=True)
+
+    # (c) a codec the port does not decode
+    try:
+        VI.require_mjpeg(VI.open_video(os.path.join(GOLDENS, VIDEO_REFUSED)))
+        fail.append(f"{VIDEO_REFUSED} was not refused")
+    except ValueError as e:
+        if "codec mp4v (objectTypeIndication 0x20)" not in str(e):
+            raise
+        print(f"[video] refused: {str(e)[:120]}", flush=True)
+
+    # (d) NVDEC, for the H.264 route
+    out["nvdec"] = nvdec_reading()
+    print(f"[video] NVDEC: libnvcuvid.so.1 {json.dumps(out['nvdec'])} ({card})", flush=True)
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"[video] phase {out['phase_s']:.1f} s ({card})", flush=True)
+    if fail:
+        raise SystemExit("video: " + "; ".join(fail))
+    return out
+
+
+
+ALL_PHASES = tuple(range(3, 16))  # 1 and 2 (the card, the build) always run
+# the phases whose artifacts a phase reads (in the temporary directory)
+PHASE_NEEDS = {7: (6,), 9: (8,), 10: (3, 6, 7, 8), 11: (8,), 12: (8, 11), 13: (6,), 14: (8,)}
+
+
+def select_phases(spec) -> list:
+    """The phases of ``--phases`` ("15", "3,4", "11-15"; every phase without
+    it) with the earlier phases they read artifacts of."""
+    if not spec:
+        return list(ALL_PHASES)
+    chosen = set()
+    for part in spec.split(","):
+        a, _, b = part.partition("-")
+        chosen.update(range(int(a), int(b or a) + 1))
+    if chosen - set(ALL_PHASES) - {1, 2}:
+        raise SystemExit(f"--phases {spec}: phases are 3-{ALL_PHASES[-1]} (1 and 2 always run)")
+    todo = sorted(chosen)
+    while todo:
+        for need in PHASE_NEEDS.get(todo.pop(), ()):
+            if need not in chosen:
+                chosen.add(need)
+                todo.append(need)
+    return sorted(chosen & set(ALL_PHASES))
+
+
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--profile", action="store_true",
@@ -3488,7 +3744,11 @@ def main():
     ap.add_argument("--plant", choices=sorted(PLANTS),
                     help="run phase 13 (b) alone with this fault planted in both ranks; "
                          "exit 0 iff its gates catch it")
+    ap.add_argument("--phases", default="",
+                    help="run only these phases (e.g. 15, or 3,4, or 11-15) and the earlier "
+                         "ones whose artifacts they read; phases 1-2 always run")
     args = ap.parse_args()
+    phases = select_phases(args.phases)
 
     import torch
     if not torch.cuda.is_available():
@@ -3545,37 +3805,43 @@ def main():
                           **out}))
         raise SystemExit(0 if fail else 1)
 
+    print(f"[phases] {', '.join(map(str, phases))}", flush=True)
     results: list = []
-    check_kernels(results, profile=args.profile)
-    print(f"[time] kernel phase done at {time.time() - t0:.1f} s", flush=True)
-    check_dw(results)
-    print(f"[time] dW phase done at {time.time() - t0:.1f} s", flush=True)
     steps = {}
-    for name in RECIPE_STAGES:
-        steps[name] = run_stage(name, results, card, profile=args.profile)
-        print(f"[time] {name} done at {time.time() - t0:.1f} s", flush=True)
+    if 3 in phases:
+        check_kernels(results, profile=args.profile)
+        print(f"[time] kernel phase done at {time.time() - t0:.1f} s", flush=True)
+    if 4 in phases:
+        check_dw(results)
+        print(f"[time] dW phase done at {time.time() - t0:.1f} s", flush=True)
+    if 5 in phases:
+        for name in RECIPE_STAGES:
+            steps[name] = run_stage(name, results, card, profile=args.profile)
+            print(f"[time] {name} done at {time.time() - t0:.1f} s", flush=True)
     base = os.path.join(os.path.dirname(os.path.abspath(__file__)), "logdir")
     os.makedirs(base, exist_ok=True)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_trainer_", dir=base) as tmp:
-        steps["trainer"] = run_trainer(results, card, tmp, profile=args.profile)
-        print(f"[time] trainer done at {time.time() - t0:.1f} s", flush=True)
-        steps["extract"] = run_extract(card, tmp)
-        print(f"[time] extraction and eval done at {time.time() - t0:.1f} s", flush=True)
-        steps["coldstart"] = run_coldstart(results, card, tmp)
-        print(f"[time] cold start and frame route done at {time.time() - t0:.1f} s", flush=True)
-        steps["branches"] = run_branches(results, card, tmp, profile=args.profile)
-        print(f"[time] branches done at {time.time() - t0:.1f} s", flush=True)
-        steps["viz"] = run_viz(results, card, tmp)
-        print(f"[time] viz tools and posenet done at {time.time() - t0:.1f} s", flush=True)
-        steps["preproc"] = run_preproc(card, tmp, profile=args.profile)
-        print(f"[time] preprocessing done at {time.time() - t0:.1f} s", flush=True)
-        steps["preproc_graphs"] = run_preproc_graphs(card, tmp)
-        print(f"[time] preprocessing graphs done at {time.time() - t0:.1f} s", flush=True)
-        steps["parallel"] = run_parallel(results, card, tmp, profile=args.profile)
-        print(f"[time] K steps a call and data parallelism done at {time.time() - t0:.1f} s",
-              flush=True)
-        steps["dis"] = run_dis(results, card, tmp, profile=args.profile)
-        print(f"[time] DIS flow done at {time.time() - t0:.1f} s", flush=True)
+        later = (
+            (6, "trainer", "trainer", lambda: run_trainer(results, card, tmp,
+                                                          profile=args.profile)),
+            (7, "extract", "extraction and eval", lambda: run_extract(card, tmp)),
+            (8, "coldstart", "cold start and frame route",
+             lambda: run_coldstart(results, card, tmp)),
+            (9, "branches", "branches", lambda: run_branches(results, card, tmp,
+                                                             profile=args.profile)),
+            (10, "viz", "viz tools and posenet", lambda: run_viz(results, card, tmp)),
+            (11, "preproc", "preprocessing", lambda: run_preproc(card, tmp,
+                                                                 profile=args.profile)),
+            (12, "preproc_graphs", "preprocessing graphs",
+             lambda: run_preproc_graphs(card, tmp)),
+            (13, "parallel", "K steps a call and data parallelism",
+             lambda: run_parallel(results, card, tmp, profile=args.profile)),
+            (14, "dis", "DIS flow", lambda: run_dis(results, card, tmp, profile=args.profile)),
+            (15, "video", "video input", lambda: run_video(results, card, tmp)))
+        for number, key, label, run in later:
+            if number in phases:
+                steps[key] = run()
+                print(f"[time] {label} done at {time.time() - t0:.1f} s", flush=True)
     for r in results:
         if r["launches"] == 0:
             raise SystemExit(f"{r['name']} was not launched on the main path")

@@ -1,4 +1,4 @@
-"""One-command offline preprocessing: a directory of frames ->
+"""One-command offline preprocessing: a video or a directory of frames ->
 training-ready database. Counterpart of moda_tpu/cli/preproc_app.py (the
 role of preprocess/preprocess.sh in the reference), with no image library.
 
@@ -6,9 +6,9 @@ Chains the pipeline stages over one sequence:
   frames -> masks -> densepose features -> optical flow -> config -> lines
 
   python -m moda_tpu_torch.cli.preproc_app --seqname myvid \\
-      --input frames/ --mask_dir masks/ --weights_dir weights_converted/ \\
+      --input clip.mov|frames/ --mask_dir masks/ --weights_dir weights_converted/ \\
       [--database database/DAVIS] [--config_dir configs] [--img_size 512] \\
-      [--nolines]
+      [--no-lines]
 
 The flags and stages are the JAX package's. The converted weights under
 --weights_dir (the layout of tools/convert_all_checkpoints.py, or of the
@@ -21,12 +21,17 @@ card; ``main(argv, device="cpu")`` runs them on the CPU:
   with --nouse_embed);
 - flow: VCN+ from a ``vcn*.npz``, else OpenCV's DIS (preproc/dis_flow.py,
   its patch search in the CUDA kernel dis_patch_search) on the same device.
-What the JAX package does and the port does not, raising with the reason
-instead of falling back: video input (cv2.VideoCapture): pass a directory
-of frames.
 Frames: .jpg inputs are copied byte for byte; other images are stored as
 8-bit RGB PNGs under the DAVIS .jpg names (the JAX package re-encodes them
 as JPEG; the frame reader, like cv2.imread, goes by the first bytes).
+A video --input (Motion JPEG in AVI, MOV or MP4; preproc/video.py) keeps
+every round(rate / --fps)-th frame, as the JAX package's cv2.VideoCapture
+route does, and stores each kept frame's own JPEG sample (a clip with a
+display rotation: the turned frame as PNG).
+What the JAX package does and the port does not, raising with the reason
+instead of falling back: video in any other codec (H.264/avc1, HEVC,
+MPEG-4 Part 2 mp4v/XVID/DIVX, Motion-JPEG format B mjpb, ...), interlaced
+Motion JPEG, fragmented MP4 and edit lists other than the identity.
 """
 from __future__ import annotations
 
@@ -77,7 +82,9 @@ def stage_frames(args) -> str:
 
     seq_dir = os.path.join(args.database, "JPEGImages", "Full-Resolution", args.seqname)
     if not os.path.isdir(args.input):
-        extract_frames(args.input, seq_dir, fps=args.fps)
+        paths = extract_frames(args.input, seq_dir, fps=args.fps)
+        print(f"[frames] extracted {len(paths)} frames @ {args.fps}fps -> {seq_dir}")
+        return seq_dir
     os.makedirs(seq_dir, exist_ok=True)
     srcs = sorted(glob.glob(os.path.join(args.input, "*.jpg"))
                   + glob.glob(os.path.join(args.input, "*.png")))

@@ -105,7 +105,9 @@ def decode_pbm(data: bytes, gray: bool = False) -> np.ndarray:
     return img if gray else np.repeat(img[..., None], 3, axis=-1)
 
 
-def decode_jpeg(data: bytes, gray: bool = False) -> np.ndarray:
+def jpeg_size(data: bytes) -> Tuple[int, int, int]:
+    """(height, width, components) from a JPEG's headers, up to its frame
+    header; ValueError where the file is not one the decoder reads."""
     lib = _load("imgcodec")
     buf = np.frombuffer(data, np.uint8)
     err = ctypes.create_string_buffer(256)
@@ -113,10 +115,18 @@ def decode_jpeg(data: bytes, gray: bool = False) -> np.ndarray:
     if lib.jpeg_size(buf.ctypes.data_as(_U8P), len(buf), ctypes.byref(h), ctypes.byref(w),
                      ctypes.byref(nc), err, len(err)) != 0:
         raise ValueError(err.value.decode())
+    return h.value, w.value, nc.value
+
+
+def decode_jpeg(data: bytes, gray: bool = False) -> np.ndarray:
+    h, w, _ = jpeg_size(data)
+    lib = _load("imgcodec")
+    buf = np.frombuffer(data, np.uint8)
+    err = ctypes.create_string_buffer(256)
     ch = 1 if gray else 3
-    out = np.empty((h.value, w.value, ch), np.uint8)
+    out = np.empty((h, w, ch), np.uint8)
     if lib.jpeg_decode(buf.ctypes.data_as(_U8P), len(buf), ch, out.ctypes.data_as(_U8P),
-                       h.value, w.value, err, len(err)) != 0:
+                       h, w, err, len(err)) != 0:
         raise ValueError(err.value.decode())
     return out[..., 0] if gray else out
 

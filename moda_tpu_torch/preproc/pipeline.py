@@ -20,8 +20,9 @@ Without a ``flow_fn`` the flow is OpenCV's DIS (PRESET_MEDIUM), as in the
 JAX package: ``dis_flow`` runs preproc/dis_flow.py, its patch search in the
 CUDA kernel dis_patch_search, on the card unless ``device`` says otherwise.
 
-Video input (``extract_frames``, cv2.VideoCapture in the JAX package) has
-no counterpart here and raises: pass a directory of frames.
+Video input (``extract_frames``, cv2.VideoCapture in the JAX package) reads
+Motion-JPEG clips in AVI, MOV and MP4 through preproc/video.py and stores
+the clip's own JPEG samples; other codecs raise.
 """
 from __future__ import annotations
 
@@ -39,10 +40,34 @@ DFRAMES = (1, 2, 4, 8, 16, 32)
 
 
 def extract_frames(video_path: str, out_dir: str, fps: int = 10) -> List[str]:
-    raise NotImplementedError(
-        f"video input ({video_path}) needs a video decoder, which the port does not have "
-        "(the JAX package uses cv2.VideoCapture); pass a directory of frames "
-        "(*.jpg or *.png) as --input")
+    """Video -> frames at a fixed rate (preprocess.sh:42 ffmpeg), as the JAX
+    package's: every max(round(src_fps / fps), 1)-th decoded frame, src_fps
+    the clip's rate as cv2 reports it or 30.0, stored as %05d.jpg; returns
+    the paths. Motion-JPEG clips only (preproc/video.py; ValueError naming
+    any other codec). A kept sample is stored as its own JPEG bytes (Annex
+    K.3's tables added where it has none); in a clip with a display
+    rotation, as an 8-bit RGB PNG of the turned frame under the .jpg name
+    (preproc/ama.py::store_frame's rule: the port has no JPEG encoder).
+    Every kept sample's header is read before anything is written."""
+    from moda_tpu_torch.preproc.video import open_video, require_mjpeg
+
+    clip = open_video(video_path)
+    require_mjpeg(clip)
+    step = max(int(round((clip.fps or 30.0) / fps)), 1)
+    kept = range(0, len(clip), step)
+    for i in kept:
+        clip.jpeg(i)  # raises with the sample's index
+    os.makedirs(out_dir, exist_ok=True)
+    paths = []
+    for out_i, i in enumerate(kept):
+        p = os.path.join(out_dir, "%05d.jpg" % out_i)
+        if clip.rotation:
+            save_png(p, clip.frame(i))
+        else:
+            with open(p, "wb") as f:
+                f.write(clip.jpeg(i))
+        paths.append(p)
+    return paths
 
 
 def dis_flow(img0: np.ndarray, img1: np.ndarray, device=None) -> np.ndarray:

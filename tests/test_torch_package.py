@@ -50,7 +50,8 @@ def test_import_loads_no_jax_and_no_moda_tpu():
 def test_preprocessing_loads_no_jax_no_cv2_and_no_moda_tpu():
     """The preprocessing entry point and every module it imports (VCN+, the
     pipeline, AMA conversion, the checkpoint loaders, the uint8 resize and
-    PBM reader of data/imageio.py, scipy's labelling), the detectron2
+    PBM reader of data/imageio.py, scipy's labelling, the video readers of
+    preproc/video.py reading and decoding a committed clip), the detectron2
     graphs (ResNet-50 + FPN, DensePose-CSE, PointRend) and the checkpoint
     converter load none of FORBIDDEN: the card's machine has no cv2 and no
     JAX."""
@@ -59,9 +60,13 @@ def test_preprocessing_loads_no_jax_no_cv2_and_no_moda_tpu():
             "import moda_tpu_torch.preproc.checkpoints, moda_tpu_torch.bridge\n"
             "import moda_tpu_torch.preproc.cse_infer, moda_tpu_torch.preproc.pointrend_infer\n"
             "import moda_tpu_torch.fields.resnet_fpn, moda_tpu_torch.cli.convert_app\n"
+            "import moda_tpu_torch.preproc.video\n"
             "import numpy as np\n"
             "from moda_tpu_torch.preproc.pipeline import largest_cc\n"
             "largest_cc(np.eye(4, dtype=np.uint8))\n"
+            f"from moda_tpu_torch.preproc.video import open_video\n"
+            f"clip = open_video({str(PKG.parent / 'tests/goldens/clip_small.avi')!r})\n"
+            "clip.frame(len(clip) - 1)\n"
             f"bad = [m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r}]\n"
             "assert not bad, bad\n")
     res = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,

@@ -274,11 +274,16 @@ def _dis_gate(a, b, tag):
 
 
 def test_refusals(tmp_path, monkeypatch):
-    """Video input raises; DIS, the JAX package's flow without VCN weights,
-    runs (on the CPU when asked; without a card and without the request,
-    compute_flows raises instead of falling back)."""
-    with pytest.raises(NotImplementedError, match="directory of frames"):
-        TP.extract_frames("video.mp4", "/nonexistent")
+    """Video in a codec other than Motion JPEG raises (an MPEG-4 Part 2
+    clip from cv2: tests/test_torch_video.py holds the Motion-JPEG route);
+    DIS, the JAX package's flow without VCN weights, runs (on the CPU when
+    asked; without a card and without the request, compute_flows raises
+    instead of falling back)."""
+    from tests.torch_video import scene, write_cv2_clip
+
+    write_cv2_clip(str(tmp_path / "video.mp4"), "mp4v", 30.0, scene(2, 48, 64))
+    with pytest.raises(ValueError, match="codec mp4v .objectTypeIndication 0x20.: only Motion"):
+        TP.extract_frames(str(tmp_path / "video.mp4"), str(tmp_path / "nonexistent"))
     frames = write_frames(tmp_path, n=2)
     img0, img1 = (TP.read_bgr(p) for p in sorted(glob.glob(os.path.join(frames, "*.jpg"))))
     flow = TP.dis_flow(img0, img1, device="cpu")

@@ -39,6 +39,7 @@ from moda_tpu_torch.data.pfm import read_pfm
 from moda_tpu_torch.preproc import checkpoints as TC
 from tests.test_torch_preproc import (TESTRES, _dis_gate, _flow_gate, write_frames,
                                       write_vcn_npz)
+from tests.torch_video import scene, write_cv2_clip
 
 N_FRAMES, IMG_SIZE = 4, 16
 GRAPH_FRAMES, GRAPH_INPUT, DETECT = 2, 128, 16
@@ -250,17 +251,21 @@ def test_png_frames_are_stored_as_png_bytes(tmp_path):
 
 
 def test_refusals(tmp_path, monkeypatch):
-    """Video input raises with the reason; nothing falls back. Without a
-    card, main needs device='cpu'. (No vcn*.npz runs DIS:
+    """Video in a codec other than Motion JPEG (an MPEG-4 Part 2 clip from
+    cv2) raises with the codec's name; nothing falls back. Without a card,
+    main needs device='cpu'. (No vcn*.npz runs DIS:
     test_dis_flow_without_vcn_npz_matches_the_jax_packages; a cse*.npz and
     a pointrend*.npz run: test_pointrend_masks_and_cse_features_match_the_
-    jax_packages.)"""
+    jax_packages; a Motion-JPEG clip runs: test_video_input_matches_the_jax_
+    packages.)"""
     frames = write_frames(tmp_path, n=2)
     masks = str(tmp_path / "masks")
     os.makedirs(tmp_path / "w")
-    with pytest.raises(NotImplementedError, match="directory of frames"):
+    write_cv2_clip(str(tmp_path / "clip.mp4"), "mp4v", 30.0, scene(2, 48, 64))
+    with pytest.raises(ValueError, match="codec mp4v .objectTypeIndication 0x20.: only Motion"):
         TAPP.main(_argv(tmp_path / "v", str(tmp_path / "clip.mp4"), "", mask_dir=masks),
                   device="cpu")
+    assert not glob.glob(str(tmp_path / "v/db/JPEGImages/Full-Resolution/s/*"))
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         TAPP.main(_argv(tmp_path / "c", frames, str(tmp_path / "w"), mask_dir=masks))
@@ -291,3 +296,45 @@ def test_dis_flow_without_vcn_npz_matches_the_jax_packages(tmp_path):
         if "occ-" in f:
             assert b.min() >= 0 and b.max() <= 1
         _dis_gate(a, b, f)
+
+
+@pytest.mark.parametrize("ext", ["avi", "mov", "mp4"])
+def test_video_input_matches_the_jax_packages(tmp_path, ext):
+    """A Motion-JPEG clip from cv2.VideoWriter (10 frames at 30 fps, --fps
+    10: frames 0, 3, 6 and 9) through both packages' preproc_app.main with
+    a --mask_dir and no weights (DIS flow): the same "[frames] extracted"
+    line and the same set of database files; the port's frames are the
+    clip's own samples (tests/test_torch_video.py), its flo-/occ- PFMs of
+    the JAX package's shapes and bit-equal to its own run on a directory of
+    the frames it extracted. (The JAX package's frames are VideoCapture's
+    re-encoded at quality 95, other pixels: its flows are no oracle here.)"""
+    clip = str(tmp_path / f"clip.{ext}")
+    write_cv2_clip(clip, "MJPG", 30.0, scene(10, 48, 64, seed=1))
+    write_frames(tmp_path, n=4)  # masks/%05d.png for the 4 kept frames
+    masks = str(tmp_path / "masks")
+    os.makedirs(tmp_path / "w")
+    printed = {}
+    for tag, run, src in (("j", lambda a: JAPP.main(a), clip),
+                          ("t", lambda a: TAPP.main(a, device="cpu"), clip),
+                          ("d", lambda a: TAPP.main(a, device="cpu"),
+                           str(tmp_path / "t/db/JPEGImages/Full-Resolution/s"))):
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            run(_argv(tmp_path / tag, src, str(tmp_path / "w"), mask_dir=masks))
+        printed[tag] = buf.getvalue()
+    for tag in "jt":
+        assert f"[frames] extracted 4 frames @ 10fps -> {tmp_path / tag}/db/JPEGImages" \
+            f"/Full-Resolution/s" in printed[tag]
+    j, t, d = (str(tmp_path / tag / "db") for tag in "jtd")
+    files = [sorted(os.path.relpath(p, r) for p in glob.glob(os.path.join(r, "**", "*.*"),
+                                                             recursive=True)) for r in (j, t, d)]
+    assert files[0] == files[1] == files[2] and len(files[0]) > 40
+    assert len(_files(t, "JPEGImages/Full-Resolution/s/*.jpg")) == 4
+    for f in _files(t, "JPEGImages/Full-Resolution/s/*.jpg"):
+        assert open(os.path.join(t, f), "rb").read() == open(os.path.join(d, f), "rb").read()
+    pfms = _files(t, "Flow*/Full-Resolution/s/*.pfm")
+    assert len(pfms) == 4 * (3 + 1)  # the pairs (i, i + d) with d | i: 3 at d 1, 1 at d 2
+    for f in pfms:
+        a, b = read_pfm(os.path.join(t, f))[0], read_pfm(os.path.join(d, f))[0]
+        np.testing.assert_array_equal(a, b, err_msg=f)
+        assert read_pfm(os.path.join(j, f))[0].shape == a.shape and np.isfinite(a).all()
