@@ -52,7 +52,10 @@ Phases:
    copy of the model, and one 64 px frame of ``make_frame_renderer`` with
    flow within 1e-4; the rgb and silhouette GIFs with a frame per rendered
    frame; finite AMA and root-pose scores, F-scores in [0, 1];
-   no kernel launch in the phase. It prints the time of each part;
+   no kernel launch in the phase. It prints the time of each part. Then
+   multi-device extraction: the same ``extract_app.main`` as two ranks
+   sharing the card through gloo, every exported file byte-equal to the
+   one-process export;
 8. the cold start and the frame-decoding route (``run_coldstart``): a
    16-frame 256 px articulated scene in the DAVIS layout, trained by
    train_app from the pose CNN's cameras (pose warmup, extract_cams_cnn,
@@ -1257,6 +1260,7 @@ EXTRACT_FLAGS = ["--lineload", "--nouse_human", "--nosymm_shape", "--test_frames
 # the card-against-CPU render: one 64 px frame with flow (4096 rays) in
 # chunks of this many rays, the second padded, on both devices
 CHECK_CHUNK = 3072
+EXTRACT_RANKS = 2  # (b): extract_app over processes sharing the one card
 
 
 class _Timers(dict):
@@ -1304,7 +1308,12 @@ def run_extract(card: str, tmp: str) -> dict:
     128 px; the grid 64^3 instead of 128^3. Checks are listed in the module docstring; any failure exits
     non-zero. The launch counters are set to 0 before the phase and must
     read 0 after it: extraction, eval renders and scoring run the plain
-    fp32 path."""
+    fp32 path. (b) then runs the same extract_app as EXTRACT_RANKS ranks
+    sharing the card through gloo (multi-device extraction: each rank a
+    share of the grid's chunks and of the frames, rank 0 gathering the
+    renders): every file of its export byte-equal to the one-process
+    export, no kernel launch in any rank, the ranks' time beside one
+    process's."""
     import numpy as np
     import torch
     from moda_tpu_torch.cli import eval_root_app, extract_app
@@ -1406,7 +1415,40 @@ def run_extract(card: str, tmp: str) -> dict:
         fail.append(f"scores {scores} {root}")
     if calls or any(counts.values()):
         fail.append(f"kernel launches in the phase: {calls}")
-    out = {"extract_app_s": t_app, **{f"{k}_s": v for k, v in timers.items()},
+
+    # (b) the same extraction as EXTRACT_RANKS ranks sharing the card (gloo);
+    # this process's cached blocks go back to the card first: each rank's
+    # renders take as much as (a)'s did
+    ranks_argv = [a if a != "smoke" else "smoke-ranks" for a in argv]
+    torch.cuda.empty_cache()
+    held_gib = torch.cuda.memory_reserved() / 2 ** 30
+    t0 = time.perf_counter()
+    ranks = spawn_ranks(EXTRACT_RANKS, "extract", os.path.join(tmp, "extract_ranks"),
+                        [ranks_argv] * EXTRACT_RANKS, 600)
+    t_ranks = time.perf_counter() - t0
+    export_r = os.path.join(log, "smoke-ranks-export")
+    differ = sorted(set(os.listdir(export)) ^ set(os.listdir(export_r)))
+    for name in sorted(set(os.listdir(export)) & set(os.listdir(export_r))):
+        with open(os.path.join(export, name), "rb") as f1, \
+                open(os.path.join(export_r, name), "rb") as f2:
+            if f1.read() != f2.read():
+                differ.append(name)
+    if differ:
+        fail.append(f"(b) {len(differ)} files differ from one process's export: {differ[:5]}")
+    if [r["is_main"] for r in ranks] != [True] + [False] * (EXTRACT_RANKS - 1) or \
+            any(r["calls"] or any(r["launches"].values()) for r in ranks):
+        fail.append(f"(b) ranks {[(r['is_main'], r['calls']) for r in ranks]}")
+    inside = ", ".join("%.2f" % r["run_s"] for r in ranks)
+    print(f"[extract] (b) extract_app.main as {EXTRACT_RANKS} ranks on the one card (gloo): "
+          f"{t_ranks:.1f} s spawn to exit, inside the ranks {inside} s (one process: "
+          f"{t_app:.2f} s); "
+          f"{len(os.listdir(export_r))} files, "
+          f"{'every one byte-equal to' if not differ else f'{len(differ)} UNEQUAL to'} the "
+          f"one-process export; kernel launches {[r['calls'] for r in ranks]}; this process "
+          f"held {held_gib:.2f} GiB meanwhile ({card})", flush=True)
+    out = {"extract_app_s": t_app, "ranks_s": t_ranks,
+           "ranks_run_s": [r["run_s"] for r in ranks], "ranks_files_equal": not differ,
+           **{f"{k}_s": v for k, v in timers.items()},
            "ama_s": t_ama, "root_eval_s": t_root, "phase_s": t_phase,
            "warp_all_frames_one_call_s": t_warp_all, "rest_verts": len(rest.vertices),
            "rest_faces": len(rest.faces), "frames": n_fr, "exported": exported,
@@ -2939,10 +2981,11 @@ def run_chunk(results: list, card: str, fail: list, profile: bool) -> dict:
 
 
 def _rank_main(rank: int, world: int, port: int, job: str, out_dir: str, args):
-    """A spawned rank of phase 13 on cuda:0: job "step" runs the init stage's
-    data-parallel step (args: backend, steps, plant: None or a fault of
-    PLANTS, set in this process alone), job "app" runs train_app (args:
-    argv per rank)."""
+    """A spawned rank on cuda:0: job "step" runs the init stage's
+    data-parallel step of phase 13 (args: backend, steps, plant: None or a
+    fault of PLANTS, set in this process alone), job "app" runs train_app
+    (args: argv per rank), job "extract" phase 7's extract_app (args: argv
+    per rank; gloo)."""
     import traceback
     import torch
     try:
@@ -2986,6 +3029,17 @@ def _rank_main(rank: int, world: int, port: int, job: str, out_dir: str, args):
                                  if plant is None else None)
             finally:
                 comm.close()
+        elif job == "extract":
+            from moda_tpu_torch.cli import extract_app
+            os.environ.update({"RANK": str(rank), "WORLD_SIZE": str(world),
+                               "LOCAL_RANK": str(rank), "MASTER_ADDR": "localhost",
+                               "MASTER_PORT": str(port)})
+            FM.reset_launches()
+            t0 = time.time()
+            tr = extract_app.main(args[rank], device="cuda:0", backend="gloo")
+            torch.cuda.synchronize()
+            res = {"calls": dict(FM.launches_by_call), "launches": dict(FM.launches),
+                   "run_s": time.time() - t0, "is_main": tr.is_main}
         else:
             from moda_tpu_torch.cli import train_app
             from moda_tpu_torch.train import trainer as TT
@@ -3031,7 +3085,7 @@ def spawn_ranks(world: int, job: str, out_dir: str, args, timeout: float) -> lis
     except Exception as e:
         errs = [open(os.path.join(out_dir, f)).read() for f in sorted(os.listdir(out_dir))
                 if f.endswith(".err")]
-        raise SystemExit(f"phase 13 {job}: {e}\n" + "\n".join(errs))
+        raise SystemExit(f"ranks of {job}: {e}\n" + "\n".join(errs))
     finally:
         for pr in ctx.processes:
             if pr.is_alive():

@@ -7,6 +7,12 @@ warp_bw/warp_fw, geom_utils.py:974-1073).
 Everything here runs the plain fp32 path (``MoDAModel.precise()``, the JAX
 package's ``model.precise()``) under ``torch.no_grad()``, so it launches no
 kernel and builds no graph.
+
+Multi-device extraction (the JAX package shards the grid's point axis over
+its device mesh): with a ``comm`` (parallel/dist.py), ``grid_volume`` (and
+so ``extract_mesh``) queries each rank's share of the grid's chunks and
+all-reduces the volume, so every rank holds the one-process volume bit for
+bit and marches the same mesh; cli/extract_app.py shares the frames.
 """
 from __future__ import annotations
 
@@ -20,7 +26,14 @@ import torch
 
 from moda_tpu_torch.core import skinning as SK
 from moda_tpu_torch.native import marching_cubes
+from moda_tpu_torch.parallel.dist import Shard, share
 from moda_tpu_torch.render.rays import compute_bone_rts
+
+# grid points a query call on the card: the unit of work ranks share, so each
+# rank's calls are the one-process run's calls and give the same bits. 64^3
+# is one call; at 128^3 eight calls take 3% longer than one on an H100 and
+# hold 0.9 GiB instead of 7 (scripts/grid_query_time.py)
+GRID_CHUNK = 1 << 18
 
 
 @dataclass
@@ -80,11 +93,11 @@ def largest_component(mesh: Mesh) -> Mesh:
 def make_grid_query(model, chunk: Optional[int] = None):
     """Dense SDF (and visibility) evaluation over [N,3] points on the
     model's device: ``query(pts, symm=False) -> (raw [N], vis [N])``.
-    chunk: points per call; None runs one call on the card and chunks of
-    cfg.chunk on the CPU."""
+    chunk: points per call (``query.chunk``); None gives GRID_CHUNK on the
+    card and cfg.chunk on the CPU."""
     view = model.precise()
     if chunk is None:
-        chunk = 0 if model.device.type == "cuda" else model.cfg.chunk
+        chunk = GRID_CHUNK if model.device.type == "cuda" else model.cfg.chunk
 
     @torch.no_grad()
     def query_chunk(pts, symm):
@@ -97,23 +110,46 @@ def make_grid_query(model, chunk: Optional[int] = None):
         return raw, vis
 
     def query(pts: torch.Tensor, symm: bool = False):
-        step = chunk or pts.shape[0]
-        outs = [query_chunk(pts[i:i + step], symm) for i in range(0, pts.shape[0], step)]
+        outs = [query_chunk(pts[i:i + chunk], symm) for i in range(0, pts.shape[0], chunk)]
+        if not outs:
+            return pts.new_zeros(0), pts.new_zeros(0)
         return torch.cat([o[0] for o in outs]), torch.cat([o[1] for o in outs])
 
+    query.chunk = chunk
     return query
 
 
-def extract_mesh(model, obj_bound: np.ndarray, grid_size: int, threshold: float,
-                 use_vis: bool = True, query=None) -> Mesh:
-    """Canonical-shape extraction (train_utils.py:1364-1465) from the
-    model's current parameters."""
+def grid_volume(model, obj_bound: np.ndarray, grid_size: int, query=None, comm=None):
+    """The grid query's (raw, vis), each [G^3] on the model's device, over
+    the G^3 grid spanning +-obj_bound. comm: the ranks' group; each rank
+    queries its share of the grid's chunks of ``query.chunk`` points (the
+    one-process calls; a query without ``chunk`` is one call), and every
+    rank gets the whole volume."""
     if query is None:
         query = make_grid_query(model)
     b = np.asarray(obj_bound, np.float32)
     axes = [np.linspace(-b[i], b[i], grid_size, dtype=np.float32) for i in range(3)]
-    pts = np.stack(np.meshgrid(*axes, indexing="ij"), -1).reshape(-1, 3)
-    raw, vis = query(torch.as_tensor(pts, device=model.device), symm=model.cfg.symm_shape)
+    pts = torch.as_tensor(np.stack(np.meshgrid(*axes, indexing="ij"), -1).reshape(-1, 3),
+                          device=model.device)
+    rank, world = (comm.rank, comm.world) if comm is not None else (0, 1)
+    step = getattr(query, "chunk", 0) or len(pts)
+    mine = share(-(-len(pts) // step), rank, world)
+    lo, hi = mine.start * step, min(mine.stop * step, len(pts))
+    raw, vis = query(pts[lo:hi], symm=model.cfg.symm_shape)
+    if comm is not None:
+        rows = torch.arange(lo, hi, device=model.device)
+        raw, vis = Shard(comm, rows, len(pts)).reduce([raw, vis], scatter=True)
+    return raw, vis
+
+
+def extract_mesh(model, obj_bound: np.ndarray, grid_size: int, threshold: float,
+                 use_vis: bool = True, query=None, comm=None) -> Mesh:
+    """Canonical-shape extraction (train_utils.py:1364-1465) from the
+    model's current parameters; over the ranks of ``comm`` each queries its
+    share of the grid (``grid_volume``) and every rank marches the whole
+    volume."""
+    b = np.asarray(obj_bound, np.float32)
+    raw, vis = grid_volume(model, b, grid_size, query, comm)
     vol = raw.cpu().numpy().reshape(grid_size, grid_size, grid_size)
     if use_vis and model.cfg.nerf_vis:
         visv = vis.cpu().numpy().reshape(vol.shape)
@@ -188,8 +224,8 @@ def make_warp_fw_frames(model):
     ``warp(verts [V,3], frameids [F]) -> (verts_dfm [F,V,3], bones_dfm
     [F,B,10])``. The skinning weights read only the rest pose and the
     rest-pose code, so they are computed once for all frames. (The JAX
-    package shards the frame axis over its device mesh; one card has no
-    counterpart.)"""
+    package shards the frame axis over its device mesh; cli/extract_app.py
+    gives each rank its share of the frames.)"""
     view = model.precise()
 
     @torch.no_grad()

@@ -1,4 +1,5 @@
-"""Data-parallel training over processes, one process per card (torchrun).
+"""Data-parallel training over processes, one process per card (torchrun),
+and the share of extraction's work each rank takes (``share``).
 
 The JAX package shards the [2B] batch axis over a mesh of every local
 device in one process (moda_tpu/parallel/mesh.py), and XLA's partitioner
@@ -167,6 +168,13 @@ def init_from_env(device: Device = None, backend: Optional[str] = None,
 
 
 # ------------------------------------------------------------ the layout
+def share(n: int, rank: int, world: int) -> range:
+    """``rank``'s contiguous share of n units of work split over ``world``
+    ranks: units rank*n//world ... (rank+1)*n//world - 1 (extraction's grid
+    chunks and frame groups)."""
+    return range(rank * n // world, (rank + 1) * n // world)
+
+
 def pair_index(rank: int, world: int, n_local: int, accu_steps: int = 1) -> np.ndarray:
     """The rows of the global [2B] batch (B = n_local * world pairs) that
     ``rank`` holds, in its local order: of each of the accu_steps

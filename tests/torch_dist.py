@@ -1,6 +1,7 @@
-"""Spawned gloo ranks on the CPU for tests/test_torch_parallel.py: the
-port's data-parallel step (parallel/dist.py) and train_app under a
-torchrun-like environment. JAX-free: the ranks import torch and
+"""Spawned gloo ranks on the CPU for tests/test_torch_parallel.py and
+tests/test_torch_extract_parallel.py: the port's data-parallel step
+(parallel/dist.py), extract_mesh over ranks, and train_app and extract_app
+under a torchrun-like environment. JAX-free: the ranks import torch and
 moda_tpu_torch alone, one torch thread each."""
 from __future__ import annotations
 
@@ -14,6 +15,7 @@ import torch.multiprocessing as mp
 
 from moda_tpu_torch import bridge
 from moda_tpu_torch.config import DataInfo, MoDAConfig
+from moda_tpu_torch.extract.mesh import extract_mesh, grid_volume, make_grid_query
 from moda_tpu_torch.fields.model import MoDAModel
 from moda_tpu_torch.parallel import dist
 from moda_tpu_torch.train.optim import MoDAOptimizer
@@ -162,16 +164,86 @@ def run_saved(path: str, comm=None) -> dict:
     return {"aux": aux, "params": {n: p.detach().clone() for n, p in model.named_parameters()}}
 
 
+MESH_BOUND = np.asarray([0.3, 0.25, 0.2], np.float32)
+
+
+def run_mesh(args, comm=None) -> dict:
+    """extract_mesh of a seeded model, in one process or as a rank of
+    ``comm``: args (grid size, threshold, points a query call, seed)."""
+    grid, thr, chunk, seed = args
+    model = MoDAModel(MoDAConfig(**BASE), INFO, device="cpu",
+                      generator=torch.Generator().manual_seed(seed))
+    points = []
+    m = extract_mesh(model, MESH_BOUND, grid, thr, query=_counted(make_grid_query(model, chunk),
+                                                                  points), comm=comm)
+    return {"vertices": m.vertices, "faces": m.faces, "colors": m.colors,
+            "frac": m.frac_occupied, "points": sum(points)}
+
+
+def run_saved_extract(args, comm=None) -> dict:
+    """The grid volume, rest mesh and warped frames of a saved model (the
+    whole module, torch.save'd), in one process or as a rank of ``comm``:
+    args (model path, grid size, threshold, points a query call, frames).
+    Each rank warps its share of the frames (extract_app's groups)."""
+    from moda_tpu_torch.cli.extract_app import frame_groups, warp_groups
+
+    path, grid, thr, chunk, frames = args
+    model = torch.load(path, weights_only=False)
+    query = make_grid_query(model, chunk)
+    raw, vis = grid_volume(model, MESH_BOUND, grid, query, comm)
+    m = extract_mesh(model, MESH_BOUND, grid, thr, query=query, comm=comm)
+    rank, world = (comm.rank, comm.world) if comm is not None else (0, 1)
+    return {"raw": raw.numpy(), "vis": vis.numpy(), "vertices": m.vertices, "faces": m.faces,
+            "colors": m.colors, "frac": m.frac_occupied,
+            "warped": warp_groups(model, m.vertices, frame_groups(frames, rank, world))}
+
+
+def _counted(query, points: list):
+    """``query``, the points of each call appended to ``points``."""
+    def run(pts, symm=False):
+        points.append(len(pts))
+        return query(pts, symm)
+    run.chunk = query.chunk
+    return run
+
+
+def _run_extract_app(argv) -> dict:
+    """extract_app.main in this rank, the grid points it queried and the
+    OBJ files it wrote recorded."""
+    from moda_tpu_torch.cli import extract_app
+    from moda_tpu_torch.extract import mesh as EM
+
+    points, written = [], []
+    export, factory = EM.Mesh.export_obj, EM.make_grid_query
+
+    def export_obj(self, path):
+        written.append(os.path.basename(path))
+        export(self, path)
+
+    EM.Mesh.export_obj = export_obj
+    EM.make_grid_query = lambda model, chunk=None: _counted(factory(model, chunk), points)
+    tr = extract_app.main(argv, device="cpu")
+    return {"is_main": tr.is_main, "points": sum(points), "written": written,
+            "params": {n: p.detach().clone() for n, p in tr.model.named_parameters()}}
+
+
 def _rank_main(rank: int, world: int, port: int, out_dir: str, job: str, args):
     torch.set_num_threads(1)
     try:
-        if job in ("steps", "saved"):
+        if job in ("steps", "saved", "mesh", "saved_extract"):
             comm = dist.init_process(rank, world, port=port, device="cpu", timeout_s=120)
             try:
                 res = ({n: run_case(n, args[1], comm) for n in args[0]} if job == "steps"
-                       else run_saved(args, comm))
+                       else run_saved(args, comm) if job == "saved"
+                       else run_mesh(args, comm) if job == "mesh"
+                       else run_saved_extract(args, comm))
             finally:
                 comm.close()
+        elif job == "extract":  # extract_app under torchrun's environment
+            os.environ.update({"RANK": str(rank), "WORLD_SIZE": str(world),
+                               "LOCAL_RANK": str(rank), "MASTER_ADDR": "localhost",
+                               "MASTER_PORT": str(port)})
+            res = _run_extract_app(args)
         else:  # train_app under torchrun's environment
             os.environ.update({"RANK": str(rank), "WORLD_SIZE": str(world),
                                "LOCAL_RANK": str(rank), "MASTER_ADDR": "localhost",
