@@ -3294,6 +3294,8 @@ def layer_flops(module, fn) -> int:
 
 DIS_CHECK_HW = (480, 640)    # (a), (b): kernel against plain, card against CPU
 DIS_TIMED_HW = (1080, 1920)  # (c): DIS timed a pair
+DIS_TALL_HW = (1920, 1080)   # (a): a portrait 1080p pair, as a phone records it: its
+                             # finest scale's stripes (40 patch rows) outnumber a CTA's warps
 DIS_TIMED_PAIRS = 2
 # float32 operations of one patch evaluation (dis.cu::eval_patch): per pixel 8
 # for the bilinear sample less I0 and 3 for the squared and plain sums, 4 more
@@ -3366,6 +3368,56 @@ def dis_search_cost(D, args) -> tuple:
     return stats["ssd"] * DIS_SSD_OPS + stats["grad"] * DIS_GRAD_OPS, nbytes, plain, stats
 
 
+def search_geometries(D, calls) -> list:
+    """The launch shape of each recorded patch search (``search_geometry``),
+    with its scale's size."""
+    geos = []
+    for (I0, *_, p), _ in calls:
+        h, w = I0.shape
+        hs, ws = D.patch_grid(h, w)
+        g = D.search_geometry(hs, ws, p.use_spatial_propagation)
+        geos.append({"hw": [h, w], "patches": [hs, ws], "ctas": g.ctas, "warps": g.warps,
+                     "stripe": g.stripe})
+    return geos
+
+
+def format_geometries(geos) -> str:
+    return ", ".join(f"{g['hw'][0]} x {g['hw'][1]}: {g['ctas']} CTAs x {g['warps']} warps "
+                     f"(stripes of {g['stripe']} patch rows)" for g in geos)
+
+
+def held_to_plain(D, calls, what: str, fail: list) -> dict:
+    """Each recorded patch search's kernel result against
+    ``patch_search_plain`` on the same inputs on the card: gated by
+    DIS_KERNEL_TOL and by a bit-equal share of 1.0 at every scale (both
+    round the same float32 operations in the same order). Returns the worst
+    error, the least share within DIS_KERNEL_TOL[0], the bit-equal share at
+    each scale, and the last scale's plain ms (host clock to a sync: the
+    plain version syncs at every step), operations, bytes and evaluations."""
+    import torch
+
+    r = {"max": 0.0, "within": 1.0, "equal": []}
+    for args, S in calls:
+        t_p = time.perf_counter()
+        r["ops"], r["bytes"], plain, r["stats"] = dis_search_cost(D, args)
+        torch.cuda.synchronize()
+        r["plain_ms"] = (time.perf_counter() - t_p) * 1e3
+        e = (S - plain).abs().amax(0).flatten()
+        r["max"] = max(r["max"], float(e.max()))
+        r["within"] = min(r["within"], float((e <= DIS_KERNEL_TOL[0]).float().mean()))
+        r["equal"].append(float((S == plain).all(0).float().mean()))
+    if r["max"] > DIS_KERNEL_TOL[2] or r["within"] < DIS_KERNEL_TOL[1] or min(r["equal"]) < 1:
+        fail.append(f"dis_patch_search against the plain version, {what}: max {r['max']:.2e} "
+                    f"px, {r['within']:.4f} of the patches within {DIS_KERNEL_TOL[0]}, "
+                    f"bit-equal shares {r['equal']}")
+    print(f"[dis] dis_patch_search against patch_search_plain on the card, {what}: max "
+          f"{r['max']:.2e} px, {r['within']:.4f} of the patches within {DIS_KERNEL_TOL[0]} "
+          f"(gate {DIS_KERNEL_TOL[1]}, max {DIS_KERNEL_TOL[2]}); share of the patches "
+          f"bit-equal (gate 1.0): {', '.join(f'{x:.4f}' for x in r['equal'])}; plain "
+          f"{r['plain_ms']:.1f} ms at the last", flush=True)
+    return r
+
+
 def dis_checks(card: str, profile: bool = False):
     """Phase 14 (a)-(c) (``run_dis``): returns the readings, the kernel's
     entry of the kernel line (launches still 0) and the failures."""
@@ -3378,46 +3430,55 @@ def dis_checks(card: str, profile: bool = False):
     D.build_library()
     out["build_s"] = time.perf_counter() - t_chk
     print(f"[dis] dis.cu ready in {out['build_s']:.1f} s", flush=True)
-    for line in D.ptxas_report().splitlines():
-        if "registers" in line or "spill" in line or "Compiling entry" in line:
-            print(f"[dis] {line.strip()}", flush=True)
+    ptxas = D.ptxas_usage()
+    print("[dis] ptxas: " + "; ".join(
+        f"dis_search_{k} {v.get('registers')} registers, {v.get('spill_stores')} / "
+        f"{v.get('spill_loads')} bytes of spill stores / loads" for k, v in ptxas.items()),
+        flush=True)
+    if sorted(ptxas) != ["patches", "stripes"] or any(
+            v.get("spill_stores", 1) or v.get("spill_loads", 1) for v in ptxas.values()):
+        fail.append(f"dis.cu's ptxas report: {ptxas} (want both kernels, no spills)")
 
-    # (a) the kernel against the plain version at every scale
+    # (a) the kernel against the plain version at every scale, and at the
+    # finest scale of a portrait pair, whose stripes outnumber a CTA's warps
     a, b = synth_pair(*DIS_CHECK_HW, seed=0)
     with recorded_searches(D) as calls:
         card_flow = D.dis_flow(a, b, device="cuda")
     torch.cuda.synchronize()
-    worst, share_min = 0.0, 1.0
-    for args, S in calls:  # coarse to fine: the finest scale's numbers are kept
-        t_p = time.perf_counter()
-        ops, nbytes, plain, stats = dis_search_cost(D, args)
-        torch.cuda.synchronize()
-        t_p = (time.perf_counter() - t_p) * 1e3
-        e = (S - plain).abs().amax(0).flatten()
-        worst = max(worst, float(e.max()))
-        share_min = min(share_min, float((e <= DIS_KERNEL_TOL[0]).float().mean()))
+    r = held_to_plain(D, calls, f"{len(calls)} scales of a {DIS_CHECK_HW[0]} x "
+                      f"{DIS_CHECK_HW[1]} pair", fail)
     args = calls[-1][0]
     h, w = args[0].shape
     t_k = cuda_time(lambda: D.patch_search(*args), iters=5, warmup=1)
-    t_ops, t_bytes = ops / PEAK_FP32_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
-    out.update(kernel_max_vs_plain=worst, kernel_share_within=share_min, scales=len(calls),
-               finest=[h, w], finest_evals=stats)
-    if worst > DIS_KERNEL_TOL[2] or share_min < DIS_KERNEL_TOL[1]:
-        fail.append(f"dis_patch_search against the plain version: max {worst:.2e} px, "
-                    f"{share_min:.4f} of the patches within {DIS_KERNEL_TOL[0]}")
-    print(f"[dis] dis_patch_search against patch_search_plain on the card, {len(calls)} scales "
-          f"of a {DIS_CHECK_HW[0]} x {DIS_CHECK_HW[1]} pair: max {worst:.2e} px, "
-          f"{share_min:.4f} of the patches within {DIS_KERNEL_TOL[0]} (gate "
-          f"{DIS_KERNEL_TOL[1]}, max {DIS_KERNEL_TOL[2]}); finest scale {h} x {w}: kernel "
-          f"{t_k:.3f} ms, plain {t_p:.1f} ms, bound {max(t_ops, t_bytes):.4f} ms "
-          f"({stats['ssd']} candidate and {stats['grad']} descent evaluations, "
-          f"{ops / 1e9:.3f} GFLOP; {nbytes / 1e6:.2f} MB) ({card})", flush=True)
+    t_ops, t_bytes = r["ops"] / PEAK_FP32_FLOPS * 1e3, r["bytes"] / PEAK_BYTES * 1e3
+    geometry = search_geometries(D, calls)
+    big = [torch.from_numpy(x).cuda() for x in synth_pair(*DIS_TALL_HW, seed=2)]
+    with recorded_searches(D) as tall:
+        D.calc(*(D.bgr_to_gray(x) for x in big))
+    del big
+    rt = held_to_plain(D, tall[-1:], f"the finest scale of a portrait {DIS_TALL_HW[0]} x "
+                       f"{DIS_TALL_HW[1]} pair", fail)
+    tall_geometry = search_geometries(D, tall[-1:])[0]
+    if tall_geometry["stripe"] <= tall_geometry["warps"]:
+        fail.append(f"{DIS_TALL_HW}'s finest scale has no warp taking two rows: {tall_geometry}")
+    out.update(kernel_max_vs_plain=max(r["max"], rt["max"]),
+               kernel_share_within=min(r["within"], rt["within"]), scales=len(calls),
+               finest=[h, w], finest_evals=r["stats"], bit_equal_share=r["equal"],
+               geometry=geometry, tall_bit_equal_share=rt["equal"][0],
+               tall_geometry=tall_geometry, tall_plain_ms=rt["plain_ms"], ptxas=ptxas)
+    print(f"[dis] finest scale {h} x {w}: kernel {t_k:.3f} ms, plain {r['plain_ms']:.1f} ms, "
+          f"bound {max(t_ops, t_bytes):.4f} ms ({r['stats']['ssd']} candidate and "
+          f"{r['stats']['grad']} descent evaluations, {r['ops'] / 1e9:.3f} GFLOP; "
+          f"{r['bytes'] / 1e6:.2f} MB) ({card})", flush=True)
+    print(f"[dis] launch geometry, coarse to fine: {format_geometries(geometry)}; "
+          f"{DIS_TALL_HW[0]} x {DIS_TALL_HW[1]}'s finest: {format_geometries([tall_geometry])}",
+          flush=True)
     entry = {"name": "dis_patch_search", "route": "cuda", "source": "moda_tpu_torch/csrc/dis.cu",
              "replaces": "none (cv2's host C++ in moda_tpu/preproc/pipeline.py:60-65)",
-             "launches": 0, "max_abs_err": worst, "ms": t_k, "plain_ms": t_p,
-             "bound_ms": max(t_ops, t_bytes),
+             "launches": 0, "max_abs_err": out["kernel_max_vs_plain"], "ms": t_k,
+             "plain_ms": r["plain_ms"], "bound_ms": max(t_ops, t_bytes),
              "bound_by": "operations" if t_ops >= t_bytes else "bytes", "library_ms": None,
-             "shape": [h, w], "runs": []}
+             "shape": [h, w], "bit_equal_share": r["equal"], "ptxas": ptxas, "runs": []}
 
     # (b) the card against the CPU
     out["a_s"] = time.perf_counter() - t_chk
@@ -3450,8 +3511,15 @@ def dis_checks(card: str, profile: bool = False):
     out["pair_wall_ms"] = (time.perf_counter() - t0) / DIS_TIMED_PAIRS * 1e3
     scale_ms = [cuda_time(lambda: D.patch_search(*args), iters=1, warmup=0)
                 for args, _ in calls]
+    timed_geometry = search_geometries(D, calls)
+    rc = held_to_plain(D, calls, f"{len(calls)} scales of a {DIS_TIMED_HW[0]} x "
+                       f"{DIS_TIMED_HW[1]} pair", fail)
     out.update(launches_a_pair=per_pair, kernel_scale_ms=scale_ms,
-               kernel_ms_a_pair=sum(scale_ms), finest_kernel_ms=scale_ms[-1])
+               kernel_ms_a_pair=sum(scale_ms), finest_kernel_ms=scale_ms[-1],
+               timed_geometry=timed_geometry, timed_bit_equal_share=rc["equal"],
+               kernel_max_vs_plain=max(out["kernel_max_vs_plain"], rc["max"]),
+               kernel_share_within=min(out["kernel_share_within"], rc["within"]))
+    entry.update(geometry=timed_geometry[-1], max_abs_err=out["kernel_max_vs_plain"])
     print(f"[dis] DIS at {DIS_TIMED_HW[0]} x {DIS_TIMED_HW[1]}: {out['pair_event_ms']:.1f} event "
           f"ms a pair (grey frames on the card), {out['pair_wall_ms']:.1f} ms wall a pair "
           f"through dis_flow; dis_patch_search {per_pair} launches a pair, "
@@ -3459,6 +3527,8 @@ def dis_checks(card: str, profile: bool = False):
           f"({', '.join(f'{t:.2f}' for t in scale_ms)}; "
           f"{out['kernel_ms_a_pair'] / out['pair_event_ms']:.3f} of the pair's time) ({card})",
           flush=True)
+    print(f"[dis] launch geometry, coarse to fine: {format_geometries(timed_geometry)}; "
+          f"ptxas as in (a)", flush=True)
     if profile:
         _, dev, busy = profiled(lambda: D.calc(g0, g1), 1)
         k_dev = sum(_dev_us(e, True) for e in dev if "dis_search" in e.key) / 1e3
@@ -3477,11 +3547,16 @@ def run_dis(results: list, card: str, tmp: str, profile: bool = False) -> dict:
     """Phase 14, OpenCV's DIS flow (preproc/dis_flow.py, PRESET_MEDIUM), its
     patch search in the kernel dis_patch_search (csrc/dis.cu):
 
-    (a) one DIS of a DIS_CHECK_HW pair (``synth_pair``) on the card with every
+    (a) ptxas's registers and spills of both kernels (none spilled); one
+        DIS of a DIS_CHECK_HW pair (``synth_pair``) on the card with every
         patch_search call recorded; at each scale the kernel's sparse flow
-        against ``patch_search_plain`` on the same inputs on the card, within
-        DIS_KERNEL_TOL; the finest scale's launch timed (events) beside the
-        plain version (host clock to a sync: it syncs at every step) and the
+        against ``patch_search_plain`` on the same inputs on the card
+        (``held_to_plain``: within DIS_KERNEL_TOL and all patches bit-equal)
+        and its launch geometry (``search_geometry``); the same at the finest
+        scale of a DIS_TALL_HW pair, whose stripes have more patch rows than
+        a CTA has warps; the DIS_CHECK_HW finest scale's launch timed (events)
+        beside the plain version (host clock to a sync: it syncs at every
+        step) and the
         bound (operations the input needs, DIS_*_OPS, at the fp32 peak;
         bytes at the card's rate; no PyTorch call computes this function,
         so no library time);
@@ -3489,9 +3564,10 @@ def run_dis(results: list, card: str, tmp: str, profile: bool = False) -> dict:
         DIS_CARD_TOL;
     (c) DIS on a DIS_TIMED_HW pair: CUDA-event ms a pair (grey frames on the
         card), wall ms a pair through ``dis_flow`` (BGR upload, grey, flow
-        download), the kernel's launches a pair and its time at each scale
-        (events); with --profile, the device's busy time a pair and the
-        kernel's share of it (torch.profiler);
+        download), the kernel's launches a pair, its time and launch
+        geometry at each scale (events), and at each scale the kernel held
+        to the plain version as in (a); with --profile, the device's busy
+        time a pair and the kernel's share of it (torch.profiler);
     (d) ``preproc_app.main`` on phase 8's scene with an empty --weights_dir:
         the "[flow] no VCN weights" route, DIS on the card, the database
         checks of phase 11 (check_database), the kernel's launches counted

@@ -33,8 +33,8 @@ rounding of cv2's flow:
 
 Step 4 is the one whose work is sequential: each patch of a pass starts from
 its left and upper neighbours' results. On a CUDA tensor it runs in the
-hand-written kernel ``dis_patch_search`` of csrc/dis.cu (one CTA per stripe,
-walking the stripe's anti-diagonals); on a CPU tensor in
+hand-written kernel ``dis_patch_search`` of csrc/dis.cu (one warp a patch,
+one CTA a stripe walking the stripe's anti-diagonals); on a CPU tensor in
 ``patch_search_plain``, the same function in PyTorch, vectorized over one
 anti-diagonal of every stripe. Every other step is plain PyTorch on the
 tensors' device. There is no fallback: a CUDA tensor goes through the kernel
@@ -56,6 +56,7 @@ import ctypes
 import hashlib
 import math
 import os
+import re
 import subprocess
 import threading
 from dataclasses import dataclass
@@ -69,6 +70,8 @@ EPS = 0.001  # dis_flow.cpp's EPS (determinant floor, densification clamp)
 INF = 1e10
 BORDER = 16  # border_size: the replicated border of I1 that patch reads may reach
 NSTRIPES = 8  # stripes of a pass with spatial propagation, whatever the thread count
+MAX_WARPS = 32  # warps a CTA of dis_patch_search at most (its __launch_bounds__)
+PATCH_WARPS = 8  # warps a CTA without spatial propagation (one patch a warp)
 ZETA = 0.1  # VariationalRefinement's zeta (normalization of the constancy terms)
 
 # launches of dis_patch_search through ``patch_search`` since the last reset
@@ -202,7 +205,7 @@ def structure_tensor(gx: torch.Tensor, gy: torch.Tensor) -> torch.Tensor:
     leaving one)."""
     h, w = gx.shape
     psz, pstr = PATCH, STRIDE
-    hs, ws = 1 + (h - psz) // pstr, 1 + (w - psz) // pstr
+    hs, ws = patch_grid(h, w)
     x, y = gx.to(torch.int64), gy.to(torch.int64)
     prods = torch.stack([x * x, y * y, x * y, x, y])  # [5, h, w]
     c = torch.nn.functional.pad(prods.cumsum(2), (1, 0))
@@ -352,9 +355,8 @@ def patch_search_plain(I0: torch.Tensor, I1e: torch.Tensor, gx: torch.Tensor,
     float32 [2, hs, ws]. ``stats``, where given, gets the patch evaluations
     this input needs added to it (as 0-dim tensors, so that counting adds no
     sync): "ssd" (candidate tests) and "grad" (gradient-descent steps)."""
-    h, w = I0.shape
     psz, pstr = PATCH, STRIDE
-    hs, ws = 1 + (h - psz) // pstr, 1 + (w - psz) // pstr
+    hs, ws = patch_grid(*I0.shape)
     se = _Search(I0, I1e, gx, gy, st, hs, ws)
     k = torch.arange(hs * ws, device=I0.device)
     ci = (k // ws) * pstr + psz // 2
@@ -390,6 +392,31 @@ def patch_search_plain(I0: torch.Tensor, I1e: torch.Tensor, gx: torch.Tensor,
             Sx[idx] = torch.where(keep, nx, ux)
             Sy[idx] = torch.where(keep, ny, uy)
     return torch.stack([Sx, Sy]).view(2, hs, ws)
+
+
+def patch_grid(h: int, w: int) -> Tuple[int, int]:
+    """(hs, ws): the patches of an h x w scale, one every STRIDE px each way."""
+    return 1 + (h - PATCH) // STRIDE, 1 + (w - PATCH) // STRIDE
+
+
+@dataclass(frozen=True)
+class SearchGeometry:
+    """dis_patch_search's launch at one scale: ``ctas`` CTAs of ``warps``
+    warps, one warp a patch. With spatial propagation CTA c walks cv2's
+    stripe of patch rows [c * stripe, min((c + 1) * stripe, hs)), and its
+    warp w takes the stripe's rows w, w + warps, ...; without it (stripe 0)
+    warp w of CTA c searches patch c * warps + w."""
+    ctas: int
+    warps: int
+    stripe: int
+
+
+def search_geometry(hs: int, ws: int, prop: bool) -> SearchGeometry:
+    """The launch shape of dis_patch_search for hs x ws patches."""
+    if prop:
+        stripe = -(-hs // NSTRIPES)  # cv2's stripe_sz; only non-empty stripes get a CTA
+        return SearchGeometry(ctas=-(-hs // stripe), warps=min(MAX_WARPS, stripe), stripe=stripe)
+    return SearchGeometry(ctas=-(-(hs * ws) // PATCH_WARPS), warps=PATCH_WARPS, stripe=0)
 
 
 def patch_search(I0, I1e, gx, gy, U, st, p: DISParams = PRESET_MEDIUM) -> torch.Tensor:
@@ -763,7 +790,7 @@ def build_library() -> ctypes.CDLL:
             os.replace(tmp, so)
             so.with_suffix(".log").write_text(res.stderr)
         lib = ctypes.CDLL(str(so))
-        lib.moda_dis_patch_search.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 8 + \
+        lib.moda_dis_patch_search.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 10 + \
             [ctypes.c_void_p]
         lib.moda_dis_patch_search.restype = ctypes.c_int
         lib.moda_dis_error_string.argtypes = [ctypes.c_int]
@@ -777,9 +804,29 @@ def ptxas_report() -> str:
     return log.read_text() if log.exists() else ""
 
 
+def ptxas_usage(report: Optional[str] = None) -> dict:
+    """Registers a thread and spilled bytes of each kernel of csrc/dis.cu as
+    ptxas reported them (``report``, else the build's ``ptxas_report``):
+    {"stripes": {"registers": n, "spill_stores": b, "spill_loads": b},
+    "patches": {...}}."""
+    out, cur = {}, None
+    for line in (ptxas_report() if report is None else report).splitlines():
+        m = re.search(r"Compiling entry function '\S*dis_search_([a-z]+)", line)
+        if m:
+            cur = out.setdefault(m.group(1), {})
+        elif cur is not None:
+            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+            if m:
+                cur["spill_stores"], cur["spill_loads"] = int(m.group(1)), int(m.group(2))
+            m = re.search(r"Used (\d+) registers", line)
+            if m:
+                cur["registers"] = int(m.group(1))
+    return out
+
+
 def _patch_search_cuda(I0, I1e, gx, gy, U, st, p: DISParams) -> torch.Tensor:
     h, w = I0.shape
-    hs, ws = 1 + (h - PATCH) // STRIDE, 1 + (w - PATCH) // STRIDE
+    hs, ws = patch_grid(h, w)
     want = {"I0": (I0, torch.uint8, (h, w)),
             "I1e": (I1e, torch.uint8, (h + 2 * BORDER, w + 2 * BORDER)),
             "gx": (gx, torch.int16, (h, w)), "gy": (gy, torch.int16, (h, w)),
@@ -792,11 +839,12 @@ def _patch_search_cuda(I0, I1e, gx, gy, U, st, p: DISParams) -> torch.Tensor:
     lib = build_library()
     S = torch.empty((2, hs, ws), dtype=torch.float32, device=I0.device)
     npass = 2 if p.use_spatial_propagation else 1
+    g = search_geometry(hs, ws, p.use_spatial_propagation)
     stream = torch.cuda.current_stream(I0.device).cuda_stream
     rc = lib.moda_dis_patch_search(
         I0.data_ptr(), I1e.data_ptr(), gx.data_ptr(), gy.data_ptr(), U[0].data_ptr(),
         U[1].data_ptr(), st.data_ptr(), S[0].data_ptr(), S[1].data_ptr(), h, w, hs, ws, STRIDE,
-        npass, GD_ITER // npass, NSTRIPES if p.use_spatial_propagation else 0, stream)
+        npass, GD_ITER // npass, g.ctas, g.warps, g.stripe, stream)
     if rc != 0:
         raise RuntimeError(f"dis_patch_search failed: {lib.moda_dis_error_string(rc).decode()}")
     launches["patch_search"] += 1

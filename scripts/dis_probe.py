@@ -1,8 +1,10 @@
 """Phase 14 (a)-(c) of chip_smoke.py alone, with the device profile: DIS's
 kernel dis_patch_search against its plain version at every scale of a
-480 x 640 pair, the card's DIS against a CPU copy, and DIS timed at
-1920 x 1080, plus torch.profiler's device busy time a pair and the kernel's
-share of it. Needs one CUDA card; about a minute, build included.
+480 x 640 pair and at a portrait 1080p pair's finest scale, the card's DIS
+against a CPU copy, and DIS timed at 1920 x 1080 and held to the plain
+version at each of its scales, plus torch.profiler's device busy time a pair
+and the kernel's share of it. Needs one CUDA card; about a minute and a
+half, build included.
 
     python scripts/dis_probe.py
 """

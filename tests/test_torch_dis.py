@@ -241,3 +241,61 @@ def test_a_tensor_off_the_cpu_goes_to_the_kernel_or_raises(monkeypatch):
         D.patch_search(g, ext, gx, gx, U, st)
     with pytest.raises(ValueError, match="int16"):
         D.patch_search(g, ext, gx.to(torch.int32), gx, U, st)
+
+
+# (h, w) of one scale's patch search: 1920 x 1080's six scales, 3840 x 2160's
+# finest and a portrait 1080p frame's (stripes of 45 and 40 patch rows: some
+# warps take two rows), the CUDA test's 120 x 160 and a scale of one patch row
+GEOMETRY_HW = [(1080 >> s, 1920 >> s) for s in range(D.FINEST_SCALE, D.coarsest_scale(1080, 1920)
+                                                     + 1)] + [(1080, 1920), (960, 540), (120, 160),
+                                                              (8, 23)]
+
+
+@pytest.mark.parametrize("prop", [True, False])
+@pytest.mark.parametrize("h,w", GEOMETRY_HW)
+def test_search_geometry_gives_every_patch_to_one_warp(h, w, prop):
+    """dis_patch_search's launch shape (``search_geometry``): with spatial
+    propagation one CTA a non-empty stripe of cv2's cut (stripe_sz =
+    ceil(hs / 8)), and every patch row of a stripe searched by exactly one of
+    its warps, as the kernel loops over them (rows w, w + warps, ...);
+    without it one warp a patch. Never more than 32 warps a CTA."""
+    hs, ws = D.patch_grid(h, w)
+    assert (hs, ws) == (1 + (h - 8) // 3, 1 + (w - 8) // 3)
+    g = D.search_geometry(hs, ws, prop)
+    assert 1 <= g.warps <= 32 and g.ctas >= 1
+    if not prop:
+        assert g.stripe == 0
+        assert (g.ctas - 1) * g.warps < hs * ws <= g.ctas * g.warps
+        return
+    sz = -(-hs // 8)
+    cut = [(min(s * sz, hs), min((s + 1) * sz, hs)) for s in range(8)]
+    cut = [(a, b) for a, b in cut if a < b]
+    assert g.ctas == len(cut)
+    owner = {}
+    for c in range(g.ctas):
+        a, b = c * g.stripe, min((c + 1) * g.stripe, hs)
+        assert (a, b) == cut[c]
+        for wp in range(g.warps):
+            for r in range(a + wp, b, g.warps):
+                assert r not in owner, f"patch row {r} searched by two warps"
+                owner[r] = (c, wp)
+    assert sorted(owner) == list(range(hs))
+    assert g.warps == min(32, sz)
+
+
+def test_ptxas_usage_reads_registers_and_spills():
+    report = "\n".join([
+        "ptxas info    : 0 bytes gmem",
+        "ptxas info    : Compiling entry function '_ZN38_GLOBAL__N__f2b1f58e_6_dis_cu_42ba6a73"
+        "18dis_search_patchesENS_5ScaleEPKfS2_i' for 'sm_90a'",
+        "ptxas info    : Function properties for _ZN38_GLOBAL__N__f2b1f58e_6_dis_cu_42ba6a73"
+        "18dis_search_patchesENS_5ScaleEPKfS2_i",
+        "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
+        "ptxas info    : Used 40 registers, used 0 barriers",
+        "ptxas info    : Compiling entry function '_ZN38_GLOBAL__N__f2b1f58e_6_dis_cu_42ba6a73"
+        "18dis_search_stripesENS_5ScaleEPKfS2_iii' for 'sm_90a'",
+        "    8 bytes stack frame, 12 bytes spill stores, 16 bytes spill loads",
+        "ptxas info    : Used 64 registers, used 1 barriers"])
+    assert D.ptxas_usage(report) == {
+        "patches": {"registers": 40, "spill_stores": 0, "spill_loads": 0},
+        "stripes": {"registers": 64, "spill_stores": 12, "spill_loads": 16}}

@@ -323,25 +323,66 @@ def test_kernel_matches_plain_at_the_dis_site(cuda_device):
 
 
 @pytest.mark.parametrize("prop", [True, False])
-def test_dis_patch_search_matches_plain(cuda_device, prop):
-    """dis_patch_search against patch_search_plain on one 120 x 160 scale
-    (a seeded smooth texture and a shifted copy): the same float32
-    operations in the same order, so bit-equal."""
-    import torch.nn.functional as F
+@pytest.mark.parametrize("h,w,u", [(120, 160, 0.5), (816, 64, 0.5), (8, 23, 0.5),
+                                   (120, 160, 10.0)])
+def test_dis_patch_search_matches_plain(cuda_device, h, w, u, prop):
+    """dis_patch_search against patch_search_plain on one h x w scale (a
+    seeded smooth texture and a shifted copy, the coarser flow normal with
+    deviation u px): the same float32 operations in the same order, so
+    bit-equal. 816 x 64 has stripes of 34 patch rows (a warp takes two),
+    8 x 23 one patch row, and u = 10 (the flow scaled by 20) sends samples
+    to the clamps of the extended I1 on every side."""
     from moda_tpu_torch.preproc import dis_flow as D
 
-    gen = torch.Generator().manual_seed(0)
-    tex = F.avg_pool2d(torch.rand(1, 1, 140, 180, generator=gen) * 255, 5, 1)[0, 0]
-    g0 = tex[4:124, 4:164].round().to(torch.uint8)
-    g1 = tex[5:125, 6:166].round().to(torch.uint8)
+    args = _dis_scale(h, w, u, cuda_device)
     p = D.DISParams(use_spatial_propagation=prop)
-    gx, gy = D.spatial_gradient(g0)
-    st = D.structure_tensor(gx, gy)
-    ext = F.pad(g1[None, None].float(), (D.BORDER,) * 4, mode="replicate")[0, 0].to(torch.uint8)
-    U = torch.randn(2, 120, 160, generator=gen) * 0.5
-    args = [t.to(cuda_device) for t in (g0, ext, gx, gy, U, st)]
     before = D.launches["patch_search"]
     S = D.patch_search(*args, p)
     torch.cuda.synchronize()
     assert D.launches["patch_search"] == before + 1
     assert torch.equal(S, D.patch_search_plain(*args, p))
+
+
+@pytest.mark.parametrize("prop", [True, False])
+def test_dis_patch_search_refuses_a_grid_that_misses_patches(cuda_device, prop):
+    """The C entry point takes the CTA count from ``search_geometry`` and
+    refuses one that does not cover the scale's patches exactly, rather than
+    leave a stripe or a patch unsearched."""
+    from moda_tpu_torch.preproc import dis_flow as D
+
+    h, w = 120, 160
+    I0, I1e, gx, gy, U, st = _dis_scale(h, w, 0.5, cuda_device)
+    hs, ws = D.patch_grid(h, w)
+    S = torch.empty((2, hs, ws), dtype=torch.float32, device=cuda_device)
+    g = D.search_geometry(hs, ws, prop)
+    npass = 2 if prop else 1
+    stream = torch.cuda.current_stream(cuda_device).cuda_stream
+    lib = D.build_library()
+
+    def launch(ctas):
+        return lib.moda_dis_patch_search(
+            I0.data_ptr(), I1e.data_ptr(), gx.data_ptr(), gy.data_ptr(), U[0].data_ptr(),
+            U[1].data_ptr(), st.data_ptr(), S[0].data_ptr(), S[1].data_ptr(), h, w, hs, ws,
+            D.STRIDE, npass, D.GD_ITER // npass, ctas, g.warps, g.stripe, stream)
+
+    assert launch(g.ctas - 1) != 0 and launch(g.ctas + 1) != 0
+    assert launch(g.ctas) == 0
+    torch.cuda.synchronize()
+
+
+def _dis_scale(h, w, u, dev):
+    """One h x w scale's patch-search inputs (I0, I1e, gx, gy, U, st) on dev:
+    a seeded smooth texture and a shifted copy, the coarser flow normal with
+    deviation u px."""
+    import torch.nn.functional as F
+    from moda_tpu_torch.preproc import dis_flow as D
+
+    gen = torch.Generator().manual_seed(0)
+    tex = F.avg_pool2d(torch.rand(1, 1, h + 20, w + 20, generator=gen) * 255, 5, 1)[0, 0]
+    g0 = tex[4:4 + h, 4:4 + w].round().to(torch.uint8)
+    g1 = tex[5:5 + h, 6:6 + w].round().to(torch.uint8)
+    gx, gy = D.spatial_gradient(g0)
+    st = D.structure_tensor(gx, gy)
+    ext = F.pad(g1[None, None].float(), (D.BORDER,) * 4, mode="replicate")[0, 0].to(torch.uint8)
+    U = torch.randn(2, h, w, generator=gen) * u
+    return [t.to(dev) for t in (g0, ext, gx, gy, U, st)]
