@@ -11,8 +11,8 @@
 
 Phases:
 1. print the card's name and power limit, torch and CUDA versions;
-2. build the kernels from moda_tpu_torch/csrc (fused_mlp.cu and dis.cu, one
-   nvcc each, in parallel);
+2. build the kernels from moda_tpu_torch/csrc (fused_mlp.cu, dis.cu and
+   m4v.cu, one nvcc each, in parallel);
 3. hold K1 (forward) and K2 (backward) against the plain PyTorch version in
    bf16 mode at every call site of the init, ft1 and ft2 steps, at the
    shapes those steps give them, and K1s/K2s (the activation-stash mode)
@@ -103,10 +103,17 @@ Phases:
    recorded rate, count, kept indices, raw-packet and pixel digests, demux
    and decode timed, then ``preproc_app.main --input`` the 1080p clip (DIS
    on the card) against the same call on a directory of its frames, the
-   MPEG-4 Part 2 refusal and whether NVDEC's library loads (checks in its
-   docstring).
-The main-path launch counts of phases 5, 6, 8, 9, 10, 13, 14 and 15 go into
-the kernel JSON's ``launches``; the dis cases of phases 3 and 4 are phase 9's.
+   MS-MPEG-4 refusal and whether NVDEC's library loads (checks in its
+   docstring);
+16. MPEG-4 Part 2 video (``run_mpeg4``): the kernels m4v_reconstruct and
+   yuv420_to_bgr held against their plain versions on the card at every VOP
+   of tests/goldens' 1080p and small mp4v clips, the port's decoder's
+   frames against cv2's recorded digests, decode time a frame split into
+   the host parse and the kernels, then ``preproc_app.main --input`` the
+   1080p clip (DIS on the card; checks in its docstring).
+The main-path launch counts of phases 5, 6, 8, 9, 10, 13, 14, 15 and 16 go
+into the kernel JSON's ``launches``; the dis cases of phases 3 and 4 are
+phase 9's.
 With ``--phases`` the JSON holds the kernels of the phases run.
 Prints the kernel JSON line, then {"ok": true, "device": {...}} last.
 Exits non-zero without printing a result when there is no CUDA card.
@@ -2478,9 +2485,9 @@ def run_preproc(card: str, tmp: str, profile: bool = False) -> dict:
         fused-MLP launch counters still 0 after the phase. Each stage's
         time and the VCN pairs run are printed;
     (c) the refusal raises: a video in a codec the port does not decode
-        (the MPEG-4 Part 2 fixture ``VIDEO_REFUSED``; a cse*.npz and a
+        (the MS-MPEG-4 fixture ``VIDEO_REFUSED``; a cse*.npz and a
         pointrend*.npz run: phase 12; no vcn*.npz runs DIS: phase 14; a
-        Motion-JPEG clip runs: phase 15).
+        Motion-JPEG clip runs: phase 15, an MPEG-4 Part 2 one: phase 16).
     --profile: ``profile_vcn`` on the ~2 MP input of (a).
     No failure is caught: any exits non-zero."""
     import numpy as np
@@ -2576,7 +2583,7 @@ def run_preproc(card: str, tmp: str, profile: bool = False) -> dict:
     video = os.path.join(GOLDENS, VIDEO_REFUSED)
     empty = os.path.join(tmp, "no_weights")
     os.makedirs(empty, exist_ok=True)
-    for name, (inp, weights) in (("mpeg4_video", [video, empty]),):
+    for name, (inp, weights) in (("div3_video", [video, empty]),):
         case_argv = ["--seqname", "refused", "--input", inp, "--mask_dir", src["Annotations"],
                      "--weights_dir", weights, "--database", os.path.join(tmp, "rdb"),
                      "--config_dir", os.path.join(tmp, "rcfg")]
@@ -2584,7 +2591,7 @@ def run_preproc(card: str, tmp: str, profile: bool = False) -> dict:
             preproc_app.main(case_argv)
             fail.append(f"preproc_app ran with {name}")
         except ValueError as e:
-            if "codec mp4v (objectTypeIndication 0x20)" not in str(e):
+            if "codec DIV3" not in str(e):
                 raise
             refusals.append(name)
             print(f"[preproc] refused ({name}): {str(e)[:120]}", flush=True)
@@ -3630,7 +3637,7 @@ GOLDENS = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests", "gol
 # cv2.VideoWriter's Motion-JPEG clips and cv2's readings of them
 # (tests/torch_video.py::write_fixtures); the first goes through preproc_app
 VIDEO_CLIPS = ("clip_1080p.mov", "clip_small.avi", "clip_small.mp4")
-VIDEO_REFUSED = "clip_mpeg4.mp4"  # MPEG-4 Part 2: mp4v, objectTypeIndication 0x20
+VIDEO_REFUSED = "clip_div3.avi"  # MS-MPEG-4 v3 ('DIV3'), a codec the port does not decode
 VIDEO_IMG_SIZE = 128  # line shards of the app run (phase 14: 256 px frames at 256)
 VIDEO_APP_FPS = 5     # the app's --fps: 3 of the 1080p clip's 15 frames, 6 DIS calls a run
 # (at --fps 10, 5 frames and 14 calls a run took the phase to 46.1 s on an NVIDIA H100
@@ -3662,7 +3669,7 @@ def check_clip(path: str, want: dict, out_dir: str, card: str) -> dict:
     t0 = time.perf_counter()
     clip = VI.open_video(path)
     demux_ms = (time.perf_counter() - t0) * 1e3
-    VI.require_mjpeg(clip)
+    VI.require_supported(clip)
     t0 = time.perf_counter()
     packets = [hashlib.sha256(clip.sample(i)).hexdigest() for i in range(len(clip))]
     read_ms = (time.perf_counter() - t0) * 1e3
@@ -3719,7 +3726,7 @@ def run_video(results: list, card: str, tmp: str) -> dict:
         0) and no fused-MLP launch; each stage's seconds printed, the flow
         stage's split into the DIS calls' wall and the rest (fb-confidence,
         PFM writes);
-    (c) the MPEG-4 Part 2 fixture raises ValueError naming its codec;
+    (c) the MS-MPEG-4 fixture raises ValueError naming its codec;
     (d) the NVDEC reading (``nvdec_reading``; not a gate).
     No failure is caught: any exits non-zero."""
     import numpy as np
@@ -3824,10 +3831,10 @@ def run_video(results: list, card: str, tmp: str) -> dict:
 
     # (c) a codec the port does not decode
     try:
-        VI.require_mjpeg(VI.open_video(os.path.join(GOLDENS, VIDEO_REFUSED)))
+        VI.require_supported(VI.open_video(os.path.join(GOLDENS, VIDEO_REFUSED)))
         fail.append(f"{VIDEO_REFUSED} was not refused")
     except ValueError as e:
-        if "codec mp4v (objectTypeIndication 0x20)" not in str(e):
+        if "codec DIV3" not in str(e):
             raise
         print(f"[video] refused: {str(e)[:120]}", flush=True)
 
@@ -3842,7 +3849,280 @@ def run_video(results: list, card: str, tmp: str) -> dict:
 
 
 
-ALL_PHASES = tuple(range(3, 16))  # 1 and 2 (the card, the build) always run
+# cv2.VideoWriter's MPEG-4 Part 2 ('mp4v') clips in tests/goldens and cv2's
+# readings of them (every frame's digest); the first goes through preproc_app
+MPEG4_CLIPS = ("clip_mpeg4_1080p.mp4", "clip_mpeg4.mp4")
+MPEG4_APP_FPS = 5  # the app's --fps on the 1080p clip: samples 0, 6 and 12, 6 DIS calls
+
+
+def m4v_bytes(M, vop, g) -> tuple:
+    """The bytes each kernel must move for one VOP: m4v_reconstruct reads
+    the records and levels and, for each predicted macroblock, its 384
+    reference pixels, and writes the padded frame; yuv420_to_bgr reads the
+    picture's Y and its U and V, and writes three bytes a pixel."""
+    pred = int((vop.mbs[:, M.F_TYPE] != M.MB_INTRA).sum()) if vop.coding == M.VOP_P else 0
+    rec = vop.mbs.nbytes + vop.levels.nbytes + 384 * pred + g.frame_bytes
+    w, h = g.width, g.height
+    return rec, w * h + 2 * ((w + 1) // 2) * ((h + 1) // 2) + 3 * w * h
+
+
+def m4v_held_to_plain(path: str, fail: list) -> dict:
+    """(a) of phase 16 on one clip: at every VOP, m4v_reconstruct against
+    reconstruct_plain and yuv420_to_bgr against yuv420_to_bgr_plain on the
+    same inputs on the card (bit-equal shares, the largest difference); the
+    last I- and P-VOP's inputs are kept for timing."""
+    import torch
+    from moda_tpu_torch.preproc import m4v as M
+    from moda_tpu_torch.preproc import video as VI
+
+    clip = VI.open_video(path)
+    dec = M.Mpeg4Decoder(clip, "cuda")
+    r = {"rec_equal": [], "bgr_equal": [], "max": 0, "vops": {}}
+    ref = None
+    for i in range(len(clip)):
+        vop = clip.vop(dec.parser, i)
+        if vop.coding == M.VOP_NOT_CODED:
+            continue
+        g = dec.parser.geometry
+        mbs, levels = dec.upload(vop)
+        prev = ref if vop.coding == M.VOP_P else None
+        cur = M.reconstruct(prev, mbs, levels, vop.rounding, g)
+        plain = M.reconstruct_plain(prev, mbs, levels, vop.rounding, g)
+        bgr, bgr_plain = M.yuv420_to_bgr(cur, g), M.yuv420_to_bgr_plain(cur, g)
+        r["rec_equal"].append(float((cur == plain).float().mean()))
+        r["bgr_equal"].append(float((bgr == bgr_plain).float().mean()))
+        r["max"] = max(r["max"], int((cur.int() - plain.int()).abs().max()),
+                       int((bgr.int() - bgr_plain.int()).abs().max()))
+        r["vops"]["IP"[vop.coding]] = (vop, mbs, levels, prev, cur)
+        ref = plain
+    torch.cuda.synchronize()
+    name = os.path.basename(path)
+    if min(r["rec_equal"] + r["bgr_equal"]) < 1:
+        fail.append(f"{name}: the kernels against their plain versions: bit-equal shares "
+                    f"{r['rec_equal']}, {r['bgr_equal']}")
+    r["geometry"] = dec.parser.geometry
+    print(f"[mpeg4] {name}: {len(r['rec_equal'])} VOPs, m4v_reconstruct against "
+          f"reconstruct_plain and yuv420_to_bgr against yuv420_to_bgr_plain on the card: "
+          f"share of bytes bit-equal (gate 1.0) min {min(r['rec_equal']):.4f} / "
+          f"{min(r['bgr_equal']):.4f}, largest difference {r['max']}", flush=True)
+    return r
+
+
+def run_mpeg4(results: list, card: str, tmp: str) -> dict:
+    """Phase 16, MPEG-4 Part 2 video (preproc/m4v.py: the host parse of
+    native/m4v.cpp, the kernels m4v_reconstruct and yuv420_to_bgr of
+    csrc/m4v.cu) on the card:
+
+    (a) at every VOP of MPEG4_CLIPS (tests/goldens, cv2.VideoWriter's
+        'mp4v' at 1920 x 1080 and 96 x 64), each kernel against its plain
+        version on the same inputs on the card (``m4v_held_to_plain``: every
+        byte equal); at the 1080p clip's last I- and P-VOP each kernel and
+        its plain version timed (events) beside the bound (``m4v_bytes`` at
+        the card's rate; no PyTorch call computes either function, so no
+        library time);
+    (b) ``Mpeg4Decoder.decode`` over every sample of each clip: each
+        frame's SHA-256 against cv2.VideoCapture's recorded one, the decode
+        time a frame (host clock to a sync) split into the host parse
+        (``Parser.parse``, host clock) and the two kernels' device time
+        (events around each launch);
+    (c) ``preproc_app.main --input`` the 1080p clip at --fps MPEG4_APP_FPS
+        (DIS flow on the card, masks from a --mask_dir this phase writes, no
+        line shards): the "[frames] extracted" line, the stored frames'
+        digests against cv2's, every flo-/occ- PFM finite, the kernels'
+        launches counted from 0 (m4v_reconstruct one a sample, yuv420_to_bgr
+        one a stored frame) and dis_patch_search's (one a scale a flow
+        call); each stage's seconds printed, and the host parses in the
+        frames stage (extract_frames parses every sample twice: once for
+        the refusals, once to decode).
+    No failure is caught: any exits non-zero."""
+    import numpy as np
+    import torch
+    from moda_tpu_torch.cli import preproc_app
+    from moda_tpu_torch.data import imageio as IO
+    from moda_tpu_torch.data.pfm import read_pfm
+    from moda_tpu_torch.ops import fused_mlp as FM
+    from moda_tpu_torch.preproc import dis_flow as D
+    from moda_tpu_torch.preproc import m4v as M
+    from moda_tpu_torch.preproc import video as VI
+    from moda_tpu_torch.viz.render_vis import save_png
+
+    t_phase = time.perf_counter()
+    with open(os.path.join(GOLDENS, "video_readings.json")) as f:
+        recorded = json.load(f)
+    out, fail = {}, []
+    M.build_library()
+
+    # (a) the kernels against their plain versions at every VOP, then timed
+    held = {name: m4v_held_to_plain(os.path.join(GOLDENS, name), fail) for name in MPEG4_CLIPS}
+    big = held[MPEG4_CLIPS[0]]
+    g = big["geometry"]
+    timing = {}
+    for kind, (vop, mbs, levels, prev, cur) in sorted(big["vops"].items()):
+        rec_b, bgr_b = m4v_bytes(M, vop, g)
+        timing[kind] = {
+            "rec_ms": cuda_time(lambda: M.reconstruct(prev, mbs, levels, vop.rounding, g),
+                                iters=20, warmup=3),
+            "rec_plain_ms": cuda_time(lambda: M.reconstruct_plain(prev, mbs, levels,
+                                                                  vop.rounding, g),
+                                      iters=3, warmup=1),
+            "bgr_ms": cuda_time(lambda: M.yuv420_to_bgr(cur, g), iters=20, warmup=3),
+            "bgr_plain_ms": cuda_time(lambda: M.yuv420_to_bgr_plain(cur, g), iters=3, warmup=1),
+            "rec_bytes": rec_b, "bgr_bytes": bgr_b, "blocks": int(levels.shape[0])}
+        t = timing[kind]
+        print(f"[mpeg4] 1080p {kind}-VOP ({t['blocks']} coded blocks): m4v_reconstruct "
+              f"{t['rec_ms']:.4f} ms (plain {t['rec_plain_ms']:.3f} ms, bound "
+              f"{rec_b / PEAK_BYTES * 1e3:.4f} ms by {rec_b / 1e6:.2f} MB), yuv420_to_bgr "
+              f"{t['bgr_ms']:.4f} ms (plain {t['bgr_plain_ms']:.3f} ms, bound "
+              f"{bgr_b / PEAK_BYTES * 1e3:.4f} ms by {bgr_b / 1e6:.2f} MB) ({card})", flush=True)
+    out.update(timing=timing, vops={n: len(h["rec_equal"]) for n, h in held.items()},
+               bit_equal_share=min(min(h["rec_equal"] + h["bgr_equal"]) for h in held.values()),
+               max_abs_err=max(h["max"] for h in held.values()))
+    del held, big
+
+    # (b) the decoder over every sample, against cv2's digests
+    events, parses = [], []
+    parse = M.Parser.parse
+
+    def timed_parse(parser, data):
+        t0 = time.perf_counter()
+        try:
+            return parse(parser, data)
+        finally:
+            parses.append(time.perf_counter() - t0)
+
+    def evented(fn):
+        def call(*a, **k):
+            s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            s.record()
+            res = fn(*a, **k)
+            e.record()
+            events.append((fn.__name__, s, e))
+            return res
+        return call
+
+    out["decode"] = {}
+    for name in MPEG4_CLIPS:
+        clip = VI.open_video(os.path.join(GOLDENS, name))
+        dec = M.Mpeg4Decoder(clip)
+        digests, wall = [], 0.0
+        events.clear()
+        parses.clear()
+        with _patched([(M, "reconstruct", evented(M.reconstruct)),
+                       (M, "yuv420_to_bgr", evented(M.yuv420_to_bgr)),
+                       (M.Parser, "parse", timed_parse)]):
+            for i in range(len(clip)):
+                t0 = time.perf_counter()
+                bgr = dec.decode(clip.sample(i))
+                torch.cuda.synchronize()
+                wall += time.perf_counter() - t0
+                digests.append(hashlib.sha256(bgr.cpu().numpy().tobytes()).hexdigest())
+        dev = {k: sum(s.elapsed_time(e) for n, s, e in events if n == k)
+               for k in ("reconstruct", "yuv420_to_bgr")}
+        n, ref = len(clip), recorded[name]["all_pixels_sha256"]
+        if digests != ref:
+            fail.append(f"{name}: {sum(a != b for a, b in zip(digests, ref))} of {n} decoded "
+                        "frames differ from cv2's")
+        d = {"frames": n, "ms": wall / n * 1e3, "parse_ms": sum(parses) / n * 1e3,
+             "reconstruct_device_ms": dev["reconstruct"] / n,
+             "yuv420_to_bgr_device_ms": dev["yuv420_to_bgr"] / n}
+        out["decode"][name] = d
+        print(f"[mpeg4] {name}: {n} frames decoded on the card, digests "
+              f"{'equal' if digests == ref else 'DIFFER from'} cv2's; {d['ms']:.2f} ms a frame "
+              f"(host clock to a sync): host parse {d['parse_ms']:.2f} ms, m4v_reconstruct "
+              f"{d['reconstruct_device_ms']:.4f} ms and "
+              f"yuv420_to_bgr {d['yuv420_to_bgr_device_ms']:.4f} ms of device time ({card})",
+              flush=True)
+
+    # (c) the entry point on the 1080p clip
+    name = MPEG4_CLIPS[0]
+    want = recorded[name]
+    h, w = want["size"]
+    step = max(int(round(want["fps"] / MPEG4_APP_FPS)), 1)
+    kept = list(range(0, want["frames"], step))
+    masks, empty = os.path.join(tmp, "mpeg4_masks"), os.path.join(tmp, "mpeg4_no_weights")
+    os.makedirs(masks, exist_ok=True)
+    os.makedirs(empty, exist_ok=True)
+    for k in range(len(kept)):
+        m = np.zeros((h, w), np.uint8)
+        m[h // 4:3 * h // 4, w // 5 + 8 * k:w // 2 + 8 * k] = 255
+        save_png(os.path.join(masks, "%05d.png" % k), m)
+    db = os.path.join(tmp, "m4db")
+    argv = ["--seqname", "clip", "--input", os.path.join(GOLDENS, name), "--mask_dir", masks,
+            "--weights_dir", empty, "--database", db, "--config_dir",
+            os.path.join(tmp, "m4cfg"), "--fps", str(MPEG4_APP_FPS), "--no-lines"]
+    FM.reset_launches()
+    D.reset_launches()
+    M.reset_launches()
+    buf = io.StringIO()
+    parses.clear()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf), _patched([(M.Parser, "parse", timed_parse)]):
+        res = preproc_app.main(argv)
+    app_s = time.perf_counter() - t0
+    app_parse = {"parses": len(parses), "s": sum(parses)}
+    launches = dict(M.launches)
+    dis_launches = D.launches["patch_search"]
+    printed = buf.getvalue()
+    line = f"[frames] extracted {len(kept)} frames @ {MPEG4_APP_FPS}fps -> {res['seq_dir']}"
+    if line not in printed:
+        fail.append(f"preproc_app did not print {line!r}")
+    if "[flow] no VCN weights: OpenCV DIS + fb-confidence on cuda" not in printed:
+        fail.append("preproc_app did not take the DIS route on the card")
+    stored = [hashlib.sha256(np.ascontiguousarray(IO.imread(p)[..., ::-1]).tobytes()).hexdigest()
+              for p in sorted(glob.glob(os.path.join(res["seq_dir"], "*.jpg")))]
+    stored_ok = stored == [want["all_pixels_sha256"][i] for i in kept]
+    if not stored_ok:
+        fail.append(f"{name}: the app's stored frames differ from cv2's frames {kept}")
+    if launches != {"m4v_reconstruct": want["frames"], "yuv420_to_bgr": len(kept)}:
+        fail.append(f"kernel launches {launches} in the app's run, want m4v_reconstruct one a "
+                    f"sample ({want['frames']}) and yuv420_to_bgr one a stored frame "
+                    f"({len(kept)})")
+    scales = D.coarsest_scale(h, w) - D.FINEST_SCALE + 1
+    if dis_launches != res["flow_calls"] * scales or dis_launches <= 0:
+        fail.append(f"{dis_launches} dis_patch_search launches for {res['flow_calls']} flow "
+                    f"calls of {scales} scales")
+    fmlp = sum(FM.launches_by_call.values())
+    if fmlp:
+        fail.append(f"{fmlp} fused-MLP launches in the MPEG-4 phase")
+    pfms = glob.glob(os.path.join(db, "Flow*", "*", "clip", "*.pfm"))
+    if not pfms or not all(np.isfinite(read_pfm(p)[0]).all() for p in pfms):
+        fail.append(f"{len(pfms)} flo-/occ- PFMs, not all finite")
+    out.update(app_s=app_s, stage_s=res["times"], app_parse=app_parse,
+               flow_calls=res["flow_calls"],
+               launches=launches, dis_launches=dis_launches, pfms=len(pfms))
+    print(f"[mpeg4] preproc_app.main --input {name} --fps {MPEG4_APP_FPS} {app_s:.1f} s: stages "
+          + ", ".join(f"{k} {v:.2f} s" for k, v in res["times"].items())
+          + f"; host parse {app_parse['s']:.3f} s in {app_parse['parses']} parses of "
+          f"{want['frames']} samples; {len(stored)} frames stored "
+          f"({'equal' if stored_ok else 'NOT equal'} to cv2's), "
+          f"{res['flow_calls']} DIS calls, {len(pfms)} PFMs; launches "
+          f"{json.dumps(launches)}, dis_patch_search {dis_launches}, fused MLP {fmlp} ({card})",
+          flush=True)
+
+    p_vop = timing.get("P", timing["I"])
+    for kname, key, bytes_key in (("m4v_reconstruct", "rec", "rec_bytes"),
+                                  ("yuv420_to_bgr", "bgr", "bgr_bytes")):
+        results.append({
+            "name": kname, "route": "cuda", "source": "moda_tpu_torch/csrc/m4v.cu",
+            "replaces": "none (FFmpeg's mpeg4 decoder and swscale on the host, inside "
+                        "cv2.VideoCapture: moda_tpu/preproc/pipeline.py:39-45)",
+            "launches": launches[kname], "max_abs_err": out["max_abs_err"],
+            "ms": p_vop[f"{key}_ms"], "plain_ms": p_vop[f"{key}_plain_ms"],
+            "bound_ms": p_vop[bytes_key] / PEAK_BYTES * 1e3, "bound_by": "bytes",
+            "library_ms": None, "shape": [g.height, g.width],
+            "vop": "P" if "P" in timing else "I",
+            "bit_equal_share": out["bit_equal_share"], "runs": []})
+    for e in results:
+        if e["name"] == "dis_patch_search":
+            e["launches"] += dis_launches
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"[mpeg4] phase {out['phase_s']:.1f} s ({card})", flush=True)
+    if fail:
+        raise SystemExit("mpeg4: " + "; ".join(fail))
+    return out
+
+
+ALL_PHASES = tuple(range(3, 17))  # 1 and 2 (the card, the build) always run
 # the phases whose artifacts a phase reads (in the temporary directory)
 PHASE_NEEDS = {7: (6,), 9: (8,), 10: (3, 6, 7, 8), 11: (8,), 12: (8, 11), 13: (6,), 14: (8,)}
 
@@ -3875,7 +4155,7 @@ def main():
                     help="run phase 13 (b) alone with this fault planted in both ranks; "
                          "exit 0 iff its gates catch it")
     ap.add_argument("--phases", default="",
-                    help="run only these phases (e.g. 15, or 3,4, or 11-15) and the earlier "
+                    help="run only these phases (e.g. 16, or 3,4, or 11-16) and the earlier "
                          "ones whose artifacts they read; phases 1-2 always run")
     args = ap.parse_args()
     phases = select_phases(args.phases)
@@ -3899,6 +4179,7 @@ def main():
     print(f"torch {torch.__version__} cuda {torch.version.cuda} python {sys.version.split()[0]}",
           flush=True)
     from moda_tpu_torch.preproc import dis_flow as DIS
+    from moda_tpu_torch.preproc import m4v as M4V
 
     # every kernel source builds at once, one nvcc each
     t0 = time.time()
@@ -3912,15 +4193,19 @@ def main():
         except Exception as e:  # re-raised below, in the main thread
             built[name] = e
 
-    thread = threading.Thread(target=build, args=("dis.cu", DIS.build_library))
-    thread.start()
+    threads = [threading.Thread(target=build, args=a) for a in
+               (("dis.cu", DIS.build_library), ("m4v.cu", M4V.build_library))]
+    for thread in threads:
+        thread.start()
     build("fused_mlp.cu", FM.build_library)
-    thread.join()
+    for thread in threads:
+        thread.join()
     for name, r in built.items():
         if isinstance(r, Exception):
             raise RuntimeError(f"{name} did not build") from r
     print(f"[build] fused_mlp.cu built and loaded in {built['fused_mlp.cu']:.1f} s, dis.cu in "
-          f"{built['dis.cu']:.1f} s, in parallel ({time.time() - t0:.1f} s)", flush=True)
+          f"{built['dis.cu']:.1f} s, m4v.cu in {built['m4v.cu']:.1f} s, in parallel "
+          f"({time.time() - t0:.1f} s)", flush=True)
     for line in FM.ptxas_report().splitlines():
         if "registers" in line or "spill" in line or "Compiling entry" in line:
             print(f"[build] {line.strip()}", flush=True)
@@ -3967,7 +4252,8 @@ def main():
             (13, "parallel", "K steps a call and data parallelism",
              lambda: run_parallel(results, card, tmp, profile=args.profile)),
             (14, "dis", "DIS flow", lambda: run_dis(results, card, tmp, profile=args.profile)),
-            (15, "video", "video input", lambda: run_video(results, card, tmp)))
+            (15, "video", "video input", lambda: run_video(results, card, tmp)),
+            (16, "mpeg4", "MPEG-4 Part 2 video", lambda: run_mpeg4(results, card, tmp)))
         for number, key, label, run in later:
             if number in phases:
                 steps[key] = run()

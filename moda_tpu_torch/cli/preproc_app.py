@@ -24,13 +24,18 @@ card; ``main(argv, device="cpu")`` runs them on the CPU:
 Frames: .jpg inputs are copied byte for byte; other images are stored as
 8-bit RGB PNGs under the DAVIS .jpg names (the JAX package re-encodes them
 as JPEG; the frame reader, like cv2.imread, goes by the first bytes).
-A video --input (Motion JPEG in AVI, MOV or MP4; preproc/video.py) keeps
-every round(rate / --fps)-th frame, as the JAX package's cv2.VideoCapture
-route does, and stores each kept frame's own JPEG sample (a clip with a
-display rotation: the turned frame as PNG).
+A video --input (preproc/video.py: AVI, MOV or MP4) keeps every
+round(rate / --fps)-th frame, as the JAX package's cv2.VideoCapture route
+does: Motion JPEG stores each kept frame's own JPEG sample (a clip with a
+display rotation: the turned frame as PNG); MPEG-4 Part 2 (mp4v, XVID,
+DIVX, FMP4, DX50, ...; preproc/m4v.py) is decoded on the same device and
+stored as PNG.
 What the JAX package does and the port does not, raising with the reason
 instead of falling back: video in any other codec (H.264/avc1, HEVC,
-MPEG-4 Part 2 mp4v/XVID/DIVX, Motion-JPEG format B mjpb, ...), interlaced
+MS-MPEG-4 DIV3/MP42/MP43, MPEG-2, Motion-JPEG format B mjpb, ...), the
+MPEG-4 Part 2 tools FFmpeg's encoder does not use at its defaults (B-VOPs,
+four vectors a macroblock, interlace, GMC, quarter-pel, MPEG quantisation,
+resync markers, data partitioning) and XviD or DivX streams, interlaced
 Motion JPEG, fragmented MP4 and edit lists other than the identity.
 """
 from __future__ import annotations
@@ -76,13 +81,13 @@ def _weights(args, pattern: str) -> list:
     return sorted(glob.glob(os.path.join(args.weights_dir, pattern))) if args.weights_dir else []
 
 
-def stage_frames(args) -> str:
+def stage_frames(args, device=None) -> str:
     from moda_tpu_torch.preproc.ama import store_frame
     from moda_tpu_torch.preproc.pipeline import extract_frames
 
     seq_dir = os.path.join(args.database, "JPEGImages", "Full-Resolution", args.seqname)
     if not os.path.isdir(args.input):
-        paths = extract_frames(args.input, seq_dir, fps=args.fps)
+        paths = extract_frames(args.input, seq_dir, fps=args.fps, device=device)
         print(f"[frames] extracted {len(paths)} frames @ {args.fps}fps -> {seq_dir}")
         return seq_dir
     os.makedirs(seq_dir, exist_ok=True)
@@ -190,7 +195,7 @@ def main(argv=None, device=None) -> dict:
         times[name] = time.perf_counter() - t0
         return out
 
-    seq_dir = timed("frames", stage_frames, args)
+    seq_dir = timed("frames", stage_frames, args, device=dev)
     timed("masks", stage_masks, args, seq_dir, device=dev)
     have_cse = timed("densepose", stage_densepose, args, seq_dir, device=dev)
     flow_calls = timed("flow", stage_flow, args, seq_dir, device=dev)

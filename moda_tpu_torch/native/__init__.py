@@ -4,8 +4,9 @@ tetrahedra isosurface of the rest-mesh extraction (the reference's
 PyMCubes, train_utils.py:19,1441), the z-buffer rasterizer of the
 silhouette export and the pose-CNN warmup, and the image codec of the
 frame reader (``imgcodec.cpp``: JPEG decoding, PNG unfiltering, cv2's
-resize and remap; ``data/imageio.py`` wraps it). Counterpart of
-moda_tpu/native/__init__.py."""
+resize and remap; ``data/imageio.py`` wraps it) and the bitstream parser of
+the MPEG-4 Part 2 decoder (``m4v.cpp``; ``preproc/m4v.py`` wraps it).
+Counterpart of moda_tpu/native/__init__.py."""
 from __future__ import annotations
 
 import ctypes
@@ -81,6 +82,21 @@ def _declare(name: str, lib):
         lib.remap_f32.restype = None
         lib.remap_f32.argtypes = [f32p, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
                                   f32p, f32p, ctypes.c_int64, f32p, ctypes.c_int, ctypes.c_int]
+    elif name == "m4v":
+        vp, i32p = ctypes.c_void_p, ctypes.POINTER(ctypes.c_int32)
+        lib.m4v_open.restype = vp
+        lib.m4v_open.argtypes = [ctypes.c_char_p]
+        lib.m4v_close.restype = None
+        lib.m4v_close.argtypes = [vp]
+        lib.m4v_config.restype = ctypes.c_int
+        lib.m4v_config.argtypes = [vp, ctypes.c_char_p, ctypes.c_int64, ctypes.c_char_p,
+                                   ctypes.c_int]
+        lib.m4v_info.restype = ctypes.c_int
+        lib.m4v_info.argtypes = [vp, i32p]
+        lib.m4v_parse.restype = ctypes.c_int64
+        lib.m4v_parse.argtypes = [vp, ctypes.c_char_p, ctypes.c_int64, i32p, i32p,
+                                  ctypes.c_int64, ctypes.POINTER(ctypes.c_int16), ctypes.c_int64,
+                                  ctypes.c_char_p, ctypes.c_int]
     else:
         lib.rasterize.restype = None
         lib.rasterize.argtypes = [
@@ -94,8 +110,8 @@ def _declare(name: str, lib):
 
 
 def _load(name: str):
-    """The library built from ``<name>.cpp`` ("marching", "raster" or
-    "imgcodec")."""
+    """The library built from ``<name>.cpp`` ("marching", "raster",
+    "imgcodec" or "m4v")."""
     with _LOCK:
         if name not in _LIBS:
             lib = ctypes.CDLL(str(_compile(name)))

@@ -21,8 +21,9 @@ JAX package: ``dis_flow`` runs preproc/dis_flow.py, its patch search in the
 CUDA kernel dis_patch_search, on the card unless ``device`` says otherwise.
 
 Video input (``extract_frames``, cv2.VideoCapture in the JAX package) reads
-Motion-JPEG clips in AVI, MOV and MP4 through preproc/video.py and stores
-the clip's own JPEG samples; other codecs raise.
+AVI, MOV and MP4 clips through preproc/video.py: Motion JPEG (the clip's
+own JPEG samples are stored) and MPEG-4 Part 2 (decoded on the card by
+preproc/m4v.py, stored as PNG); other codecs raise.
 """
 from __future__ import annotations
 
@@ -39,21 +40,27 @@ from moda_tpu_torch.viz.render_vis import save_png
 DFRAMES = (1, 2, 4, 8, 16, 32)
 
 
-def extract_frames(video_path: str, out_dir: str, fps: int = 10) -> List[str]:
+def extract_frames(video_path: str, out_dir: str, fps: int = 10, device=None) -> List[str]:
     """Video -> frames at a fixed rate (preprocess.sh:42 ffmpeg), as the JAX
     package's: every max(round(src_fps / fps), 1)-th decoded frame, src_fps
     the clip's rate as cv2 reports it or 30.0, stored as %05d.jpg; returns
-    the paths. Motion-JPEG clips only (preproc/video.py; ValueError naming
-    any other codec). A kept sample is stored as its own JPEG bytes (Annex
-    K.3's tables added where it has none); in a clip with a display
-    rotation, as an 8-bit RGB PNG of the turned frame under the .jpg name
-    (preproc/ama.py::store_frame's rule: the port has no JPEG encoder).
-    Every kept sample's header is read before anything is written."""
-    from moda_tpu_torch.preproc.video import open_video, require_mjpeg
+    the paths. Motion JPEG and MPEG-4 Part 2 (preproc/video.py; ValueError
+    naming any other codec). A kept Motion-JPEG sample is stored as its own
+    JPEG bytes (Annex K.3's tables added where it has none); in a clip with
+    a display rotation, and for MPEG-4 Part 2 (decoded by preproc/m4v.py on
+    ``device``, the card unless the caller asks for the CPU, every sample in
+    order: P-VOPs need their predecessors; a VOP with vop_coded 0 is no
+    frame, as cv2 reads none), as an 8-bit RGB PNG of the turned frame under
+    the .jpg name (preproc/ama.py::store_frame's rule: the port has no JPEG
+    encoder). Every kept Motion-JPEG sample's header, and every MPEG-4
+    sample whole, is parsed before anything is written."""
+    from moda_tpu_torch.preproc.video import open_video, require_supported
 
     clip = open_video(video_path)
-    require_mjpeg(clip)
+    require_supported(clip)
     step = max(int(round((clip.fps or 30.0) / fps)), 1)
+    if clip.kind == "mpeg4":
+        return _extract_mpeg4(clip, out_dir, step, device)
     kept = range(0, len(clip), step)
     for i in kept:
         clip.jpeg(i)  # raises with the sample's index
@@ -67,6 +74,31 @@ def extract_frames(video_path: str, out_dir: str, fps: int = 10) -> List[str]:
             with open(p, "wb") as f:
                 f.write(clip.jpeg(i))
         paths.append(p)
+    return paths
+
+
+def _extract_mpeg4(clip, out_dir: str, step: int, device) -> List[str]:
+    """extract_frames for an MPEG-4 Part 2 track: every sample parsed whole
+    (a refusal raises here; the syntax arrays, a few MB a 1080p VOP, are not
+    kept), then parsed again and reconstructed in order, and every step-th
+    picture converted and stored."""
+    from moda_tpu_torch.preproc.m4v import VOP_I, VOP_NOT_CODED, Mpeg4Decoder
+    from moda_tpu_torch.preproc.video import ROT90_K
+
+    dec = Mpeg4Decoder(clip, device)
+    codings = [clip.vop(dec.parser, i).coding for i in range(len(clip))]
+    coded = [i for i, c in enumerate(codings) if c != VOP_NOT_CODED]
+    if coded and codings[coded[0]] != VOP_I:
+        raise ValueError(f"{clip.path}: sample {coded[0]}: a P-VOP without a preceding I-VOP")
+    os.makedirs(out_dir, exist_ok=True)
+    paths = []
+    for n, i in enumerate(coded):
+        dec.advance(clip.vop(dec.parser, i))
+        if n % step == 0:
+            p = os.path.join(out_dir, "%05d.jpg" % len(paths))
+            rgb = dec.picture().cpu().numpy()[..., ::-1]
+            save_png(p, np.ascontiguousarray(np.rot90(rgb, ROT90_K[clip.rotation])))
+            paths.append(p)
     return paths
 
 

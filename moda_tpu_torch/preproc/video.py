@@ -1,16 +1,18 @@
 """Video input without a video library: the port's own readers of the two
-containers phones and cameras write Motion JPEG into, and the Motion-JPEG
-samples themselves. moda_tpu/preproc/pipeline.py::extract_frames reads
-clips through cv2.VideoCapture (FFmpeg); this module gives what that call
-sees, for the codec the port decodes:
+containers phones, cameras and cv2 scripts write into, and the samples of
+the two codecs the port decodes. moda_tpu/preproc/pipeline.py::
+extract_frames reads clips through cv2.VideoCapture (FFmpeg); this module
+gives what that call sees:
 
 - ``open_video(path)`` -> ``Video``: the container ("avi", "mov" or "mp4",
   told apart by the file's first bytes), the codec (fourcc, and for
   ``mp4v`` the esds objectTypeIndication), width and height, the rate as a
   numerator and denominator (cv2's CAP_PROP_FPS: FFmpeg's avg_frame_rate),
   the display rotation in degrees, and the sample table (offset and size of
-  each sample, in decode order). Any codec is read; ``require_mjpeg``
-  refuses all but Motion JPEG.
+  each sample, in decode order), and an 'mp4v' entry's esds
+  DecoderSpecificInfo (``config``: an MPEG-4 Part 2 track's VOL). Any codec
+  is read; ``require_supported`` refuses all but Motion JPEG and MPEG-4
+  Part 2 (``Video.kind``).
 - ISO-BMFF (.mp4, .mov, .m4v): 32-bit, 64-bit and to-the-end box sizes,
   moov before or after mdat, the first track whose mdia/hdlr is 'vide',
   the rate from mdhd's timescale and stts (timescale x samples / summed
@@ -31,6 +33,11 @@ sees, for the codec the port decodes:
   (FFmpeg's mjpeg2jpeg tables) before its SOS. Interlaced samples (an
   'AVI1' APP0 with a field polarity, two fields in a 'mjpa' APP1, or a
   picture under 3/4 of the track's height, FFmpeg's test) raise.
+- MPEG-4 Part 2: MP4 'mp4v' with objectTypeIndication 0x20, and the AVI
+  fourccs FFmpeg's RIFF table maps to its mpeg4 decoder (``AVI_MPEG4``;
+  FFmpeg matches them in any case, as cv2 does). preproc/m4v.py decodes
+  them; ``Video.frame(i)`` decodes from the last I-VOP up to sample i.
+  MS-MPEG-4 (DIV3, MP42, MP43), MPEG-1/2, H.264 and the rest are refused.
 """
 from __future__ import annotations
 
@@ -45,8 +52,19 @@ import numpy as np
 from moda_tpu_torch.data import imageio as IO
 
 MJPEG_OTI = 0x6C  # ISO/IEC 14496-1 objectTypeIndication of Motion JPEG (ISO 10918-1)
+MPEG4_OTI = 0x20  # objectTypeIndication of MPEG-4 Part 2 visual (ISO/IEC 14496-2)
 AVI_MJPEG = ("MJPG", "mjpg")
 ISO_MJPEG = ("jpeg", "mjpa")
+# AVI fourccs that FFmpeg's RIFF table (libavformat/riff.c) maps to its mpeg4
+# decoder, compared in upper case as its ff_codec_get_id does after an exact
+# match (cv2 decodes 'xvid' and 'divx' as 'XVID' and 'DIVX'); each checked with
+# cv2 (tests/test_torch_m4v.py). Left out: the tags FFmpeg treats otherwise
+# (3IV1/3IV2, WV1F, QMP4, UMP4, GEOX/GEOV, G264, INMC).
+AVI_MPEG4 = ("FMP4", "DIVX", "DX50", "XVID", "MP4S", "M4S2", "\x04\0\0\0", "ZMP4", "DIV1",
+             "BLZ0", "MP4V", "SEDG", "RMP4", "WAWV", "FFDS", "FVFW", "DCOD", "MVXM", "PM4V",
+             "SMP4", "DXGM", "VIDM", "M4T3", "HDX4", "DMK2", "DIGI", "EPHV", "EM4A", "M4CC",
+             "SN40", "VSPX", "ULDX", "SIPP", "SM4V", "XVIX", "DREX", "PLV1", "GLV4", "GMP4",
+             "MNM4", "GTM4")
 ISO_TOP_LEVEL = (b"ftyp", b"moov", b"mdat", b"free", b"skip", b"wide", b"pnot", b"uuid",
                  b"styp", b"sidx", b"moof")
 # np.rot90's k for cv2.rotate by the track's rotation (cv2's ROTATE_90_CLOCKWISE
@@ -88,6 +106,7 @@ class Video:
     rotation: int               # display rotation in degrees: 0, 90, 180 or 270
     offsets: np.ndarray         # int64 [N], byte offset of each sample, decode order
     sizes: np.ndarray           # int64 [N]
+    config: bytes = b""         # an 'mp4v' entry's esds DecoderSpecificInfo (the VOL)
 
     def __len__(self) -> int:
         return len(self.sizes)
@@ -96,6 +115,18 @@ class Video:
     def fps(self) -> float:
         """The rate as cv2's CAP_PROP_FPS reports it (0.0 where unknown)."""
         return self.rate[0] / self.rate[1] if self.rate[0] else 0.0
+
+    @property
+    def kind(self) -> str:
+        """The codec the port decodes it with: "mjpeg", "mpeg4" (Part 2), or ""
+        (one it refuses)."""
+        if self.container == "avi":
+            if self.fourcc in AVI_MJPEG:
+                return "mjpeg"
+            return "mpeg4" if self.fourcc.upper() in AVI_MPEG4 else ""
+        if self.fourcc in ISO_MJPEG or (self.fourcc == "mp4v" and self.oti == MJPEG_OTI):
+            return "mjpeg"
+        return "mpeg4" if self.fourcc == "mp4v" and self.oti == MPEG4_OTI else ""
 
     @property
     def codec(self) -> str:
@@ -128,22 +159,48 @@ class Video:
             raise ValueError(f"{self.path}: sample {i}: {e}") from None
         return data
 
-    def frame(self, i: int) -> np.ndarray:
+    def frame(self, i: int, device=None) -> np.ndarray:
         """Sample i decoded, uint8 [H, W, 3] RGB, turned by the track's
-        rotation as cv2.VideoCapture turns it."""
-        return np.ascontiguousarray(np.rot90(IO.decode_jpeg(self.jpeg(i)),
-                                             ROT90_K[self.rotation]))
+        rotation as cv2.VideoCapture turns it. Motion JPEG decodes on the
+        host; MPEG-4 Part 2 on ``device`` (the card unless the caller asks
+        for the CPU), from the last I-VOP up to sample i."""
+        require_supported(self)
+        if self.kind == "mjpeg":
+            rgb = IO.decode_jpeg(self.jpeg(i))
+        else:
+            from moda_tpu_torch.preproc.m4v import VOP_I, VOP_NOT_CODED, Mpeg4Decoder
+
+            dec = Mpeg4Decoder(self, device)
+            run = []  # the VOPs from the last I-VOP on
+            for j in range(i + 1):
+                v = self.vop(dec.parser, j)
+                run = [v] if v.coding == VOP_I else run + [v]
+            if run[-1].coding == VOP_NOT_CODED:
+                raise ValueError(f"{self.path}: sample {i}: a VOP with vop_coded 0, which "
+                                 "cv2 reads no frame for")
+            for v in run:
+                dec.advance(v)
+            rgb = dec.picture().cpu().numpy()[..., ::-1]
+        return np.ascontiguousarray(np.rot90(rgb, ROT90_K[self.rotation]))
+
+    def vop(self, parser, i: int):
+        """Sample i of an MPEG-4 Part 2 track parsed by ``parser``
+        (preproc/m4v.py::Parser): ValueError naming the sample."""
+        try:
+            return parser.parse(self.sample(i))
+        except ValueError as e:
+            raise ValueError(f"{self.path}: sample {i}: {e}") from None
 
 
-def require_mjpeg(video: Video) -> None:
-    """ValueError naming the codec unless the track is Motion JPEG."""
-    ok = (video.fourcc in AVI_MJPEG if video.container == "avi" else
-          video.fourcc in ISO_MJPEG or (video.fourcc == "mp4v" and video.oti == MJPEG_OTI))
-    if not ok:
+def require_supported(video: Video) -> None:
+    """ValueError naming the codec unless the port decodes it (``Video.kind``)."""
+    if not video.kind:
         raise ValueError(
-            f"{video.path}: codec {video.codec}: only Motion JPEG is decoded yet (AVI "
-            "MJPG/mjpg, QuickTime jpeg/mjpa, MP4 mp4v with objectTypeIndication 0x6C); "
-            "H.264, MPEG-4 Part 2 and the rest are refused")
+            f"{video.path}: codec {video.codec}: the port decodes Motion JPEG (AVI "
+            "MJPG/mjpg, QuickTime jpeg/mjpa, MP4 mp4v with objectTypeIndication 0x6C) and "
+            "MPEG-4 Part 2 (MP4 mp4v with objectTypeIndication 0x20, AVI FMP4, XVID, DIVX, "
+            "DX50 and FFmpeg's other mpeg4 fourccs); H.264, MS-MPEG-4 (DIV3, MP42, MP43), "
+            "MPEG-1/2 and the rest are refused")
 
 
 def standalone_jpeg(data: bytes) -> bytes:
@@ -299,11 +356,11 @@ def _video_track(buf: bytes, trak: dict, mdia: dict, movie_ts: int, path: str,
     entry = b + 8
     esize, fourcc = struct.unpack_from(">I4s", buf, entry)
     width, height = struct.unpack_from(">HH", buf, entry + 32)
-    oti = None
+    oti, config = None, b""
     if fourcc == b"mp4v":
         eb, _ = _need(_children(buf, entry + 86, entry + esize, f"{stbl_w}/stsd/mp4v"),
                       b"esds", f"{stbl_w}/stsd/mp4v")
-        oti = _esds_oti(buf, eb + 4, f"{stbl_w}/stsd/mp4v/esds")
+        oti, config = _esds(buf, eb + 4, f"{stbl_w}/stsd/mp4v/esds")
 
     # sizes
     if b"stsz" in stbl:
@@ -358,11 +415,13 @@ def _video_track(buf: bytes, trak: dict, mdia: dict, movie_ts: int, path: str,
     if b"edts" in trak:
         _check_elst(buf, trak[b"edts"], duration, timescale, movie_ts, f"{where}/edts")
     return Video(path, container, fourcc.decode("latin-1"), oti, width, height,
-                 (rate.numerator, rate.denominator), rotation, offsets.astype(np.int64), sizes)
+                 (rate.numerator, rate.denominator), rotation, offsets.astype(np.int64), sizes,
+                 config)
 
 
-def _esds_oti(buf: bytes, pos: int, where: str) -> int:
-    """objectTypeIndication of the DecoderConfigDescriptor in an esds."""
+def _esds(buf: bytes, pos: int, where: str) -> Tuple[int, bytes]:
+    """objectTypeIndication of the DecoderConfigDescriptor in an esds, and
+    its DecoderSpecificInfo (b"" without one)."""
 
     def descriptor(p):
         tag, length = buf[p], 0
@@ -380,10 +439,16 @@ def _esds_oti(buf: bytes, pos: int, where: str) -> int:
     flags = buf[p + 2]
     p += 3 + (2 if flags & 0x80 else 0) + (1 + buf[p + 3] if flags & 0x40 else 0) \
         + (2 if flags & 0x20 else 0)
-    tag, p, _ = descriptor(p)
+    tag, p, length = descriptor(p)
     if tag != 0x04:
         raise ValueError(f"{where}: no DecoderConfigDescriptor")
-    return buf[p]
+    oti, end, q = buf[p], p + length, p + 13
+    while q < end:
+        tag, body, size = descriptor(q)
+        if tag == 0x05:
+            return oti, bytes(buf[body:body + size])
+        q = body + size
+    return oti, b""
 
 
 def _check_elst(buf: bytes, edts, duration: int, timescale: int, movie_ts: int,

@@ -8,7 +8,8 @@ Tolerance: relative L2 error against the plain version in bf16 mode, 1e-2
 on outputs and 2e-2 on gradients (both round the same operands and
 cotangents to bf16; only fp32 summation order differs). DIS's patch search
 (csrc/dis.cu) is bit-equal to its plain version: both round each float32
-operation once, in the same order.
+operation once, in the same order. So are the MPEG-4 Part 2 kernels
+(csrc/m4v.cu): integer arithmetic throughout.
 """
 import pytest
 import torch
@@ -386,3 +387,114 @@ def _dis_scale(h, w, u, dev):
     ext = F.pad(g1[None, None].float(), (D.BORDER,) * 4, mode="replicate")[0, 0].to(torch.uint8)
     U = torch.randn(2, h, w, generator=gen) * u
     return [t.to(dev) for t in (g0, ext, gx, gy, U, st)]
+
+
+def _random_vop(mb_w, mb_h, coding, seed):
+    """A seeded VOP in the parser's layout (mbs int32 [nmb, 10], levels
+    int16 [blocks, 64]): every macroblock intra in an I-VOP; in a P-VOP a
+    mix of intra, inter and not-coded ones with vectors up to 4 macroblocks
+    past the picture's edges; QP 1-31 a macroblock; sparse levels with some
+    at the extremes (escape-3 levels of +-2047, DCs near 2047)."""
+    from moda_tpu_torch.preproc import m4v as M
+
+    gen = torch.Generator().manual_seed(seed)
+    nmb = mb_w * mb_h
+    mbs = torch.full((nmb, M.MB_FIELDS), -1, dtype=torch.int32)
+    typ = torch.zeros(nmb, dtype=torch.int32) if coding == M.VOP_I else \
+        torch.randint(0, 3, (nmb,), generator=gen, dtype=torch.int32)
+    mbs[:, M.F_TYPE] = typ
+    mbs[:, M.F_QP] = torch.randint(1, 32, (nmb,), generator=gen, dtype=torch.int32)
+    mv = torch.randint(-128, 128, (nmb, 2), generator=gen, dtype=torch.int32)
+    mbs[:, M.F_MVX:M.F_MVY + 1] = torch.where((typ == M.MB_INTER)[:, None], mv, 0)
+    coded = torch.rand(nmb, 6, generator=gen) < 0.6
+    coded |= (typ == M.MB_INTRA)[:, None]
+    coded &= (typ != M.MB_SKIP)[:, None]
+    n = int(coded.sum())
+    mbs[:, M.F_BLK:] = torch.where(coded, (coded.view(-1).cumsum(0) - 1).view(nmb, 6), -1)
+    levels = torch.where(torch.rand(n, 64, generator=gen) < 0.15,
+                         torch.randint(-40, 41, (n, 64), generator=gen), 0)
+    wild = torch.rand(n, 64, generator=gen) < 0.01
+    levels = torch.where(wild, torch.randint(-2048, 2048, (n, 64), generator=gen), levels)
+    levels[:, 0] = torch.where(torch.rand(n, generator=gen) < 0.5,
+                               torch.randint(0, 256, (n,), generator=gen), levels[:, 0])
+    return mbs, levels.to(torch.int16)
+
+
+@pytest.mark.parametrize("mb_w,mb_h", [(1, 1), (6, 4), (120, 68)])
+@pytest.mark.parametrize("rounding", [0, 1])
+def test_m4v_reconstruct_matches_plain(cuda_device, mb_w, mb_h, rounding):
+    """m4v_reconstruct against reconstruct_plain on seeded VOPs (an I-VOP,
+    then a P-VOP predicted from it with vectors reaching past every edge):
+    integer arithmetic throughout, so bit-equal; one launch a VOP."""
+    from moda_tpu_torch.preproc import m4v as M
+
+    g = M.Geometry(16 * mb_w - 6, 16 * mb_h - 2, mb_w, mb_h)
+    ref = None
+    for coding, seed in ((M.VOP_I, 0), (M.VOP_P, 1)):
+        mbs, levels = _random_vop(mb_w, mb_h, coding, seed + 10 * rounding)
+        before = M.launches["m4v_reconstruct"]
+        got = M.reconstruct(None if ref is None else ref.to(cuda_device), mbs.to(cuda_device),
+                            levels.to(cuda_device), rounding, g)
+        torch.cuda.synchronize()
+        assert M.launches["m4v_reconstruct"] == before + 1
+        want = M.reconstruct_plain(ref, mbs, levels, rounding, g)
+        assert torch.equal(got.cpu(), want)
+        ref = want
+
+
+@pytest.mark.parametrize("mb_w,mb_h", [(6, 4), (120, 68)])
+def test_m4v_reconstruct_without_a_reference_predicts_from_zero(cuda_device, mb_w, mb_h):
+    """m4v_reconstruct given no reference and a seeded P-VOP's macroblocks
+    (intra, inter, not coded): it reads nothing, predicts every macroblock
+    from zero, and equals reconstruct_plain with no reference and with a
+    black one."""
+    from moda_tpu_torch.preproc import m4v as M
+
+    g = M.Geometry(16 * mb_w, 16 * mb_h, mb_w, mb_h)
+    mbs, levels = _random_vop(mb_w, mb_h, M.VOP_P, 3)
+    got = M.reconstruct(None, mbs.to(cuda_device), levels.to(cuda_device), 1, g)
+    torch.cuda.synchronize()
+    want = M.reconstruct_plain(None, mbs, levels, 1, g)
+    assert torch.equal(got.cpu(), want)
+    black = torch.zeros(g.frame_bytes, dtype=torch.uint8)
+    assert torch.equal(want, M.reconstruct_plain(black, mbs, levels, 1, g))
+
+
+@pytest.mark.parametrize("width,height", [(1920, 1080), (90, 50), (1, 2), (33, 17)])
+def test_yuv420_to_bgr_matches_plain(cuda_device, width, height):
+    """yuv420_to_bgr against yuv420_to_bgr_plain on seeded planes (every
+    byte value, odd sizes cropped from their macroblock padding): bit-equal."""
+    from moda_tpu_torch.preproc import m4v as M
+
+    g = M.Geometry(width, height, -(-width // 16), -(-height // 16))
+    gen = torch.Generator().manual_seed(width)
+    frame = torch.randint(0, 256, (g.frame_bytes,), generator=gen, dtype=torch.uint8)
+    before = M.launches["yuv420_to_bgr"]
+    got = M.yuv420_to_bgr(frame.to(cuda_device), g)
+    torch.cuda.synchronize()
+    assert M.launches["yuv420_to_bgr"] == before + 1
+    assert torch.equal(got.cpu(), M.yuv420_to_bgr_plain(frame, g))
+
+
+@pytest.mark.parametrize("name", ["clip_mpeg4.mp4", "clip_mpeg4_1080p.mp4"])
+def test_m4v_decoder_matches_cv2_on_the_goldens(cuda_device, name):
+    """Mpeg4Decoder on the card over every sample of a committed cv2 clip:
+    each picture's SHA-256 equals cv2.VideoCapture's recorded one
+    (tests/goldens/video_readings.json), two kernel launches a VOP."""
+    import hashlib
+    import json
+    import os
+
+    from moda_tpu_torch.preproc import m4v as M
+    from moda_tpu_torch.preproc.video import open_video
+
+    goldens = os.path.join(os.path.dirname(__file__), "goldens")
+    with open(os.path.join(goldens, "video_readings.json")) as f:
+        want = json.load(f)[name]["all_pixels_sha256"]
+    clip = open_video(os.path.join(goldens, name))
+    dec = M.Mpeg4Decoder(clip, cuda_device)
+    M.reset_launches()
+    got = [hashlib.sha256(dec.decode(clip.sample(i)).cpu().numpy().tobytes()).hexdigest()
+           for i in range(len(clip))]
+    assert got == want
+    assert M.launches == {"m4v_reconstruct": len(clip), "yuv420_to_bgr": len(clip)}

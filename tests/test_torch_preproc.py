@@ -274,16 +274,17 @@ def _dis_gate(a, b, tag):
 
 
 def test_refusals(tmp_path, monkeypatch):
-    """Video in a codec other than Motion JPEG raises (an MPEG-4 Part 2
-    clip from cv2: tests/test_torch_video.py holds the Motion-JPEG route);
+    """Video in a codec the port does not decode raises (an MS-MPEG-4 v3
+    clip from cv2: tests/test_torch_video.py holds the Motion-JPEG route,
+    tests/test_torch_m4v.py MPEG-4 Part 2);
     DIS, the JAX package's flow without VCN weights, runs (on the CPU when
     asked; without a card and without the request, compute_flows raises
     instead of falling back)."""
     from tests.torch_video import scene, write_cv2_clip
 
-    write_cv2_clip(str(tmp_path / "video.mp4"), "mp4v", 30.0, scene(2, 48, 64))
-    with pytest.raises(ValueError, match="codec mp4v .objectTypeIndication 0x20.: only Motion"):
-        TP.extract_frames(str(tmp_path / "video.mp4"), str(tmp_path / "nonexistent"))
+    write_cv2_clip(str(tmp_path / "video.avi"), "DIV3", 30.0, scene(2, 48, 64))
+    with pytest.raises(ValueError, match="codec DIV3: the port decodes Motion JPEG"):
+        TP.extract_frames(str(tmp_path / "video.avi"), str(tmp_path / "nonexistent"))
     frames = write_frames(tmp_path, n=2)
     img0, img1 = (TP.read_bgr(p) for p in sorted(glob.glob(os.path.join(frames, "*.jpg"))))
     flow = TP.dis_flow(img0, img1, device="cpu")

@@ -251,7 +251,7 @@ def test_png_frames_are_stored_as_png_bytes(tmp_path):
 
 
 def test_refusals(tmp_path, monkeypatch):
-    """Video in a codec other than Motion JPEG (an MPEG-4 Part 2 clip from
+    """Video in a codec the port does not decode (an MS-MPEG-4 v3 clip from
     cv2) raises with the codec's name; nothing falls back. Without a card,
     main needs device='cpu'. (No vcn*.npz runs DIS:
     test_dis_flow_without_vcn_npz_matches_the_jax_packages; a cse*.npz and
@@ -261,9 +261,9 @@ def test_refusals(tmp_path, monkeypatch):
     frames = write_frames(tmp_path, n=2)
     masks = str(tmp_path / "masks")
     os.makedirs(tmp_path / "w")
-    write_cv2_clip(str(tmp_path / "clip.mp4"), "mp4v", 30.0, scene(2, 48, 64))
-    with pytest.raises(ValueError, match="codec mp4v .objectTypeIndication 0x20.: only Motion"):
-        TAPP.main(_argv(tmp_path / "v", str(tmp_path / "clip.mp4"), "", mask_dir=masks),
+    write_cv2_clip(str(tmp_path / "clip.avi"), "DIV3", 30.0, scene(2, 48, 64))
+    with pytest.raises(ValueError, match="codec DIV3: the port decodes Motion JPEG"):
+        TAPP.main(_argv(tmp_path / "v", str(tmp_path / "clip.avi"), "", mask_dir=masks),
                   device="cpu")
     assert not glob.glob(str(tmp_path / "v/db/JPEGImages/Full-Resolution/s/*"))
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -298,18 +298,27 @@ def test_dis_flow_without_vcn_npz_matches_the_jax_packages(tmp_path):
         _dis_gate(a, b, f)
 
 
-@pytest.mark.parametrize("ext", ["avi", "mov", "mp4"])
+# --input clips: extension -> (file extension, cv2.VideoWriter fourcc)
+VIDEO_INPUTS = {"avi": ("avi", "MJPG"), "mov": ("mov", "MJPG"), "mp4": ("mp4", "MJPG"),
+                "mp4v": ("mp4", "mp4v"), "xvid": ("avi", "XVID")}
+
+
+@pytest.mark.parametrize("ext", sorted(VIDEO_INPUTS))
 def test_video_input_matches_the_jax_packages(tmp_path, ext):
-    """A Motion-JPEG clip from cv2.VideoWriter (10 frames at 30 fps, --fps
-    10: frames 0, 3, 6 and 9) through both packages' preproc_app.main with
-    a --mask_dir and no weights (DIS flow): the same "[frames] extracted"
-    line and the same set of database files; the port's frames are the
-    clip's own samples (tests/test_torch_video.py), its flo-/occ- PFMs of
-    the JAX package's shapes and bit-equal to its own run on a directory of
-    the frames it extracted. (The JAX package's frames are VideoCapture's
-    re-encoded at quality 95, other pixels: its flows are no oracle here.)"""
-    clip = str(tmp_path / f"clip.{ext}")
-    write_cv2_clip(clip, "MJPG", 30.0, scene(10, 48, 64, seed=1))
+    """A clip from cv2.VideoWriter (10 frames at 30 fps, --fps 10: frames
+    0, 3, 6 and 9; Motion JPEG in each container, MPEG-4 Part 2 as 'mp4v'
+    MP4 and 'XVID' AVI) through both packages' preproc_app.main with a
+    --mask_dir and no weights (DIS flow): the same "[frames] extracted" line
+    and the same set of database files; the port's frames are the clip's
+    own samples (Motion JPEG: tests/test_torch_video.py) or VideoCapture's
+    frames as PNG (MPEG-4 Part 2: tests/test_torch_m4v.py), its flo-/occ-
+    PFMs of the JAX package's shapes and bit-equal to its own run on a
+    directory of the frames it extracted. (The JAX package's frames are
+    VideoCapture's re-encoded at quality 95, other pixels: its flows are no
+    oracle here.)"""
+    suffix, fourcc = VIDEO_INPUTS[ext]
+    clip = str(tmp_path / f"clip.{suffix}")
+    write_cv2_clip(clip, fourcc, 30.0, scene(10, 48, 64, seed=1))
     write_frames(tmp_path, n=4)  # masks/%05d.png for the 4 kept frames
     masks = str(tmp_path / "masks")
     os.makedirs(tmp_path / "w")

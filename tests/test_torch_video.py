@@ -27,6 +27,7 @@ import torch
 
 from moda_tpu.preproc import pipeline as JP
 from moda_tpu_torch.data import imageio as IO
+from moda_tpu_torch.preproc import m4v as M
 from moda_tpu_torch.preproc import pipeline as TP
 from moda_tpu_torch.preproc import video as TV
 from tests import torch_video as V
@@ -228,14 +229,14 @@ def test_avi_layouts(tmp_path, layout):
 
 
 # -------------------------------------------------------------- refusals
-@pytest.mark.parametrize("ext,fourcc,name", [("mp4", "mp4v", r" \(objectTypeIndication 0x20\)"),
-                                             ("avi", "XVID", "")])
+@pytest.mark.parametrize("ext,fourcc,name", [("avi", "DIV3", "DIV3"), ("avi", "MPG2", "mpg2")])
 def test_other_codecs_raise(tmp_path, ext, fourcc, name):
-    """MPEG-4 Part 2 from cv2 (an 'mp4v' entry with objectTypeIndication
-    0x20, an 'XVID' AVI): ValueError naming the codec; nothing is written."""
+    """Codecs the port does not decode, from cv2 (an MS-MPEG-4 v3 'DIV3' AVI;
+    an MPEG-2 AVI, which cv2 tags 'mpg2'): ValueError naming the codec;
+    nothing is written. (MPEG-4 Part 2 decodes: tests/test_torch_m4v.py.)"""
     path = str(tmp_path / f"clip.{ext}")
     V.write_cv2_clip(path, fourcc, 30.0, V.scene(3, 64, 96))
-    with pytest.raises(ValueError, match=f"codec {fourcc}{name}: only Motion JPEG"):
+    with pytest.raises(ValueError, match=f"codec {name}: the port decodes Motion JPEG"):
         TP.extract_frames(path, str(tmp_path / "t"))
     assert not os.path.exists(tmp_path / "t")
 
@@ -245,7 +246,7 @@ def test_other_sample_entries_raise(tmp_path, fourcc):
     path = str(tmp_path / "clip.mov")
     V.write_isobmff(path, V.jpegs(2, 64, 96), 64, 96, fourcc=fourcc)
     assert TV.open_video(path).fourcc == fourcc.decode()
-    with pytest.raises(ValueError, match=f"codec {fourcc.decode()}: only Motion JPEG"):
+    with pytest.raises(ValueError, match=f"codec {fourcc.decode()}: the port decodes Motion"):
         TP.extract_frames(path, str(tmp_path / "t"))
 
 
@@ -305,10 +306,12 @@ def test_refused_files_raise(tmp_path, case, match):
 # ----------------------------------------------------- chip_smoke fixtures
 def test_committed_fixtures_match_cv2_and_the_port():
     """tests/goldens' clips (tests/torch_video.py::write_fixtures, read by
-    chip_smoke.py's video phase on the card): cv2 still reads what
+    chip_smoke.py's video phases on the card): cv2 still reads what
     video_readings.json records, and so does the port: rate, count, kept
     indices at --fps 10, each packet's SHA-256 and each kept frame's pixel
-    digest (cv2.imdecode's BGR bytes); the MPEG-4 Part 2 clip is refused."""
+    digest (cv2.imdecode's BGR bytes of a Motion-JPEG packet; of an MPEG-4
+    Part 2 clip, VideoCapture's frames, every one of which the port decodes
+    on the CPU bit-equal); the MS-MPEG-4 clip is refused."""
     with open(os.path.join(GOLDENS, "video_readings.json")) as f:
         recorded = json.load(f)
     refused = V.REFUSED_FIXTURE[0]
@@ -316,17 +319,24 @@ def test_committed_fixtures_match_cv2_and_the_port():
     assert sum(r["bytes"] for r in recorded.values()) < 2_000_000
     clip = TV.open_video(os.path.join(GOLDENS, refused))
     assert clip.codec == recorded.pop(refused)["codec"]
-    with pytest.raises(ValueError, match="only Motion JPEG"):
-        TV.require_mjpeg(clip)
-    for name, want in recorded.items():
+    with pytest.raises(ValueError, match="the port decodes Motion JPEG"):
+        TV.require_supported(clip)
+    for name, fourcc, *_ in V.FIXTURES:
+        want = recorded[name]
         path = os.path.join(GOLDENS, name)
         assert os.path.getsize(path) == want["bytes"]
-        got = V.readings(path)
+        got = V.readings(path, decoded=fourcc != "MJPG")
         assert got == {k: want[k] for k in got}, name
         clip = TV.open_video(path)
         assert clip.fps == want["fps"] and len(clip) == want["frames"]
+        assert clip.kind == ("mjpeg" if fourcc == "MJPG" else "mpeg4")
         assert [V.sha(clip.sample(i)) for i in range(len(clip))] == want["packet_sha256"]
         kept = V.kept_indices(len(clip), clip.fps, want["kept_at_fps"])
         assert kept == want["kept"]
-        assert [V.sha(np.ascontiguousarray(clip.frame(i)[..., ::-1]).tobytes())
-                for i in kept] == want["pixels_sha256"], name
+        if clip.kind == "mjpeg":
+            assert [V.sha(np.ascontiguousarray(clip.frame(i)[..., ::-1]).tobytes())
+                    for i in kept] == want["pixels_sha256"], name
+        else:
+            dec = M.Mpeg4Decoder(clip, "cpu")
+            assert [V.sha(dec.decode(clip.sample(i)).numpy().tobytes())
+                    for i in range(len(clip))] == want["all_pixels_sha256"], name

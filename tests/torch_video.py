@@ -7,6 +7,7 @@ continuations), cv2's own readings of a clip, and the writer of the
 chip_smoke.py fixtures under tests/goldens/.
 
     python -m tests.torch_video tests/goldens   # rebuild the fixtures
+    python -m tests.torch_video tests/goldens clip_div3.avi  # rebuild these alone
 
 cv2 is the oracle here and only here: the port reads no clip through it.
 """
@@ -22,12 +23,16 @@ import cv2
 import numpy as np
 
 FIXTURE_FPS = 10  # the kept indices are recorded at preproc_app's default --fps
-# (name, container fourcc for cv2.VideoWriter, fps, frames, height, width)
+# (name, container fourcc for cv2.VideoWriter, fps, frames, height, width); the
+# scene's seed is the index. Motion JPEG, then MPEG-4 Part 2 ('mp4v' in MP4:
+# objectTypeIndication 0x20; the 1080p clip has two I-VOPs, GOP 12)
 FIXTURES = (("clip_1080p.mov", "MJPG", 30.0, 15, 1080, 1920),
             ("clip_small.avi", "MJPG", 29.97, 12, 240, 320),
-            ("clip_small.mp4", "MJPG", 24.0, 10, 240, 320))
-# an MPEG-4 Part 2 clip ('mp4v', objectTypeIndication 0x20): the codec refusal on the card
-REFUSED_FIXTURE = ("clip_mpeg4.mp4", "mp4v", 30.0, 3, 64, 96)
+            ("clip_small.mp4", "MJPG", 24.0, 10, 240, 320),
+            ("clip_mpeg4.mp4", "mp4v", 30.0, 3, 64, 96),
+            ("clip_mpeg4_1080p.mp4", "mp4v", 30.0, 15, 1080, 1920))
+# an MS-MPEG-4 v3 clip ('DIV3' AVI, FFmpeg's msmpeg4v3): the codec refusal on the card
+REFUSED_FIXTURE = ("clip_div3.avi", "DIV3", 30.0, 3, 64, 96)
 ROTATION_MATRIX = {0: (1, 0, 0, 1), 90: (0, 1, -1, 0), 180: (-1, 0, 0, -1), 270: (0, -1, 1, 0)}
 
 
@@ -134,33 +139,49 @@ def sha(b) -> str:
     return hashlib.sha256(bytes(b)).hexdigest()
 
 
-def readings(path: str, fps: int = FIXTURE_FPS) -> dict:
+def readings(path: str, fps: int = FIXTURE_FPS, decoded: bool = False) -> dict:
     """cv2's readings of a clip: the rate, the frame count, the kept indices
-    at ``fps``, SHA-256 of every raw packet and of cv2.imdecode's BGR pixels
-    of each kept packet."""
+    at ``fps``, SHA-256 of every raw packet and of the BGR pixels of each
+    kept frame: cv2.imdecode's of the packet (Motion JPEG), or with
+    ``decoded`` VideoCapture's own (FFmpeg's decoder and swscale). A decoded
+    clip also records every frame's digest (``all_pixels_sha256``)."""
     src_fps, frames, _ = cv2_frames(path)
     packets = cv2_packets(path)
     kept = kept_indices(len(frames), src_fps, fps)
-    return {"fps": src_fps, "frames": len(frames), "kept_at_fps": fps, "kept": kept,
-            "packet_sha256": [sha(p) for p in packets],
-            "pixels_sha256": [sha(cv2.imdecode(np.frombuffer(packets[i], np.uint8),
-                                               cv2.IMREAD_COLOR).tobytes()) for i in kept]}
+    out = {"fps": src_fps, "frames": len(frames), "kept_at_fps": fps, "kept": kept,
+           "packet_sha256": [sha(p) for p in packets]}
+    if decoded:
+        out["all_pixels_sha256"] = [sha(f.tobytes()) for f in frames]
+        out["pixels_sha256"] = [out["all_pixels_sha256"][i] for i in kept]
+    else:
+        out["pixels_sha256"] = [sha(cv2.imdecode(np.frombuffer(packets[i], np.uint8),
+                                                 cv2.IMREAD_COLOR).tobytes()) for i in kept]
+    return out
 
 
-def write_fixtures(out_dir: str) -> dict:
-    """The clips of chip_smoke.py's video phase, written by cv2.VideoWriter,
+def write_fixtures(out_dir: str, only=None) -> dict:
+    """The clips of chip_smoke.py's video phases, written by cv2.VideoWriter,
     and cv2's readings of each in video_readings.json (of the refused
-    MPEG-4 Part 2 clip, its codec)."""
+    MS-MPEG-4 clip, its codec). ``only``: the names to write anew, the
+    others' files and readings kept."""
     os.makedirs(out_dir, exist_ok=True)
     info = {}
+    readings_path = os.path.join(out_dir, "video_readings.json")
+    if only is not None and os.path.exists(readings_path):
+        with open(readings_path) as f:
+            info = {k: v for k, v in json.load(f).items() if k not in only}
     for k, (name, fourcc, fps, n, h, w) in enumerate(FIXTURES):
+        if only is not None and name not in only:
+            continue
         path = os.path.join(out_dir, name)
         write_cv2_clip(path, fourcc, fps, scene(n, h, w, seed=k))
-        info[name] = dict(readings(path), size=[h, w], bytes=os.path.getsize(path))
+        info[name] = dict(readings(path, decoded=fourcc != "MJPG"), size=[h, w],
+                          bytes=os.path.getsize(path))
     name, fourcc, fps, n, h, w = REFUSED_FIXTURE
-    path = os.path.join(out_dir, name)
-    write_cv2_clip(path, fourcc, fps, scene(n, h, w))
-    info[name] = {"codec": "mp4v (objectTypeIndication 0x20)", "bytes": os.path.getsize(path)}
+    if only is None or name in only:
+        path = os.path.join(out_dir, name)
+        write_cv2_clip(path, fourcc, fps, scene(n, h, w))
+        info[name] = {"codec": fourcc, "bytes": os.path.getsize(path)}
     with open(os.path.join(out_dir, "video_readings.json"), "w") as f:
         json.dump(info, f, indent=1)
         f.write("\n")
@@ -249,8 +270,9 @@ def _matrix(rotation: int) -> bytes:
     return struct.pack(">9i", a << 16, b << 16, 0, c << 16, d << 16, 0, 0, 0, 1 << 30)
 
 
-def _esds(oti: int) -> bytes:
-    dcd = bytes([0x04, 13, oti, 0x11]) + b"\0" * 11
+def _esds(oti: int, config: bytes = b"") -> bytes:
+    dsi = bytes([0x05, len(config)]) + config if config else b""
+    dcd = bytes([0x04, 13 + len(dsi), oti, 0x11]) + b"\0" * 11 + dsi
     es = bytes([0x03, 3 + len(dcd) + 3]) + struct.pack(">HB", 1, 0) + dcd + bytes([0x06, 1, 2])
     return _full(b"esds", 0, 0, es)
 
@@ -259,9 +281,10 @@ def write_isobmff(path: str, samples: list, h: int, w: int, timescale: int = 30,
                   durations=1, fourcc: bytes = b"jpeg", oti=None, brand: bytes = b"qt  ",
                   moov_first: bool = False, co64: bool = False, large_mdat: bool = False,
                   rotation: int = 0, elst=((None, 0, 1),), chunk_samples: int = 3,
-                  fragmented: bool = False, stz2: bool = False) -> None:
+                  fragmented: bool = False, stz2: bool = False, config: bytes = b"") -> None:
     """An MP4/MOV of ``samples`` (one video track, ``fourcc`` sample entry;
-    ``oti`` adds an esds with that objectTypeIndication) at ``timescale``
+    ``oti`` adds an esds with that objectTypeIndication, ``config`` its
+    DecoderSpecificInfo) at ``timescale``
     with ``durations`` (one for all samples or one each), ``chunk_samples``
     samples a chunk (the last chunk takes the rest). ``elst``: (segment
     duration or None for the whole track, media_time, rate) entries, or
@@ -288,7 +311,7 @@ def write_isobmff(path: str, samples: list, h: int, w: int, timescale: int = 30,
         entry = (struct.pack(">6xH", 1) + b"\0" * 16 + struct.pack(">HHIIIH", w, h, 0x480000,
                                                                   0x480000, 0, 1)
                  + b"\0" * 32 + struct.pack(">Hh", 24, -1)
-                 + (_esds(oti) if oti is not None else b""))
+                 + (_esds(oti, config) if oti is not None else b""))
         stsd = _full(b"stsd", 0, 0, struct.pack(">I", 1), _box(fourcc, entry))
         stts = _full(b"stts", 0, 0, struct.pack(">I", len(stts_runs)),
                      *(struct.pack(">II", c, d) for c, d in stts_runs))
@@ -343,6 +366,7 @@ def write_isobmff(path: str, samples: list, h: int, w: int, timescale: int = 30,
 
 
 if __name__ == "__main__":
-    for name, r in write_fixtures(sys.argv[1] if len(sys.argv) > 1 else "tests/goldens").items():
+    for name, r in write_fixtures(sys.argv[1] if len(sys.argv) > 1 else "tests/goldens",
+                                  sys.argv[2:] or None).items():
         print(name, r["bytes"], "bytes:", r.get("codec") or
               f"{r['frames']} frames @ {r['fps']} fps, kept {r['kept']}")
