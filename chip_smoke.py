@@ -11,8 +11,8 @@
 
 Phases:
 1. print the card's name and power limit, torch and CUDA versions;
-2. build the kernels from moda_tpu_torch/csrc (fused_mlp.cu, dis.cu and
-   m4v.cu, one nvcc each, in parallel);
+2. build the kernels from moda_tpu_torch/csrc (fused_mlp.cu, dis.cu, m4v.cu
+   and h264.cu, one nvcc each, in parallel);
 3. hold K1 (forward) and K2 (backward) against the plain PyTorch version in
    bf16 mode at every call site of the init, ft1 and ft2 steps, at the
    shapes those steps give them, and K1s/K2s (the activation-stash mode)
@@ -59,7 +59,7 @@ Phases:
 8. the cold start and the frame-decoding route (``run_coldstart``): a
    16-frame 256 px articulated scene in the DAVIS layout, trained by
    train_app from the pose CNN's cameras (pose warmup, extract_cams_cnn,
-   root preset, one 200-step epoch, the eval grid with observed columns),
+   root preset, one 100-step epoch, the eval grid with observed columns),
    then 1 step of the frame-decoding route at batch 256; read_raw timed at
    img_size 512 and the tests' JPEG fixture decoded (checks in its
    docstring);
@@ -110,9 +110,17 @@ Phases:
    of tests/goldens' 1080p and small mp4v clips, the port's decoder's
    frames against cv2's recorded digests, decode time a frame split into
    the host parse and the kernels, then ``preproc_app.main --input`` the
-   1080p clip (DIS on the card; checks in its docstring).
-The main-path launch counts of phases 5, 6, 8, 9, 10, 13, 14, 15 and 16 go
-into the kernel JSON's ``launches``; the dis cases of phases 3 and 4 are
+   1080p clip (DIS on the card; checks in its docstring);
+17. H.264 video (``run_h264``): the kernels h264_inter, h264_intra and
+   h264_deblock (registers and spills printed) held against their plain
+   versions on the card at every picture of tests/goldens' small H.264 clip
+   and at the 1080p clip's IDR and last two P pictures, and timed; the
+   port's decoder's frames against cv2's recorded digests, decode time a
+   frame split into the host parse and the kernels; then
+   ``preproc_app.main --input`` the 1080p clip (DIS on the card; the
+   launches as each picture's launch lists say; checks in its docstring).
+The main-path launch counts of phases 5, 6, 8, 9, 10, 13, 14, 15, 16 and 17
+go into the kernel JSON's ``launches``; the dis cases of phases 3 and 4 are
 phase 9's.
 With ``--phases`` the JSON holds the kernels of the phases run.
 Prints the kernel JSON line, then {"ok": true, "device": {...}} last.
@@ -122,6 +130,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import functools
 import glob
 import hashlib
 import io
@@ -1485,6 +1494,9 @@ COLDSTART_FLAGS = ["--batch_size", "256", "--nsample", "4", "--warmup_shape_ep",
                    "--warmup_rootmlp", "--eikonal_wt", "0.001", "--noppr_eikonal",
                    "--num_epochs", "1", "--dskin_steps", "1"]
 COLDSTART_FRAMES, COLDSTART_IMG = 16, 256
+# the pose warmup's and the epoch's steps of run 1, cut from 200 (the whole
+# script read 1177 s of its 1200 s limit on a slow host)
+COLDSTART_STEPS = 100
 FRAME_ROUTE_STEPS = 1  # the frame-decoding route's epoch, cut from 200 steps
 # frames whose CSE features are mirrored left to right (DensePose's typical
 # failure), so that the OOD check rejects them and their rotations are
@@ -1532,9 +1544,10 @@ def run_coldstart(results: list, card: str, tmp: str) -> dict:
 
     1. ``train_app.main`` with COLDSTART_FLAGS, ``--lineload --img_size 256
        --prior_mesh_path <prior.pkl> --warmup_pose_ep 1``: the shape warmup,
-       200 pose-CNN steps at batch 16, ``extract_cams_cnn`` over all 16
-       frames through the frame reader, ``preset_rootmlp``, one 200-step
-       epoch and the 64 px eval grid with its observed columns;
+       COLDSTART_STEPS pose-CNN steps at batch 16, ``extract_cams_cnn`` over
+       all 16 frames through the frame reader, ``preset_rootmlp``, one
+       COLDSTART_STEPS-step epoch (the trainer's ITERS_PER_EPOCH patched)
+       and the 64 px eval grid with its observed columns;
     2. the frame-decoding route: the same flags without ``--lineload`` and
        with ``--use_rtk_file`` (cameras from Cameras/) and ``--render_size
        0``, its epoch cut to FRAME_ROUTE_STEPS steps (the trainer's
@@ -1547,7 +1560,7 @@ def run_coldstart(results: list, card: str, tmp: str) -> dict:
     and below its first logged value; pose_cnn.npz and 16 finite init-cam
     files, ``extract_cams_n`` 16; eval-000.png with the observed-image and
     feature-error columns, no ``eval_render_error`` or unreadable eval
-    frame; K1/K2/dW launches exactly expected_calls("init", 200) in run 1
+    frame; K1/K2/dW launches exactly expected_calls("init", COLDSTART_STEPS) in run 1
     and expected_calls("init", FRAME_ROUTE_STEPS) in run 2, with finite
     losses; the trained PoseCNN's forward on the card within 1e-4
     (relative L2) of a CPU copy on one warmup batch; the fixture within one
@@ -1594,8 +1607,9 @@ def run_coldstart(results: list, card: str, tmp: str) -> dict:
 
     FM.reset_launches()
     t0 = time.perf_counter()
-    tr = train_app.main(argv)
-    torch.cuda.synchronize()
+    with _patched([(TT, "ITERS_PER_EPOCH", COLDSTART_STEPS)]):
+        tr = train_app.main(argv)
+        torch.cuda.synchronize()
     parts["run_s"] = time.perf_counter() - t0
     calls = dict(FM.launches_by_call)
     rows = [json.loads(line) for line in open(tr.log_path)]
@@ -1684,7 +1698,7 @@ def run_coldstart(results: list, card: str, tmp: str) -> dict:
         fail.append(f"eval grid faults {bad}")
     if not step_rows or not all(math.isfinite(r["total_loss"]) for r in step_rows):
         fail.append("a logged step of the cold-start epoch is not finite")
-    want = expected_calls("init", TT.ITERS_PER_EPOCH)
+    want = expected_calls("init", COLDSTART_STEPS)
     if calls != want:
         fail.append(f"cold-start launches by call site {calls} != {want}")
     if not cnn_err <= 1e-4:
@@ -1716,7 +1730,7 @@ def run_coldstart(results: list, card: str, tmp: str) -> dict:
            "read_raw_s": read_raw_s, "read_raw_calls": timer.n,
            "read_raw_512_s": read_raw_512_s, "jpeg_fixture_max_abs": jpeg_err, "card": card}
     print(f"[coldstart] run 1 (train_app --lineload --warmup_pose_ep 1) {parts['run_s']:.2f} s: "
-          f"pose warmup {out['warmup_pose_s']} s ({TT.ITERS_PER_EPOCH} steps at batch 16; "
+          f"pose warmup {out['warmup_pose_s']} s ({COLDSTART_STEPS} steps at batch 16; "
           f"rotation loss {curve[:1]} -> {out['warmup_pose_rot_loss']}), CNN step "
           f"{parts['cnn_step_ms']:.2f} ms alone, a batch's host rendering "
           f"{parts['render_pose_batch_s'] * 1e3:.1f} ms; extract_cams_cnn "
@@ -1984,6 +1998,65 @@ NVS_CHUNK = 4096
 # values of the test that differs are within NVS_CULL_EPS (visibility,
 # absolute; coordinates, relative to the bound); a wider gap fails the phase.
 NVS_CULL_EPS = 1e-4
+# the model of the card-against-CPU NVS gate (``nvs_fixed_model``):
+# MoDAModel's own initialisation from NVS_SEED on the CPU, made well
+# conditioned: its rest pose is frame 0's pose (the untrained bones make any
+# other warp chaotic: a 1e-7 change of them moved the canonical points by
+# 3e-3 on the CPU), VolSDF's beta NVS_BETA (at the initial 0.1 the frame
+# moved 10 x more), the visibility head's output raised by NVS_VIS_SHIFT and
+# the object bound NVS_BOUND, so that a third of the samples pass the
+# culling tests (untouched, 0.05% do and the frame is ~0)
+NVS_SEED, NVS_BETA, NVS_VIS_SHIFT, NVS_BOUND = 20, 1.0, 0.5, 1.0
+
+
+def nvs_fixed_model(cfg, data_info, rtks):
+    """The NVS gate's model, made on the CPU the same way on every run (see
+    NVS_SEED), each frame's near/far planes those of the bound's box seen
+    from its camera in ``rtks`` [num_fr, 4, 4] (the trainer's
+    ``get_near_far``)."""
+    import numpy as np
+    import torch
+    from moda_tpu_torch.fields.model import MoDAModel
+    from moda_tpu_torch.train.trainer import get_near_far
+
+    m = MoDAModel(cfg, data_info, device="cpu", generator=torch.Generator().manual_seed(NVS_SEED))
+    with torch.no_grad():
+        if m.has_bones:
+            m.rest_pose_code.weight.copy_(m.apply_pose_code(torch.zeros(1, dtype=torch.long)))
+        m.nerf_beta.fill_(NVS_BETA)
+        m.nerf_vis.rgb.bias[0] += NVS_VIS_SHIFT
+    m.mvars.obj_bound = torch.full((3,), NVS_BOUND)
+    b = NVS_BOUND
+    corners = np.array([[x, y, z] for x in (-b, b) for y in (-b, b) for z in (-b, b)], np.float32)
+    nf = get_near_far(m.mvars.near_far.numpy(), rtks, np.ones(len(rtks)), corners)
+    m.mvars.near_far = torch.as_tensor(nf)
+    return m
+
+
+def nvs_fixed_checkpoint(cfg, data_info, rtks, path: str) -> str:
+    """``nvs_fixed_model`` written as the trainer writes a checkpoint, at
+    ``path``, with ``rtks`` [num_fr, 4, 4] as its cameras; returns the
+    digest of its parameters, near/far planes and bound."""
+    import numpy as np
+    from moda_tpu_torch import bridge
+    from moda_tpu_torch.train import ckpt as CK
+    from moda_tpu_torch.train.trainer import MVAR_FIELDS
+
+    m = nvs_fixed_model(cfg, data_info, rtks)
+    mv = {f: getattr(m.mvars, f).numpy() for f in MVAR_FIELDS if f != "beta_is_active"}
+    n = len(rtks)
+    lv = {"rt_raw": rtks[:, :3, :4], "rtk": rtks, "idk": np.ones(n, np.float32),
+          "sil_err": np.zeros(n, np.float32), "obj_bound": mv["obj_bound"]}
+    CK.save_checkpoint(path, bridge.export_params(m), lv, mv,
+                       meta={"num_fr": data_info.num_fr, "num_bones": cfg.num_bones, "steps": 0})
+    digest = hashlib.sha256()
+    for _, v in sorted(m.state_dict().items()):
+        digest.update(v.detach().numpy().tobytes())
+    for v in (mv["near_far"], mv["obj_bound"]):
+        digest.update(v.tobytes())
+    return digest.hexdigest()[:16]
+
+
 MATCH_PAIR = "0 8"
 # match_app on the card (K1's bf16 feature head) against a CPU copy of the
 # model (the plain fp32 head; both read the Sinkhorn's kernel matrix in
@@ -2111,10 +2184,13 @@ def run_viz(results: list, card: str, tmp: str) -> dict:
         NVS_FRAMES frames each at render_size 64, ndepth 128, NVS_CHUNK
         rays a chunk): replay.gif
         and bullet.gif are GIF89a with the frame count, size and 1/10 s
-        delay; every frame finite; the first replay frame within 1e-4
-        (relative L2) of a CPU copy of the model, over the pixels where no
-        sample's culling decision flipped within NVS_CULL_EPS of its
-        threshold (every pixel when none did); no kernel launch;
+        delay; every frame finite; no kernel launch. The card against the
+        CPU: ``nvs_app.main --test_frames 1`` on a checkpoint fixed from a
+        seed (``nvs_fixed_checkpoint``, written on the CPU with the
+        dataset's exact cameras), once on the card and once with
+        device="cpu": the replay frame of frame 0 within 1e-4 (relative
+        L2) over the pixels where no sample's culling decision flipped
+        within NVS_CULL_EPS of its threshold (every pixel when none did);
     (b) the ctraj route on phase 7's ``-ctrajs-``/``-refsil-`` exports
         (``--scale 1 --maxframe`` CTRAJ_FRAMES): an rgb, sil and vis PNG of
         the composite's size per frame, values finite and in [0, 1] before
@@ -2142,7 +2218,6 @@ def run_viz(results: list, card: str, tmp: str) -> dict:
     from moda_tpu_torch.render import pipeline as RP
     from moda_tpu_torch.train.trainer import Trainer
     from moda_tpu_torch.train.warmup_pose import render_pose_batch
-    from moda_tpu_torch.viz.nvs import render_nvs
     from moda_tpu_torch.viz.render_vis import png_size
 
     out, fail, t_phase = {"card": card}, [], time.perf_counter()
@@ -2166,8 +2241,7 @@ def run_viz(results: list, card: str, tmp: str) -> dict:
     seen, cull_card, cull_cpu = {}, {}, {}
     FM.reset_launches()
     t0 = time.perf_counter()
-    with _patched([(nvs_app, "render_nvs", capture(seen, "nvs", nvs_app.render_nvs)),
-                   (RP, "_inference", culling_inputs(cull_card, RP._inference))]):
+    with _patched([(nvs_app, "render_nvs", capture(seen, "nvs", nvs_app.render_nvs))]):
         tr = nvs_app.main(base6 + ["--test_frames", str(NVS_FRAMES)])
     out["nvs_app_s"] = time.perf_counter() - t0
     calls_a = dict(FM.launches_by_call)
@@ -2183,12 +2257,26 @@ def run_viz(results: list, card: str, tmp: str) -> dict:
     if len(frames) != 2 * NVS_FRAMES or not all(np.isfinite(v).all() for f in frames
                                                 for v in f.values()):
         fail.append(f"nvs: {len(frames)} frames, not all finite")
-    (_, cams, ids, *_), _, replay, _ = seen["nvs"][0]
-    t0 = time.perf_counter()
-    with _patched([(RP, "_inference", culling_inputs(cull_cpu, RP._inference))]):
-        want = render_nvs(cpu_copy(tr.model), cams[:1], ids[:1], rs, tr.cfg.ndepth,
-                          chunk=tr.cfg.chunk)[0]
-    out["nvs_cpu_frame_s"] = time.perf_counter() - t0
+    # the card against the CPU: nvs_app on a checkpoint fixed from a seed on
+    # the CPU (nvs_fixed_checkpoint, the dataset's exact cameras), its replay
+    # frame of frame 0 from each; phase 6's trained model and cameras differ
+    # from run to run, and with them what this gate would read
+    ds0 = D.build_datasets("syn-smoke", TRAINER_IMG, os.path.join(tmp, "cfg"))[0]
+    rtks = np.stack([np.loadtxt(p) for p in ds0.rtklist]).astype(np.float32)
+    ckpt = os.path.join(log, "nvs-fixed", "fixed")
+    out["nvs_fixed_model_sha256"] = nvs_fixed_checkpoint(tr.cfg, tr.data_info, rtks, ckpt)
+    fixed_argv = ["--seqname", "syn-smoke", "--config_dir", os.path.join(tmp, "cfg"),
+                  "--logname", "nvs-fixed", "--checkpoint_dir", log, "--model_path", ckpt,
+                  "--img_size", str(TRAINER_IMG), "--chunk", str(NVS_CHUNK), "--test_frames", "1"]
+    fixed = {}
+    for dev, cull in (("cuda", cull_card), ("cpu", cull_cpu)):
+        t0 = time.perf_counter()
+        with _patched([(nvs_app, "render_nvs", capture(fixed, dev, nvs_app.render_nvs)),
+                       (RP, "_inference", culling_inputs(cull, RP._inference))]):
+            nvs_app.main(fixed_argv, device=None if dev == "cuda" else "cpu")
+        out[f"nvs_fixed_app_{dev}_s"] = time.perf_counter() - t0
+    replay, want = fixed["cuda"][0][2], fixed["cpu"][0][2][0]
+    out["nvs_cpu_frame_s"] = fixed["cpu"][0][3]
     out["nvs_rel_l2_vs_cpu"] = {k: rel_l2(replay[0][k], want[k]) for k in want}
     if cull_card["xyz"].shape[0] != rs * rs:
         fail.append(f"nvs: the first replay frame spans several chunks of {tr.cfg.chunk} rays")
@@ -2198,7 +2286,8 @@ def run_viz(results: list, card: str, tmp: str) -> dict:
                nvs_flip_gap=gap,
                nvs_rel_l2_unflipped={k: rel_l2(np.asarray(replay[0][k])[keep],
                                                np.asarray(want[k])[keep]) for k in want})
-    print(f"[viz] nvs frame of the model {out['nvs_model_sha256']} against the CPU's: over "
+    print(f"[viz] nvs frame of the fixed model {out['nvs_fixed_model_sha256']} (phase 6's: "
+          f"{out['nvs_model_sha256']}) against the CPU's: over "
           f"all pixels {out['nvs_rel_l2_vs_cpu']}; "
           f"{out['nvs_culling_flips']} samples culled on one side only, in "
           f"{out['nvs_flipped_pixels']} pixels (largest gap between the two values of the "
@@ -4122,7 +4211,342 @@ def run_mpeg4(results: list, card: str, tmp: str) -> dict:
     return out
 
 
-ALL_PHASES = tuple(range(3, 17))  # 1 and 2 (the card, the build) always run
+H264_CLIPS = ("clip_h264_1080p.mp4", "clip_h264_small.mp4")
+H264_APP_FPS = 5  # the app's --fps on the 1080p clip: pictures 0, 6 and 12, 6 DIS calls
+H264_KERNELS = ("h264_inter", "h264_intra", "h264_deblock")
+
+
+def h264_bytes(D, work, g) -> dict:
+    """The bytes each kernel must move for one picture (each input read once,
+    each output written once): h264_inter reads its macroblocks' records and
+    levels and the 384 reference samples each predicts from, and writes 384
+    samples each; h264_intra reads its records, levels and the 71 neighbour
+    samples each predicts from (luma 16 + 16 + 1 + 4, chroma 2 x 17), and
+    writes 384 each; h264_deblock reads its records and the 384 samples of
+    each filtered macroblock and writes them."""
+    rec = D.FIELDS * 4
+    rows = lambda mbi: int((work.mbs[mbi.long(), D.F_ROW] >= 0).sum()) * D.LEVELS * 2
+    n_inter, n_intra, n_db = len(work.inter), len(work.intra), len(work.deblock)
+    return {"h264_inter": n_inter * (rec + 2 * 384) + rows(work.inter),
+            "h264_intra": n_intra * (rec + 71 + 384) + rows(work.intra),
+            "h264_deblock": n_db * (rec + 2 * 384)}
+
+
+def h264_held_to_plain(path: str, compare: set, time_at: dict, fail: list) -> dict:
+    """(b) of phase 17 on one clip: every picture decoded by the kernels; at
+    the pictures ``compare`` (indices; None: all), before each kernel step
+    the picture buffer is copied and the step's plain version run on the
+    copy on the card, and the two held byte for byte. At the pictures of
+    ``time_at`` ({index: [kernel names]}) each named kernel and its plain
+    version are timed (events) on the step's inputs."""
+    import numpy as np
+    import torch
+    from moda_tpu_torch.preproc import h264 as D
+    from moda_tpu_torch.preproc import video as VI
+
+    clip = VI.open_video(path)
+    parser = D.Parser(clip.config)
+    dpb = None
+    r = {"steps": 0, "equal": [], "max": 0, "timing": {}, "launch_plan": []}
+    for i in range(len(clip)):
+        pic = clip.h264(parser, i)
+        if pic is None:
+            continue
+        g = parser.geometry
+        if dpb is None:
+            dpb = torch.zeros((g.slots, g.frame_bytes), dtype=torch.uint8, device="cuda")
+        w = D.to_device(pic, g, "cuda")
+        frame = dpb[pic.slot]
+        # the launches the wrappers make: inter one, intra and deblock one a
+        # non-empty wavefront
+        r["launch_plan"].append({"h264_inter": int(len(w.inter) > 0),
+                                 "h264_intra": int((np.diff(w.intra_offsets) > 0).sum()),
+                                 "h264_deblock": int((np.diff(w.deblock_offsets) > 0).sum())})
+        for name, n, kernel in D.picture_steps(w, pic.slot, g):
+            plain = functools.partial(kernel, plain=True)
+            if not n:
+                continue
+            held = compare is None or i in compare
+            timed = name in time_at.get(i, ())
+            if held or timed:
+                before = dpb.clone()
+            kernel(dpb)
+            if held:
+                want = before.clone()
+                plain(want)
+                torch.cuda.synchronize()
+                r["equal"].append(float((want[pic.slot] == frame).float().mean()))
+                r["max"] = max(r["max"], int((want[pic.slot].int() - frame.int()).abs().max()))
+                r["steps"] += 1
+            if timed:
+                scratch = before.clone()
+                reset = lambda: scratch.copy_(before)
+                reset_ms = cuda_time(reset, iters=10, warmup=2)
+                t = {"ms": cuda_time(lambda: (reset(), kernel(scratch)), iters=10, warmup=2)
+                     - reset_ms,
+                     "plain_ms": cuda_time(lambda: (reset(), plain(scratch)), iters=1, warmup=0)
+                     - reset_ms,
+                     "bytes": h264_bytes(D, w, g)[name], "mbs": n,
+                     "picture": i, "idr": pic.idr}
+                r["timing"][name] = t
+                del scratch
+    torch.cuda.synchronize()
+    name = os.path.basename(path)
+    if not r["equal"] or min(r["equal"]) < 1:
+        fail.append(f"{name}: the H.264 kernels against their plain versions: bit-equal shares "
+                    f"{r['equal']}")
+    r["geometry"] = parser.geometry
+    print(f"[h264] {name}: {r['steps']} kernel steps at pictures "
+          f"{'all' if compare is None else sorted(compare)} held against their plain versions "
+          f"on the card: share of bytes bit-equal (gate 1.0) min "
+          f"{min(r['equal'] or [0]):.4f}, largest difference {r['max']}", flush=True)
+    return r
+
+
+def run_h264(results: list, card: str, tmp: str) -> dict:
+    """Phase 17, H.264 video (preproc/h264.py: the host parse of
+    native/h264.cpp, the kernels h264_inter, h264_intra and h264_deblock of
+    csrc/h264.cu, and csrc/m4v.cu's yuv420_to_bgr) on the card:
+
+    (a) ptxas's registers and spills of the three kernels;
+    (b) every kernel step against its plain version on the same inputs on
+        the card (``h264_held_to_plain``: every byte equal) at every picture
+        of the small golden (tests/goldens, the writer's random tool mix)
+        and at the 1080p golden's IDR and its last two P pictures (with the
+        loop filter on); h264_intra timed at the IDR,
+        h264_inter and h264_deblock at the last P picture, each beside its
+        plain version and its bound (``h264_bytes`` at the card's rate; no
+        PyTorch call computes these functions: no library time);
+        yuv420_to_bgr with the 1080p crop held against its plain version;
+    (c) ``H264Decoder.decode`` over every sample of both goldens: each
+        frame's SHA-256 against cv2.VideoCapture's recorded one, the decode
+        time a frame (host clock to a sync) split into the host parse
+        (``Parser.parse``, host clock) and each kernel's device time (events
+        around each wrapper call);
+    (d) ``preproc_app.main --input`` the 1080p golden at --fps H264_APP_FPS
+        (DIS flow on the card, masks from a --mask_dir this phase writes, no
+        line shards): the "[frames] extracted" line, the stored frames'
+        digests against cv2's, every flo-/occ- PFM finite, the launches
+        counted from 0: the H.264 kernels as each picture's launch lists
+        say (h264_inter one a picture with P or skipped macroblocks,
+        h264_intra and h264_deblock one a non-empty wavefront),
+        yuv420_to_bgr one a stored frame, dis_patch_search one a scale a
+        flow call, no fused-MLP launch.
+    No failure is caught: any exits non-zero."""
+    import numpy as np
+    import torch
+    from moda_tpu_torch.cli import preproc_app
+    from moda_tpu_torch.data import imageio as IO
+    from moda_tpu_torch.data.pfm import read_pfm
+    from moda_tpu_torch.ops import fused_mlp as FM
+    from moda_tpu_torch.preproc import dis_flow as DIS
+    from moda_tpu_torch.preproc import h264 as D
+    from moda_tpu_torch.preproc import m4v as M
+    from moda_tpu_torch.preproc import video as VI
+    from moda_tpu_torch.viz.render_vis import save_png
+
+    t_phase = time.perf_counter()
+    with open(os.path.join(GOLDENS, "video_readings.json")) as f:
+        recorded = json.load(f)
+    out, fail = {}, []
+    D.build_library()
+    M.build_library()
+
+    # (a) registers and spills
+    out["ptxas"] = [line.strip() for line in D.ptxas_report().splitlines()
+                    if "registers" in line or "spill" in line or "Compiling entry" in line]
+    for line in out["ptxas"]:
+        print(f"[h264] {line}", flush=True)
+
+    # (b) the kernels against their plain versions, then timed
+    big, small = (os.path.join(GOLDENS, n) for n in H264_CLIPS)
+    n_big = recorded[H264_CLIPS[0]]["frames"]
+    last = n_big - 1
+    held_big = h264_held_to_plain(big, {0, last - 1, last},
+                                  {0: ("h264_intra",), last: ("h264_inter", "h264_deblock")},
+                                  fail)
+    held_small = h264_held_to_plain(small, None, {}, fail)
+    timing = held_big["timing"]
+    for k in H264_KERNELS:
+        t = timing[k]
+        print(f"[h264] 1080p picture {t['picture']} ({'IDR' if t['idr'] else 'P'}, {t['mbs']} "
+              f"macroblocks): {k} {t['ms']:.4f} ms (plain {t['plain_ms']:.2f} ms, bound "
+              f"{t['bytes'] / PEAK_BYTES * 1e3:.4f} ms by {t['bytes'] / 1e6:.2f} MB) ({card})",
+              flush=True)
+    g = held_big["geometry"]
+    gen = torch.Generator().manual_seed(0)
+    frame = torch.randint(0, 256, (g.frame_bytes,), generator=gen, dtype=torch.uint8).cuda()
+    conv = lambda: M.yuv420_to_bgr(frame, g.m4v, g.left, g.top, D.COEFFS[g.matrix])
+    bgr_equal = torch.equal(conv(), M.yuv420_to_bgr_plain(frame, g.m4v, g.left, g.top,
+                                                          D.COEFFS[g.matrix]))
+    if not bgr_equal:
+        fail.append("yuv420_to_bgr with the 1080p crop differs from its plain version")
+    w, h = g.width, g.height
+    bgr_t = {"ms": cuda_time(conv, iters=20, warmup=3),
+             "plain_ms": cuda_time(lambda: M.yuv420_to_bgr_plain(frame, g.m4v, g.left, g.top,
+                                                                 D.COEFFS[g.matrix]),
+                                   iters=3, warmup=1),
+             "bytes": w * h + 2 * ((w + 1) // 2) * ((h + 1) // 2) + 3 * w * h}
+    out.update(timing=timing, bgr=bgr_t, bgr_equal=bgr_equal,
+               steps_held=held_big["steps"] + held_small["steps"],
+               bit_equal_share=min(held_big["equal"] + held_small["equal"]),
+               max_abs_err=max(held_big["max"], held_small["max"]))
+
+    # (c) the decoder over every sample, against cv2's digests
+    events, parses = [], []
+    parse = D.Parser.parse
+
+    def timed_parse(parser, data, headers_only=False):
+        t0 = time.perf_counter()
+        try:
+            return parse(parser, data, headers_only)
+        finally:
+            parses.append(time.perf_counter() - t0)
+
+    def evented(fn, name):
+        def call(*a, **k):
+            s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            s.record()
+            res = fn(*a, **k)
+            e.record()
+            events.append((name, s, e))
+            return res
+        return call
+
+    out["decode"] = {}
+    for name in H264_CLIPS:
+        clip = VI.open_video(os.path.join(GOLDENS, name))
+        dec = D.H264Decoder(clip)
+        digests, wall = [], 0.0
+        events.clear()
+        parses.clear()
+        with _patched([(D, "inter", evented(D.inter, "h264_inter")),
+                       (D, "intra", evented(D.intra, "h264_intra")),
+                       (D, "deblock", evented(D.deblock, "h264_deblock")),
+                       (M, "yuv420_to_bgr", evented(M.yuv420_to_bgr, "yuv420_to_bgr")),
+                       (D.Parser, "parse", timed_parse)]):
+            for i in range(len(clip)):
+                t0 = time.perf_counter()
+                bgr = dec.decode(clip.sample(i))
+                torch.cuda.synchronize()
+                wall += time.perf_counter() - t0
+                digests.append(hashlib.sha256(bgr.cpu().numpy().tobytes()).hexdigest())
+        n, ref = len(clip), recorded[name]["all_pixels_sha256"]
+        dev = {k: sum(s.elapsed_time(e) for kk, s, e in events if kk == k) / n
+               for k in H264_KERNELS + ("yuv420_to_bgr",)}
+        if digests != ref:
+            fail.append(f"{name}: {sum(a != b for a, b in zip(digests, ref))} of {n} decoded "
+                        "frames differ from cv2's")
+        d = {"frames": n, "ms": wall / n * 1e3, "parse_ms": sum(parses) / n * 1e3,
+             "device_ms": dev}
+        out["decode"][name] = d
+        print(f"[h264] {name}: {n} frames decoded on the card, digests "
+              f"{'equal' if digests == ref else 'DIFFER from'} cv2's; {d['ms']:.2f} ms a frame "
+              f"(host clock to a sync): host parse {d['parse_ms']:.2f} ms, device "
+              + ", ".join(f"{k} {v:.4f} ms" for k, v in dev.items()) + f" ({card})", flush=True)
+
+    # (d) the entry point on the 1080p golden
+    name = H264_CLIPS[0]
+    want = recorded[name]
+    h, w = want["size"]
+    step = max(int(round(want["fps"] / H264_APP_FPS)), 1)
+    kept = list(range(0, want["frames"], step))
+    masks, empty = os.path.join(tmp, "h264_masks"), os.path.join(tmp, "h264_no_weights")
+    os.makedirs(masks, exist_ok=True)
+    os.makedirs(empty, exist_ok=True)
+    for k in range(len(kept)):
+        m = np.zeros((h, w), np.uint8)
+        m[h // 4:3 * h // 4, w // 5 + 8 * k:w // 2 + 8 * k] = 255
+        save_png(os.path.join(masks, "%05d.png" % k), m)
+    db = os.path.join(tmp, "h264db")
+    argv = ["--seqname", "clip", "--input", os.path.join(GOLDENS, name), "--mask_dir", masks,
+            "--weights_dir", empty, "--database", db, "--config_dir",
+            os.path.join(tmp, "h264cfg"), "--fps", str(H264_APP_FPS), "--no-lines"]
+    plan = held_big["launch_plan"]
+    want_launches = {k: sum(p[k] for p in plan) for k in H264_KERNELS}
+    FM.reset_launches()
+    DIS.reset_launches()
+    D.reset_launches()
+    M.reset_launches()
+    buf = io.StringIO()
+    parses.clear()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf), _patched([(D.Parser, "parse", timed_parse)]):
+        res = preproc_app.main(argv)
+    app_s = time.perf_counter() - t0
+    app_parse = {"parses": len(parses), "s": sum(parses)}
+    launches = {**D.launches, "yuv420_to_bgr": M.launches["yuv420_to_bgr"]}
+    dis_launches = DIS.launches["patch_search"]
+    printed = buf.getvalue()
+    line = f"[frames] extracted {len(kept)} frames @ {H264_APP_FPS}fps -> {res['seq_dir']}"
+    if line not in printed:
+        fail.append(f"preproc_app did not print {line!r}")
+    if "[flow] no VCN weights: OpenCV DIS + fb-confidence on cuda" not in printed:
+        fail.append("preproc_app did not take the DIS route on the card")
+    stored = [hashlib.sha256(np.ascontiguousarray(IO.imread(p)[..., ::-1]).tobytes()).hexdigest()
+              for p in sorted(glob.glob(os.path.join(res["seq_dir"], "*.jpg")))]
+    stored_ok = stored == [want["all_pixels_sha256"][i] for i in kept]
+    if not stored_ok:
+        fail.append(f"{name}: the app's stored frames differ from cv2's frames {kept}")
+    if launches != {**want_launches, "yuv420_to_bgr": len(kept)}:
+        fail.append(f"kernel launches {launches} in the app's run, want {want_launches} and "
+                    f"yuv420_to_bgr one a stored frame ({len(kept)})")
+    scales = DIS.coarsest_scale(h, w) - DIS.FINEST_SCALE + 1
+    if dis_launches != res["flow_calls"] * scales or dis_launches <= 0:
+        fail.append(f"{dis_launches} dis_patch_search launches for {res['flow_calls']} flow "
+                    f"calls of {scales} scales")
+    fmlp = sum(FM.launches_by_call.values())
+    if fmlp:
+        fail.append(f"{fmlp} fused-MLP launches in the H.264 phase")
+    pfms = glob.glob(os.path.join(db, "Flow*", "*", "clip", "*.pfm"))
+    if not pfms or not all(np.isfinite(read_pfm(p)[0]).all() for p in pfms):
+        fail.append(f"{len(pfms)} flo-/occ- PFMs, not all finite")
+    out.update(app_s=app_s, stage_s=res["times"], app_parse=app_parse,
+               flow_calls=res["flow_calls"], launches=launches, dis_launches=dis_launches,
+               pfms=len(pfms), launches_per_picture={k: v / want["frames"]
+                                                     for k, v in launches.items()})
+    print(f"[h264] preproc_app.main --input {name} --fps {H264_APP_FPS} {app_s:.1f} s: stages "
+          + ", ".join(f"{k} {v:.2f} s" for k, v in res["times"].items())
+          + f"; host parse {app_parse['s']:.3f} s in {app_parse['parses']} parses of "
+          f"{want['frames']} samples; {len(stored)} frames stored "
+          f"({'equal' if stored_ok else 'NOT equal'} to cv2's), "
+          f"{res['flow_calls']} DIS calls, {len(pfms)} PFMs; launches "
+          f"{json.dumps(launches)} (want {json.dumps(want_launches)}), dis_patch_search "
+          f"{dis_launches}, fused MLP {fmlp} ({card})", flush=True)
+
+    for k in H264_KERNELS:
+        t = timing[k]
+        results.append({
+            "name": k, "route": "cuda", "source": "moda_tpu_torch/csrc/h264.cu",
+            "replaces": "none (FFmpeg's h264 decoder on the host, inside cv2.VideoCapture: "
+                        "moda_tpu/preproc/pipeline.py:39-45)",
+            "launches": launches[k], "max_abs_err": out["max_abs_err"],
+            "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bytes"] / PEAK_BYTES * 1e3,
+            "bound_by": "bytes", "library_ms": None, "shape": [g.height, g.width],
+            "picture": t["picture"], "bit_equal_share": out["bit_equal_share"], "runs": []})
+    conv_entry = [e for e in results if e["name"] == "yuv420_to_bgr"]
+    if conv_entry:
+        conv_entry[0]["launches"] += launches["yuv420_to_bgr"]
+    else:
+        results.append({
+            "name": "yuv420_to_bgr", "route": "cuda", "source": "moda_tpu_torch/csrc/m4v.cu",
+            "replaces": "none (swscale on the host, inside cv2.VideoCapture: "
+                        "moda_tpu/preproc/pipeline.py:39-45)",
+            "launches": launches["yuv420_to_bgr"], "max_abs_err": 0 if bgr_equal else None,
+            "ms": bgr_t["ms"], "plain_ms": bgr_t["plain_ms"],
+            "bound_ms": bgr_t["bytes"] / PEAK_BYTES * 1e3, "bound_by": "bytes",
+            "library_ms": None, "shape": [g.height, g.width], "runs": []})
+    for e in results:
+        if e["name"] == "dis_patch_search":
+            e["launches"] += dis_launches
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"[h264] phase {out['phase_s']:.1f} s ({card})", flush=True)
+    if fail:
+        raise SystemExit("h264: " + "; ".join(fail))
+    return out
+
+
+ALL_PHASES = tuple(range(3, 18))  # 1 and 2 (the card, the build) always run
 # the phases whose artifacts a phase reads (in the temporary directory)
 PHASE_NEEDS = {7: (6,), 9: (8,), 10: (3, 6, 7, 8), 11: (8,), 12: (8, 11), 13: (6,), 14: (8,)}
 
@@ -4179,6 +4603,7 @@ def main():
     print(f"torch {torch.__version__} cuda {torch.version.cuda} python {sys.version.split()[0]}",
           flush=True)
     from moda_tpu_torch.preproc import dis_flow as DIS
+    from moda_tpu_torch.preproc import h264 as H264
     from moda_tpu_torch.preproc import m4v as M4V
 
     # every kernel source builds at once, one nvcc each
@@ -4194,7 +4619,8 @@ def main():
             built[name] = e
 
     threads = [threading.Thread(target=build, args=a) for a in
-               (("dis.cu", DIS.build_library), ("m4v.cu", M4V.build_library))]
+               (("dis.cu", DIS.build_library), ("m4v.cu", M4V.build_library),
+                ("h264.cu", H264.build_library))]
     for thread in threads:
         thread.start()
     build("fused_mlp.cu", FM.build_library)
@@ -4204,8 +4630,8 @@ def main():
         if isinstance(r, Exception):
             raise RuntimeError(f"{name} did not build") from r
     print(f"[build] fused_mlp.cu built and loaded in {built['fused_mlp.cu']:.1f} s, dis.cu in "
-          f"{built['dis.cu']:.1f} s, m4v.cu in {built['m4v.cu']:.1f} s, in parallel "
-          f"({time.time() - t0:.1f} s)", flush=True)
+          f"{built['dis.cu']:.1f} s, m4v.cu in {built['m4v.cu']:.1f} s, h264.cu in "
+          f"{built['h264.cu']:.1f} s, in parallel ({time.time() - t0:.1f} s)", flush=True)
     for line in FM.ptxas_report().splitlines():
         if "registers" in line or "spill" in line or "Compiling entry" in line:
             print(f"[build] {line.strip()}", flush=True)
@@ -4253,7 +4679,8 @@ def main():
              lambda: run_parallel(results, card, tmp, profile=args.profile)),
             (14, "dis", "DIS flow", lambda: run_dis(results, card, tmp, profile=args.profile)),
             (15, "video", "video input", lambda: run_video(results, card, tmp)),
-            (16, "mpeg4", "MPEG-4 Part 2 video", lambda: run_mpeg4(results, card, tmp)))
+            (16, "mpeg4", "MPEG-4 Part 2 video", lambda: run_mpeg4(results, card, tmp)),
+            (17, "h264", "H.264 video", lambda: run_h264(results, card, tmp)))
         for number, key, label, run in later:
             if number in phases:
                 steps[key] = run()

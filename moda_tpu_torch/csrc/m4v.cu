@@ -24,8 +24,10 @@
 // so no block reads a plane being written.
 //
 // yuv420_to_bgr: swscale's yuv420p -> BGR24 of the width x height picture
-// (its x86 SIMD yuv2rgb, BT.601 limited range: chroma nearest over 2 x 2,
-// products >> 16), one thread a pixel.
+// at an even offset (its x86 SIMD yuv2rgb, limited range, the coefficients
+// of BT.601 or of the matrix the caller names: chroma nearest over 2 x 2,
+// products >> 16), one thread a pixel. preproc/h264.py calls it too, with
+// the SPS's crop and colour matrix.
 //
 // Bound: bytes. A VOP reads its levels, records and (a P-VOP) the
 // reference, and writes one frame; the conversion reads the picture's
@@ -179,20 +181,25 @@ __global__ void __launch_bounds__(384) m4v_reconstruct_kernel(const uint8_t* __r
   out[base + (long)y * w + x] = (uint8_t)clip255(pix);
 }
 
+struct Coeffs {
+  int ub, ug, vg, vr;
+};
+
 __global__ void yuv420_to_bgr_kernel(const uint8_t* __restrict__ frame, uint8_t* __restrict__ out,
-                                     int lw, int lh, int width, int height) {
+                                     int lw, int lh, int width, int height, int left, int top,
+                                     Coeffs k) {
   const int x = blockIdx.x * blockDim.x + threadIdx.x, y = blockIdx.y;
   if (x >= width || y >= height) return;
-  const int cw = lw / 2;
+  const int cw = lw / 2, fx = x + left, fy = y + top;
   const uint8_t* U = frame + (long)lw * lh;
   const uint8_t* V = U + (long)cw * (lh / 2);
-  const int l = ((8 * frame[(long)y * lw + x] - 128) * 9539) >> 16;
-  const int ci = (y >> 1) * cw + (x >> 1);
+  const int l = ((8 * frame[(long)fy * lw + fx] - 128) * 9539) >> 16;
+  const int ci = (fy >> 1) * cw + (fx >> 1);
   const int u = 8 * U[ci] - 1024, v = 8 * V[ci] - 1024;
   uint8_t* o = out + ((long)y * width + x) * 3;
-  o[0] = (uint8_t)clip255(l + ((u * 16525) >> 16));
-  o[1] = (uint8_t)clip255(l + ((u * -3209) >> 16) + ((v * -6660) >> 16));
-  o[2] = (uint8_t)clip255(l + ((v * 13075) >> 16));
+  o[0] = (uint8_t)clip255(l + ((u * k.ub) >> 16));
+  o[1] = (uint8_t)clip255(l + ((u * k.ug) >> 16) + ((v * k.vg) >> 16));
+  o[2] = (uint8_t)clip255(l + ((v * k.vr) >> 16));
 }
 
 }  // namespace
@@ -210,13 +217,19 @@ extern "C" int moda_m4v_reconstruct(const uint8_t* ref, const int32_t* mbs, cons
   return (int)cudaGetLastError();
 }
 
-// The width x height picture of a padded frame as BGR24 [height, width, 3].
+// The width x height picture at (left, top) (even: a 4:2:0 crop) of a
+// padded frame as BGR24 [height, width, 3], with the colour matrix's
+// coefficients (u -> B, u -> G, v -> G, v -> R; BT.601: 16525, -3209,
+// -6660, 13075).
 extern "C" int moda_yuv420_to_bgr(const uint8_t* frame, uint8_t* out, int mb_w, int mb_h,
-                                  int width, int height, cudaStream_t stream) {
-  if (width < 1 || height < 1 || width > 16 * mb_w || height > 16 * mb_h)
+                                  int width, int height, int left, int top, int ub, int ug,
+                                  int vg, int vr, cudaStream_t stream) {
+  if (width < 1 || height < 1 || left < 0 || top < 0 || (left | top) & 1 ||
+      left + width > 16 * mb_w || top + height > 16 * mb_h)
     return (int)cudaErrorInvalidValue;
   dim3 grid((width + 127) / 128, height);
-  yuv420_to_bgr_kernel<<<grid, 128, 0, stream>>>(frame, out, 16 * mb_w, 16 * mb_h, width, height);
+  yuv420_to_bgr_kernel<<<grid, 128, 0, stream>>>(frame, out, 16 * mb_w, 16 * mb_h, width, height,
+                                                 left, top, Coeffs{ub, ug, vg, vr});
   return (int)cudaGetLastError();
 }
 

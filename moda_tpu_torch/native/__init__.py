@@ -5,7 +5,8 @@ PyMCubes, train_utils.py:19,1441), the z-buffer rasterizer of the
 silhouette export and the pose-CNN warmup, and the image codec of the
 frame reader (``imgcodec.cpp``: JPEG decoding, PNG unfiltering, cv2's
 resize and remap; ``data/imageio.py`` wraps it) and the bitstream parser of
-the MPEG-4 Part 2 decoder (``m4v.cpp``; ``preproc/m4v.py`` wraps it).
+the MPEG-4 Part 2 decoder (``m4v.cpp``; ``preproc/m4v.py`` wraps it) and
+of the H.264 decoder (``h264.cpp``; ``preproc/h264.py`` wraps it).
 Counterpart of moda_tpu/native/__init__.py."""
 from __future__ import annotations
 
@@ -97,6 +98,24 @@ def _declare(name: str, lib):
         lib.m4v_parse.argtypes = [vp, ctypes.c_char_p, ctypes.c_int64, i32p, i32p,
                                   ctypes.c_int64, ctypes.POINTER(ctypes.c_int16), ctypes.c_int64,
                                   ctypes.c_char_p, ctypes.c_int]
+    elif name == "h264":
+        vp, i32p = ctypes.c_void_p, ctypes.POINTER(ctypes.c_int32)
+        lib.h264_open.restype = vp
+        lib.h264_open.argtypes = []
+        lib.h264_close.restype = None
+        lib.h264_close.argtypes = [vp]
+        lib.h264_config.restype = ctypes.c_int
+        lib.h264_config.argtypes = [vp, ctypes.c_char_p, ctypes.c_int64, ctypes.c_char_p,
+                                    ctypes.c_int]
+        lib.h264_info.restype = ctypes.c_int
+        lib.h264_info.argtypes = [vp, i32p]
+        lib.h264_peek.restype = ctypes.c_int
+        lib.h264_peek.argtypes = [vp, ctypes.c_char_p, ctypes.c_int64, i32p, ctypes.c_char_p,
+                                  ctypes.c_int]
+        lib.h264_parse.restype = ctypes.c_int64
+        lib.h264_parse.argtypes = [vp, ctypes.c_char_p, ctypes.c_int64, ctypes.c_int, i32p, i32p,
+                                   ctypes.c_int64, ctypes.POINTER(ctypes.c_int16), ctypes.c_int64,
+                                   ctypes.c_char_p, ctypes.c_int]
     else:
         lib.rasterize.restype = None
         lib.rasterize.argtypes = [
@@ -111,7 +130,7 @@ def _declare(name: str, lib):
 
 def _load(name: str):
     """The library built from ``<name>.cpp`` ("marching", "raster",
-    "imgcodec" or "m4v")."""
+    "imgcodec", "m4v" or "h264")."""
     with _LOCK:
         if name not in _LIBS:
             lib = ctypes.CDLL(str(_compile(name)))

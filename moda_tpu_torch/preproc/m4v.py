@@ -53,6 +53,7 @@ ROW_SHIFT, COL_SHIFT = 11, 20
 # swscale's yuv420p -> BGR24 (its x86 SIMD yuv2rgb: BT.601, limited range,
 # ff_yuv2rgb_coeffs scaled by ff_yuv2rgb_c_init_tables; products >> 16)
 Y_MUL, UB_MUL, UG_MUL, VG_MUL, VR_MUL = 9539, 16525, -3209, -6660, 13075
+BT601 = (UB_MUL, UG_MUL, VG_MUL, VR_MUL)
 
 # launches of each kernel through its wrapper since the last reset
 launches = {"m4v_reconstruct": 0, "yuv420_to_bgr": 0}
@@ -294,20 +295,27 @@ def reconstruct_plain(ref: Optional[torch.Tensor], mbs: torch.Tensor, levels: to
     return torch.cat([y.reshape(-1), u.reshape(-1), v.reshape(-1)])
 
 
-def yuv420_to_bgr_plain(frame: torch.Tensor, g: Geometry) -> torch.Tensor:
+def yuv420_to_bgr_plain(frame: torch.Tensor, g: Geometry, left: int = 0, top: int = 0,
+                        coeffs=BT601) -> torch.Tensor:
     """What ``yuv420_to_bgr`` computes, in PyTorch: the width x height
-    picture of a padded frame as uint8 [height, width, 3] BGR, by swscale's
-    integer yuv2rgb (chroma nearest, each 2 x 2 pixels one U and one V)."""
+    picture at (``left``, ``top``; even) of a padded frame as uint8
+    [height, width, 3] BGR, by swscale's integer yuv2rgb (chroma nearest,
+    each 2 x 2 pixels one U and one V) with the matrix's ``coeffs``
+    (u -> B, u -> G, v -> G, v -> R)."""
     Y, U, V = planes(frame, g)
     h, w = g.height, g.width
-    y = Y[:h, :w].int()
-    u = U[:(h + 1) // 2, :(w + 1) // 2].int().repeat_interleave(2, 0).repeat_interleave(2, 1)
-    v = V[:(h + 1) // 2, :(w + 1) // 2].int().repeat_interleave(2, 0).repeat_interleave(2, 1)
+    ub, ug, vg, vr = coeffs
+    y = Y[top:top + h, left:left + w].int()
+    cy, cx = top // 2, left // 2
+    u = U[cy:cy + (h + 1) // 2, cx:cx + (w + 1) // 2].int().repeat_interleave(2, 0) \
+        .repeat_interleave(2, 1)
+    v = V[cy:cy + (h + 1) // 2, cx:cx + (w + 1) // 2].int().repeat_interleave(2, 0) \
+        .repeat_interleave(2, 1)
     u, v = 8 * u[:h, :w] - 1024, 8 * v[:h, :w] - 1024
     luma = ((8 * y - 128) * Y_MUL) >> 16
-    b = luma + ((u * UB_MUL) >> 16)
-    gr = luma + ((u * UG_MUL) >> 16) + ((v * VG_MUL) >> 16)
-    r = luma + ((v * VR_MUL) >> 16)
+    b = luma + ((u * ub) >> 16)
+    gr = luma + ((u * ug) >> 16) + ((v * vg) >> 16)
+    r = luma + ((v * vr) >> 16)
     return torch.stack([b, gr, r], -1).clamp(0, 255).to(torch.uint8)
 
 
@@ -347,7 +355,7 @@ def build_library() -> ctypes.CDLL:
         lib.moda_m4v_reconstruct.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + \
             [ctypes.c_void_p]
         lib.moda_m4v_reconstruct.restype = ctypes.c_int
-        lib.moda_yuv420_to_bgr.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 4 + \
+        lib.moda_yuv420_to_bgr.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 10 + \
             [ctypes.c_void_p]
         lib.moda_yuv420_to_bgr.restype = ctypes.c_int
         lib.moda_m4v_error_string.argtypes = [ctypes.c_int]
@@ -395,12 +403,13 @@ def reconstruct(ref: Optional[torch.Tensor], mbs: torch.Tensor, levels: torch.Te
     return out
 
 
-def yuv420_to_bgr(frame: torch.Tensor, g: Geometry) -> torch.Tensor:
-    """The picture of a padded frame as uint8 [height, width, 3] BGR: the
-    kernel yuv420_to_bgr on a CUDA tensor, ``yuv420_to_bgr_plain`` on a CPU
-    one."""
+def yuv420_to_bgr(frame: torch.Tensor, g: Geometry, left: int = 0, top: int = 0,
+                  coeffs=BT601) -> torch.Tensor:
+    """The picture of a padded frame (at ``left``, ``top``) as uint8
+    [height, width, 3] BGR: the kernel yuv420_to_bgr on a CUDA tensor,
+    ``yuv420_to_bgr_plain`` on a CPU one."""
     if frame.device.type == "cpu":
-        return yuv420_to_bgr_plain(frame, g)
+        return yuv420_to_bgr_plain(frame, g, left, top, coeffs)
     if frame.dtype != torch.uint8 or frame.numel() != g.frame_bytes or \
             not frame.is_contiguous():
         raise ValueError(f"yuv420_to_bgr: the frame must be contiguous uint8 [{g.frame_bytes}]")
@@ -408,7 +417,7 @@ def yuv420_to_bgr(frame: torch.Tensor, g: Geometry) -> torch.Tensor:
     out = torch.empty((g.height, g.width, 3), dtype=torch.uint8, device=frame.device)
     stream = torch.cuda.current_stream(frame.device).cuda_stream
     _check(lib.moda_yuv420_to_bgr(frame.data_ptr(), out.data_ptr(), g.mb_w, g.mb_h, g.width,
-                                  g.height, stream), "yuv420_to_bgr")
+                                  g.height, left, top, *coeffs, stream), "yuv420_to_bgr")
     launches["yuv420_to_bgr"] += 1
     return out
 

@@ -22,8 +22,9 @@ CUDA kernel dis_patch_search, on the card unless ``device`` says otherwise.
 
 Video input (``extract_frames``, cv2.VideoCapture in the JAX package) reads
 AVI, MOV and MP4 clips through preproc/video.py: Motion JPEG (the clip's
-own JPEG samples are stored) and MPEG-4 Part 2 (decoded on the card by
-preproc/m4v.py, stored as PNG); other codecs raise.
+own JPEG samples are stored), MPEG-4 Part 2 and H.264's Baseline tool set
+(decoded on the card by preproc/m4v.py and preproc/h264.py, stored as PNG);
+other codecs and tools raise.
 """
 from __future__ import annotations
 
@@ -44,16 +45,18 @@ def extract_frames(video_path: str, out_dir: str, fps: int = 10, device=None) ->
     """Video -> frames at a fixed rate (preprocess.sh:42 ffmpeg), as the JAX
     package's: every max(round(src_fps / fps), 1)-th decoded frame, src_fps
     the clip's rate as cv2 reports it or 30.0, stored as %05d.jpg; returns
-    the paths. Motion JPEG and MPEG-4 Part 2 (preproc/video.py; ValueError
-    naming any other codec). A kept Motion-JPEG sample is stored as its own
-    JPEG bytes (Annex K.3's tables added where it has none); in a clip with
-    a display rotation, and for MPEG-4 Part 2 (decoded by preproc/m4v.py on
-    ``device``, the card unless the caller asks for the CPU, every sample in
-    order: P-VOPs need their predecessors; a VOP with vop_coded 0 is no
-    frame, as cv2 reads none), as an 8-bit RGB PNG of the turned frame under
-    the .jpg name (preproc/ama.py::store_frame's rule: the port has no JPEG
-    encoder). Every kept Motion-JPEG sample's header, and every MPEG-4
-    sample whole, is parsed before anything is written."""
+    the paths. Motion JPEG, MPEG-4 Part 2 and H.264 (preproc/video.py;
+    ValueError naming any other codec, or a tool preproc/h264.py refuses).
+    A kept Motion-JPEG sample is stored as its own JPEG bytes (Annex K.3's
+    tables added where it has none); in a clip with a display rotation, and
+    for MPEG-4 Part 2 and H.264 (decoded by preproc/m4v.py and
+    preproc/h264.py on ``device``, the card unless the caller asks for the
+    CPU, every sample in order: P pictures need their predecessors; a VOP
+    with vop_coded 0 is no frame, as cv2 reads none), as an 8-bit RGB PNG of
+    the turned frame under the .jpg name (preproc/ama.py::store_frame's
+    rule: the port has no JPEG encoder). Every kept Motion-JPEG sample's
+    header, every MPEG-4 sample whole and every H.264 sample's headers are
+    parsed before anything is written."""
     from moda_tpu_torch.preproc.video import open_video, require_supported
 
     clip = open_video(video_path)
@@ -61,6 +64,8 @@ def extract_frames(video_path: str, out_dir: str, fps: int = 10, device=None) ->
     step = max(int(round((clip.fps or 30.0) / fps)), 1)
     if clip.kind == "mpeg4":
         return _extract_mpeg4(clip, out_dir, step, device)
+    if clip.kind == "h264":
+        return _extract_h264(clip, out_dir, step, device)
     kept = range(0, len(clip), step)
     for i in kept:
         clip.jpeg(i)  # raises with the sample's index
@@ -94,6 +99,33 @@ def _extract_mpeg4(clip, out_dir: str, step: int, device) -> List[str]:
     paths = []
     for n, i in enumerate(coded):
         dec.advance(clip.vop(dec.parser, i))
+        if n % step == 0:
+            p = os.path.join(out_dir, "%05d.jpg" % len(paths))
+            rgb = dec.picture().cpu().numpy()[..., ::-1]
+            save_png(p, np.ascontiguousarray(np.rot90(rgb, ROT90_K[clip.rotation])))
+            paths.append(p)
+    return paths
+
+
+def _extract_h264(clip, out_dir: str, step: int, device) -> List[str]:
+    """extract_frames for an H.264 track: every sample's parameter sets and
+    slice headers read first by a parser of their own (every refusal raises
+    there), then each sample parsed whole and decoded in order, and every
+    step-th picture converted and stored. A sample without a picture is no
+    frame."""
+    from moda_tpu_torch.preproc.h264 import H264Decoder, Parser
+    from moda_tpu_torch.preproc.video import ROT90_K
+
+    dec = H264Decoder(clip, device)
+    try:
+        scan = Parser(clip.config)
+    except ValueError as e:
+        raise ValueError(f"{clip.path}: {e}") from None
+    coded = [i for i in range(len(clip)) if clip.h264(scan, i, headers_only=True) is not None]
+    os.makedirs(out_dir, exist_ok=True)
+    paths = []
+    for n, i in enumerate(coded):
+        dec.advance(clip.h264(dec.parser, i))
         if n % step == 0:
             p = os.path.join(out_dir, "%05d.jpg" % len(paths))
             rgb = dec.picture().cpu().numpy()[..., ::-1]

@@ -10,9 +10,9 @@ gives what that call sees:
   numerator and denominator (cv2's CAP_PROP_FPS: FFmpeg's avg_frame_rate),
   the display rotation in degrees, and the sample table (offset and size of
   each sample, in decode order), and an 'mp4v' entry's esds
-  DecoderSpecificInfo (``config``: an MPEG-4 Part 2 track's VOL). Any codec
-  is read; ``require_supported`` refuses all but Motion JPEG and MPEG-4
-  Part 2 (``Video.kind``).
+  DecoderSpecificInfo (``config``: an MPEG-4 Part 2 track's VOL; an H.264
+  track's avcC). Any codec is read; ``require_supported`` refuses all but
+  Motion JPEG, MPEG-4 Part 2 and H.264 in MP4/MOV (``Video.kind``).
 - ISO-BMFF (.mp4, .mov, .m4v): 32-bit, 64-bit and to-the-end box sizes,
   moov before or after mdat, the first track whose mdia/hdlr is 'vide',
   the rate from mdhd's timescale and stts (timescale x samples / summed
@@ -37,7 +37,12 @@ gives what that call sees:
   fourccs FFmpeg's RIFF table maps to its mpeg4 decoder (``AVI_MPEG4``;
   FFmpeg matches them in any case, as cv2 does). preproc/m4v.py decodes
   them; ``Video.frame(i)`` decodes from the last I-VOP up to sample i.
-  MS-MPEG-4 (DIV3, MP42, MP43), MPEG-1/2, H.264 and the rest are refused.
+- H.264: MP4/MOV 'avc1' and 'avc3' (``config``: the avcC, whose
+  parameter sets 'avc3' may also carry in its samples). preproc/h264.py
+  decodes the Baseline tool set (CAVLC, I and P slices, progressive 8-bit
+  4:2:0) and refuses the rest by name; ``Video.frame(i)`` decodes every
+  sample up to i. H.264 in AVI is refused.
+  MS-MPEG-4 (DIV3, MP42, MP43), MPEG-1/2, HEVC and the rest are refused.
 """
 from __future__ import annotations
 
@@ -55,6 +60,11 @@ MJPEG_OTI = 0x6C  # ISO/IEC 14496-1 objectTypeIndication of Motion JPEG (ISO 109
 MPEG4_OTI = 0x20  # objectTypeIndication of MPEG-4 Part 2 visual (ISO/IEC 14496-2)
 AVI_MJPEG = ("MJPG", "mjpg")
 ISO_MJPEG = ("jpeg", "mjpa")
+# ISO-BMFF sample entries of H.264: parameter sets in the avcC ('avc1') or
+# also in the samples ('avc3')
+ISO_H264 = (b"avc1", b"avc3")
+# AVI fourccs of H.264 (refused by name)
+AVI_H264 = ("H264", "X264", "AVC1", "DAVC", "VSSH")
 # AVI fourccs that FFmpeg's RIFF table (libavformat/riff.c) maps to its mpeg4
 # decoder, compared in upper case as its ff_codec_get_id does after an exact
 # match (cv2 decodes 'xvid' and 'divx' as 'XVID' and 'DIVX'); each checked with
@@ -106,7 +116,8 @@ class Video:
     rotation: int               # display rotation in degrees: 0, 90, 180 or 270
     offsets: np.ndarray         # int64 [N], byte offset of each sample, decode order
     sizes: np.ndarray           # int64 [N]
-    config: bytes = b""         # an 'mp4v' entry's esds DecoderSpecificInfo (the VOL)
+    config: bytes = b""         # an 'mp4v' entry's esds DecoderSpecificInfo (the VOL),
+    #                             an 'avc1'/'avc3' entry's avcC
 
     def __len__(self) -> int:
         return len(self.sizes)
@@ -118,14 +129,16 @@ class Video:
 
     @property
     def kind(self) -> str:
-        """The codec the port decodes it with: "mjpeg", "mpeg4" (Part 2), or ""
-        (one it refuses)."""
+        """The codec the port decodes it with: "mjpeg", "mpeg4" (Part 2),
+        "h264", or "" (one it refuses; H.264 in AVI among them)."""
         if self.container == "avi":
             if self.fourcc in AVI_MJPEG:
                 return "mjpeg"
             return "mpeg4" if self.fourcc.upper() in AVI_MPEG4 else ""
         if self.fourcc in ISO_MJPEG or (self.fourcc == "mp4v" and self.oti == MJPEG_OTI):
             return "mjpeg"
+        if self.fourcc.encode("latin-1") in ISO_H264:
+            return "h264"
         return "mpeg4" if self.fourcc == "mp4v" and self.oti == MPEG4_OTI else ""
 
     @property
@@ -163,10 +176,22 @@ class Video:
         """Sample i decoded, uint8 [H, W, 3] RGB, turned by the track's
         rotation as cv2.VideoCapture turns it. Motion JPEG decodes on the
         host; MPEG-4 Part 2 on ``device`` (the card unless the caller asks
-        for the CPU), from the last I-VOP up to sample i."""
+        for the CPU), from the last I-VOP up to sample i; H.264 there too,
+        from the first sample up to i."""
         require_supported(self)
         if self.kind == "mjpeg":
             rgb = IO.decode_jpeg(self.jpeg(i))
+        elif self.kind == "h264":
+            from moda_tpu_torch.preproc.h264 import H264Decoder
+
+            # every sample up to i: a picture may reference any picture since
+            # the last IDR, and the ones before it cost time only
+            dec, shown = H264Decoder(self, device), False
+            for j in range(i + 1):
+                shown = dec.advance(self.h264(dec.parser, j))
+            if not shown:
+                raise ValueError(f"{self.path}: sample {i} holds no picture")
+            rgb = dec.picture().cpu().numpy()[..., ::-1]
         else:
             from moda_tpu_torch.preproc.m4v import VOP_I, VOP_NOT_CODED, Mpeg4Decoder
 
@@ -183,6 +208,15 @@ class Video:
             rgb = dec.picture().cpu().numpy()[..., ::-1]
         return np.ascontiguousarray(np.rot90(rgb, ROT90_K[self.rotation]))
 
+    def h264(self, parser, i: int, headers_only: bool = False):
+        """Sample i of an H.264 track parsed by ``parser``
+        (preproc/h264.py::Parser): its picture or None; ValueError naming
+        the sample."""
+        try:
+            return parser.parse(self.sample(i), headers_only)
+        except ValueError as e:
+            raise ValueError(f"{self.path}: sample {i}: {e}") from None
+
     def vop(self, parser, i: int):
         """Sample i of an MPEG-4 Part 2 track parsed by ``parser``
         (preproc/m4v.py::Parser): ValueError naming the sample."""
@@ -195,11 +229,16 @@ class Video:
 def require_supported(video: Video) -> None:
     """ValueError naming the codec unless the port decodes it (``Video.kind``)."""
     if not video.kind:
+        h264_in_avi = video.container == "avi" and video.fourcc.upper() in AVI_H264
         raise ValueError(
-            f"{video.path}: codec {video.codec}: the port decodes Motion JPEG (AVI "
-            "MJPG/mjpg, QuickTime jpeg/mjpa, MP4 mp4v with objectTypeIndication 0x6C) and "
-            "MPEG-4 Part 2 (MP4 mp4v with objectTypeIndication 0x20, AVI FMP4, XVID, DIVX, "
-            "DX50 and FFmpeg's other mpeg4 fourccs); H.264, MS-MPEG-4 (DIV3, MP42, MP43), "
+            f"{video.path}: codec {video.codec}"
+            f"{' (H.264 in AVI, which the port does not read)' if h264_in_avi else ''}: the "
+            "port decodes Motion JPEG (AVI MJPG/mjpg, QuickTime jpeg/mjpa, MP4 mp4v with "
+            "objectTypeIndication 0x6C), MPEG-4 Part 2 (MP4 mp4v with objectTypeIndication "
+            "0x20, AVI FMP4, XVID, DIVX, DX50 and FFmpeg's other mpeg4 fourccs) and H.264 in "
+            "MP4/MOV (avc1, avc3) as Baseline-profile streams hold it: progressive 8-bit "
+            "4:2:0, CAVLC, I and P slices (no CABAC, B slices, 8x8 transform, interlace, "
+            "FMO or weighted prediction); H.264 in AVI, HEVC, MS-MPEG-4 (DIV3, MP42, MP43), "
             "MPEG-1/2 and the rest are refused")
 
 
@@ -361,6 +400,10 @@ def _video_track(buf: bytes, trak: dict, mdia: dict, movie_ts: int, path: str,
         eb, _ = _need(_children(buf, entry + 86, entry + esize, f"{stbl_w}/stsd/mp4v"),
                       b"esds", f"{stbl_w}/stsd/mp4v")
         oti, config = _esds(buf, eb + 4, f"{stbl_w}/stsd/mp4v/esds")
+    elif fourcc in ISO_H264:
+        w4 = f"{stbl_w}/stsd/{fourcc.decode()}"
+        cb, ce = _need(_children(buf, entry + 86, entry + esize, w4), b"avcC", w4)
+        config = bytes(buf[cb:ce])
 
     # sizes
     if b"stsz" in stbl:

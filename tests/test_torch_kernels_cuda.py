@@ -9,7 +9,8 @@ on outputs and 2e-2 on gradients (both round the same operands and
 cotangents to bf16; only fp32 summation order differs). DIS's patch search
 (csrc/dis.cu) is bit-equal to its plain version: both round each float32
 operation once, in the same order. So are the MPEG-4 Part 2 kernels
-(csrc/m4v.cu): integer arithmetic throughout.
+(csrc/m4v.cu) and the H.264 kernels (csrc/h264.cu): integer arithmetic
+throughout.
 """
 import pytest
 import torch
@@ -498,3 +499,108 @@ def test_m4v_decoder_matches_cv2_on_the_goldens(cuda_device, name):
            for i in range(len(clip))]
     assert got == want
     assert M.launches == {"m4v_reconstruct": len(clip), "yuv420_to_bgr": len(clip)}
+
+
+def _h264_writer():
+    """tests/torch_h264.py loaded by its path (another installed package may
+    be named ``tests`` where the card is)."""
+    import importlib.util
+    import os
+
+    path = os.path.join(os.path.dirname(__file__), "torch_h264.py")
+    spec = importlib.util.spec_from_file_location("torch_h264", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _h264_stepwise(samples, config, dev):
+    """Each sample of an H.264 track decoded twice, by the plain versions on
+    the CPU and by the kernels on ``dev``, compared after every kernel step
+    (preproc/h264.py::picture_steps): [(picture index, kernel name)] of the
+    steps that launched, and the launches counted."""
+    from moda_tpu_torch.preproc import h264 as D
+
+    parser = D.Parser(config)
+    dpb_c = dpb_g = None
+    ran = []
+    D.reset_launches()
+    for i, sample in enumerate(samples):
+        pic = parser.parse(sample)
+        if pic is None:
+            continue
+        g = parser.geometry
+        if dpb_c is None:
+            dpb_c = torch.zeros((g.slots, g.frame_bytes), dtype=torch.uint8)
+            dpb_g = dpb_c.to(dev)
+        wc, wg = D.to_device(pic, g, "cpu"), D.to_device(pic, g, dev)
+        for (name, n, cpu_step), (_, _, card_step) in zip(D.picture_steps(wc, pic.slot, g),
+                                                          D.picture_steps(wg, pic.slot, g)):
+            cpu_step(dpb_c, plain=True)
+            card_step(dpb_g)
+            torch.cuda.synchronize()
+            assert torch.equal(dpb_g[pic.slot].cpu(), dpb_c[pic.slot]), (i, name)
+            if n:
+                ran.append((i, name))
+    return ran, dict(D.launches)
+
+
+H264_CASES = ("intra_types", "p_partitions", "mv_outside", "refs_mmco_long_term",
+              "slices_deblocking", "constrained_intra", "qp_0", "qp_51", "level_escapes",
+              "chroma_qp_offset_minus", "cropped_176x144_frame_num_wrap")
+
+
+@pytest.mark.parametrize("case", H264_CASES)
+def test_h264_kernels_match_plain(cuda_device, case):
+    """h264_inter, h264_intra and h264_deblock against their plain versions
+    on the writer's seeded streams (tests/torch_h264.py, each case a tool
+    mix), picture by picture and step by step: integer arithmetic
+    throughout, so bit-equal; launches as the launch lists say (inter one a
+    picture with P or skipped macroblocks, intra and deblock one a non-empty
+    wavefront)."""
+    H = _h264_writer()
+    seq, samples = H.random_stream(seed=7, **H.CASES[case])
+    ran, launches = _h264_stepwise([H.sample_bytes(s) for s in samples], H.avcc(seq), cuda_device)
+    assert {name for _, name in ran} >= ({"h264_intra", "h264_deblock"} if case != "qp_0"
+                                         else {"h264_intra"})
+    assert launches["h264_inter"] == sum(name == "h264_inter" for _, name in ran)
+    assert launches["h264_intra"] >= sum(name == "h264_intra" for _, name in ran)
+
+
+@pytest.mark.parametrize("width,height,left,top,matrix", [(1920, 1080, 0, 0, 0),
+                                                          (70, 38, 64, 2, 1), (30, 18, 0, 6, 0)])
+def test_yuv420_to_bgr_with_a_crop_matches_plain(cuda_device, width, height, left, top, matrix):
+    """yuv420_to_bgr with an H.264 crop's offsets and a colour matrix's
+    coefficients (BT.601, BT.709) against yuv420_to_bgr_plain: bit-equal."""
+    from moda_tpu_torch.preproc import h264 as D
+    from moda_tpu_torch.preproc import m4v as M
+
+    mb_w, mb_h = -(-(width + left) // 16), -(-(height + top) // 16)
+    g = M.Geometry(width, height, mb_w, mb_h)
+    gen = torch.Generator().manual_seed(width)
+    frame = torch.randint(0, 256, (g.frame_bytes,), generator=gen, dtype=torch.uint8)
+    got = M.yuv420_to_bgr(frame.to(cuda_device), g, left, top, D.COEFFS[matrix])
+    torch.cuda.synchronize()
+    assert torch.equal(got.cpu(), M.yuv420_to_bgr_plain(frame, g, left, top, D.COEFFS[matrix]))
+
+
+@pytest.mark.parametrize("name", ["clip_h264_small.mp4", "clip_h264_1080p.mp4"])
+def test_h264_decoder_matches_cv2_on_the_goldens(cuda_device, name):
+    """H264Decoder on the card over every sample of a committed clip: each
+    picture's SHA-256 equals cv2.VideoCapture's recorded one
+    (tests/goldens/video_readings.json)."""
+    import hashlib
+    import json
+    import os
+
+    from moda_tpu_torch.preproc import h264 as D
+    from moda_tpu_torch.preproc.video import open_video
+
+    goldens = os.path.join(os.path.dirname(__file__), "goldens")
+    with open(os.path.join(goldens, "video_readings.json")) as f:
+        want = json.load(f)[name]["all_pixels_sha256"]
+    clip = open_video(os.path.join(goldens, name))
+    dec = D.H264Decoder(clip, cuda_device)
+    got = [hashlib.sha256(dec.decode(clip.sample(i)).cpu().numpy().tobytes()).hexdigest()
+           for i in range(len(clip))]
+    assert got == want

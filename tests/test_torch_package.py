@@ -51,8 +51,9 @@ def test_preprocessing_loads_no_jax_no_cv2_and_no_moda_tpu():
     """The preprocessing entry point and every module it imports (VCN+, the
     pipeline, AMA conversion, the checkpoint loaders, the uint8 resize and
     PBM reader of data/imageio.py, scipy's labelling, the video readers of
-    preproc/video.py reading and decoding committed clips: Motion JPEG, and
-    MPEG-4 Part 2 through preproc/m4v.py on the CPU), the detectron2
+    preproc/video.py reading and decoding committed clips: Motion JPEG,
+    MPEG-4 Part 2 through preproc/m4v.py and H.264 through preproc/h264.py
+    on the CPU), the detectron2
     graphs (ResNet-50 + FPN, DensePose-CSE, PointRend) and the checkpoint
     converter load none of FORBIDDEN: the card's machine has no cv2 and no
     JAX."""
@@ -62,6 +63,7 @@ def test_preprocessing_loads_no_jax_no_cv2_and_no_moda_tpu():
             "import moda_tpu_torch.preproc.cse_infer, moda_tpu_torch.preproc.pointrend_infer\n"
             "import moda_tpu_torch.fields.resnet_fpn, moda_tpu_torch.cli.convert_app\n"
             "import moda_tpu_torch.preproc.video, moda_tpu_torch.preproc.m4v\n"
+            "import moda_tpu_torch.preproc.h264\n"
             "import numpy as np\n"
             "from moda_tpu_torch.preproc.pipeline import largest_cc\n"
             "largest_cc(np.eye(4, dtype=np.uint8))\n"
@@ -69,6 +71,8 @@ def test_preprocessing_loads_no_jax_no_cv2_and_no_moda_tpu():
             f"clip = open_video({str(PKG.parent / 'tests/goldens/clip_small.avi')!r})\n"
             "clip.frame(len(clip) - 1)\n"
             f"clip = open_video({str(PKG.parent / 'tests/goldens/clip_mpeg4.mp4')!r})\n"
+            "clip.frame(len(clip) - 1, device='cpu')\n"
+            f"clip = open_video({str(PKG.parent / 'tests/goldens/clip_h264_small.mp4')!r})\n"
             "clip.frame(len(clip) - 1, device='cpu')\n"
             f"bad = [m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r}]\n"
             "assert not bad, bad\n")

@@ -241,7 +241,9 @@ def test_other_codecs_raise(tmp_path, ext, fourcc, name):
     assert not os.path.exists(tmp_path / "t")
 
 
-@pytest.mark.parametrize("fourcc", [b"avc1", b"hvc1", b"mjpb"])
+# 'avc1' left this list when the port began to decode H.264 (its refusals:
+# tests/test_torch_h264.py); 'avc2' is an H.264 entry the port still refuses
+@pytest.mark.parametrize("fourcc", [b"avc2", b"hvc1", b"mjpb"])
 def test_other_sample_entries_raise(tmp_path, fourcc):
     path = str(tmp_path / "clip.mov")
     V.write_isobmff(path, V.jpegs(2, 64, 96), 64, 96, fourcc=fourcc)
@@ -315,7 +317,9 @@ def test_committed_fixtures_match_cv2_and_the_port():
     with open(os.path.join(GOLDENS, "video_readings.json")) as f:
         recorded = json.load(f)
     refused = V.REFUSED_FIXTURE[0]
-    assert sorted(recorded) == sorted([name for name, *_ in V.FIXTURES] + [refused])
+    # the H.264 goldens' readings are held by tests/test_torch_h264_app.py
+    assert sorted(recorded) == sorted([name for name, *_ in V.FIXTURES] + [refused] +
+                                      [name for name, *_ in V.H264_FIXTURES])
     assert sum(r["bytes"] for r in recorded.values()) < 2_000_000
     clip = TV.open_video(os.path.join(GOLDENS, refused))
     assert clip.codec == recorded.pop(refused)["codec"]

@@ -320,6 +320,37 @@ def test_nvs_app_runs_on_the_cpu(scene_ckpt, tmp_path):
     assert RV.gif_info(f"{out}-rgb.gif")["frames"] == 2
 
 
+def test_chip_smoke_nvs_gate_renders_the_fixed_model_through_nvs_app(scene_ckpt, monkeypatch):
+    """chip_smoke.py phase 10's card-against-CPU NVS gate runs nvs_app on
+    the checkpoint nvs_fixed_checkpoint writes: the same digest on every
+    call, and on the CPU the app's replay frame is nvs_fixed_model's own
+    render, bit-equal."""
+    import chip_smoke
+    from moda_tpu_torch.cli import nvs_app
+    from moda_tpu_torch.cli.flags import parse_config
+    from moda_tpu_torch.config import DataInfo, load_seq_config
+    from moda_tpu_torch.train import ckpt as CK
+
+    flags, log = scene_ckpt
+    cfg = parse_config(flags)
+    seq = load_seq_config("flap", cfg.config_dir)[0]
+    info = DataInfo(offset=(0, 4), intrinsics=(tuple(seq.ks),))
+    rtks = CK.load_checkpoint(cfg.model_path)[1]["rtk"]
+    path = os.path.join(log, "fixed", "fixed")
+    digest = chip_smoke.nvs_fixed_checkpoint(cfg, info, rtks, path)
+    assert chip_smoke.nvs_fixed_checkpoint(cfg, info, rtks, path) == digest
+    seen, render = [], nvs_app.render_nvs
+    monkeypatch.setattr(nvs_app, "render_nvs", lambda *a, **k: seen.append(render(*a, **k)) or
+                        seen[-1])
+    nvs_app.main(flags + ["--model_path", path, "--logname", "fixed", "--test_frames", "1"],
+                 device="cpu")
+    want = TN.render_nvs(chip_smoke.nvs_fixed_model(cfg, info, rtks), rtks[:1], [0],
+                         cfg.render_size, cfg.ndepth, chunk=cfg.chunk)[0]
+    assert seen[0][0].keys() == want.keys()
+    for k in want:
+        np.testing.assert_array_equal(seen[0][0][k], want[k])
+
+
 def test_match_app_runs_on_the_cpu(scene_ckpt, monkeypatch):
     """match_app on frames 0 and 2: 64 mask pixels matched and drawn; the
     canvas is what draw_matches gives for match_frames' pixels."""

@@ -1,0 +1,1483 @@
+"""Test helpers for the port's H.264 decoder (moda_tpu_torch/preproc/h264.py):
+a writer of H.264 (ISO/IEC 14496-10) streams in the syntax the port decodes
+(progressive 8-bit 4:2:0, CAVLC, I and P slices), their MP4 muxing, and
+cv2's reading of them with avcodec's log.
+
+The writer has two modes:
+
+- ``random_stream``: random valid syntax from a seed. It draws macroblock
+  types, sub-macroblock types, intra modes (only those whose neighbours are
+  available under the slice and constrained_intra_pred_flag rules), coded
+  block patterns, levels (escapes included; every level kept inside the
+  16-bit range a conforming stream keeps its transform in), QP deltas, mvds,
+  reference indices, skip runs, slices, deblocking settings, memory
+  management operations and reference list modifications.
+- ``natural_stream``: a small real encoder for ``tests/torch_video.py::
+  scene`` frames: I_16x16 (DC, V, H) pictures and P_L0_16x16 pictures with
+  one global vector a reference plus the quantised residual, reconstructed
+  as it goes, with the loop filter off.
+
+A stream counts as valid only if cv2 decodes it with no error line from
+avcodec (``cv2_read``: OPENCV_FFMPEG_DEBUG in a subprocess): FFmpeg would
+otherwise conceal an error silently and corrupt the oracle. ``COVERAGE``
+counts every CAVLC table entry, macroblock type and sub-macroblock type the
+writer emits, so that a table entry that the writer and the reader got
+wrong alike cannot hide behind cv2.
+
+cv2 is the oracle here and only here: the port reads no clip through it.
+"""
+from __future__ import annotations
+
+import collections
+import os
+import re
+import subprocess
+import sys
+
+import numpy as np
+
+# ----------------------------------------------------------------- tables
+# CAVLC's code tables, indexed as FFmpeg's h264_cavlc.c indexes them:
+# coeff_token by nC class (0-1, 2-3, 4-7, 8+) at 4 * TotalCoeff +
+# TrailingOnes, chroma DC's coeff_token the same way, total_zeros by
+# TotalCoeff - 1, run_before by min(zerosLeft, 7) - 1
+CT_LEN = [[1, 0, 0, 0, 6, 2, 0, 0, 8, 6, 3, 0, 9, 8, 7, 5, 10, 9, 8, 6, 11, 10, 9, 7, 13, 11, 10, 8, 13, 13, 11, 9, 13, 13, 13, 10, 14, 14, 13, 11, 14, 14, 14, 13, 15, 15, 14, 14, 15, 15, 15, 14, 16, 15, 15, 15, 16, 16, 16, 15, 16, 16, 16, 16, 16, 16, 16, 16], [2, 0, 0, 0, 6, 2, 0, 0, 6, 5, 3, 0, 7, 6, 6, 4, 8, 6, 6, 4, 8, 7, 7, 5, 9, 8, 8, 6, 11, 9, 9, 6, 11, 11, 11, 7, 12, 11, 11, 9, 12, 12, 12, 11, 12, 12, 12, 11, 13, 13, 13, 12, 13, 13, 13, 13, 13, 14, 13, 13, 14, 14, 14, 13, 14, 14, 14, 14], [4, 0, 0, 0, 6, 4, 0, 0, 6, 5, 4, 0, 6, 5, 5, 4, 7, 5, 5, 4, 7, 5, 5, 4, 7, 6, 6, 4, 7, 6, 6, 4, 8, 7, 7, 5, 8, 8, 7, 6, 9, 8, 8, 7, 9, 9, 8, 8, 9, 9, 9, 8, 10, 9, 9, 9, 10, 10, 10, 10, 10, 10, 10, 10, 10, 10, 10, 10], [6, 0, 0, 0, 6, 6, 0, 0, 6, 6, 6, 0, 6, 6, 6, 6, 6, 6, 6, 6, 6, 6, 6, 6, 6, 6, 6, 6, 6, 6, 6, 6, 6, 6, 6, 6, 6, 6, 6, 6, 6, 6, 6, 6, 6, 6, 6, 6, 6, 6, 6, 6, 6, 6, 6, 6, 6, 6, 6, 6, 6, 6, 6, 6, 6, 6, 6, 6]]
+CT_BITS = [[1, 0, 0, 0, 5, 1, 0, 0, 7, 4, 1, 0, 7, 6, 5, 3, 7, 6, 5, 3, 7, 6, 5, 4, 15, 6, 5, 4, 11, 14, 5, 4, 8, 10, 13, 4, 15, 14, 9, 4, 11, 10, 13, 12, 15, 14, 9, 12, 11, 10, 13, 8, 15, 1, 9, 12, 11, 14, 13, 8, 7, 10, 9, 12, 4, 6, 5, 8], [3, 0, 0, 0, 11, 2, 0, 0, 7, 7, 3, 0, 7, 10, 9, 5, 7, 6, 5, 4, 4, 6, 5, 6, 7, 6, 5, 8, 15, 6, 5, 4, 11, 14, 13, 4, 15, 10, 9, 4, 11, 14, 13, 12, 8, 10, 9, 8, 15, 14, 13, 12, 11, 10, 9, 12, 7, 11, 6, 8, 9, 8, 10, 1, 7, 6, 5, 4], [15, 0, 0, 0, 15, 14, 0, 0, 11, 15, 13, 0, 8, 12, 14, 12, 15, 10, 11, 11, 11, 8, 9, 10, 9, 14, 13, 9, 8, 10, 9, 8, 15, 14, 13, 13, 11, 14, 10, 12, 15, 10, 13, 12, 11, 14, 9, 12, 8, 10, 13, 8, 13, 7, 9, 12, 9, 12, 11, 10, 5, 8, 7, 6, 1, 4, 3, 2], [3, 0, 0, 0, 0, 1, 0, 0, 4, 5, 6, 0, 8, 9, 10, 11, 12, 13, 14, 15, 16, 17, 18, 19, 20, 21, 22, 23, 24, 25, 26, 27, 28, 29, 30, 31, 32, 33, 34, 35, 36, 37, 38, 39, 40, 41, 42, 43, 44, 45, 46, 47, 48, 49, 50, 51, 52, 53, 54, 55, 56, 57, 58, 59, 60, 61, 62, 63]]
+CDC_LEN = [2, 0, 0, 0, 6, 1, 0, 0, 6, 6, 3, 0, 6, 7, 7, 6, 6, 8, 8, 7]
+CDC_BITS = [1, 0, 0, 0, 7, 1, 0, 0, 4, 6, 1, 0, 3, 3, 2, 5, 2, 3, 2, 0]
+TZ_LEN = [[1, 3, 3, 4, 4, 5, 5, 6, 6, 7, 7, 8, 8, 9, 9, 9], [3, 3, 3, 3, 3, 4, 4, 4, 4, 5, 5, 6, 6, 6, 6, 0], [4, 3, 3, 3, 4, 4, 3, 3, 4, 5, 5, 6, 5, 6, 0, 0], [5, 3, 4, 4, 3, 3, 3, 4, 3, 4, 5, 5, 5, 0, 0, 0], [4, 4, 4, 3, 3, 3, 3, 3, 4, 5, 4, 5, 0, 0, 0, 0], [6, 5, 3, 3, 3, 3, 3, 3, 4, 3, 6, 0, 0, 0, 0, 0], [6, 5, 3, 3, 3, 2, 3, 4, 3, 6, 0, 0, 0, 0, 0, 0], [6, 4, 5, 3, 2, 2, 3, 3, 6, 0, 0, 0, 0, 0, 0, 0], [6, 6, 4, 2, 2, 3, 2, 5, 0, 0, 0, 0, 0, 0, 0, 0], [5, 5, 3, 2, 2, 2, 4, 0, 0, 0, 0, 0, 0, 0, 0, 0], [4, 4, 3, 3, 1, 3, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0], [4, 4, 2, 1, 3, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0], [3, 3, 1, 2, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0], [2, 2, 1, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0], [1, 1, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0]]
+TZ_BITS = [[1, 3, 2, 3, 2, 3, 2, 3, 2, 3, 2, 3, 2, 3, 2, 1], [7, 6, 5, 4, 3, 5, 4, 3, 2, 3, 2, 3, 2, 1, 0, 0], [5, 7, 6, 5, 4, 3, 4, 3, 2, 3, 2, 1, 1, 0, 0, 0], [3, 7, 5, 4, 6, 5, 4, 3, 3, 2, 2, 1, 0, 0, 0, 0], [5, 4, 3, 7, 6, 5, 4, 3, 2, 1, 1, 0, 0, 0, 0, 0], [1, 1, 7, 6, 5, 4, 3, 2, 1, 1, 0, 0, 0, 0, 0, 0], [1, 1, 5, 4, 3, 3, 2, 1, 1, 0, 0, 0, 0, 0, 0, 0], [1, 1, 1, 3, 3, 2, 2, 1, 0, 0, 0, 0, 0, 0, 0, 0], [1, 0, 1, 3, 2, 1, 1, 1, 0, 0, 0, 0, 0, 0, 0, 0], [1, 0, 1, 3, 2, 1, 1, 0, 0, 0, 0, 0, 0, 0, 0, 0], [0, 1, 1, 2, 1, 3, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0], [0, 1, 1, 1, 1, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0], [0, 1, 1, 1, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0], [0, 1, 1, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0], [0, 1, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0]]
+CTZ_LEN = [[1, 2, 3, 3], [1, 2, 2, 0], [1, 1, 0, 0]]
+CTZ_BITS = [[1, 1, 1, 0], [1, 1, 0, 0], [1, 0, 0, 0]]
+RUN_LEN = [[1, 1, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0], [1, 2, 2, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0], [2, 2, 2, 2, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0], [2, 2, 2, 3, 3, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0], [2, 2, 3, 3, 3, 3, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0], [2, 3, 3, 3, 3, 3, 3, 0, 0, 0, 0, 0, 0, 0, 0, 0], [3, 3, 3, 3, 3, 3, 3, 4, 5, 6, 7, 8, 9, 10, 11, 0]]
+RUN_BITS = [[1, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0], [1, 1, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0], [3, 2, 1, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0], [3, 2, 1, 1, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0], [3, 2, 3, 2, 1, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0], [3, 0, 1, 3, 2, 5, 4, 0, 0, 0, 0, 0, 0, 0, 0, 0], [7, 6, 5, 4, 3, 2, 1, 1, 1, 1, 1, 1, 1, 1, 1, 0]]
+# coded_block_pattern's me(v) mapping (Table 9-4): codeNum -> pattern
+INTRA_CBP = [47, 31, 15, 0, 23, 27, 29, 30, 7, 11, 13, 14, 39, 43, 45, 46, 16, 3, 5, 10, 12,
+             19, 21, 26, 28, 35, 37, 42, 44, 1, 2, 4, 8, 17, 18, 20, 24, 6, 9, 22, 25, 32, 33,
+             34, 36, 40, 38, 41]
+INTER_CBP = [0, 16, 1, 2, 4, 8, 32, 3, 5, 10, 12, 15, 47, 7, 11, 13, 14, 6, 9, 31, 35, 37, 42,
+             44, 33, 34, 36, 40, 39, 43, 45, 46, 17, 18, 20, 24, 19, 21, 26, 28, 23, 27, 29, 30,
+             22, 25, 38, 41]
+INTRA_CBP_CODE = {c: k for k, c in enumerate(INTRA_CBP)}
+INTER_CBP_CODE = {c: k for k, c in enumerate(INTER_CBP)}
+# zig-zag scan index -> raster position (4 * row + column) in a 4x4 block
+ZIGZAG = [0, 1, 4, 8, 5, 2, 3, 6, 9, 12, 13, 10, 7, 11, 14, 15]
+# luma4x4BlkIdx -> (x, y) in 4x4 units inside the macroblock
+BLK_X = [0, 1, 0, 1, 2, 3, 2, 3, 0, 1, 0, 1, 2, 3, 2, 3]
+BLK_Y = [0, 0, 1, 1, 0, 0, 1, 1, 2, 2, 3, 3, 2, 2, 3, 3]
+BLK_AT = {(x, y): i for i, (x, y) in enumerate(zip(BLK_X, BLK_Y))}
+# normAdjust4x4 (8.5.9): v[qP % 6] for positions (even, even), (odd, odd), other
+NORM = [[10, 16, 13], [11, 18, 14], [13, 20, 16], [14, 23, 18], [16, 25, 20], [18, 29, 23]]
+# the forward quantiser's multipliers of the same positions
+MF = [[13107, 5243, 8066], [11916, 4660, 7490], [10082, 4194, 6554], [9362, 3647, 5825],
+      [8192, 3355, 5243], [7282, 2893, 4559]]
+CHROMA_QP = list(range(30)) + [29, 30, 31, 32, 32, 33, 34, 34, 35, 35, 36, 36, 37, 37, 37, 38,
+                               38, 38, 39, 39, 39, 39]
+P_TYPES = {"P16x16": 0, "P16x8": 1, "P8x16": 2, "P8x8": 3, "P8x8ref0": 4}
+INTRA = ("I4", "I16", "PCM")
+# sub-macroblock types: (partitions, width, height) in 4x4 units
+SUB_PARTS = [(1, 2, 2), (2, 2, 1), (2, 1, 2), (4, 1, 1)]
+MB_PARTS = {"P16x16": (1, 4, 4), "P16x8": (2, 4, 2), "P8x16": (2, 2, 4)}
+# the most a conforming stream lets the transform's values reach (8-bit: 2^15)
+RANGE = 32767
+
+COVERAGE: collections.Counter = collections.Counter()
+
+
+def _pos_class(r: int) -> int:
+    i, j = r >> 2, r & 3
+    return 0 if (i & 1) == 0 and (j & 1) == 0 else 1 if (i & 1) and (j & 1) else 2
+
+
+POS_CLASS = np.array([_pos_class(r) for r in range(16)])
+
+
+def level_scale(qp: int) -> np.ndarray:
+    """[16] normAdjust4x4 of qP % 6 by raster position."""
+    return np.array(NORM[qp % 6])[POS_CLASS]
+
+
+# ------------------------------------------------------------- bit writer
+class BitWriter:
+    def __init__(self):
+        self.parts = []
+        self.n = 0
+
+    def u(self, n: int, v: int):
+        if n:
+            assert 0 <= v < (1 << n), (n, v)
+            self.parts.append(format(v, f"0{n}b"))
+            self.n += n
+
+    def ue(self, v: int):
+        assert v >= 0
+        x = int(v) + 1
+        self.u(2 * x.bit_length() - 1, x)
+
+    def se(self, v: int):
+        self.ue(2 * v - 1 if v > 0 else -2 * v)
+
+    def te(self, rng: int, v: int):
+        if rng > 1:
+            self.ue(v)
+        else:
+            self.u(1, 1 - v)
+
+    def align_zero(self):
+        self.u((-self.n) % 8, 0)
+
+    def trailing(self) -> bytes:
+        self.u(1, 1)
+        self.align_zero()
+        s = "".join(self.parts)
+        return int(s, 2).to_bytes(len(s) // 8, "big")
+
+
+def nal(ref_idc: int, typ: int, rbsp: bytes) -> bytes:
+    """A NAL unit (header byte + the RBSP with emulation prevention)."""
+    return bytes([ref_idc << 5 | typ]) + re.sub(b"\x00\x00(?=[\x00-\x03])", b"\x00\x00\x03", rbsp)
+
+
+# --------------------------------------------------------------- numerics
+def idct_checked(d: np.ndarray) -> np.ndarray:
+    """The 4x4 inverse transform (8.5.12.2: rows, then columns) of [..., 16]
+    scaled coefficients in raster order, as int64 [..., 16] residuals; also
+    whether every intermediate stays in the 16-bit range."""
+    d = d.reshape(*d.shape[:-1], 4, 4).astype(np.int64)
+    e0, e1 = d[..., 0] + d[..., 2], d[..., 0] - d[..., 2]
+    e2, e3 = (d[..., 1] >> 1) - d[..., 3], d[..., 1] + (d[..., 3] >> 1)
+    f = np.stack([e0 + e3, e1 + e2, e1 - e2, e0 - e3], -1)
+    g0, g1 = f[..., 0, :] + f[..., 2, :], f[..., 0, :] - f[..., 2, :]
+    g2, g3 = (f[..., 1, :] >> 1) - f[..., 3, :], f[..., 1, :] + (f[..., 3, :] >> 1)
+    h = np.stack([g0 + g3, g1 + g2, g1 - g2, g0 - g3], -2)
+    ok = all(np.abs(a).max(initial=0) <= RANGE - 32 for a in (d, f, h))
+    return ((h + 32) >> 6).reshape(*h.shape[:-2], 16), ok
+
+
+def luma_dc(levels: np.ndarray, qp: int) -> np.ndarray:
+    """Intra16x16 DC: [16] levels (raster over the 4x4 blocks) -> the [16]
+    dcY values (8.5.10)."""
+    c = levels.reshape(4, 4).astype(np.int64)
+    H = np.array([[1, 1, 1, 1], [1, 1, -1, -1], [1, -1, -1, 1], [1, -1, 1, -1]])
+    f = H @ c @ H
+    ls = 16 * NORM[qp % 6][0]
+    if qp >= 36:
+        return ((f * ls) << (qp // 6 - 6)).reshape(16)
+    return ((f * ls + (1 << (5 - qp // 6))) >> (6 - qp // 6)).reshape(16)
+
+
+def chroma_dc(levels: np.ndarray, qp: int) -> np.ndarray:
+    """4:2:0 chroma DC: [4] levels -> the [4] dcC values (8.5.11)."""
+    c = np.asarray(levels, np.int64).reshape(2, 2)
+    H = np.array([[1, 1], [1, -1]])
+    f = H @ c @ H
+    return (((f * 16 * NORM[qp % 6][0]) << (qp // 6)) >> 5).reshape(4)
+
+
+def residual_blocks(levels: np.ndarray, qp: int, dc=None):
+    """[n, 16] raster levels of 4x4 blocks at ``qp`` -> ([n, 16] residuals,
+    in range); ``dc`` [n]: their DC values already scaled (Intra16x16,
+    chroma)."""
+    d = (levels.astype(np.int64) * level_scale(qp)) << (qp // 6)
+    if dc is not None:
+        d[:, 0] = dc
+    return idct_checked(d)
+
+
+# ------------------------------------------------------------------ CAVLC
+def write_block(w: BitWriter, nc: int, coeffs, maxn: int) -> int:
+    """residual_block_cavlc of ``coeffs`` (scan order, ``maxn`` of them) at
+    nC ``nc`` (-1: chroma DC); returns TotalCoeff."""
+    nz = [i for i, c in enumerate(coeffs) if c]
+    tc = len(nz)
+    t1 = 0
+    for i in reversed(nz):
+        if abs(coeffs[i]) != 1 or t1 == 3:
+            break
+        t1 += 1
+    if nc == -1:
+        cls = "dc"
+        w.u(CDC_LEN[4 * tc + t1], CDC_BITS[4 * tc + t1])
+    else:
+        cls = 0 if nc < 2 else 1 if nc < 4 else 2 if nc < 8 else 3
+        w.u(CT_LEN[cls][4 * tc + t1], CT_BITS[cls][4 * tc + t1])
+    COVERAGE[("coeff_token", cls, tc, t1)] += 1
+    if tc == 0:
+        return 0
+    levels = [coeffs[i] for i in reversed(nz)]
+    for i in range(t1):
+        w.u(1, int(levels[i] < 0))
+    sl = 1 if tc > 10 and t1 < 3 else 0
+    for i in range(t1, tc):
+        lv = levels[i]
+        code = 2 * lv - 2 if lv > 0 else -2 * lv - 1
+        if i == t1 and t1 < 3:
+            code -= 2
+        if sl == 0:
+            if code < 14:
+                prefix, suf, ns = code, 0, 0
+            elif code < 30:
+                prefix, suf, ns = 14, code - 14, 4
+            else:
+                prefix, suf, ns = 15, code - 30, 12
+        elif code < (15 << sl):
+            prefix, suf, ns = code >> sl, code & ((1 << sl) - 1), sl
+        else:
+            prefix, suf, ns = 15, code - (15 << sl), 12
+        assert suf < (1 << ns) or ns == 0, (lv, sl)
+        if prefix >= 14 and (prefix == 15 or sl == 0):
+            COVERAGE[("level_escape", prefix, min(sl, 1))] += 1
+        w.u(prefix + 1, 1)
+        w.u(ns, suf)
+        if sl == 0:
+            sl = 1
+        if abs(lv) > (3 << (sl - 1)) and sl < 6:
+            sl += 1
+    if tc < maxn:
+        tz = nz[-1] + 1 - tc
+        if maxn == 4:
+            w.u(CTZ_LEN[tc - 1][tz], CTZ_BITS[tc - 1][tz])
+            COVERAGE[("total_zeros", "dc", tc, tz)] += 1
+        else:
+            w.u(TZ_LEN[tc - 1][tz], TZ_BITS[tc - 1][tz])
+            COVERAGE[("total_zeros", "luma", tc, tz)] += 1
+        zl = tz
+        for k in range(tc - 1):
+            if zl == 0:
+                break
+            run = nz[-1 - k] - nz[-2 - k] - 1
+            t = min(zl, 7) - 1
+            w.u(RUN_LEN[t][run], RUN_BITS[t][run])
+            COVERAGE[("run_before", t + 1, run)] += 1
+            zl -= run
+    return tc
+
+
+def coverage_expected() -> set:
+    """Every entry of the CAVLC tables, and every macroblock and
+    sub-macroblock type of I and P slices."""
+    out = set()
+    for cls in (0, 1, 2, 3):
+        for tc in range(17):
+            for t1 in range(min(tc, 3) + 1):
+                out.add(("coeff_token", cls, tc, t1))
+    for tc in range(5):
+        for t1 in range(min(tc, 3) + 1):
+            out.add(("coeff_token", "dc", tc, t1))
+    for tc in range(1, 16):
+        for tz in range(17 - tc):
+            out.add(("total_zeros", "luma", tc, tz))
+    for tc in range(1, 4):
+        for tz in range(5 - tc):
+            out.add(("total_zeros", "dc", tc, tz))
+    for zl in range(1, 7):
+        for run in range(zl + 1):
+            out.add(("run_before", zl, run))
+    for run in range(15):
+        out.add(("run_before", 7, run))
+    for p in range(15):
+        for sl in (0, 1):
+            if p >= 14 and (p == 15 or sl == 0):
+                out.add(("level_escape", p, sl))
+    for t in ("I4", "PCM") + tuple(P_TYPES) + ("SKIP",):
+        out.add(("mb_type", t))
+    for mode in range(4):
+        for cc in range(3):
+            for cl in (0, 15):
+                out.add(("mb_type", "I16", mode, cc, cl))
+    for s in range(4):
+        out.add(("sub_mb_type", s))
+    for m in range(9):
+        out.add(("intra4x4", m))
+    for m in range(4):
+        out.add(("intra_chroma", m))
+    return out
+
+
+# ---------------------------------------------------------------- streams
+class Sequence:
+    """One coded video sequence: its SPS and PPS, frame_num and POC state,
+    and the writer's model of the decoded picture buffer's reference
+    marking (to draw valid memory management operations and reference list
+    modifications)."""
+
+    def __init__(self, width: int, height: int, seed: int = 0, poc_type: int = 0,
+                 max_refs: int = 1, log2_max_frame_num: int = 4, log2_max_poc_lsb: int = 5,
+                 chroma_qp_offset: int = 0, constrained_intra: bool = False, qp: int = 26,
+                 full_range=None, matrix=None, poc1_always_zero: bool = False,
+                 num_ref_default: int = 1, sps_extra=None, pps_extra=None):
+        assert width % 2 == 0 and height % 2 == 0
+        self.width, self.height = width, height
+        self.sps_extra, self.pps_extra = sps_extra or {}, pps_extra or {}
+        # the coded picture: the cropped one plus its left and top crop
+        self.mb_w = (width + self.sps_extra.get("crop_left", 0) + 15) // 16
+        self.mb_h = (height + self.sps_extra.get("crop_top", 0) + 15) // 16
+        self.nmb = self.mb_w * self.mb_h
+        self.rng = np.random.default_rng(seed)
+        self.poc_type = poc_type
+        self.max_refs = max_refs
+        self.log2_fn, self.log2_poc = log2_max_frame_num, log2_max_poc_lsb
+        self.max_fn = 1 << log2_max_frame_num
+        self.cqp_offset = chroma_qp_offset
+        self.constrained = constrained_intra
+        self.qp = qp
+        self.full_range, self.matrix = full_range, matrix
+        self.poc1_zero = poc1_always_zero
+        self.poc1_cycle = [2]
+        self.poc1_nonref = 0
+        self.num_ref_default = num_ref_default
+        # reference marking: {"fn", "lt" (LongTermFrameIdx or None)}
+        self.refs = []
+        self.max_lt = -1  # MaxLongTermFrameIdx; -1: "no long-term frame indices"
+        self.prev_ref_fn = 0
+        self.frame_num = 0
+        self.n_since_idr = 0
+        self.poc1_offset = 0  # FrameNumOffset of POC type 1 and 2
+        self.prev_fn = 0
+
+    # parameter sets
+    def sps(self) -> bytes:
+        x = self.sps_extra
+        w = BitWriter()
+        prof = x.get("profile", 66)
+        w.u(8, prof)
+        w.u(8, x.get("constraints", 0xC0 if prof == 66 else 0))
+        w.u(8, x.get("level", 40))
+        w.ue(0)
+        if prof in (100, 110, 122, 244, 44, 83, 86, 118, 128):
+            cf = x.get("chroma_format_idc", 1)
+            w.ue(cf)
+            if cf == 3:
+                w.u(1, x.get("separate_colour_plane", 0))
+            w.ue(x.get("bit_depth_luma_minus8", 0))
+            w.ue(x.get("bit_depth_chroma_minus8", 0))
+            w.u(1, 0)  # qpprime_y_zero_transform_bypass_flag
+            w.u(1, x.get("seq_scaling_matrix_present", 0))
+            if x.get("seq_scaling_matrix_present", 0):
+                for _ in range(8):
+                    w.u(1, 0)
+        w.ue(self.log2_fn - 4)
+        w.ue(self.poc_type)
+        if self.poc_type == 0:
+            w.ue(self.log2_poc - 4)
+        elif self.poc_type == 1:
+            w.u(1, int(self.poc1_zero))
+            w.se(self.poc1_nonref)
+            w.se(0)
+            w.ue(len(self.poc1_cycle))
+            for o in self.poc1_cycle:
+                w.se(o)
+        w.ue(self.max_refs)
+        w.u(1, x.get("gaps_in_frame_num_allowed", 0))
+        w.ue(self.mb_w - 1)
+        w.ue(self.mb_h - 1)
+        w.u(1, x.get("frame_mbs_only", 1))
+        if not x.get("frame_mbs_only", 1):
+            w.u(1, 0)  # mb_adaptive_frame_field_flag
+        w.u(1, 1)  # direct_8x8_inference_flag
+        left, top = x.get("crop_left", 0), x.get("crop_top", 0)
+        crop = (16 * self.mb_w - self.width - left, 16 * self.mb_h - self.height - top)
+        if crop != (0, 0) or left or top:
+            w.u(1, 1)
+            w.ue(left // 2)
+            w.ue(crop[0] // 2)
+            w.ue(top // 2)
+            w.ue(crop[1] // 2)
+        else:
+            w.u(1, 0)
+        vui = self.full_range is not None or self.matrix is not None
+        w.u(1, int(vui))
+        if vui:
+            w.u(1, 0)  # aspect_ratio_info_present_flag
+            w.u(1, 0)  # overscan_info_present_flag
+            w.u(1, 1)  # video_signal_type_present_flag
+            w.u(3, 5)
+            w.u(1, int(bool(self.full_range)))
+            w.u(1, int(self.matrix is not None))
+            if self.matrix is not None:
+                w.u(8, self.matrix)
+                w.u(8, self.matrix)
+                w.u(8, self.matrix)
+            for _ in range(6):  # chroma loc, timing, nal/vcl hrd, pic_struct, restriction
+                w.u(1, 0)
+        return nal(3, 7, w.trailing())
+
+    def pps(self) -> bytes:
+        x = self.pps_extra
+        w = BitWriter()
+        w.ue(0)
+        w.ue(0)
+        w.u(1, x.get("entropy_coding_mode", 0))
+        w.u(1, 0)  # bottom_field_pic_order_in_frame_present_flag
+        ngroups = x.get("num_slice_groups", 1)
+        w.ue(ngroups - 1)
+        if ngroups > 1:
+            w.ue(6)
+            w.ue(self.nmb - 1)
+            for _ in range(self.nmb):
+                w.u(1, 0)
+        w.ue(self.num_ref_default - 1)
+        w.ue(0)
+        w.u(1, x.get("weighted_pred", 0))
+        w.u(2, x.get("weighted_bipred_idc", 0))
+        w.se(self.qp - 26)
+        w.se(0)
+        w.se(self.cqp_offset)
+        w.u(1, 1)  # deblocking_filter_control_present_flag
+        w.u(1, int(self.constrained))
+        w.u(1, x.get("redundant_pic_cnt_present", 0))
+        if "transform_8x8_mode" in x or "pic_scaling_matrix_present" in x:
+            w.u(1, x.get("transform_8x8_mode", 0))
+            w.u(1, x.get("pic_scaling_matrix_present", 0))
+            if x.get("pic_scaling_matrix_present", 0):
+                for _ in range(6 + 2 * x.get("transform_8x8_mode", 0)):
+                    w.u(1, 0)
+            w.se(self.cqp_offset)
+        return nal(3, 8, w.trailing())
+
+    # reference marking
+    def pic_num(self, r) -> int:
+        return r["fn"] - self.max_fn if r["fn"] > self.frame_num else r["fn"]
+
+    def ref_list(self):
+        shorts = sorted((r for r in self.refs if r["lt"] is None), key=self.pic_num, reverse=True)
+        longs = sorted((r for r in self.refs if r["lt"] is not None), key=lambda r: r["lt"])
+        return shorts + longs
+
+    def begin(self, idr: bool, ref: bool):
+        """Sets frame_num and POC for the next picture; returns its header
+        fields."""
+        if idr:
+            self.refs, self.max_lt = [], -1
+            self.frame_num, self.n_since_idr, self.poc1_offset = 0, 0, 0
+            self.prev_fn = 0
+        else:
+            self.frame_num = (self.prev_ref_fn + 1) % self.max_fn
+            if self.frame_num < self.prev_fn:
+                self.poc1_offset += self.max_fn
+            self.n_since_idr += 1
+        self.prev_fn = self.frame_num
+        hdr = {"idr": idr, "ref": ref, "frame_num": self.frame_num}
+        if self.poc_type == 0:
+            hdr["poc_lsb"] = (2 * self.n_since_idr) % (1 << self.log2_poc)
+        elif self.poc_type == 1 and not self.poc1_zero:
+            # a non-reference picture shares its expected count with the
+            # reference before it: one more keeps the output order
+            hdr["delta_poc0"] = 0 if ref else 1
+        return hdr
+
+    def mark(self, hdr, mmco=None, long_term_idr=False):
+        """Reference marking after the picture (8.2.5): the IDR's, the
+        sliding window, or the operations ``mmco`` [(op, *args)]."""
+        if not hdr["ref"]:
+            return
+        self.prev_ref_fn = self.frame_num
+        cur = {"fn": self.frame_num, "lt": None}
+        if hdr["idr"]:
+            if long_term_idr:
+                cur["lt"], self.max_lt = 0, 0
+            self.refs = [cur]
+            return
+        if mmco is None:
+            shorts = [r for r in self.refs if r["lt"] is None]
+            if len(self.refs) >= max(self.max_refs, 1) and shorts:
+                self.refs.remove(min(shorts, key=self.pic_num))
+        else:
+            for op in mmco:
+                self.apply_mmco(op, cur)
+        if cur["lt"] is None or cur not in self.refs:
+            if cur["lt"] is not None:
+                self.refs = [r for r in self.refs if r["lt"] != cur["lt"]]
+            self.refs.append(cur)
+        assert len(self.refs) <= self.max_refs, self.refs
+
+    def apply_mmco(self, op, cur):
+        k = op[0]
+        if k == 1:
+            pn = self.frame_num - (op[1] + 1)
+            self.refs = [r for r in self.refs if r["lt"] is not None or self.pic_num(r) != pn]
+        elif k == 2:
+            self.refs = [r for r in self.refs if r["lt"] != op[1]]
+        elif k == 3:
+            pn = self.frame_num - (op[1] + 1)
+            self.refs = [r for r in self.refs if r["lt"] != op[2]]
+            for r in self.refs:
+                if r["lt"] is None and self.pic_num(r) == pn:
+                    r["lt"] = op[2]
+        elif k == 4:
+            self.max_lt = op[1] - 1
+            self.refs = [r for r in self.refs if r["lt"] is None or r["lt"] <= self.max_lt]
+        elif k == 6:
+            self.refs = [r for r in self.refs if r["lt"] != op[1]]
+            cur["lt"] = op[1]
+
+    def random_mmco(self):
+        """A valid list of operations for the next reference picture, or
+        None (the sliding window); the buffer stays within max_refs."""
+        rng = self.rng
+        stale = any(r["lt"] is None and self.frame_num - self.pic_num(r) >= self.max_fn // 2
+                    for r in self.refs)
+        if (rng.random() < 0.5 or self.max_refs < 2) and not stale:
+            return None
+        shorts = [r for r in self.refs if r["lt"] is None]
+        # short-term references half a frame_num cycle old go first: their
+        # frame_num must not come round again while they are held
+        ops = [(1, self.frame_num - self.pic_num(r) - 1) for r in shorts
+               if self.frame_num - self.pic_num(r) >= self.max_fn // 2]
+        shorts = [r for r in shorts if self.frame_num - self.pic_num(r) < self.max_fn // 2]
+        nlong = sum(r["lt"] is not None for r in self.refs)
+        if self.max_lt < 1 and rng.random() < 0.7:
+            ops.append((4, 2))  # long-term indices 0 and 1
+        max_lt = ops[-1][1] - 1 if ops else self.max_lt
+        choice = rng.integers(0, 4)
+        if choice == 0 and shorts and max_lt >= 0:
+            r = shorts[rng.integers(len(shorts))]
+            ops.append((3, self.frame_num - self.pic_num(r) - 1, int(rng.integers(max_lt + 1))))
+        elif choice == 1 and nlong:
+            r = [r for r in self.refs if r["lt"] is not None][0]
+            ops.append((2, r["lt"]))
+        elif choice == 2 and max_lt >= 0:
+            ops.append((6, int(rng.integers(max_lt + 1))))
+        elif shorts:
+            r = shorts[rng.integers(len(shorts))]
+            ops.append((1, self.frame_num - self.pic_num(r) - 1))
+        # replay to keep the buffer within max_refs
+        saved = ([dict(r) for r in self.refs], self.max_lt)
+        cur = {"fn": self.frame_num, "lt": None}
+        for op in ops:
+            self.apply_mmco(op, cur)
+        n = len(self.refs) + (1 if cur["lt"] is None or
+                              not any(r["lt"] == cur["lt"] for r in self.refs) else 0)
+        while n > self.max_refs:
+            shorts = [r for r in self.refs if r["lt"] is None]
+            if shorts:
+                r = min(shorts, key=self.pic_num)
+                op = (1, self.frame_num - self.pic_num(r) - 1)
+            else:
+                r = [r for r in self.refs if r["lt"] != cur["lt"]][0]
+                op = (2, r["lt"])
+            self.apply_mmco(op, cur)
+            ops.append(op)
+            n -= 1
+        self.refs, self.max_lt = saved
+        return ops
+
+
+def _avail(ctx, mb, dx, dy, intra_rule):
+    """The neighbour macroblock (dx, dy) of ``mb`` if available (same slice;
+    with ``intra_rule`` and constrained_intra_pred_flag, intra only)."""
+    x, y = mb % ctx.mb_w + dx, mb // ctx.mb_w + dy
+    if not (0 <= x < ctx.mb_w and 0 <= y < ctx.mb_h):
+        return None
+    n = y * ctx.mb_w + x
+    if ctx.slice_of[n] != ctx.slice_id or n >= mb:
+        return None
+    if intra_rule and ctx.seq.constrained and ctx.kind[n] not in INTRA:
+        return None
+    return n
+
+
+class Picture:
+    """The macroblock state of the picture being written: what the next
+    macroblock's syntax depends on (slices, types, coefficient counts,
+    intra modes, motion)."""
+
+    def __init__(self, seq: Sequence, hdr: dict):
+        self.seq, self.hdr = seq, hdr
+        self.mb_w, self.mb_h, n = seq.mb_w, seq.mb_h, seq.nmb
+        self.slice_of = np.full(n, -1)
+        self.slice_id = -1
+        self.kind = [None] * n
+        self.tc = np.zeros((n, 16), int)        # luma 4x4 blocks' TotalCoeff
+        self.tcc = np.zeros((n, 2, 4), int)     # chroma AC blocks'
+        self.modes = np.full((n, 16), 2)        # Intra4x4PredMode
+        self.mv = np.zeros((n, 2), int)         # natural mode: one vector a macroblock
+        self.refidx = np.full(n, -1)
+        self.nals = []
+
+    # neighbours
+    def avail(self, mb, dx, dy, intra_rule=False):
+        return _avail(self, mb, dx, dy, intra_rule)
+
+    def intra_avail(self, mb):
+        """(A, B, C, D) availability for intra prediction."""
+        return tuple(self.avail(mb, dx, dy, True) is not None
+                     for dx, dy in ((-1, 0), (0, -1), (1, -1), (-1, -1)))
+
+    def _block_nb(self, mb, blk, dx, dy):
+        x, y = BLK_X[blk] + dx, BLK_Y[blk] + dy
+        if 0 <= x < 4 and 0 <= y < 4:
+            return mb, BLK_AT[(x, y)]
+        n = self.avail(mb, -1 if x < 0 else 0, -1 if y < 0 else 0)
+        return None if n is None else (n, BLK_AT[(x % 4, y % 4)])
+
+    def _count(self, n, blk, chroma=None):
+        if self.kind[n] == "PCM":
+            return 16
+        return self.tcc[n, chroma, blk] if chroma is not None else self.tc[n, blk]
+
+    def nc_luma(self, mb, blk):
+        a, b = self._block_nb(mb, blk, -1, 0), self._block_nb(mb, blk, 0, -1)
+        na = None if a is None else self._count(*a)
+        nb = None if b is None else self._count(*b)
+        return _nc(na, nb)
+
+    def nc_chroma(self, mb, c, blk):
+        bx, by = blk & 1, blk >> 1
+        if bx:
+            na = self._count(mb, blk - 1, c)
+        else:
+            n = self.avail(mb, -1, 0)
+            na = None if n is None else self._count(n, by * 2 + 1, c)
+        if by:
+            nb = self._count(mb, blk - 2, c)
+        else:
+            n = self.avail(mb, 0, -1)
+            nb = None if n is None else self._count(n, 2 + bx, c)
+        return _nc(na, nb)
+
+    def pred_mode4(self, mb, blk):
+        out = []
+        for dx, dy in ((-1, 0), (0, -1)):
+            x, y = BLK_X[blk] + dx, BLK_Y[blk] + dy
+            if 0 <= x < 4 and 0 <= y < 4:
+                out.append(self.modes[mb, BLK_AT[(x, y)]])
+                continue
+            n = self.avail(mb, -1 if x < 0 else 0, -1 if y < 0 else 0, True)
+            if n is None:
+                return 2
+            out.append(self.modes[n, BLK_AT[(x % 4, y % 4)]] if self.kind[n] == "I4" else 2)
+        return min(out)
+
+    # slices
+    def slice(self, first: int, count: int, typ: str, choose, qp=None, deblock=(0, 0, 0),
+              num_ref=None, modifications=(), mmco=None, long_term_idr=False,
+              slice_type_code=None):
+        """Writes one slice of ``count`` macroblocks from ``first``;
+        ``choose(pic, mb, qp)`` gives each macroblock's syntax (a dict)."""
+        seq, hdr = self.seq, self.hdr
+        self.slice_id += 1
+        w = BitWriter()
+        w.ue(first)
+        w.ue(slice_type_code if slice_type_code is not None else (0 if typ == "P" else 2))
+        w.ue(0)
+        w.u(seq.log2_fn, hdr["frame_num"])
+        if hdr["idr"]:
+            w.ue(hdr.get("idr_pic_id", 0))
+        if seq.poc_type == 0:
+            w.u(seq.log2_poc, hdr["poc_lsb"])
+        elif seq.poc_type == 1 and not seq.poc1_zero:
+            w.se(hdr["delta_poc0"])
+        self.num_ref = 0
+        if typ == "P":
+            nref = num_ref or seq.num_ref_default
+            self.num_ref = nref
+            w.u(1, int(nref != seq.num_ref_default))
+            if nref != seq.num_ref_default:
+                w.ue(nref - 1)
+            w.u(1, int(bool(modifications)))
+            if modifications:
+                for idc, v in modifications:
+                    w.ue(idc)
+                    w.ue(v)
+                w.ue(3)
+        if hdr["ref"]:
+            if hdr["idr"]:
+                w.u(1, 0)
+                w.u(1, int(long_term_idr))
+            else:
+                w.u(1, int(mmco is not None))
+                if mmco is not None:
+                    for op in mmco:
+                        w.ue(op[0])
+                        for a in op[1:]:
+                            w.ue(a)
+                    w.ue(0)
+        qp = seq.qp if qp is None else qp
+        w.se(qp - seq.qp)
+        w.ue(deblock[0])
+        if deblock[0] != 1:
+            w.se(deblock[1])
+            w.se(deblock[2])
+        skip = 0
+        for mb in range(first, first + count):
+            self.slice_of[mb] = self.slice_id
+            spec = choose(self, mb, qp)
+            if typ == "P" and spec["kind"] == "SKIP":
+                self.kind[mb] = "SKIP"
+                COVERAGE[("mb_type", "SKIP")] += 1
+                skip += 1
+                continue
+            if typ == "P":
+                w.ue(skip)
+                skip = 0
+            qp = self.write_mb(w, mb, spec, qp, typ)
+        if skip:
+            w.ue(skip)
+        nal_type = 5 if hdr["idr"] else 1
+        self.nals.append(nal(2 if hdr["ref"] else 0, nal_type, w.trailing()))
+
+    def write_mb(self, w: BitWriter, mb: int, s: dict, qp: int, typ: str) -> int:
+        kind = s["kind"]
+        self.kind[mb] = kind
+        off = 5 if typ == "P" else 0
+        if kind == "PCM":
+            w.ue(off + 25)
+            COVERAGE[("mb_type", "PCM")] += 1
+            w.align_zero()
+            for v in s["pcm"]:
+                w.u(8, int(v))
+            self.tc[mb] = 16
+            self.tcc[mb] = 16
+            return qp
+        cbp_l, cbp_c = s.get("cbp_l", 0), s.get("cbp_c", 0)
+        if kind == "I4":
+            w.ue(off)
+            COVERAGE[("mb_type", "I4")] += 1
+            for blk in range(16):
+                m, pm = s["modes"][blk], self.pred_mode4(mb, blk)
+                COVERAGE[("intra4x4", m)] += 1
+                if m == pm:
+                    w.u(1, 1)
+                else:
+                    w.u(1, 0)
+                    w.u(3, m if m < pm else m - 1)
+                self.modes[mb, blk] = m
+            w.ue(s["chroma_mode"])
+            COVERAGE[("intra_chroma", s["chroma_mode"])] += 1
+        elif kind == "I16":
+            assert cbp_l in (0, 15)
+            w.ue(off + 1 + s["mode16"] + 4 * cbp_c + (12 if cbp_l else 0))
+            COVERAGE[("mb_type", "I16", s["mode16"], cbp_c, cbp_l)] += 1
+            w.ue(s["chroma_mode"])
+            COVERAGE[("intra_chroma", s["chroma_mode"])] += 1
+        else:
+            w.ue(P_TYPES[kind])
+            COVERAGE[("mb_type", kind)] += 1
+            nref = self.num_ref
+            if kind in MB_PARTS:
+                nparts = MB_PARTS[kind][0]
+                if nref > 1:
+                    for r in s["refs"][:nparts]:
+                        w.te(nref - 1, r)
+                for mx, my in s["mvds"]:
+                    w.se(mx)
+                    w.se(my)
+            else:
+                for t in s["subs"]:
+                    w.ue(t)
+                    COVERAGE[("sub_mb_type", t)] += 1
+                if nref > 1 and kind == "P8x8":
+                    for r in s["refs"]:
+                        w.te(nref - 1, r)
+                for mx, my in s["mvds"]:
+                    w.se(mx)
+                    w.se(my)
+        if kind != "I16":
+            cbp = cbp_l | cbp_c << 4
+            w.ue(INTRA_CBP_CODE[cbp] if kind == "I4" else INTER_CBP_CODE[cbp])
+        self.tc[mb] = 0
+        self.tcc[mb] = 0
+        if cbp_l or cbp_c or kind == "I16":
+            dq = s.get("qp_delta", 0)
+            w.se(dq)
+            qp = (qp + dq + 52) % 52
+            L = s["levels"]
+            if kind == "I16":
+                write_block(w, self.nc_luma(mb, 0), L["dc"], 16)
+            for blk in range(16):
+                if cbp_l >> (blk // 4) & 1:
+                    co = L["luma"][blk]
+                    self.tc[mb, blk] = write_block(w, self.nc_luma(mb, blk), co, len(co))
+            if cbp_c:
+                for c in range(2):
+                    write_block(w, -1, L["cdc"][c], 4)
+            if cbp_c == 2:
+                for c in range(2):
+                    for b in range(4):
+                        self.tcc[mb, c, b] = write_block(w, self.nc_chroma(mb, c, b),
+                                                         L["cac"][c][b], 15)
+        return qp
+
+
+def _nc(na, nb) -> int:
+    if na is not None and nb is not None:
+        return (na + nb + 1) >> 1
+    return na if na is not None else nb if nb is not None else 0
+
+
+# ------------------------------------------------------------ random mode
+def _rand_coeffs(rng, maxn: int, big: float) -> list:
+    """Scan-ordered coefficients of one block, drawn by their CAVLC
+    structure: TotalCoeff, trailing ones, total_zeros, the runs (often all
+    or none of the zeros left, so that every run_before entry shows), the
+    levels (now and then large: the level escapes)."""
+    tc = int(rng.integers(0, maxn + 1)) if rng.random() < 0.7 else int(rng.integers(0, 4))
+    if tc == 0:
+        return [0] * maxn
+    t1 = int(rng.integers(0, min(tc, 3) + 1))
+    tz = int(rng.integers(0, maxn - tc + 1))
+    runs, zl = [], tz
+    for _ in range(tc - 1):
+        u = rng.random()
+        r = zl if u < 0.25 else 0 if u < 0.5 else int(rng.integers(0, zl + 1))
+        runs.append(r)
+        zl -= r
+    levels = []
+    for i in range(tc):
+        if i < t1:
+            lv = 1
+        elif rng.random() < big:
+            lv = int(rng.integers(8, 600))
+        else:
+            lv = int(rng.geometric(0.35)) + (1 if i == t1 and t1 < 3 else 0)
+        levels.append(lv if rng.random() < 0.5 else -lv)
+    if t1 < 3 and tc > t1 and abs(levels[t1]) == 1:
+        levels[t1] *= 2
+    out = [0] * maxn
+    p = tc + tz - 1
+    for i in range(tc):
+        out[p] = levels[i]
+        p -= 1 + (runs[i] if i < tc - 1 else 0)
+    return out
+
+
+def _fit(coeffs: list, scan_to_raster, qp: int, dc=None) -> list:
+    """The coefficients scaled down (then thinned) until the block's
+    transform stays in the 16-bit range (a conforming stream's bound)."""
+    co = list(coeffs)
+    while True:
+        lv = np.zeros(16, np.int64)
+        for k, c in enumerate(co):
+            lv[scan_to_raster[k]] = c
+        _, ok = residual_blocks(lv[None], qp, None if dc is None else np.array([dc]))
+        if ok:
+            return co
+        nz = [k for k, c in enumerate(co) if c]
+        if not nz:
+            return co
+        if max(abs(c) for c in co) > 1:
+            co = [int(c / 2) if abs(c) > 1 else c for c in co]
+        else:
+            co[nz[-1]] = 0
+
+
+def random_levels(rng, kind: str, cbp_l: int, cbp_c: int, qp: int, cqp_offset: int,
+                  big: float) -> dict:
+    """A macroblock's levels for ``kind``, in range at ``qp``."""
+    luma_scan = ZIGZAG if kind != "I16" else ZIGZAG[1:]
+    out = {"luma": [None] * 16}
+    dcv = [None] * 16
+    if kind == "I16":
+        dc = _rand_coeffs(rng, 16, big)
+        while True:
+            raster = np.zeros(16, np.int64)
+            for k, c in enumerate(dc):
+                raster[ZIGZAG[k]] = c
+            dcy = luma_dc(raster, qp)
+            if np.abs(dcy).max() <= RANGE // 4:
+                break
+            dc = [int(c / 2) for c in dc]  # toward zero: -1 // 2 stays -1
+        out["dc"] = dc
+        # dcY is in raster order over the blocks (row, column of 4x4 blocks)
+        dcv = [int(dcy[4 * BLK_Y[b] + BLK_X[b]]) for b in range(16)]
+    for blk in range(16):
+        if cbp_l >> (blk // 4) & 1:
+            co = _rand_coeffs(rng, len(luma_scan), big)
+            out["luma"][blk] = _fit(co, luma_scan, qp, dcv[blk])
+    qpc = CHROMA_QP[min(max(qp + cqp_offset, 0), 51)]
+    out["cdc"] = [[0] * 4, [0] * 4]
+    out["cac"] = [[[0] * 15 for _ in range(4)] for _ in range(2)]
+    if cbp_c:
+        for c in range(2):
+            while True:
+                d = _rand_coeffs(rng, 4, big)
+                if np.abs(chroma_dc(d, qpc)).max() <= RANGE // 4:
+                    break
+            out["cdc"][c] = d
+            dcc = chroma_dc(d, qpc)
+            if cbp_c == 2:
+                for b in range(4):
+                    out["cac"][c][b] = _fit(_rand_coeffs(rng, 15, big), ZIGZAG[1:], qpc,
+                                            int(dcc[b]))
+    return out
+
+
+def _allowed4(blk, a, b, d):
+    x, y = BLK_X[blk], BLK_Y[blk]
+    left, top = x > 0 or a, y > 0 or b
+    tl = (x > 0 and y > 0) or (x == 0 and y > 0 and a) or (x > 0 and y == 0 and b) or \
+        (x == 0 and y == 0 and d)
+    modes = [2]
+    if top:
+        modes += [0, 3, 7]
+    if left:
+        modes += [1, 8]
+    if top and left and tl:
+        modes += [4, 5, 6]
+    return modes
+
+
+def _allowed16(a, b, d):
+    """(Intra16x16 modes, chroma modes) whose samples are available."""
+    m16, mc = [2], [0]
+    if b:
+        m16.append(0)
+        mc.append(2)
+    if a:
+        m16.append(1)
+        mc.append(1)
+    if a and b and d:
+        m16.append(3)
+        mc.append(3)
+    return m16, mc
+
+
+class RandomMB:
+    """``choose`` of the random mode: draws each macroblock's syntax."""
+
+    def __init__(self, rng, weights: dict, big: float = 0.05, mvd_scale: int = 8,
+                 far_mvd: float = 0.05, qp_walk: int = 3, pcm: float = 1.0):
+        self.rng, self.weights, self.big = rng, weights, big
+        self.mvd_scale, self.far_mvd, self.qp_walk = mvd_scale, far_mvd, qp_walk
+
+    def _mvd(self):
+        rng = self.rng
+        if rng.random() < self.far_mvd:
+            return tuple(int(v) for v in rng.integers(-600, 600, 2))
+        return tuple(int(v) for v in rng.integers(-self.mvd_scale, self.mvd_scale + 1, 2))
+
+    def __call__(self, pic: Picture, mb: int, qp: int) -> dict:
+        rng, typ = self.rng, pic.cur_type
+        kinds = [k for k in self.weights if typ == "P" or k in INTRA]
+        p = np.array([self.weights[k] for k in kinds], float)
+        kind = kinds[rng.choice(len(kinds), p=p / p.sum())]
+        if kind == "P8x8ref0" and pic.num_ref < 2:
+            kind = "P8x8"
+        s = {"kind": kind}
+        a, b, _, d = pic.intra_avail(mb)
+        if kind == "PCM":
+            s["pcm"] = rng.integers(1, 256, 384)
+            return s
+        if kind == "SKIP":
+            return s
+        if kind == "I4":
+            s["modes"] = [int(rng.choice(_allowed4(blk, a, b, d))) for blk in range(16)]
+        m16, mc = _allowed16(a, b, d)
+        if kind in INTRA:
+            s["chroma_mode"] = int(rng.choice(mc))
+        if kind == "I16":
+            s["mode16"] = int(rng.choice(m16))
+            s["cbp_l"] = 15 * int(rng.integers(0, 2))
+        else:
+            s["cbp_l"] = int(rng.integers(0, 16))
+        s["cbp_c"] = int(rng.integers(0, 3))
+        if kind in MB_PARTS:
+            n = MB_PARTS[kind][0]
+            s["refs"] = [int(rng.integers(0, max(pic.num_ref, 1))) for _ in range(n)]
+            s["mvds"] = [self._mvd() for _ in range(n)]
+        elif kind in ("P8x8", "P8x8ref0"):
+            s["subs"] = [int(v) for v in rng.integers(0, 4, 4)]
+            s["refs"] = [int(rng.integers(0, max(pic.num_ref, 1))) for _ in range(4)]
+            s["mvds"] = [self._mvd() for t in s["subs"] for _ in range(SUB_PARTS[t][0])]
+        if s["cbp_l"] or s["cbp_c"] or kind == "I16":
+            dq = int(rng.integers(-self.qp_walk, self.qp_walk + 1))
+            if rng.random() < 0.03:
+                dq = int(rng.integers(-26, 26))
+            s["qp_delta"] = dq
+            nqp = (qp + dq + 52) % 52
+            s["levels"] = random_levels(rng, kind, s["cbp_l"], s["cbp_c"], nqp,
+                                        pic.seq.cqp_offset, self.big)
+        return s
+
+
+def random_stream(width: int, height: int, pictures: int, seed: int = 0, *,
+                  weights=None, p_every: int = 1, slices: int = 1, deblock=((0, 0, 0),),
+                  max_refs: int = 1, mmco: bool = False, modify: bool = False,
+                  long_term_idr: bool = False, nonref: float = 0.0, idr_every: int = 0,
+                  big: float = 0.05, mvd_scale: int = 8, far_mvd: float = 0.05,
+                  qp_walk: int = 3, seq_args=None, slice_qp=None, edit=None,
+                  first_idr: bool = True, reverse_slices: int = -1,
+                  partition_nal: int = -1) -> tuple:
+    """(Sequence, [sample NAL lists]) of a random stream: picture 0 an IDR,
+    then P pictures (every ``p_every``-th, the others I), ``slices``
+    slices a picture (each drawing its deblocking setting from
+    ``deblock``), references up to ``max_refs`` with, on request, memory
+    management operations and list modifications; ``nonref`` the share of
+    non-reference pictures.
+
+    For streams the decoder must refuse: ``edit(k, header)`` may change
+    picture k's header fields and returns options for its slices
+    (``slice_type_code``, ``mmco``); ``first_idr`` False codes picture 0 as
+    a non-IDR I picture; picture ``reverse_slices`` has its slices in
+    reverse order; picture ``partition_nal`` gains a data partition NAL."""
+    seq = Sequence(width, height, seed=seed, max_refs=max_refs, **(seq_args or {}))
+    rng = seq.rng
+    weights = weights or {"I4": 3, "I16": 3, "PCM": 0.3, "P16x16": 2, "P16x8": 2, "P8x16": 2,
+                          "P8x8": 2, "P8x8ref0": 1, "SKIP": 3}
+    choose = RandomMB(rng, weights, big, mvd_scale, far_mvd, qp_walk)
+    samples, prev_ref = [], True
+    for k in range(pictures):
+        idr = (k == 0 and first_idr) or (idr_every and k % idr_every == 0)
+        # no two non-reference pictures in a row (POC types 1 and 2 would
+        # give them one order count)
+        ref = idr or not prev_ref or rng.random() >= nonref
+        prev_ref = ref
+        typ = "I" if idr or (k % p_every) else "P"
+        if typ == "P" and not seq.refs:
+            typ = "I"
+        hdr = seq.begin(idr, ref)
+        hdr["idr_pic_id"] = k % 3
+        extra = edit(k, hdr) if edit else {}
+        pic = Picture(seq, hdr)
+        pic.cur_type = typ
+        ops = seq.random_mmco() if (mmco and ref and not idr) else None
+        cuts = sorted(set([0, seq.nmb] + [int(v) for v in
+                                          rng.integers(1, seq.nmb, slices - 1)])) \
+            if slices > 1 and seq.nmb > slices else [0, seq.nmb]
+        nlist = len(seq.refs)
+        spans = list(zip(cuts, cuts[1:]))
+        for s0, s1 in (reversed(spans) if k == reverse_slices else spans):
+            db = deblock[int(rng.integers(len(deblock)))]
+            nref, mods = None, ()
+            if typ == "P":
+                nref = int(rng.integers(1, nlist + 1))
+                if modify and rng.random() < 0.7:
+                    mods = _random_modifications(seq, rng, nref)
+            qp = slice_qp if slice_qp is not None else int(seq.qp + rng.integers(-4, 5))
+            pic.slice(s0, s1 - s0, typ, choose, qp=qp, deblock=db, num_ref=nref,
+                      modifications=mods, **{"mmco": ops, "long_term_idr": long_term_idr,
+                                             **extra})
+        seq.mark(hdr, ops, long_term_idr)
+        if k == partition_nal:
+            pic.nals.append(nal(2, 2, b"\x88\x84\x21\xa0"))
+        samples.append(pic.nals)
+    return seq, samples
+
+
+def _random_modifications(seq: Sequence, rng, nref: int) -> list:
+    """ref_pic_list_modification operations that move random references to
+    the front."""
+    ops, pred = [], seq.frame_num
+    max_pn = seq.max_fn
+    last = None
+    for _ in range(int(rng.integers(1, nref + 1))):
+        r = seq.refs[int(rng.integers(len(seq.refs)))]
+        if r is last:
+            continue
+        last = r
+        if r["lt"] is not None:
+            ops.append((2, r["lt"]))
+            continue
+        pn = seq.pic_num(r)
+        nowrap = pn + max_pn if pn < 0 else pn
+        if nowrap == pred:  # a difference of 0 has no code
+            continue
+        if rng.random() < 0.5:
+            ops.append((0, (pred - nowrap) % max_pn - 1))
+        else:
+            ops.append((1, (nowrap - pred) % max_pn - 1))
+        pred = nowrap
+    return ops
+
+
+# ----------------------------------------------------------- natural mode
+def bgr_to_yuv420(bgr: np.ndarray, mb_w: int, mb_h: int):
+    """BT.601 limited-range planes of a BGR frame, padded to whole
+    macroblocks by edge replication: Y [16 mb_h, 16 mb_w], U, V half."""
+    f = bgr.astype(np.float64)
+    b, g, r = f[..., 0], f[..., 1], f[..., 2]
+    y = 16 + 0.257 * r + 0.504 * g + 0.098 * b
+    u = 128 - 0.148 * r - 0.291 * g + 0.439 * b
+    v = 128 + 0.439 * r - 0.368 * g - 0.071 * b
+    H, W = 16 * mb_h, 16 * mb_w
+    pad = lambda p: np.pad(p, ((0, H - p.shape[0]), (0, W - p.shape[1])), mode="edge")
+    y, u, v = pad(y), pad(u), pad(v)
+    sub = lambda p: p.reshape(H // 2, 2, W // 2, 2).mean((1, 3))
+    return [np.clip(np.round(p), 0, 255).astype(np.int64) for p in (y, sub(u), sub(v))]
+
+
+def _fwd(x: np.ndarray) -> np.ndarray:
+    """The forward core transform of [..., 4, 4] residuals."""
+    C = np.array([[1, 1, 1, 1], [2, 1, -1, -2], [1, -1, -1, 1], [1, -2, 2, -1]])
+    return C @ x @ C.T
+
+
+def _quant(w: np.ndarray, qp: int, intra: bool) -> np.ndarray:
+    """[..., 16] raster coefficients -> levels."""
+    qbits = 15 + qp // 6
+    mf = np.array(MF[qp % 6])[POS_CLASS]
+    f = (1 << qbits) // (3 if intra else 6)
+    return np.sign(w) * ((np.abs(w) * mf + f) >> qbits)
+
+
+def _blocks(plane_part: np.ndarray, n: int) -> np.ndarray:
+    """[4n, 4n] -> [n * n, 16] 4x4 blocks in raster order of blocks."""
+    return plane_part.reshape(n, 4, n, 4).transpose(0, 2, 1, 3).reshape(n * n, 16)
+
+
+def _unblocks(b: np.ndarray, n: int) -> np.ndarray:
+    return b.reshape(n, n, 4, 4).transpose(0, 2, 1, 3).reshape(4 * n, 4 * n)
+
+
+def _raster_to_scan(lv: np.ndarray, first: int = 0) -> list:
+    return [int(lv[ZIGZAG[k]]) for k in range(first, 16)]
+
+
+class NaturalEncoder:
+    """``choose`` of the natural mode: codes ``frame`` (YUV planes) at one
+    QP, I_16x16 in I pictures and P_L0_16x16 in P pictures, keeping the
+    reconstruction (``recon``) as the decoder forms it."""
+
+    def __init__(self, qp: int):
+        self.qp = qp
+        self.recon = None
+
+    def start(self, planes, refs, vectors):
+        """The next picture: its source ``planes``, the reference
+        reconstructions by ref_idx, and each reference's global vector
+        (integer luma pixels, even)."""
+        self.src = planes
+        self.refs, self.vectors = refs, vectors
+        self.recon = [np.zeros_like(p) for p in planes]
+
+    def __call__(self, pic: Picture, mb: int, qp: int) -> dict:
+        x, y = mb % pic.mb_w, mb // pic.mb_w
+        qpc = CHROMA_QP[min(max(qp + pic.seq.cqp_offset, 0), 51)]
+        if pic.cur_type == "I":
+            return self._intra(pic, mb, x, y, qp, qpc)
+        return self._inter(pic, mb, x, y, qp, qpc)
+
+    def _chroma_levels(self, pred_u, pred_v, x, y, qpc, intra):
+        s, out, rec = {"cdc": [], "cac": []}, [], []
+        any_ac = any_dc = False
+        for c, pred in enumerate((pred_u, pred_v)):
+            src = self.src[1 + c][8 * y:8 * y + 8, 8 * x:8 * x + 8]
+            w = _fwd(_blocks(src - pred, 2).reshape(4, 4, 4))
+            dcw = w[:, 0, 0].reshape(2, 2)
+            H = np.array([[1, 1], [1, -1]])
+            dcf = (H @ dcw @ H).reshape(4)
+            qbits = 15 + qpc // 6
+            dcl = np.sign(dcf) * ((np.abs(dcf) * MF[qpc % 6][0] + 2 * ((1 << qbits) //
+                                                                        (3 if intra else 6)))
+                                  >> (qbits + 1))
+            ac = _quant(w.reshape(4, 16), qpc, intra)
+            ac[:, 0] = 0
+            s["cdc"].append([int(v) for v in dcl])
+            s["cac"].append([_raster_to_scan(ac[b], 1) for b in range(4)])
+            any_dc |= bool(dcl.any())
+            any_ac |= bool(ac.any())
+            out.append((dcl, ac))
+        cbp_c = 2 if any_ac else 1 if any_dc else 0
+        for c, pred in enumerate((pred_u, pred_v)):
+            dcl, ac = out[c]
+            if cbp_c == 0:
+                dcl = dcl * 0
+            if cbp_c < 2:
+                ac = ac * 0
+            res, _ = residual_blocks(ac, qpc, chroma_dc(dcl, qpc))
+            rec.append(np.clip(pred + _unblocks(res, 2), 0, 255))
+        return s, cbp_c, rec
+
+    def _chroma_dc_pred(self, pic, x, y, a, b):
+        out = []
+        for c in (1, 2):
+            R = self.recon[c]
+            top = R[8 * y - 1, 8 * x:8 * x + 8] if b else None
+            left = R[8 * y:8 * y + 8, 8 * x - 1] if a else None
+            p = np.zeros((8, 8), np.int64)
+            for by in range(2):
+                for bx in range(2):
+                    t = None if top is None else top[4 * bx:4 * bx + 4]
+                    lf = None if left is None else left[4 * by:4 * by + 4]
+                    if (bx, by) in ((0, 0), (1, 1)) and t is not None and lf is not None:
+                        v = (t.sum() + lf.sum() + 4) >> 3
+                    elif bx == 1 and by == 0 and t is not None:
+                        v = (t.sum() + 2) >> 2
+                    elif bx == 0 and by == 1 and lf is not None:
+                        v = (lf.sum() + 2) >> 2
+                    elif lf is not None:
+                        v = (lf.sum() + 2) >> 2
+                    elif t is not None:
+                        v = (t.sum() + 2) >> 2
+                    else:
+                        v = 128
+                    p[4 * by:4 * by + 4, 4 * bx:4 * bx + 4] = v
+            out.append(p)
+        return out
+
+    def _intra(self, pic, mb, x, y, qp, qpc):
+        a, b, _, d = pic.intra_avail(mb)
+        Y = self.recon[0]
+        src = self.src[0][16 * y:16 * y + 16, 16 * x:16 * x + 16]
+        preds = {}
+        top = Y[16 * y - 1, 16 * x:16 * x + 16] if b else None
+        left = Y[16 * y:16 * y + 16, 16 * x - 1] if a else None
+        if top is not None:
+            preds[0] = np.tile(top, (16, 1))
+        if left is not None:
+            preds[1] = np.tile(left[:, None], (1, 16))
+        if top is not None and left is not None:
+            dc = (top.sum() + left.sum() + 16) >> 5
+        elif top is not None:
+            dc = (top.sum() + 8) >> 4
+        elif left is not None:
+            dc = (left.sum() + 8) >> 4
+        else:
+            dc = 128
+        preds[2] = np.full((16, 16), dc, np.int64)
+        mode = min(preds, key=lambda m: np.abs(src - preds[m]).sum())
+        pred = preds[mode]
+        w = _fwd(_blocks(src - pred, 4).reshape(16, 4, 4)).reshape(16, 16)
+        # the DC of the 16 blocks (raster order of blocks)
+        Hd = np.array([[1, 1, 1, 1], [1, 1, -1, -1], [1, -1, -1, 1], [1, -1, 1, -1]])
+        dcf = (Hd @ w[:, 0].reshape(4, 4) @ Hd) // 2
+        qbits = 15 + qp // 6
+        dcl = (np.sign(dcf) * ((np.abs(dcf) * MF[qp % 6][0] + 2 * ((1 << qbits) // 3))
+                               >> (qbits + 1))).reshape(16)
+        ac = _quant(w, qp, True)
+        ac[:, 0] = 0
+        cbp_l = 15 if ac.any() else 0
+        if not cbp_l:
+            ac[:] = 0
+        dcy = luma_dc(dcl, qp)  # raster over blocks = our block raster order
+        res, _ = residual_blocks(ac, qp, dcy)
+        self.recon[0][16 * y:16 * y + 16, 16 * x:16 * x + 16] = \
+            np.clip(pred + _unblocks(res, 4), 0, 255)
+        pu, pv = self._chroma_dc_pred(pic, x, y, a, b)
+        cs, cbp_c, rec = self._chroma_levels(pu, pv, x, y, qpc, True)
+        for c in range(2):
+            self.recon[1 + c][8 * y:8 * y + 8, 8 * x:8 * x + 8] = rec[c]
+        luma = [None] * 16
+        for blk in range(16):
+            r = 4 * BLK_Y[blk] + BLK_X[blk]  # this block's row in raster order of blocks
+            luma[blk] = _raster_to_scan(ac[r], 1)
+        dc_scan = [int(dcl[ZIGZAG[k]]) for k in range(16)]
+        return {"kind": "I16", "mode16": int(mode), "chroma_mode": 0, "cbp_l": cbp_l,
+                "cbp_c": cbp_c, "qp_delta": 0,
+                "levels": {"luma": luma, "dc": dc_scan, **cs}}
+
+    def _inter(self, pic, mb, x, y, qp, qpc):
+        # the reference whose global vector predicts this macroblock best
+        best = None
+        for r, (R, (vx, vy)) in enumerate(zip(self.refs, self.vectors)):
+            pred = [_shifted(R[0], 16 * x + vx, 16 * y + vy, 16),
+                    _shifted(R[1], 8 * x + vx // 2, 8 * y + vy // 2, 8),
+                    _shifted(R[2], 8 * x + vx // 2, 8 * y + vy // 2, 8)]
+            src = self.src[0][16 * y:16 * y + 16, 16 * x:16 * x + 16]
+            cost = np.abs(src - pred[0]).sum() + 64 * r
+            if best is None or cost < best[0]:
+                best = (cost, r, pred, (4 * vx, 4 * vy))
+        _, r, pred, mv = best
+        src = self.src[0][16 * y:16 * y + 16, 16 * x:16 * x + 16]
+        w = _fwd(_blocks(src - pred[0], 4).reshape(16, 4, 4)).reshape(16, 16)
+        lv = _quant(w, qp, False)
+        cbp_l = 0
+        for blk in range(16):
+            if lv[4 * BLK_Y[blk] + BLK_X[blk]].any():
+                cbp_l |= 1 << (blk // 4)
+        for blk in range(16):
+            if not cbp_l >> (blk // 4) & 1:
+                lv[4 * BLK_Y[blk] + BLK_X[blk]] = 0
+        res, _ = residual_blocks(lv, qp)
+        self.recon[0][16 * y:16 * y + 16, 16 * x:16 * x + 16] = \
+            np.clip(pred[0] + _unblocks(res, 4), 0, 255)
+        cs, cbp_c, rec = self._chroma_levels(pred[1], pred[2], x, y, qpc, False)
+        for c in range(2):
+            self.recon[1 + c][8 * y:8 * y + 8, 8 * x:8 * x + 8] = rec[c]
+        mvp = _mvp16(pic, mb, r)
+        pic.mv[mb], pic.refidx[mb] = mv, r
+        luma = [_raster_to_scan(lv[4 * BLK_Y[blk] + BLK_X[blk]]) for blk in range(16)]
+        return {"kind": "P16x16", "refs": [r],
+                "mvds": [(int(mv[0] - mvp[0]), int(mv[1] - mvp[1]))],
+                "cbp_l": cbp_l, "cbp_c": cbp_c, "qp_delta": 0,
+                "levels": {"luma": luma, **cs}}
+
+
+def _shifted(plane, x0, y0, n):
+    """The n x n block of ``plane`` at (x0, y0), coordinates clamped."""
+    h, w = plane.shape
+    ys = np.clip(np.arange(y0, y0 + n), 0, h - 1)
+    xs = np.clip(np.arange(x0, x0 + n), 0, w - 1)
+    return plane[ys[:, None], xs[None, :]]
+
+
+def _mvp16(pic: Picture, mb: int, ref: int):
+    """The 16x16 partition's motion vector prediction (8.4.1.3) in a
+    picture of P_L0_16x16 macroblocks."""
+    def nb(dx, dy):
+        n = pic.avail(mb, dx, dy)
+        return None if n is None else (int(pic.refidx[n]), tuple(pic.mv[n]))
+    A, B, C = nb(-1, 0), nb(0, -1), nb(1, -1)
+    if C is None:
+        C = nb(-1, -1)
+    if B is None and C is None and A is not None:
+        B = C = A
+    cand = [v if v is not None else (-1, (0, 0)) for v in (A, B, C)]
+    same = [c for c in cand if c[0] == ref]
+    if len(same) == 1:
+        return same[0][1]
+    return tuple(int(np.median([c[1][k] for c in cand])) for k in range(2))
+
+
+def natural_stream(frames: list, qp: int = 28, refs: int = 2, gop: int = 0,
+                   search: int = 6, deblock_last: int = 0) -> tuple:
+    """(Sequence, [sample NAL lists]) coding ``frames`` (BGR uint8): an IDR,
+    then P pictures each predicted from up to ``refs`` references by one
+    global vector each (the even-pixel shift that best matches the
+    reference's reconstruction). ``gop`` > 0 starts a new IDR every ``gop``
+    pictures. The loop filter is off (the encoder reconstructs without it),
+    but for the last ``deblock_last`` pictures: no picture references them,
+    so the filter changes no prediction."""
+    h, w = frames[0].shape[:2]
+    seq = Sequence(w, h, max_refs=refs, qp=qp, num_ref_default=1)
+    enc = NaturalEncoder(qp)
+    recons, samples = [], []
+    for k, f in enumerate(frames):
+        idr = k == 0 or (gop and k % gop == 0)
+        hdr = seq.begin(idr, True)
+        pic = Picture(seq, hdr)
+        pic.cur_type = "I" if idr else "P"
+        planes = bgr_to_yuv420(f, seq.mb_w, seq.mb_h)
+        if idr:
+            recons = []
+        order = list(reversed(recons))[:refs]  # ref_idx 0: the latest
+        vecs = [_global_vector(planes[0], R[0], search) for R in order]
+        enc.start(planes, order, vecs)
+        filtered = k >= len(frames) - deblock_last
+        pic.slice(0, seq.nmb, pic.cur_type, enc, qp=qp,
+                  deblock=(0, 0, 0) if filtered else (1, 0, 0), num_ref=len(order) or None)
+        seq.mark(hdr)
+        recons = (recons + [enc.recon])[-refs:]
+        samples.append(pic.nals)
+    return seq, samples
+
+
+def _global_vector(src, ref, search):
+    """The even integer shift (dx, dy) within +-search minimising the mean
+    absolute difference of the central region."""
+    h, w = src.shape
+    m = max(search, 8)
+    core = src[m:h - m:2, m:w - m:2]
+    best = None
+    for dy in range(-search, search + 1, 2):
+        for dx in range(-search, search + 1, 2):
+            cand = ref[m + dy:h - m + dy:2, m + dx:w - m + dx:2]
+            cost = np.abs(core - cand).mean()
+            if best is None or cost < best[0]:
+                best = (cost, (dx, dy))
+    return best[1]
+
+
+# ------------------------------------------------------------------- files
+def avcc(seq: Sequence) -> bytes:
+    """An avcC box body (AVCDecoderConfigurationRecord) with the
+    sequence's SPS and PPS, 4-byte NAL lengths."""
+    sps, pps = seq.sps(), seq.pps()
+    return (bytes([1, sps[1], sps[2], sps[3], 0xFF, 0xE1]) + len(sps).to_bytes(2, "big") + sps +
+            bytes([1]) + len(pps).to_bytes(2, "big") + pps)
+
+
+def sample_bytes(nals: list) -> bytes:
+    return b"".join(len(n).to_bytes(4, "big") + n for n in nals)
+
+
+def write_mp4(path: str, seq: Sequence, samples: list, fps: int = 30, avc3: bool = False,
+              config: bytes = None) -> None:
+    """An MP4 of the stream: an 'avc1' entry with the parameter sets in its
+    avcC, or 'avc3' with them in the first sample."""
+    from tests.torch_video import write_isobmff
+
+    if avc3:
+        samples = [[seq.sps(), seq.pps()] + samples[0]] + samples[1:]
+    write_isobmff(path, [sample_bytes(s) for s in samples], seq.height, seq.width,
+                  timescale=fps, fourcc=b"avc3" if avc3 else b"avc1", brand=b"isom", chunk_samples=1,
+                  avcc=avcc(seq) if config is None else config)
+
+
+_READER = r"""
+import ctypes, os, sys, cv2, numpy as np
+libc = ctypes.CDLL(None)
+out = {}
+for k, p in enumerate(sys.argv[2:]):
+    cap = cv2.VideoCapture(p)
+    fr = []
+    while True:
+        ok, f = cap.read()
+        if not ok:
+            break
+        fr.append(f)
+    cap.release()
+    out["n%d" % k] = np.array(len(fr))
+    for i, f in enumerate(fr):
+        out["f%d_%d" % (k, i)] = f
+    libc.fflush(None)  # avcodec's lines come through C's stdout
+    os.write(1, b"@@END %d\n" % k)
+np.savez(sys.argv[1], **out)
+"""
+
+
+def cv2_read(paths: list, tmp: str) -> list:
+    """cv2.VideoCapture's frames of each clip, read in one subprocess with
+    avcodec's log on: [(frames, avcodec's error lines)]."""
+    out_npz = os.path.join(tmp, "cv2_frames.npz")
+    # cv2 hands avcodec's messages up to warnings (level 24) to stdout as
+    # "[OPENCV:FFMPEG:<level>] ..."
+    env = dict(os.environ, OPENCV_FFMPEG_DEBUG="1", OPENCV_FFMPEG_LOGLEVEL="24")
+    err_path = os.path.join(tmp, "cv2_log.txt")
+    with open(err_path, "w") as err:
+        res = subprocess.run([sys.executable, "-c", _READER, out_npz, *paths], env=env,
+                             stdout=err, stderr=subprocess.STDOUT)
+    with open(err_path) as f:
+        log = f.read()
+    if res.returncode != 0:
+        raise RuntimeError(log[-3000:])
+    logs, cur = [[] for _ in paths], 0
+    for line in log.splitlines():
+        if line.startswith("@@END"):
+            cur += 1
+        elif re.match(r"\[OPENCV:FFMPEG:(\d+)\]", line) and \
+                int(re.match(r"\[OPENCV:FFMPEG:(\d+)\]", line).group(1)) <= 24:
+            logs[min(cur, len(paths) - 1)].append(line)
+    z = np.load(out_npz)
+    return [([z[f"f{k}_{i}"] for i in range(int(z[f"n{k}"]))], logs[k])
+            for k in range(len(paths))]
+
+
+# ------------------------------------------------------------- fixtures
+# The tool cases of tests/test_torch_h264.py: random_stream's arguments
+# (small sizes, cropped ones among them), each case one tool mix.
+DEBLOCKS = ((0, 0, 0), (1, 0, 0), (2, 0, 0), (0, -4, 5), (2, 6, -6), (0, 3, 3))
+CASES = {
+    "intra_types": dict(width=64, height=48, pictures=3, weights={"I4": 3, "I16": 3, "PCM": 0.5},
+                        slices=2),
+    "p_partitions": dict(width=96, height=64, pictures=6,
+                         weights={"P16x16": 1, "P16x8": 1, "P8x16": 1, "P8x8": 3, "P8x8ref0": 1,
+                                  "I4": 0.5, "I16": 0.5}, max_refs=2),
+    "skip_runs": dict(width=80, height=48, pictures=5, weights={"SKIP": 8, "P16x16": 1, "I16": 0.3}),
+    "mv_outside": dict(width=70, height=38, pictures=5, far_mvd=0.4, mvd_scale=64),
+    "refs_mmco_long_term": dict(width=64, height=48, pictures=14, max_refs=4, mmco=True,
+                                modify=True, nonref=0.2),
+    "long_term_idr": dict(width=48, height=32, pictures=8, max_refs=3, mmco=True, modify=True,
+                          long_term_idr=True),
+    "slices_deblocking": dict(width=96, height=80, pictures=5, slices=5, deblock=DEBLOCKS),
+    "constrained_intra": dict(width=80, height=64, pictures=5,
+                              weights={"I4": 3, "I16": 3, "PCM": 0.3, "P16x16": 2, "P8x8": 1,
+                                       "SKIP": 2},
+                              seq_args={"constrained_intra": True}, slices=2),
+    "poc_type_1": dict(width=48, height=32, pictures=6, nonref=0.3, seq_args={"poc_type": 1}),
+    "poc_type_2": dict(width=48, height=32, pictures=6, seq_args={"poc_type": 2}),
+    "chroma_qp_offset_plus": dict(width=64, height=48, pictures=4,
+                                  seq_args={"chroma_qp_offset": 7}),
+    "chroma_qp_offset_minus": dict(width=64, height=48, pictures=4,
+                                   seq_args={"chroma_qp_offset": -9}),
+    "qp_0": dict(width=48, height=48, pictures=3, qp_walk=0, slice_qp=0, big=0.2,
+                 seq_args={"qp": 0}),
+    "qp_51": dict(width=48, height=48, pictures=3, qp_walk=0, slice_qp=51,
+                  seq_args={"qp": 51}),
+    "level_escapes": dict(width=64, height=48, pictures=3, big=0.5, qp_walk=1, slice_qp=4,
+                          seq_args={"qp": 4}),
+    "cropped_176x144_frame_num_wrap": dict(width=176, height=144, pictures=20, max_refs=2,
+                                           idr_every=12, p_every=1,
+                                           seq_args={"log2_max_frame_num": 4}),
+}

@@ -8,6 +8,7 @@ chip_smoke.py fixtures under tests/goldens/.
 
     python -m tests.torch_video tests/goldens   # rebuild the fixtures
     python -m tests.torch_video tests/goldens clip_div3.avi  # rebuild these alone
+    python -m tests.torch_video tests/goldens clip_h264_1080p.mp4 clip_h264_small.mp4
 
 cv2 is the oracle here and only here: the port reads no clip through it.
 """
@@ -18,6 +19,7 @@ import json
 import os
 import struct
 import sys
+import tempfile
 
 import cv2
 import numpy as np
@@ -31,6 +33,15 @@ FIXTURES = (("clip_1080p.mov", "MJPG", 30.0, 15, 1080, 1920),
             ("clip_small.mp4", "MJPG", 24.0, 10, 240, 320),
             ("clip_mpeg4.mp4", "mp4v", 30.0, 3, 64, 96),
             ("clip_mpeg4_1080p.mp4", "mp4v", 30.0, 15, 1080, 1920))
+# H.264 in MP4 from tests/torch_h264.py's writer: (name, fps, pictures, height,
+# width, mode). "natural": the scene's frames coded by its small encoder (QP
+# 35, an IDR, then P pictures from 2 references, the loop filter on in the
+# last 3); "random": its random tool mix (every I and P type, 3 references
+# with memory management operations and list modifications, 3 slices with
+# the three deblocking settings and offsets, 120 x 72 cropped from 128 x 80).
+# The 1080p clip is coded at 1088 rows, cropped.
+H264_FIXTURES = (("clip_h264_1080p.mp4", 30, 15, 1080, 1920, "natural"),
+                 ("clip_h264_small.mp4", 30, 12, 72, 120, "random"))
 # an MS-MPEG-4 v3 clip ('DIV3' AVI, FFmpeg's msmpeg4v3): the codec refusal on the card
 REFUSED_FIXTURE = ("clip_div3.avi", "DIV3", 30.0, 3, 64, 96)
 ROTATION_MATRIX = {0: (1, 0, 0, 1), 90: (0, 1, -1, 0), 180: (-1, 0, 0, -1), 270: (0, -1, 1, 0)}
@@ -160,9 +171,9 @@ def readings(path: str, fps: int = FIXTURE_FPS, decoded: bool = False) -> dict:
 
 
 def write_fixtures(out_dir: str, only=None) -> dict:
-    """The clips of chip_smoke.py's video phases, written by cv2.VideoWriter,
-    and cv2's readings of each in video_readings.json (of the refused
-    MS-MPEG-4 clip, its codec). ``only``: the names to write anew, the
+    """The clips of chip_smoke.py's video phases, written by cv2.VideoWriter
+    (the H.264 ones by tests/torch_h264.py), and cv2's readings of each in
+    video_readings.json (of the refused MS-MPEG-4 clip, its codec). ``only``: the names to write anew, the
     others' files and readings kept."""
     os.makedirs(out_dir, exist_ok=True)
     info = {}
@@ -177,6 +188,13 @@ def write_fixtures(out_dir: str, only=None) -> dict:
         write_cv2_clip(path, fourcc, fps, scene(n, h, w, seed=k))
         info[name] = dict(readings(path, decoded=fourcc != "MJPG"), size=[h, w],
                           bytes=os.path.getsize(path))
+    for k, (name, fps, n, h, w, mode) in enumerate(H264_FIXTURES):
+        if only is not None and name not in only:
+            continue
+        path = os.path.join(out_dir, name)
+        write_h264(path, fps, n, h, w, mode, seed=len(FIXTURES) + k)
+        info[name] = dict(readings(path, decoded=True), size=[h, w],
+                          bytes=os.path.getsize(path))
     name, fourcc, fps, n, h, w = REFUSED_FIXTURE
     if only is None or name in only:
         path = os.path.join(out_dir, name)
@@ -186,6 +204,24 @@ def write_fixtures(out_dir: str, only=None) -> dict:
         json.dump(info, f, indent=1)
         f.write("\n")
     return info
+
+
+def write_h264(path: str, fps: int, n: int, h: int, w: int, mode: str, seed: int) -> None:
+    """An H.264 golden (H264_FIXTURES), checked valid: cv2 decodes it with
+    no avcodec error or warning."""
+    from tests import torch_h264 as H
+
+    if mode == "natural":
+        seq, samples = H.natural_stream(scene(n, h, w, seed=seed), qp=35, refs=2,
+                                        deblock_last=3)
+    else:
+        seq, samples = H.random_stream(w, h, n, seed=seed, max_refs=3, mmco=True,
+                                       modify=True, slices=3, deblock=H.DEBLOCKS,
+                                       nonref=0.2, big=0.05)
+    H.write_mp4(path, seq, samples, fps=fps)
+    with tempfile.TemporaryDirectory() as tmp:
+        (frames, logs), = H.cv2_read([path], tmp)
+    assert len(frames) == n and not logs, logs
 
 
 # ------------------------------------------------------------------- AVI
@@ -281,10 +317,12 @@ def write_isobmff(path: str, samples: list, h: int, w: int, timescale: int = 30,
                   durations=1, fourcc: bytes = b"jpeg", oti=None, brand: bytes = b"qt  ",
                   moov_first: bool = False, co64: bool = False, large_mdat: bool = False,
                   rotation: int = 0, elst=((None, 0, 1),), chunk_samples: int = 3,
-                  fragmented: bool = False, stz2: bool = False, config: bytes = b"") -> None:
+                  fragmented: bool = False, stz2: bool = False, config: bytes = b"",
+                  avcc: bytes = b"") -> None:
     """An MP4/MOV of ``samples`` (one video track, ``fourcc`` sample entry;
     ``oti`` adds an esds with that objectTypeIndication, ``config`` its
-    DecoderSpecificInfo) at ``timescale``
+    DecoderSpecificInfo; ``avcc`` adds an avcC box, the
+    AVCDecoderConfigurationRecord of an 'avc1'/'avc3' entry) at ``timescale``
     with ``durations`` (one for all samples or one each), ``chunk_samples``
     samples a chunk (the last chunk takes the rest). ``elst``: (segment
     duration or None for the whole track, media_time, rate) entries, or
@@ -311,7 +349,8 @@ def write_isobmff(path: str, samples: list, h: int, w: int, timescale: int = 30,
         entry = (struct.pack(">6xH", 1) + b"\0" * 16 + struct.pack(">HHIIIH", w, h, 0x480000,
                                                                   0x480000, 0, 1)
                  + b"\0" * 32 + struct.pack(">Hh", 24, -1)
-                 + (_esds(oti, config) if oti is not None else b""))
+                 + (_esds(oti, config) if oti is not None else b"")
+                 + (_box(b"avcC", avcc) if avcc else b""))
         stsd = _full(b"stsd", 0, 0, struct.pack(">I", 1), _box(fourcc, entry))
         stts = _full(b"stts", 0, 0, struct.pack(">I", len(stts_runs)),
                      *(struct.pack(">II", c, d) for c, d in stts_runs))
