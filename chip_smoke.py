@@ -113,12 +113,13 @@ Phases:
    1080p clip (DIS on the card; checks in its docstring);
 17. H.264 video (``run_h264``): the kernels h264_inter, h264_intra and
    h264_deblock (registers and spills printed) held against their plain
-   versions on the card at every picture of tests/goldens' small H.264 clip
-   and at the 1080p clip's IDR and last two P pictures, and timed; the
-   port's decoder's frames against cv2's recorded digests, decode time a
-   frame split into the host parse and the kernels; then
-   ``preproc_app.main --input`` the 1080p clip (DIS on the card; the
-   launches as each picture's launch lists say; checks in its docstring).
+   versions on the card at every picture of tests/goldens' two small H.264
+   clips (CAVLC, CABAC) and at the 1080p CABAC clip's IDR and last two P
+   pictures, and timed; the port's decoder's frames of all three against
+   cv2's recorded digests, decode time a frame split into the host parse
+   and the kernels; then ``preproc_app.main --input`` the 1080p CABAC clip
+   (DIS on the card; the launches as each picture's launch lists say;
+   checks in its docstring).
 The main-path launch counts of phases 5, 6, 8, 9, 10, 13, 14, 15, 16 and 17
 go into the kernel JSON's ``launches``; the dis cases of phases 3 and 4 are
 phase 9's.
@@ -4211,7 +4212,9 @@ def run_mpeg4(results: list, card: str, tmp: str) -> dict:
     return out
 
 
-H264_CLIPS = ("clip_h264_1080p.mp4", "clip_h264_small.mp4")
+# the 1080p clip (natural content, CABAC), then the small random tool mixes
+# (CAVLC, CABAC)
+H264_CLIPS = ("clip_h264_1080p_cabac.mp4", "clip_h264_small.mp4", "clip_h264_cabac_small.mp4")
 H264_APP_FPS = 5  # the app's --fps on the 1080p clip: pictures 0, 6 and 12, 6 DIS calls
 H264_KERNELS = ("h264_inter", "h264_intra", "h264_deblock")
 
@@ -4311,19 +4314,21 @@ def run_h264(results: list, card: str, tmp: str) -> dict:
     (a) ptxas's registers and spills of the three kernels;
     (b) every kernel step against its plain version on the same inputs on
         the card (``h264_held_to_plain``: every byte equal) at every picture
-        of the small golden (tests/goldens, the writer's random tool mix)
-        and at the 1080p golden's IDR and its last two P pictures (with the
-        loop filter on); h264_intra timed at the IDR,
+        of the two small goldens (tests/goldens, the writer's random tool
+        mixes, CAVLC and CABAC) and at the 1080p CABAC golden's IDR and its
+        last two P pictures (with the loop filter on); h264_intra timed at
+        the IDR,
         h264_inter and h264_deblock at the last P picture, each beside its
         plain version and its bound (``h264_bytes`` at the card's rate; no
         PyTorch call computes these functions: no library time);
         yuv420_to_bgr with the 1080p crop held against its plain version;
-    (c) ``H264Decoder.decode`` over every sample of both goldens: each
+    (c) ``H264Decoder.decode`` over every sample of the three goldens: each
         frame's SHA-256 against cv2.VideoCapture's recorded one, the decode
         time a frame (host clock to a sync) split into the host parse
-        (``Parser.parse``, host clock) and each kernel's device time (events
-        around each wrapper call);
-    (d) ``preproc_app.main --input`` the 1080p golden at --fps H264_APP_FPS
+        (``Parser.parse``, host clock; CABAC's or CAVLC's, as the golden's
+        PPS says) and each kernel's device time (events around each wrapper
+        call);
+    (d) ``preproc_app.main --input`` the 1080p CABAC golden at --fps H264_APP_FPS
         (DIS flow on the card, masks from a --mask_dir this phase writes, no
         line shards): the "[frames] extracted" line, the stored frames'
         digests against cv2's, every flo-/occ- PFM finite, the launches
@@ -4359,13 +4364,13 @@ def run_h264(results: list, card: str, tmp: str) -> dict:
         print(f"[h264] {line}", flush=True)
 
     # (b) the kernels against their plain versions, then timed
-    big, small = (os.path.join(GOLDENS, n) for n in H264_CLIPS)
+    big, *smalls = (os.path.join(GOLDENS, n) for n in H264_CLIPS)
     n_big = recorded[H264_CLIPS[0]]["frames"]
     last = n_big - 1
     held_big = h264_held_to_plain(big, {0, last - 1, last},
                                   {0: ("h264_intra",), last: ("h264_inter", "h264_deblock")},
                                   fail)
-    held_small = h264_held_to_plain(small, None, {}, fail)
+    held_small = [h264_held_to_plain(p, None, {}, fail) for p in smalls]
     timing = held_big["timing"]
     for k in H264_KERNELS:
         t = timing[k]
@@ -4387,10 +4392,11 @@ def run_h264(results: list, card: str, tmp: str) -> dict:
                                                                  D.COEFFS[g.matrix]),
                                    iters=3, warmup=1),
              "bytes": w * h + 2 * ((w + 1) // 2) * ((h + 1) // 2) + 3 * w * h}
+    held = [held_big] + held_small
     out.update(timing=timing, bgr=bgr_t, bgr_equal=bgr_equal,
-               steps_held=held_big["steps"] + held_small["steps"],
-               bit_equal_share=min(held_big["equal"] + held_small["equal"]),
-               max_abs_err=max(held_big["max"], held_small["max"]))
+               steps_held=sum(r["steps"] for r in held),
+               bit_equal_share=min(min(r["equal"] or [0]) for r in held),
+               max_abs_err=max(r["max"] for r in held))
 
     # (c) the decoder over every sample, against cv2's digests
     events, parses = [], []
@@ -4442,7 +4448,8 @@ def run_h264(results: list, card: str, tmp: str) -> dict:
         out["decode"][name] = d
         print(f"[h264] {name}: {n} frames decoded on the card, digests "
               f"{'equal' if digests == ref else 'DIFFER from'} cv2's; {d['ms']:.2f} ms a frame "
-              f"(host clock to a sync): host parse {d['parse_ms']:.2f} ms, device "
+              f"(host clock to a sync): host parse ({'CABAC' if 'cabac' in name else 'CAVLC'}) "
+              f"{d['parse_ms']:.2f} ms, device "
               + ", ".join(f"{k} {v:.4f} ms" for k, v in dev.items()) + f" ({card})", flush=True)
 
     # (d) the entry point on the 1080p golden

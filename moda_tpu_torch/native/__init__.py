@@ -116,6 +116,9 @@ def _declare(name: str, lib):
         lib.h264_parse.argtypes = [vp, ctypes.c_char_p, ctypes.c_int64, ctypes.c_int, i32p, i32p,
                                    ctypes.c_int64, ctypes.POINTER(ctypes.c_int16), ctypes.c_int64,
                                    ctypes.c_char_p, ctypes.c_int]
+        u8p = ctypes.POINTER(ctypes.c_uint8)
+        lib.h264_cabac_tables.restype = None
+        lib.h264_cabac_tables.argtypes = [ctypes.POINTER(ctypes.c_int8), u8p, u8p]
     else:
         lib.rasterize.restype = None
         lib.rasterize.argtypes = [

@@ -1,13 +1,16 @@
 """H.264 (ISO/IEC 14496-10) video on the card: what FFmpeg's h264 decoder
 and swscale give cv2.VideoCapture for progressive 8-bit 4:2:0 streams with
-CAVLC and I and P slices (the tool set of the Baseline and Constrained
-Baseline profiles), bit for bit.
+CAVLC or CABAC and I and P slices (the tool set of the Baseline profile, and
+of the Main profile without B slices or weighted prediction), bit for bit.
+The 8x8 transform (High profile), weighted prediction, B slices and the
+other tools native/h264.cpp names are refused.
 
 A sample (an access unit) goes through three steps:
 - the host parse (``native/h264.cpp``, through ctypes): parameter sets,
   slice headers, order counts, the decoded picture buffer's marking and
-  lists, the CAVLC macroblock layer, motion vector and intra mode
-  prediction and the loop filter's boundary strengths, into one record a
+  lists, the macroblock layer (CAVLC or CABAC, as the PPS says), motion
+  vector and intra mode prediction and the loop filter's boundary
+  strengths, into one record a
   macroblock (``mbs``, fields ``F_*``) and the levels of each macroblock
   with a residual (``levels``, layout ``L_*``);
 - one copy of those arrays, with the picture's launch lists, to the device;
@@ -194,6 +197,22 @@ class Parser:
         info = np.zeros(8, np.int32)
         if not self._lib.h264_info(self._h, info.ctypes.data_as(ctypes.POINTER(ctypes.c_int32))):
             self.geometry = Geometry(*map(int, info))
+
+
+def cabac_tables() -> dict:
+    """CABAC's tables as native/h264.cpp decodes with them: "init" int8
+    [4, 460, 2] (m, n of context indices 0-459 under the I table, then the P
+    tables of cabac_init_idc 0-2), "range_lps" uint8 [64, 4] (rangeTabLPS by
+    pStateIdx and qCodIRangeIdx), "trans_lps" and "trans_mps" uint8 [64]."""
+    from moda_tpu_torch import native
+
+    init = np.zeros((4, 460, 2), np.int8)
+    lps = np.zeros((64, 4), np.uint8)
+    trans = np.zeros((2, 64), np.uint8)
+    u8p = ctypes.POINTER(ctypes.c_uint8)
+    native._load("h264").h264_cabac_tables(init.ctypes.data_as(ctypes.POINTER(ctypes.c_int8)),
+                                           lps.ctypes.data_as(u8p), trans.ctypes.data_as(u8p))
+    return {"init": init, "range_lps": lps, "trans_lps": trans[0], "trans_mps": trans[1]}
 
 
 # ---------------------------------------------------------- plain versions

@@ -22,9 +22,11 @@ CUDA kernel dis_patch_search, on the card unless ``device`` says otherwise.
 
 Video input (``extract_frames``, cv2.VideoCapture in the JAX package) reads
 AVI, MOV and MP4 clips through preproc/video.py: Motion JPEG (the clip's
-own JPEG samples are stored), MPEG-4 Part 2 and H.264's Baseline tool set
-(decoded on the card by preproc/m4v.py and preproc/h264.py, stored as PNG);
-other codecs and tools raise.
+own JPEG samples are stored), MPEG-4 Part 2 and H.264 I/P streams with
+CAVLC or CABAC (the Baseline profile's tools, and the Main profile's
+without B slices or weighted prediction; decoded on the card by
+preproc/m4v.py and preproc/h264.py, stored as PNG); other codecs and tools
+raise.
 """
 from __future__ import annotations
 

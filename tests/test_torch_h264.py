@@ -155,7 +155,6 @@ def _edited(k_at, **edit):
 
 # (case, random_stream arguments, what the message names)
 REFUSALS = [
-    ("cabac", dict(seq_args={"pps_extra": {"entropy_coding_mode": 1}}), "CABAC"),
     ("b_slice", dict(edit=_edited(2, slice_type_code=1)), "sample 2: a B slice"),
     ("sp_slice", dict(edit=_edited(2, slice_type_code=3)), "sample 2: an SP slice"),
     ("si_slice", dict(edit=_edited(2, slice_type_code=4)), "sample 2: an SI slice"),

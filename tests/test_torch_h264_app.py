@@ -1,8 +1,9 @@
 """H.264 input end to end on the CPU: the committed H.264 goldens
-(tests/goldens, tests/torch_video.py::H264_FIXTURES) against cv2's recorded
-readings and the port's decoder, and an H.264 clip from tests/torch_h264.py's
-natural-content encoder through both packages' extract_frames and
-preproc_app.
+(tests/goldens, tests/torch_video.py::H264_FIXTURES: the 1080p CABAC clip,
+the small CAVLC and CABAC tool mixes) against cv2's recorded readings and
+the port's decoder, extract_frames on the 1080p CABAC golden, and an H.264
+clip from tests/torch_h264.py's natural-content encoder through both
+packages' extract_frames and preproc_app.
 
 The JAX package decodes with cv2.VideoCapture and re-encodes each kept
 frame as a quality-95 JPEG; the port stores VideoCapture's frame bit-equal
@@ -64,6 +65,24 @@ def test_committed_h264_goldens_match_cv2_and_the_port(name, tmp_path):
     dec = D.H264Decoder(clip, "cpu")
     assert [V.sha(dec.decode(clip.sample(i)).numpy().tobytes())
             for i in range(len(clip))] == want["all_pixels_sha256"]
+
+
+def test_extract_frames_stores_the_1080p_cabac_goldens_frames(tmp_path):
+    """extract_frames (device "cpu") on the 1080p CABAC golden at --fps 5,
+    as chip_smoke.py's phase 17 runs preproc_app on the card: pictures 0, 6
+    and 12 stored as PNGs whose pixels are cv2's recorded frames."""
+    name = V.H264_FIXTURES[0][0]
+    with open(os.path.join(GOLDENS, "video_readings.json")) as f:
+        want = json.load(f)[name]
+    out = TP.extract_frames(os.path.join(GOLDENS, name), str(tmp_path / "t"), fps=5,
+                            device="cpu")
+    kept = V.kept_indices(want["frames"], want["fps"], 5)
+    assert kept == [0, 6, 12] and len(out) == len(kept)
+    for p, i in zip(out, kept):
+        with open(p, "rb") as f:
+            assert f.read(8) == b"\x89PNG\r\n\x1a\n"
+        bgr = np.ascontiguousarray(IO.imread(p)[..., ::-1])
+        assert V.sha(bgr.tobytes()) == want["all_pixels_sha256"][i], i
 
 
 @pytest.fixture(scope="module")

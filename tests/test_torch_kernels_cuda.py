@@ -584,7 +584,8 @@ def test_yuv420_to_bgr_with_a_crop_matches_plain(cuda_device, width, height, lef
     assert torch.equal(got.cpu(), M.yuv420_to_bgr_plain(frame, g, left, top, D.COEFFS[matrix]))
 
 
-@pytest.mark.parametrize("name", ["clip_h264_small.mp4", "clip_h264_1080p.mp4"])
+@pytest.mark.parametrize("name", ["clip_h264_small.mp4", "clip_h264_cabac_small.mp4",
+                                  "clip_h264_1080p_cabac.mp4"])
 def test_h264_decoder_matches_cv2_on_the_goldens(cuda_device, name):
     """H264Decoder on the card over every sample of a committed clip: each
     picture's SHA-256 equals cv2.VideoCapture's recorded one

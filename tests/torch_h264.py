@@ -1,9 +1,10 @@
 """Test helpers for the port's H.264 decoder (moda_tpu_torch/preproc/h264.py):
 a writer of H.264 (ISO/IEC 14496-10) streams in the syntax the port decodes
-(progressive 8-bit 4:2:0, CAVLC, I and P slices), their MP4 muxing, and
-cv2's reading of them with avcodec's log.
+(progressive 8-bit 4:2:0, CAVLC or CABAC, I and P slices), their MP4
+muxing, and cv2's reading of them with avcodec's log.
 
-The writer has two modes:
+The writer has two modes, each of which writes either entropy coder
+(``Sequence(..., entropy="cabac")``) from the same macroblock decisions:
 
 - ``random_stream``: random valid syntax from a seed. It draws macroblock
   types, sub-macroblock types, intra modes (only those whose neighbours are
@@ -21,14 +22,18 @@ A stream counts as valid only if cv2 decodes it with no error line from
 avcodec (``cv2_read``: OPENCV_FFMPEG_DEBUG in a subprocess): FFmpeg would
 otherwise conceal an error silently and corrupt the oracle. ``COVERAGE``
 counts every CAVLC table entry, macroblock type and sub-macroblock type the
-writer emits, so that a table entry that the writer and the reader got
-wrong alike cannot hide behind cv2.
+writer emits, and under CABAC every (table, context index, bin value) and
+every leaf of every binarisation, so that a table entry that the writer and
+the reader got wrong alike cannot hide behind cv2. CABAC's tables are the
+port's (``preproc/h264.py::cabac_tables``), which
+tests/test_torch_h264_cabac.py finds byte for byte in cv2's libavcodec.
 
 cv2 is the oracle here and only here: the port reads no clip through it.
 """
 from __future__ import annotations
 
 import collections
+import functools
 import os
 import re
 import subprocess
@@ -128,6 +133,11 @@ class BitWriter:
 
     def trailing(self) -> bytes:
         self.u(1, 1)
+        return self.aligned()
+
+    def aligned(self) -> bytes:
+        """The bits so far, zero bits to the byte boundary, as bytes (a CABAC
+        slice's flush writes its rbsp_stop_one_bit itself)."""
         self.align_zero()
         s = "".join(self.parts)
         return int(s, 2).to_bytes(len(s) // 8, "big")
@@ -294,19 +304,170 @@ def coverage_expected() -> set:
     return out
 
 
+# ------------------------------------------------------------------ CABAC
+# ctxBlockCat 0-4 (Intra16x16 DC, Intra16x16 AC, luma 4x4, chroma DC,
+# chroma AC): offsets of coded_block_flag's, significant_coeff_flag's (and
+# last_significant_coeff_flag's) and coeff_abs_level_minus1's contexts
+# from their first (85, 105, 166, 227; Table 9-40, frame macroblocks)
+CBF_OFF = [0, 4, 8, 12, 16]
+SIG_OFF = [0, 15, 29, 44, 47]
+ABS_OFF = [0, 10, 20, 30, 39]
+# the tables (9.3.1.1: "I", "P0"-"P2" by cabac_init_idc) whose contexts
+# I and P slices use without the 8x8 transform, and the terminate bin 276
+CABAC_TAGS = ("I", "P0", "P1", "P2")
+CABAC_CONTEXTS = {"I": list(range(3, 11)) + list(range(60, 70)) + list(range(73, 277))}
+CABAC_CONTEXTS.update({t: list(range(11, 24)) + list(range(40, 70)) + list(range(73, 277))
+                       for t in CABAC_TAGS[1:]})
+
+
+@functools.cache
+def _cabac_tables() -> dict:
+    from moda_tpu_torch.preproc import h264 as D
+
+    t = D.cabac_tables()
+    return dict(init=t["init"].astype(np.int64), lps=t["range_lps"].tolist(),
+                tl=t["trans_lps"].tolist(), tm=t["trans_mps"].tolist())
+
+
+class CabacEncoder:
+    """The arithmetic encoder of 9.3.4 (InitEncoder, EncodeDecision,
+    EncodeBypass, EncodeTerminate with EncodeFlush, PutBit with the
+    outstanding bits) writing into a BitWriter, its contexts initialised
+    from the slice QP under table ``tag`` (CABAC_TAGS). Every decision is
+    counted in COVERAGE as ("cabac", tag, ctxIdx, bin), the terminate bin as
+    context 276."""
+
+    def __init__(self, w: BitWriter, qp: int, tag: str):
+        T = _cabac_tables()
+        m, n = T["init"][CABAC_TAGS.index(tag), :, 0], T["init"][CABAC_TAGS.index(tag), :, 1]
+        pre = np.clip(((m * qp) >> 4) + n, 1, 126)
+        self.state = np.where(pre <= 63, 63 - pre, pre - 64).tolist()
+        self.mps = (pre > 63).astype(int).tolist()
+        self.lps, self.tl, self.tm = T["lps"], T["tl"], T["tm"]
+        self.w, self.tag = w, tag
+        self.start()
+
+    def start(self):
+        """InitEncoder: at the slice data's first byte, and after I_PCM."""
+        self.low, self.range, self.first, self.outstanding = 0, 510, True, 0
+        self.out = []
+
+    def _put(self, b: int):
+        if self.first:
+            self.first = False
+        else:
+            self.out.append(b)
+        if self.outstanding:
+            self.out.extend([1 - b] * self.outstanding)
+            self.outstanding = 0
+
+    def _renorm(self):
+        while self.range < 256:
+            if self.low < 256:
+                self._put(0)
+            elif self.low >= 512:
+                self.low -= 512
+                self._put(1)
+            else:
+                self.low -= 256
+                self.outstanding += 1
+            self.range <<= 1
+            self.low <<= 1
+
+    def decision(self, ctx: int, b: int):
+        COVERAGE[("cabac", self.tag, ctx, b)] += 1
+        s, m = self.state[ctx], self.mps[ctx]
+        lps = self.lps[s][(self.range >> 6) & 3]
+        self.range -= lps
+        if b != m:
+            self.low += self.range
+            self.range = lps
+            if s == 0:
+                self.mps[ctx] = 1 - m
+            self.state[ctx] = self.tl[s]
+        else:
+            self.state[ctx] = self.tm[s]
+        self._renorm()
+
+    def bypass(self, b: int):
+        self.low <<= 1
+        if b:
+            self.low += self.range
+        if self.low >= 1024:
+            self._put(1)
+            self.low -= 1024
+        elif self.low < 512:
+            self._put(0)
+        else:
+            self.low -= 512
+            self.outstanding += 1
+
+    def exp_golomb(self, v: int, k: int):
+        """The k-th order Exp-Golomb suffix (9.3.2.3) in bypass bins."""
+        while v >= (1 << k):
+            self.bypass(1)
+            v -= 1 << k
+            k += 1
+        self.bypass(0)
+        while k:
+            k -= 1
+            self.bypass((v >> k) & 1)
+
+    def terminate(self, b: int):
+        """end_of_slice_flag or mb_type's I_PCM bin; 1 flushes (its last bit
+        is the slice's rbsp_stop_one_bit) into the BitWriter."""
+        COVERAGE[("cabac", self.tag, 276, b)] += 1
+        self.range -= 2
+        if not b:
+            self._renorm()
+            return
+        self.low += self.range
+        self.range = 2
+        self._renorm()
+        self._put((self.low >> 9) & 1)
+        v = ((self.low >> 7) & 3) | 1
+        self.out += [v >> 1, v & 1]
+        self.w.parts.append("".join(map(str, self.out)))
+        self.w.n += len(self.out)
+        self.out = []
+
+
+def cabac_coverage_expected() -> set:
+    """Every context index of I/P frame coding without the 8x8 transform
+    under each table it has, with both bin values; every I mb_type in I
+    slices and as a P slice's suffix, the four P mb_types and sub_mb_types,
+    the escapes of mvd and of every block category's levels, mb_qp_delta's
+    ends, a ref_idx of 2 or more, and I_PCM first in a slice, mid-row and
+    last in a slice."""
+    out = {("cabac", t, c, b) for t in CABAC_TAGS for c in CABAC_CONTEXTS[t] for b in (0, 1)}
+    out |= {("cabac_mb_type", sl, t) for sl in ("I", "P") for t in range(26)}
+    out |= {("cabac_mb_type", "P", k) for k in ("P16x16", "P16x8", "P8x16", "P8x8")}
+    out |= {("cabac_sub_mb_type", t) for t in range(4)}
+    out |= {("cabac_mvd_escape", c) for c in (0, 1)}
+    out |= {("cabac_level_escape", cat) for cat in range(5)}
+    out |= {("cabac_qp_delta", -26), ("cabac_qp_delta", 25), ("cabac_ref_idx", 2)}
+    out |= {("cabac_pcm", w) for w in ("first", "mid_row", "last")}
+    return out
+
+
 # ---------------------------------------------------------------- streams
 class Sequence:
-    """One coded video sequence: its SPS and PPS, frame_num and POC state,
-    and the writer's model of the decoded picture buffer's reference
-    marking (to draw valid memory management operations and reference list
-    modifications)."""
+    """One coded video sequence: its SPS and PPS (``entropy`` "cavlc" or
+    "cabac"), frame_num and POC state, and the writer's model of the decoded
+    picture buffer's reference marking (to draw valid memory management
+    operations and reference list modifications). CABAC's cabac_init_idc
+    draws come from a generator of their own, so that the other draws, and
+    so the pictures, do not depend on the coder."""
 
     def __init__(self, width: int, height: int, seed: int = 0, poc_type: int = 0,
                  max_refs: int = 1, log2_max_frame_num: int = 4, log2_max_poc_lsb: int = 5,
                  chroma_qp_offset: int = 0, constrained_intra: bool = False, qp: int = 26,
                  full_range=None, matrix=None, poc1_always_zero: bool = False,
-                 num_ref_default: int = 1, sps_extra=None, pps_extra=None):
-        assert width % 2 == 0 and height % 2 == 0
+                 num_ref_default: int = 1, sps_extra=None, pps_extra=None,
+                 entropy: str = "cavlc"):
+        assert width % 2 == 0 and height % 2 == 0 and entropy in ("cavlc", "cabac")
+        self.entropy = entropy
+        self.cabac_rng = np.random.default_rng([seed, 264])
         self.width, self.height = width, height
         self.sps_extra, self.pps_extra = sps_extra or {}, pps_extra or {}
         # the coded picture: the cropped one plus its left and top crop
@@ -407,7 +568,7 @@ class Sequence:
         w = BitWriter()
         w.ue(0)
         w.ue(0)
-        w.u(1, x.get("entropy_coding_mode", 0))
+        w.u(1, x.get("entropy_coding_mode", int(self.entropy == "cabac")))
         w.u(1, 0)  # bottom_field_pic_order_in_frame_present_flag
         ngroups = x.get("num_slice_groups", 1)
         w.ue(ngroups - 1)
@@ -593,6 +754,13 @@ class Picture:
         self.modes = np.full((n, 16), 2)        # Intra4x4PredMode
         self.mv = np.zeros((n, 2), int)         # natural mode: one vector a macroblock
         self.refidx = np.full(n, -1)
+        # what CABAC's context index increments read of a macroblock
+        self.cbp = np.zeros(n, int)             # luma bits | chroma << 4
+        self.cmode = np.zeros(n, int)           # intra_chroma_pred_mode
+        self.cbf_dc = np.zeros((n, 3), int)     # coded_block_flag: Intra16x16 DC, Cb DC, Cr DC
+        self.ref4 = np.zeros((n, 16), int)      # ref_idx of each 4x4 block
+        self.amvd = np.zeros((n, 16, 2), int)   # absMvdComp of each 4x4 block
+        self.dq = np.zeros(n, int)              # mb_qp_delta
         self.nals = []
 
     # neighbours
@@ -652,9 +820,10 @@ class Picture:
     # slices
     def slice(self, first: int, count: int, typ: str, choose, qp=None, deblock=(0, 0, 0),
               num_ref=None, modifications=(), mmco=None, long_term_idr=False,
-              slice_type_code=None):
+              slice_type_code=None, cabac_init_idc=None):
         """Writes one slice of ``count`` macroblocks from ``first``;
-        ``choose(pic, mb, qp)`` gives each macroblock's syntax (a dict)."""
+        ``choose(pic, mb, qp)`` gives each macroblock's syntax (a dict).
+        A CABAC P slice draws its cabac_init_idc unless given one."""
         seq, hdr = self.seq, self.hdr
         self.slice_id += 1
         w = BitWriter()
@@ -693,12 +862,41 @@ class Picture:
                         for a in op[1:]:
                             w.ue(a)
                     w.ue(0)
+        cabac = seq.entropy == "cabac"
+        if cabac and typ == "P":
+            if cabac_init_idc is None:
+                cabac_init_idc = int(seq.cabac_rng.integers(0, 3))
+            w.ue(cabac_init_idc)
         qp = seq.qp if qp is None else qp
         w.se(qp - seq.qp)
         w.ue(deblock[0])
         if deblock[0] != 1:
             w.se(deblock[1])
             w.se(deblock[2])
+        nal_type = 5 if hdr["idr"] else 1
+        if cabac:
+            while w.n % 8:
+                w.u(1, 1)  # cabac_alignment_one_bit
+            tag = "I" if typ == "I" else CABAC_TAGS[1 + min(cabac_init_idc, 2)]
+            e = CabacEncoder(w, qp, tag)
+            self.span = (first, first + count - 1)
+            for mb in range(first, first + count):
+                self.slice_of[mb] = self.slice_id
+                spec = choose(self, mb, qp)
+                if typ == "P":
+                    skip = spec["kind"] == "SKIP"
+                    a, b = self.avail(mb, -1, 0), self.avail(mb, 0, -1)
+                    inc = sum(n is not None and self.kind[n] != "SKIP" for n in (a, b))
+                    e.decision(11 + inc, int(skip))
+                    if skip:
+                        self.kind[mb] = "SKIP"
+                        self.ref4[mb] = 0
+                        COVERAGE[("mb_type", "SKIP")] += 1
+                if typ != "P" or not skip:
+                    qp = self.write_mb_cabac(e, mb, spec, qp, typ)
+                e.terminate(int(mb == first + count - 1))  # end_of_slice_flag
+            self.nals.append(nal(2 if hdr["ref"] else 0, nal_type, w.aligned()))
+            return
         skip = 0
         for mb in range(first, first + count):
             self.slice_of[mb] = self.slice_id
@@ -714,7 +912,6 @@ class Picture:
             qp = self.write_mb(w, mb, spec, qp, typ)
         if skip:
             w.ue(skip)
-        nal_type = 5 if hdr["idr"] else 1
         self.nals.append(nal(2 if hdr["ref"] else 0, nal_type, w.trailing()))
 
     def write_mb(self, w: BitWriter, mb: int, s: dict, qp: int, typ: str) -> int:
@@ -724,9 +921,7 @@ class Picture:
         if kind == "PCM":
             w.ue(off + 25)
             COVERAGE[("mb_type", "PCM")] += 1
-            w.align_zero()
-            for v in s["pcm"]:
-                w.u(8, int(v))
+            self.w_pcm(w, s["pcm"])
             self.tc[mb] = 16
             self.tcc[mb] = 16
             return qp
@@ -798,6 +993,276 @@ class Picture:
                         self.tcc[mb, c, b] = write_block(w, self.nc_chroma(mb, c, b),
                                                          L["cac"][c][b], 15)
         return qp
+
+    # CABAC (9.3.2, 9.3.3.1): each syntax element's binarisation, with the
+    # context index increments the decoder derives from the same neighbours
+    def _nb4(self, mb, x, y):
+        """The macroblock (None if not available; ``mb`` itself inside it)
+        and the block index of the 4x4 block (x, y), x or y -1 reaching into
+        macroblock A or B."""
+        if x < 0:
+            n = self.avail(mb, -1, 0)
+        elif y < 0:
+            n = self.avail(mb, 0, -1)
+        else:
+            n = mb
+        return n, BLK_AT[(x % 4, y % 4)]
+
+    def _intra_type_cabac(self, e, mb, t: int, islice: bool):
+        """An I mb_type (0 I_NxN, 1-24 I_16x16, 25 I_PCM): contexts 3-10 in
+        an I slice (bin 0 by whether A and B are coded other than I_NxN),
+        17-20 as a P slice's suffix; bin 1 the terminate bin."""
+        COVERAGE[("cabac_mb_type", "I" if islice else "P", t)] += 1
+        if islice:
+            inc = sum(n is not None and self.kind[n] != "I4"
+                      for n in (self.avail(mb, -1, 0), self.avail(mb, 0, -1)))
+            e.decision(3 + inc, int(t != 0))
+        else:
+            e.decision(17, int(t != 0))
+        if t == 0:
+            return
+        e.terminate(int(t == 25))
+        if t == 25:
+            return
+        mode, cc, cl = (t - 1) % 4, (t - 1) // 4 % 3, int(t >= 13)
+        e.decision(6 if islice else 18, cl)
+        e.decision(7 if islice else 19, int(cc > 0))
+        if cc:
+            e.decision(8 if islice else 19, int(cc == 2))
+        e.decision(9 if islice else 20, mode >> 1)
+        e.decision(10 if islice else 20, mode & 1)
+
+    def _ref_cabac(self, e, mb, x, y, r: int):
+        """ref_idx (U) of the partition at (x, y): bin 0 by whether A's and
+        B's refIdx exceed 0 (an inter, not skipped macroblock)."""
+        def term(dx, dy):
+            n, b = self._nb4(mb, x + dx, y + dy)
+            return int(n is not None and self.kind[n] in P_TYPES and self.ref4[n, b] > 0)
+        e.decision(54 + term(-1, 0) + 2 * term(0, -1), int(r > 0))
+        for k in range(1, r + 1):
+            e.decision(58 if k == 1 else 59, int(k < r))
+        COVERAGE[("cabac_ref_idx", min(r, 2))] += 1
+
+    def _mvd_cabac(self, e, mb, x, y, comp: int, v: int):
+        """mvd (UEG3, signed, prefix of 9) of the partition at (x, y): bin 0
+        by absMvdComp of A plus B against 3 and 32."""
+        (na, ba), (nb, bb) = self._nb4(mb, x - 1, y), self._nb4(mb, x, y - 1)
+        s = sum(0 if n is None else int(self.amvd[n, b, comp]) for n, b in ((na, ba), (nb, bb)))
+        base, a = 47 if comp else 40, abs(v)
+        e.decision(base + (0 if s < 3 else 2 if s > 32 else 1), int(a > 0))
+        if not a:
+            return
+        for k in range(1, min(a, 9)):
+            e.decision(base + min(k + 2, 6), 1)
+        if a < 9:
+            e.decision(base + min(a + 2, 6), 0)
+        else:
+            e.exp_golomb(a - 9, 3)
+            COVERAGE[("cabac_mvd_escape", comp)] += 1
+        e.bypass(int(v < 0))
+
+    def _cbf_term(self, mb, cat, idx, dx, dy) -> int:
+        """coded_block_flag's condTermFlagN (9.3.3.1.1.9) of the block left
+        (dx -1) or above (dy -1) of block ``idx`` of category ``cat``."""
+        intra = self.kind[mb] in INTRA
+        if cat in (0, 3):
+            n = self.avail(mb, dx, dy)
+        elif cat == 4:
+            c, b = idx >> 2, idx & 3
+            x, y = (b & 1) + dx, (b >> 1) + dy
+            if x >= 0 and y >= 0:
+                return int(self.tcc[mb, c, 2 * y + x] != 0)
+            n = self.avail(mb, dx, dy)
+            if n is not None and self.kind[n] != "PCM":
+                return int(self.tcc[n, c, 2 * (y % 2) + x % 2] != 0)
+        else:
+            n, b = self._nb4(mb, BLK_X[idx] + dx, BLK_Y[idx] + dy)
+            if n is not None and self.kind[n] != "PCM":
+                return int(self.tc[n, b] != 0)
+        if n is None:
+            return int(intra)
+        if self.kind[n] == "PCM":
+            return 1
+        if cat == 0:
+            return int(self.kind[n] == "I16" and self.cbf_dc[n, 0] != 0)
+        return int(self.cbf_dc[n, 1 + idx] != 0)
+
+    def _block_cabac(self, e, mb, cat: int, idx: int, coeffs) -> int:
+        """residual_block_cabac of ``coeffs`` (scan order): coded_block_flag,
+        the significance map, then the levels in reverse (coeff_abs_level
+        _minus1: TU prefix of 14 and EG0, the sign in bypass); returns the
+        nonzero coefficients."""
+        maxn = len(coeffs)
+        nz = [i for i, c in enumerate(coeffs) if c]
+        inc = self._cbf_term(mb, cat, idx, -1, 0) + 2 * self._cbf_term(mb, cat, idx, 0, -1)
+        e.decision(85 + CBF_OFF[cat] + inc, int(bool(nz)))
+        if not nz:
+            return 0
+        last = nz[-1]
+        for i in range(min(last + 1, maxn - 1)):
+            k = min(i, 2) if cat == 3 else i
+            e.decision(105 + SIG_OFF[cat] + k, int(coeffs[i] != 0))
+            if coeffs[i]:
+                e.decision(166 + SIG_OFF[cat] + k, int(i == last))
+        base, eq1, gt1 = 227 + ABS_OFF[cat], 0, 0
+        for i in reversed(nz):
+            v = abs(coeffs[i]) - 1
+            e.decision(base + (0 if gt1 else min(4, 1 + eq1)), int(v > 0))
+            if v:
+                ctx = base + 5 + min(4 - (cat == 3), gt1)
+                for _ in range(1, min(v, 14)):
+                    e.decision(ctx, 1)
+                if v < 14:
+                    e.decision(ctx, 0)
+                else:
+                    e.exp_golomb(v - 14, 0)
+                    COVERAGE[("cabac_level_escape", cat)] += 1
+                gt1 += 1
+            else:
+                eq1 += 1
+            e.bypass(int(coeffs[i] < 0))
+        return len(nz)
+
+    def write_mb_cabac(self, e: CabacEncoder, mb: int, s: dict, qp: int, typ: str) -> int:
+        """macroblock_layer under CABAC: the syntax of ``write_mb``."""
+        kind = s["kind"]
+        self.kind[mb] = kind
+        a, b = self.avail(mb, -1, 0), self.avail(mb, 0, -1)
+        cbp_l, cbp_c = s.get("cbp_l", 0), s.get("cbp_c", 0)
+        if kind in INTRA:
+            if typ == "P":
+                e.decision(14, 1)
+            t = 0 if kind == "I4" else 25 if kind == "PCM" else \
+                1 + s["mode16"] + 4 * cbp_c + (12 if cbp_l else 0)
+            self._intra_type_cabac(e, mb, t, typ == "I")
+        else:
+            assert kind in P_TYPES and kind != "P8x8ref0", kind
+            COVERAGE[("cabac_mb_type", "P", kind)] += 1
+            e.decision(14, 0)
+            e.decision(15, int(kind in ("P16x8", "P8x16")))
+            if kind in ("P16x8", "P8x16"):
+                e.decision(17, int(kind == "P16x8"))
+            else:
+                e.decision(16, int(kind == "P8x8"))
+        if kind == "PCM":
+            first, last = self.span
+            for where, hit in (("first", mb == first), ("last", mb == last),
+                               ("mid_row", 0 < mb % self.mb_w < self.mb_w - 1)):
+                if hit:
+                    COVERAGE[("cabac_pcm", where)] += 1
+            self.w_pcm(e.w, s["pcm"])
+            e.start()
+            self.tc[mb] = 16
+            self.tcc[mb] = 16
+            return qp
+        if kind == "I4":
+            for blk in range(16):
+                m, pm = s["modes"][blk], self.pred_mode4(mb, blk)
+                COVERAGE[("intra4x4", m)] += 1
+                e.decision(68, int(m == pm))
+                if m != pm:
+                    rem = m if m < pm else m - 1
+                    for k in range(3):
+                        e.decision(69, (rem >> k) & 1)
+                self.modes[mb, blk] = m
+        if kind in INTRA:
+            mc = s["chroma_mode"]
+            COVERAGE[("intra_chroma", mc)] += 1
+            inc = sum(n is not None and self.kind[n] in ("I4", "I16") and self.cmode[n] != 0
+                      for n in (a, b))
+            e.decision(64 + inc, int(mc > 0))
+            if mc:
+                e.decision(67, int(mc > 1))
+                if mc > 1:
+                    e.decision(67, int(mc > 2))
+            self.cmode[mb] = mc
+        else:
+            nref = self.num_ref
+            if kind in MB_PARTS:
+                n, pw, ph = MB_PARTS[kind]
+                parts = [(2 * p if kind == "P8x16" else 0, 2 * p if kind == "P16x8" else 0, pw, ph)
+                         for p in range(n)]
+                refs = s["refs"][:n]
+                mvd_parts = parts
+            else:
+                for t in s["subs"]:
+                    COVERAGE[("cabac_sub_mb_type", t)] += 1
+                    e.decision(21, int(t == 0))
+                    if t:
+                        e.decision(22, int(t > 1))
+                        if t > 1:
+                            e.decision(23, int(t == 2))
+                parts = [(2 * (i % 2), 2 * (i // 2), 2, 2) for i in range(4)]
+                refs = s["refs"]
+                mvd_parts = []
+                for i, t in enumerate(s["subs"]):
+                    np_, sw, sh = SUB_PARTS[t]
+                    for k in range(np_):
+                        dx = (k & 1) if t in (2, 3) else 0
+                        dy = k if t == 1 else (k >> 1) if t == 3 else 0
+                        mvd_parts.append((2 * (i % 2) + dx, 2 * (i // 2) + dy, sw, sh))
+            for (x, y, pw, ph), r in zip(parts, refs):
+                if nref > 1:
+                    self._ref_cabac(e, mb, x, y, r)
+                for j in range(y, y + ph):
+                    for i in range(x, x + pw):
+                        self.ref4[mb, BLK_AT[(i, j)]] = r
+            for (x, y, pw, ph), mvd in zip(mvd_parts, s["mvds"]):
+                for comp in range(2):
+                    self._mvd_cabac(e, mb, x, y, comp, mvd[comp])
+                    for j in range(y, y + ph):
+                        for i in range(x, x + pw):
+                            self.amvd[mb, BLK_AT[(i, j)], comp] = min(abs(mvd[comp]), 64)
+        if kind != "I16":
+            # coded_block_pattern: a neighbour's luma 8x8 counts as coded when
+            # not available or I_PCM; its chroma as coded only when I_PCM
+            def luma(n, b8):
+                return int(n is not None and self.kind[n] != "PCM" and not self.cbp[n] >> b8 & 1)
+
+            def chroma(n, bin_):
+                return int(n is not None and (self.kind[n] == "PCM" or self.cbp[n] >> 4 > bin_))
+            for b8 in range(4):
+                ta = (1 - (cbp_l >> (b8 - 1) & 1)) if b8 & 1 else luma(a, b8 + 1)
+                tb = (1 - (cbp_l >> (b8 - 2) & 1)) if b8 & 2 else luma(b, b8 + 2)
+                e.decision(73 + ta + 2 * tb, cbp_l >> b8 & 1)
+            e.decision(77 + chroma(a, 0) + 2 * chroma(b, 0), int(cbp_c > 0))
+            if cbp_c:
+                e.decision(81 + chroma(a, 1) + 2 * chroma(b, 1), int(cbp_c == 2))
+        self.cbp[mb] = cbp_l | cbp_c << 4
+        if cbp_l or cbp_c or kind == "I16":
+            dq = s.get("qp_delta", 0)
+            if dq in (-26, 25):
+                COVERAGE[("cabac_qp_delta", dq)] += 1
+            prev = mb - 1 >= 0 and self.slice_of[mb - 1] == self.slice_id and self.dq[mb - 1] != 0
+            k = 2 * dq - 1 if dq > 0 else -2 * dq
+            e.decision(60 + int(prev), int(k > 0))
+            for j in range(1, k + 1):
+                e.decision(62 if j == 1 else 63, int(j < k))
+            self.dq[mb] = dq
+            qp = (qp + dq + 52) % 52
+            L = s["levels"]
+            if kind == "I16":
+                self.cbf_dc[mb, 0] = int(self._block_cabac(e, mb, 0, 0, L["dc"]) > 0)
+            for blk in range(16):
+                if cbp_l >> (blk // 4) & 1:
+                    self.tc[mb, blk] = self._block_cabac(e, mb, 1 if kind == "I16" else 2, blk,
+                                                         L["luma"][blk])
+            if cbp_c:
+                for c in range(2):
+                    self.cbf_dc[mb, 1 + c] = int(self._block_cabac(e, mb, 3, c, L["cdc"][c]) > 0)
+            if cbp_c == 2:
+                for c in range(2):
+                    for bk in range(4):
+                        self.tcc[mb, c, bk] = self._block_cabac(e, mb, 4, 4 * c + bk,
+                                                                L["cac"][c][bk])
+        return qp
+
+    @staticmethod
+    def w_pcm(w: BitWriter, samples):
+        """pcm_alignment_zero_bits and the 384 samples."""
+        w.align_zero()
+        for v in samples:
+            w.u(8, int(v))
 
 
 def _nc(na, nb) -> int:
@@ -937,9 +1402,12 @@ class RandomMB:
     """``choose`` of the random mode: draws each macroblock's syntax."""
 
     def __init__(self, rng, weights: dict, big: float = 0.05, mvd_scale: int = 8,
-                 far_mvd: float = 0.05, qp_walk: int = 3, pcm: float = 1.0):
+                 far_mvd: float = 0.05, qp_walk: int = 3, pcm: float = 1.0,
+                 qp_ends: float = 0.0):
         self.rng, self.weights, self.big = rng, weights, big
         self.mvd_scale, self.far_mvd, self.qp_walk = mvd_scale, far_mvd, qp_walk
+        self.qp_ends = qp_ends  # the share of mb_qp_delta drawn as -26 or +25
+        self.force_pcm = set()  # macroblocks coded I_PCM whatever is drawn
 
     def _mvd(self):
         rng = self.rng
@@ -952,8 +1420,12 @@ class RandomMB:
         kinds = [k for k in self.weights if typ == "P" or k in INTRA]
         p = np.array([self.weights[k] for k in kinds], float)
         kind = kinds[rng.choice(len(kinds), p=p / p.sum())]
-        if kind == "P8x8ref0" and pic.num_ref < 2:
+        # P_8x8ref0 has no CABAC binarisation: P_8x8 with every ref_idx 0
+        ref0 = kind == "P8x8ref0"
+        if ref0 and (pic.num_ref < 2 or pic.seq.entropy == "cabac"):
             kind = "P8x8"
+        if mb in self.force_pcm:
+            kind = "PCM"
         s = {"kind": kind}
         a, b, _, d = pic.intra_avail(mb)
         if kind == "PCM":
@@ -979,11 +1451,15 @@ class RandomMB:
         elif kind in ("P8x8", "P8x8ref0"):
             s["subs"] = [int(v) for v in rng.integers(0, 4, 4)]
             s["refs"] = [int(rng.integers(0, max(pic.num_ref, 1))) for _ in range(4)]
+            if ref0:
+                s["refs"] = [0] * 4
             s["mvds"] = [self._mvd() for t in s["subs"] for _ in range(SUB_PARTS[t][0])]
         if s["cbp_l"] or s["cbp_c"] or kind == "I16":
             dq = int(rng.integers(-self.qp_walk, self.qp_walk + 1))
             if rng.random() < 0.03:
                 dq = int(rng.integers(-26, 26))
+            if self.qp_ends and rng.random() < self.qp_ends:
+                dq = -26 if rng.random() < 0.5 else 25
             s["qp_delta"] = dq
             nqp = (qp + dq + 52) % 52
             s["levels"] = random_levels(rng, kind, s["cbp_l"], s["cbp_c"], nqp,
@@ -998,7 +1474,8 @@ def random_stream(width: int, height: int, pictures: int, seed: int = 0, *,
                   big: float = 0.05, mvd_scale: int = 8, far_mvd: float = 0.05,
                   qp_walk: int = 3, seq_args=None, slice_qp=None, edit=None,
                   first_idr: bool = True, reverse_slices: int = -1,
-                  partition_nal: int = -1) -> tuple:
+                  partition_nal: int = -1, entropy: str = "cavlc", pcm_places: bool = False,
+                  qp_ends: float = 0.0) -> tuple:
     """(Sequence, [sample NAL lists]) of a random stream: picture 0 an IDR,
     then P pictures (every ``p_every``-th, the others I), ``slices``
     slices a picture (each drawing its deblocking setting from
@@ -1010,12 +1487,18 @@ def random_stream(width: int, height: int, pictures: int, seed: int = 0, *,
     picture k's header fields and returns options for its slices
     (``slice_type_code``, ``mmco``); ``first_idr`` False codes picture 0 as
     a non-IDR I picture; picture ``reverse_slices`` has its slices in
-    reverse order; picture ``partition_nal`` gains a data partition NAL."""
-    seq = Sequence(width, height, seed=seed, max_refs=max_refs, **(seq_args or {}))
+    reverse order; picture ``partition_nal`` gains a data partition NAL.
+
+    ``entropy`` picks the coder; the draws, and so the pictures, are the
+    same for both. ``pcm_places`` codes I_PCM at each slice's first and
+    last macroblock and one mid-row; ``qp_ends`` is the share of
+    mb_qp_delta drawn at -26 or +25."""
+    seq = Sequence(width, height, seed=seed, max_refs=max_refs, entropy=entropy,
+                   **(seq_args or {}))
     rng = seq.rng
     weights = weights or {"I4": 3, "I16": 3, "PCM": 0.3, "P16x16": 2, "P16x8": 2, "P8x16": 2,
                           "P8x8": 2, "P8x8ref0": 1, "SKIP": 3}
-    choose = RandomMB(rng, weights, big, mvd_scale, far_mvd, qp_walk)
+    choose = RandomMB(rng, weights, big, mvd_scale, far_mvd, qp_walk, qp_ends=qp_ends)
     samples, prev_ref = [], True
     for k in range(pictures):
         idr = (k == 0 and first_idr) or (idr_every and k % idr_every == 0)
@@ -1045,6 +1528,9 @@ def random_stream(width: int, height: int, pictures: int, seed: int = 0, *,
                 if modify and rng.random() < 0.7:
                     mods = _random_modifications(seq, rng, nref)
             qp = slice_qp if slice_qp is not None else int(seq.qp + rng.integers(-4, 5))
+            if pcm_places:
+                mid = [m for m in range(s0, s1) if 0 < m % seq.mb_w < seq.mb_w - 1]
+                choose.force_pcm = {s0, s1 - 1} | set(mid[len(mid) // 2:][:1])
             pic.slice(s0, s1 - s0, typ, choose, qp=qp, deblock=db, num_ref=nref,
                       modifications=mods, **{"mmco": ops, "long_term_idr": long_term_idr,
                                              **extra})
@@ -1321,16 +1807,16 @@ def _mvp16(pic: Picture, mb: int, ref: int):
 
 
 def natural_stream(frames: list, qp: int = 28, refs: int = 2, gop: int = 0,
-                   search: int = 6, deblock_last: int = 0) -> tuple:
+                   search: int = 6, deblock_last: int = 0, entropy: str = "cavlc") -> tuple:
     """(Sequence, [sample NAL lists]) coding ``frames`` (BGR uint8): an IDR,
     then P pictures each predicted from up to ``refs`` references by one
     global vector each (the even-pixel shift that best matches the
     reference's reconstruction). ``gop`` > 0 starts a new IDR every ``gop``
     pictures. The loop filter is off (the encoder reconstructs without it),
     but for the last ``deblock_last`` pictures: no picture references them,
-    so the filter changes no prediction."""
+    so the filter changes no prediction. ``entropy`` picks the coder."""
     h, w = frames[0].shape[:2]
-    seq = Sequence(w, h, max_refs=refs, qp=qp, num_ref_default=1)
+    seq = Sequence(w, h, max_refs=refs, qp=qp, num_ref_default=1, entropy=entropy)
     enc = NaturalEncoder(qp)
     recons, samples = [], []
     for k, f in enumerate(frames):

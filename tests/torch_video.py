@@ -8,7 +8,7 @@ chip_smoke.py fixtures under tests/goldens/.
 
     python -m tests.torch_video tests/goldens   # rebuild the fixtures
     python -m tests.torch_video tests/goldens clip_div3.avi  # rebuild these alone
-    python -m tests.torch_video tests/goldens clip_h264_1080p.mp4 clip_h264_small.mp4
+    python -m tests.torch_video tests/goldens clip_h264_1080p_cabac.mp4 clip_h264_cabac_small.mp4
 
 cv2 is the oracle here and only here: the port reads no clip through it.
 """
@@ -34,14 +34,17 @@ FIXTURES = (("clip_1080p.mov", "MJPG", 30.0, 15, 1080, 1920),
             ("clip_mpeg4.mp4", "mp4v", 30.0, 3, 64, 96),
             ("clip_mpeg4_1080p.mp4", "mp4v", 30.0, 15, 1080, 1920))
 # H.264 in MP4 from tests/torch_h264.py's writer: (name, fps, pictures, height,
-# width, mode). "natural": the scene's frames coded by its small encoder (QP
-# 35, an IDR, then P pictures from 2 references, the loop filter on in the
-# last 3); "random": its random tool mix (every I and P type, 3 references
-# with memory management operations and list modifications, 3 slices with
-# the three deblocking settings and offsets, 120 x 72 cropped from 128 x 80).
-# The 1080p clip is coded at 1088 rows, cropped.
-H264_FIXTURES = (("clip_h264_1080p.mp4", 30, 15, 1080, 1920, "natural"),
-                 ("clip_h264_small.mp4", 30, 12, 72, 120, "random"))
+# width, mode, entropy coder). "natural": the scene's frames coded by its
+# small encoder (QP 35, an IDR, then P pictures from 2 references, the loop
+# filter on in the last 3); "random": its random tool mix (every I and P
+# type, 3 references with memory management operations and list
+# modifications, 3 slices with the three deblocking settings and offsets,
+# 120 x 72 cropped from 128 x 80; under CABAC also I_PCM first, mid-row and
+# last in every slice, each P slice drawing its cabac_init_idc). The 1080p
+# clip is coded at 1088 rows, cropped.
+H264_FIXTURES = (("clip_h264_1080p_cabac.mp4", 30, 15, 1080, 1920, "natural", "cabac"),
+                 ("clip_h264_small.mp4", 30, 12, 72, 120, "random", "cavlc"),
+                 ("clip_h264_cabac_small.mp4", 30, 12, 72, 120, "random", "cabac"))
 # an MS-MPEG-4 v3 clip ('DIV3' AVI, FFmpeg's msmpeg4v3): the codec refusal on the card
 REFUSED_FIXTURE = ("clip_div3.avi", "DIV3", 30.0, 3, 64, 96)
 ROTATION_MATRIX = {0: (1, 0, 0, 1), 90: (0, 1, -1, 0), 180: (-1, 0, 0, -1), 270: (0, -1, 1, 0)}
@@ -188,11 +191,11 @@ def write_fixtures(out_dir: str, only=None) -> dict:
         write_cv2_clip(path, fourcc, fps, scene(n, h, w, seed=k))
         info[name] = dict(readings(path, decoded=fourcc != "MJPG"), size=[h, w],
                           bytes=os.path.getsize(path))
-    for k, (name, fps, n, h, w, mode) in enumerate(H264_FIXTURES):
+    for k, (name, fps, n, h, w, mode, entropy) in enumerate(H264_FIXTURES):
         if only is not None and name not in only:
             continue
         path = os.path.join(out_dir, name)
-        write_h264(path, fps, n, h, w, mode, seed=len(FIXTURES) + k)
+        write_h264(path, fps, n, h, w, mode, entropy, seed=len(FIXTURES) + k)
         info[name] = dict(readings(path, decoded=True), size=[h, w],
                           bytes=os.path.getsize(path))
     name, fourcc, fps, n, h, w = REFUSED_FIXTURE
@@ -206,18 +209,20 @@ def write_fixtures(out_dir: str, only=None) -> dict:
     return info
 
 
-def write_h264(path: str, fps: int, n: int, h: int, w: int, mode: str, seed: int) -> None:
+def write_h264(path: str, fps: int, n: int, h: int, w: int, mode: str, entropy: str,
+               seed: int) -> None:
     """An H.264 golden (H264_FIXTURES), checked valid: cv2 decodes it with
     no avcodec error or warning."""
     from tests import torch_h264 as H
 
     if mode == "natural":
         seq, samples = H.natural_stream(scene(n, h, w, seed=seed), qp=35, refs=2,
-                                        deblock_last=3)
+                                        deblock_last=3, entropy=entropy)
     else:
         seq, samples = H.random_stream(w, h, n, seed=seed, max_refs=3, mmco=True,
                                        modify=True, slices=3, deblock=H.DEBLOCKS,
-                                       nonref=0.2, big=0.05)
+                                       nonref=0.2, big=0.05, entropy=entropy,
+                                       pcm_places=entropy == "cabac")
     H.write_mp4(path, seq, samples, fps=fps)
     with tempfile.TemporaryDirectory() as tmp:
         (frames, logs), = H.cv2_read([path], tmp)
