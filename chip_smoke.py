@@ -113,13 +113,13 @@ Phases:
    1080p clip (DIS on the card; checks in its docstring);
 17. H.264 video (``run_h264``): the kernels h264_inter, h264_intra and
    h264_deblock (registers and spills printed) held against their plain
-   versions on the card at every picture of tests/goldens' two small H.264
-   clips (CAVLC, CABAC) and at the 1080p CABAC clip's IDR and last two P
-   pictures, and timed; the port's decoder's frames of all three against
-   cv2's recorded digests, decode time a frame split into the host parse
-   and the kernels; then ``preproc_app.main --input`` the 1080p CABAC clip
-   (DIS on the card; the launches as each picture's launch lists say;
-   checks in its docstring).
+   versions on the card at every picture of tests/goldens' three small H.264
+   clips (CAVLC, CABAC, High profile with scaling lists) and at the 1080p
+   High-profile clip's IDR and last two P pictures, and timed; the port's
+   decoder's frames of all four against cv2's recorded digests, decode time
+   a frame split into the host parse and the kernels; then
+   ``preproc_app.main --input`` the 1080p High clip (DIS on the card; the
+   launches as each picture's launch lists say; checks in its docstring).
 The main-path launch counts of phases 5, 6, 8, 9, 10, 13, 14, 15, 16 and 17
 go into the kernel JSON's ``launches``; the dis cases of phases 3 and 4 are
 phase 9's.
@@ -4212,9 +4212,13 @@ def run_mpeg4(results: list, card: str, tmp: str) -> dict:
     return out
 
 
-# the 1080p clip (natural content, CABAC), then the small random tool mixes
-# (CAVLC, CABAC)
-H264_CLIPS = ("clip_h264_1080p_cabac.mp4", "clip_h264_small.mp4", "clip_h264_cabac_small.mp4")
+# the 1080p clip (natural content, High profile: CABAC, the 8x8 transform
+# and Intra 8x8, flat lists), then the small random tool mixes (CAVLC, CABAC,
+# and High profile in CABAC with SPS and PPS scaling lists), with each
+# one's entropy coder
+H264_CLIPS = ("clip_h264_1080p_high.mp4", "clip_h264_small.mp4", "clip_h264_cabac_small.mp4",
+              "clip_h264_high_small.mp4")
+H264_CODERS = {"clip_h264_small.mp4": "CAVLC"}  # the others CABAC
 H264_APP_FPS = 5  # the app's --fps on the 1080p clip: pictures 0, 6 and 12, 6 DIS calls
 H264_KERNELS = ("h264_inter", "h264_intra", "h264_deblock")
 
@@ -4222,16 +4226,17 @@ H264_KERNELS = ("h264_inter", "h264_intra", "h264_deblock")
 def h264_bytes(D, work, g) -> dict:
     """The bytes each kernel must move for one picture (each input read once,
     each output written once): h264_inter reads its macroblocks' records and
-    levels and the 384 reference samples each predicts from, and writes 384
-    samples each; h264_intra reads its records, levels and the 71 neighbour
-    samples each predicts from (luma 16 + 16 + 1 + 4, chroma 2 x 17), and
-    writes 384 each; h264_deblock reads its records and the 384 samples of
-    each filtered macroblock and writes them."""
-    rec = D.FIELDS * 4
+    levels, the picture's LevelScale tables and the 384 reference samples
+    each predicts from, and writes 384 samples each; h264_intra reads its
+    records, levels, the tables and the 71 neighbour samples each predicts
+    from (luma 16 + 16 + 1 + 4, chroma 2 x 17), and writes 384 each;
+    h264_deblock reads its records and the 384 samples of each filtered
+    macroblock and writes them."""
+    rec, tables = D.FIELDS * 4, D.SCALES * 4
     rows = lambda mbi: int((work.mbs[mbi.long(), D.F_ROW] >= 0).sum()) * D.LEVELS * 2
     n_inter, n_intra, n_db = len(work.inter), len(work.intra), len(work.deblock)
-    return {"h264_inter": n_inter * (rec + 2 * 384) + rows(work.inter),
-            "h264_intra": n_intra * (rec + 71 + 384) + rows(work.intra),
+    return {"h264_inter": n_inter * (rec + 2 * 384) + rows(work.inter) + tables,
+            "h264_intra": n_intra * (rec + 71 + 384) + rows(work.intra) + tables,
             "h264_deblock": n_db * (rec + 2 * 384)}
 
 
@@ -4239,9 +4244,11 @@ def h264_held_to_plain(path: str, compare: set, time_at: dict, fail: list) -> di
     """(b) of phase 17 on one clip: every picture decoded by the kernels; at
     the pictures ``compare`` (indices; None: all), before each kernel step
     the picture buffer is copied and the step's plain version run on the
-    copy on the card, and the two held byte for byte. At the pictures of
-    ``time_at`` ({index: [kernel names]}) each named kernel and its plain
-    version are timed (events) on the step's inputs."""
+    copy on the card (timed by events), and the two held byte for byte. At
+    the pictures of ``time_at`` ({index: [kernel names]}) each named kernel
+    is timed on the step's inputs, and its plain version too where that
+    step was not held (a held one's run is its time: at 1080p one plain run
+    of h264_intra takes seconds)."""
     import numpy as np
     import torch
     from moda_tpu_torch.preproc import h264 as D
@@ -4276,8 +4283,7 @@ def h264_held_to_plain(path: str, compare: set, time_at: dict, fail: list) -> di
             kernel(dpb)
             if held:
                 want = before.clone()
-                plain(want)
-                torch.cuda.synchronize()
+                plain_ms = cuda_time(lambda: plain(want), iters=1, warmup=0)
                 r["equal"].append(float((want[pic.slot] == frame).float().mean()))
                 r["max"] = max(r["max"], int((want[pic.slot].int() - frame.int()).abs().max()))
                 r["steps"] += 1
@@ -4287,8 +4293,8 @@ def h264_held_to_plain(path: str, compare: set, time_at: dict, fail: list) -> di
                 reset_ms = cuda_time(reset, iters=10, warmup=2)
                 t = {"ms": cuda_time(lambda: (reset(), kernel(scratch)), iters=10, warmup=2)
                      - reset_ms,
-                     "plain_ms": cuda_time(lambda: (reset(), plain(scratch)), iters=1, warmup=0)
-                     - reset_ms,
+                     "plain_ms": plain_ms if held else
+                     cuda_time(lambda: (reset(), plain(scratch)), iters=1, warmup=0) - reset_ms,
                      "bytes": h264_bytes(D, w, g)[name], "mbs": n,
                      "picture": i, "idr": pic.idr}
                 r["timing"][name] = t
@@ -4314,21 +4320,22 @@ def run_h264(results: list, card: str, tmp: str) -> dict:
     (a) ptxas's registers and spills of the three kernels;
     (b) every kernel step against its plain version on the same inputs on
         the card (``h264_held_to_plain``: every byte equal) at every picture
-        of the two small goldens (tests/goldens, the writer's random tool
-        mixes, CAVLC and CABAC) and at the 1080p CABAC golden's IDR and its
+        of the three small goldens (tests/goldens, the writer's random tool
+        mixes: CAVLC, CABAC, High profile with scaling lists) and at the
+        1080p High golden's IDR and its
         last two P pictures (with the loop filter on); h264_intra timed at
         the IDR,
         h264_inter and h264_deblock at the last P picture, each beside its
         plain version and its bound (``h264_bytes`` at the card's rate; no
         PyTorch call computes these functions: no library time);
         yuv420_to_bgr with the 1080p crop held against its plain version;
-    (c) ``H264Decoder.decode`` over every sample of the three goldens: each
+    (c) ``H264Decoder.decode`` over every sample of the four goldens: each
         frame's SHA-256 against cv2.VideoCapture's recorded one, the decode
         time a frame (host clock to a sync) split into the host parse
         (``Parser.parse``, host clock; CABAC's or CAVLC's, as the golden's
         PPS says) and each kernel's device time (events around each wrapper
         call);
-    (d) ``preproc_app.main --input`` the 1080p CABAC golden at --fps H264_APP_FPS
+    (d) ``preproc_app.main --input`` the 1080p High golden at --fps H264_APP_FPS
         (DIS flow on the card, masks from a --mask_dir this phase writes, no
         line shards): the "[frames] extracted" line, the stored frames'
         digests against cv2's, every flo-/occ- PFM finite, the launches
@@ -4448,7 +4455,7 @@ def run_h264(results: list, card: str, tmp: str) -> dict:
         out["decode"][name] = d
         print(f"[h264] {name}: {n} frames decoded on the card, digests "
               f"{'equal' if digests == ref else 'DIFFER from'} cv2's; {d['ms']:.2f} ms a frame "
-              f"(host clock to a sync): host parse ({'CABAC' if 'cabac' in name else 'CAVLC'}) "
+              f"(host clock to a sync): host parse ({H264_CODERS.get(name, 'CABAC')}) "
               f"{d['parse_ms']:.2f} ms, device "
               + ", ".join(f"{k} {v:.4f} ms" for k, v in dev.items()) + f" ({card})", flush=True)
 

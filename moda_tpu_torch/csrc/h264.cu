@@ -12,10 +12,19 @@
 //
 // h264_inter: every P and skipped macroblock of the picture in one launch,
 // one CTA a macroblock, 384 threads (256 luma samples, 64 Cb, 64 Cr). The
-// CTA dequantises its levels (flat scaling), forms the chroma DC by the 2x2
-// transform and runs the 4x4 inverse transform in shared memory (one thread
-// a row, then a column, of each of the 24 blocks); then each thread
-// predicts its sample from the reference slot its 4x4 block names: luma by
+// CTA dequantises its levels by the picture's LevelScale tables (its
+// scaling matrices times normAdjust by qP % 6, 8.5.9: one int32 table a
+// picture from the host parse, read through the cache; the intra lists for
+// intra macroblocks, the inter ones for P; the Intra16x16 DC as cv2's
+// libavcodec scales it on x86, by a 16-bit qmul, see residual_plain's
+// luma_dc_scale), forms the chroma DC by the 2x2
+// transform and runs the inverse transforms in shared memory: the 4x4 one a
+// thread a row, then a column, of each of the 24 blocks; for a macroblock
+// with transform_size_8x8_flag, the luma 8x8 one 32 threads a pass (4
+// blocks x 8 rows, then x 8 columns; the odd terms' shifts by 1 and 2 inside
+// each pass, (x + 32) >> 6 after both), chroma staying 4x4. Then each
+// thread predicts its sample from the reference slot its 4x4 block names:
+// luma by
 // the 6-tap half-sample filter (the centre from the unrounded
 // intermediates) and the quarter-sample averages, chroma by the 1/8-sample
 // bilinear, coordinates clamped to the coded picture; and writes the clipped
@@ -27,7 +36,11 @@
 // one CTA a macroblock, 384 threads: I_PCM samples copied; chroma and
 // Intra16x16 predicted a sample a thread; Intra4x4 block by block in
 // decoding order (16 threads a block, the CTA synchronised between blocks,
-// each block reading the samples the earlier ones wrote), each plus the
+// each block reading the samples the earlier ones wrote); Intra8x8 the same
+// way, 4 blocks of 64 threads, one thread filtering the block's reference
+// samples first (8.3.2.2.1: the top-right substituted by p[7, -1] where it
+// is not available, the corner's rule by what is; block 1's top-right from
+// macroblock C, block 2's from block 1, block 3's never); each plus the
 // residual as h264_inter forms it.
 //
 // h264_deblock: the loop filter, one launch a wavefront (the top edge reads
@@ -37,25 +50,28 @@
 // bottom; a thread filters its line across each edge in turn, the CTA
 // synchronised between the two directions. bS comes from the host parse;
 // alpha, beta and tC0 from the average qP plus the slice's offsets
-// (chroma: each side's QPc).
+// (chroma: each side's QPc). The 8x8 transform needs nothing of its own
+// here: the parse writes bS 0 on luma edges 1 and 3 of such a macroblock
+// (8.7), and 4:2:0 chroma reads luma edges 0 and 2 alone.
 //
-// Bound: bytes. Each kernel reads its records, levels and the samples it
-// predicts from, and writes its macroblocks' samples (deblocking: reads and
-// writes the filtered lines).
+// Bound: bytes. Each kernel reads its records, levels (and the LevelScale
+// entries they use) and the samples it predicts from, and writes its
+// macroblocks' samples (deblocking: reads and writes the filtered lines).
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-enum { K_I4 = 0, K_I16 = 1, K_PCM = 2, K_P = 3, K_SKIP = 4 };
+enum { K_I4 = 0, K_I8 = 1, K_I16 = 2, K_PCM = 3, K_P = 4, K_SKIP = 5 };
 enum {
   F_KIND = 0, F_QP = 1, F_CQP0 = 2, F_CQP1 = 3, F_M16 = 4, F_MC = 5, F_AVAIL = 6, F_ROW = 7,
-  F_MODES = 8, F_BS = 10, F_ALPHA = 18, F_BETA = 19, F_MV = 20, F_REF = 36, FIELDS = 40
+  F_MODES = 8, F_BS = 10, F_ALPHA = 18, F_BETA = 19, F_MV = 20, F_REF = 36, F_T8 = 40,
+  FIELDS = 41
 };
 constexpr int L_DC = 256, L_CDC = 272, L_CAC = 280, LEVELS = 408;
+// the LevelScale tables: [6 lists][qP % 6][16], then [2 lists][qP % 6][64]
+constexpr int S_8X8 = 6 * 6 * 16;
 
-__constant__ int kNorm[6][3] = {{10, 16, 13}, {11, 18, 14}, {13, 20, 16},
-                                {14, 23, 18}, {16, 25, 20}, {18, 29, 23}};
 __constant__ uint8_t kChromaQp[52] = {0,  1,  2,  3,  4,  5,  6,  7,  8,  9,  10, 11, 12,
                                       13, 14, 15, 16, 17, 18, 19, 20, 21, 22, 23, 24, 25,
                                       26, 27, 28, 29, 29, 30, 31, 32, 32, 33, 34, 34, 35,
@@ -85,9 +101,36 @@ __constant__ uint8_t kTopRight[16] = {2, 2, 1, 0, 2, 3, 1, 0, 1, 1, 1, 0, 1, 0, 
 __device__ __forceinline__ int clip255(int x) { return x < 0 ? 0 : x > 255 ? 255 : x; }
 __device__ __forceinline__ int clip3(int lo, int hi, int x) { return x < lo ? lo : x > hi ? hi : x; }
 
-__device__ __forceinline__ int scale(int qp, int pos) {
-  const int i = pos >> 2, j = pos & 3;
-  return kNorm[qp % 6][((i | j) & 1) == 0 ? 0 : (i & j & 1) ? 1 : 2];
+// LevelScale4x4 of list ``list`` at qP and raster position ``pos``
+__device__ __forceinline__ int ls4(const int32_t* __restrict__ scales, int list, int qp, int pos) {
+  return scales[(6 * list + qp % 6) * 16 + pos];
+}
+
+// 8.5.12.1 (bits 4) and 8.5.13.1 (bits 6): x = c LevelScale scaled by
+// 2^(qP / 6 - bits), rounded where that is below 1
+__device__ __forceinline__ int dequant(int x, int q6, int bits) {
+  return q6 >= bits ? x << (q6 - bits) : (x + ((1 << (bits - q6)) >> 1)) >> (bits - q6);
+}
+
+// 8.5.13.2's one-dimensional 8-point transform of x[0], x[s], ..., x[7 s]
+// in place; the second pass adds the final rounding
+__device__ __forceinline__ void idct8(int* x, int s, bool last) {
+  const int d0 = x[0], d1 = x[s], d2 = x[2 * s], d3 = x[3 * s], d4 = x[4 * s], d5 = x[5 * s],
+            d6 = x[6 * s], d7 = x[7 * s];
+  const int a0 = d0 + d4, a4 = d0 - d4, a2 = (d2 >> 1) - d6, a6 = d2 + (d6 >> 1);
+  const int b0 = a0 + a6, b2 = a4 + a2, b4 = a4 - a2, b6 = a0 - a6;
+  const int a1 = -d3 + d5 - d7 - (d7 >> 1), a3 = d1 + d7 - d3 - (d3 >> 1);
+  const int a5 = -d1 + d7 + d5 + (d5 >> 1), a7 = d3 + d5 + d1 + (d1 >> 1);
+  const int b1 = a1 + (a7 >> 2), b7 = a7 - (a1 >> 2), b3 = a3 + (a5 >> 2), b5 = (a3 >> 2) - a5;
+  const int r = last ? 32 : 0, sh = last ? 6 : 0;
+  x[0] = (b0 + b7 + r) >> sh;
+  x[s] = (b2 + b5 + r) >> sh;
+  x[2 * s] = (b4 + b3 + r) >> sh;
+  x[3 * s] = (b6 + b1 + r) >> sh;
+  x[4 * s] = (b6 - b1 + r) >> sh;
+  x[5 * s] = (b4 - b3 + r) >> sh;
+  x[6 * s] = (b2 - b5 + r) >> sh;
+  x[7 * s] = (b0 - b7 + r) >> sh;
 }
 
 __device__ __forceinline__ int qp_chroma(int qp, int off) { return kChromaQp[clip3(0, 51, qp + off)]; }
@@ -111,16 +154,21 @@ __device__ Planes planes(uint8_t* frame, int mb_w, int mb_h) {
   return p;
 }
 
-// The macroblock's 24 blocks of residual into d[24][16] (384 threads).
-__device__ void residual(const int* rec, const int16_t* __restrict__ levels, int (*d)[16],
-                         int t) {
+// The macroblock's 24 blocks of residual into d[24][16] (384 threads); with
+// the 8x8 transform its luma as four 8x8 blocks, d[0..15] read as [4][64]
+// (the level row's layout, so coefficient t stays at thread t).
+__device__ void residual(const int* rec, const int16_t* __restrict__ levels,
+                         const int32_t* __restrict__ scales, int (*d)[16], int t) {
   const int row = rec[F_ROW], blk = t >> 4, pos = t & 15;
   const int16_t* L = row >= 0 ? levels + (long)row * LEVELS : nullptr;
-  const int qp = rec[F_QP];
+  const int qp = rec[F_QP], inter = rec[F_KIND] >= K_P, t8 = rec[F_T8];
   int v;
-  if (blk < 16) {
+  if (blk < 16 && t8) {
+    const int lv = L ? L[t] : 0;
+    v = dequant(lv * scales[S_8X8 + (6 * inter + qp % 6) * 64 + (t & 63)], qp / 6, 6);
+  } else if (blk < 16) {
     const int lv = L ? L[16 * blk + pos] : 0;
-    v = (lv * scale(qp, pos)) << (qp / 6);
+    v = dequant(lv * ls4(scales, 3 * inter, qp, pos), qp / 6, 4);
     if (pos == 0 && rec[F_KIND] == K_I16) {
       // the Intra16x16 DC of this block: (H c H) at (row, column) of blocks
       const int bi = kBlkY[blk], bj = kBlkX[blk];
@@ -137,12 +185,14 @@ __device__ void residual(const int* rec, const int16_t* __restrict__ levels, int
                                                    : ((l & 1) ? -1 : 1);
           f += Hk * c * Hl;
         }
-      const int ls = 16 * kNorm[qp % 6][0], q6 = qp / 6;
-      v = q6 >= 6 ? (f * ls) << (q6 - 6) : (f * ls + (1 << (5 - q6))) >> (6 - q6);
+      // scaled as cv2's libavcodec (its x86 h264_luma_dc_dequant_idct)
+      // scales it: qmul in 16 bits, or qmul >> 7 above 32767
+      const int qmul = ls4(scales, 0, qp, 0) << (qp / 6 + 2);
+      v = qmul <= 32767 ? (f * qmul + 128) >> 8 : (f * (qmul >> 7) + 1) >> 1;
     }
   } else {
     const int c = (blk - 16) >> 2, b = (blk - 16) & 3;
-    const int qc = qp_chroma(qp, rec[F_CQP0 + c]);
+    const int qc = qp_chroma(qp, rec[F_CQP0 + c]), list = 3 * inter + 1 + c;
     if (pos == 0) {
       int a = 0, bb = 0, cc = 0, dd = 0;
       if (L) {
@@ -153,38 +203,44 @@ __device__ void residual(const int* rec, const int16_t* __restrict__ levels, int
       }
       const int f = b == 0 ? a + bb + cc + dd : b == 1 ? a - bb + cc - dd
                   : b == 2 ? a + bb - cc - dd : a - bb - cc + dd;
-      v = ((f * 16 * kNorm[qc % 6][0]) << (qc / 6)) >> 5;
+      v = ((f * ls4(scales, list, qc, 0)) << (qc / 6)) >> 5;
     } else {
       const int lv = L ? L[L_CAC + 64 * c + 16 * b + pos] : 0;
-      v = (lv * scale(qc, pos)) << (qc / 6);
+      v = dequant(lv * ls4(scales, list, qc, pos), qc / 6, 4);
     }
   }
   d[blk][pos] = v;
   __syncthreads();
-  if (t < 96) {  // rows
+  int* flat = &d[0][0];
+  if (t < 96 && (t >= 64 || !t8)) {  // rows of the 4x4 blocks
     int* r = &d[t >> 2][4 * (t & 3)];
     const int e0 = r[0] + r[2], e1 = r[0] - r[2], e2 = (r[1] >> 1) - r[3], e3 = r[1] + (r[3] >> 1);
     r[0] = e0 + e3;
     r[1] = e1 + e2;
     r[2] = e1 - e2;
     r[3] = e0 - e3;
+  } else if (t < 32 && t8) {  // rows of the 8x8 blocks
+    idct8(flat + 64 * (t >> 3) + 8 * (t & 7), 1, false);
   }
   __syncthreads();
-  if (t < 96) {  // columns
+  if (t < 96 && (t >= 64 || !t8)) {  // columns of the 4x4 blocks
     int* c = &d[t >> 2][t & 3];
     const int g0 = c[0] + c[8], g1 = c[0] - c[8], g2 = (c[4] >> 1) - c[12], g3 = c[4] + (c[12] >> 1);
     c[0] = (g0 + g3 + 32) >> 6;
     c[4] = (g1 + g2 + 32) >> 6;
     c[8] = (g1 - g2 + 32) >> 6;
     c[12] = (g0 - g3 + 32) >> 6;
+  } else if (t < 32 && t8) {  // columns of the 8x8 blocks
+    idct8(flat + 64 * (t >> 3) + (t & 7), 8, true);
   }
   __syncthreads();
 }
 
 // sample t's residual (0..255 luma raster, then Cb, then Cr)
-__device__ __forceinline__ int res_at(int (*d)[16], int t) {
+__device__ __forceinline__ int res_at(int (*d)[16], int t, int t8) {
   if (t < 256) {
     const int x = t & 15, y = t >> 4;
+    if (t8) return (&d[0][0])[64 * (2 * (y >> 3) + (x >> 3)) + 8 * (y & 7) + (x & 7)];
     return d[kBlkAt[y >> 2][x >> 2]][4 * (y & 3) + (x & 3)];
   }
   const int c = (t - 256) >> 6, q = (t - 256) & 63, x = q & 7, y = q >> 3;
@@ -206,6 +262,7 @@ __device__ __forceinline__ int tap6(int a, int b, int c, int d, int e, int f) {
 __global__ void __launch_bounds__(384) h264_inter_kernel(uint8_t* __restrict__ dpb, long frame_bytes,
                                                          int slot, const int32_t* __restrict__ mbs,
                                                          const int16_t* __restrict__ levels,
+                                                         const int32_t* __restrict__ scales,
                                                          const int32_t* __restrict__ list,
                                                          int mb_w, int mb_h) {
   __shared__ int rec[FIELDS];
@@ -213,7 +270,7 @@ __global__ void __launch_bounds__(384) h264_inter_kernel(uint8_t* __restrict__ d
   const int mb = list[blockIdx.x], t = threadIdx.x;
   if (t < FIELDS) rec[t] = mbs[(long)mb * FIELDS + t];
   __syncthreads();
-  residual(rec, levels, d, t);
+  residual(rec, levels, scales, d, t);
   const int mx = mb % mb_w, my = mb / mb_w;
   uint8_t* out = dpb + (long)slot * frame_bytes;
   const Planes po = planes(out, mb_w, mb_h);
@@ -271,31 +328,40 @@ __global__ void __launch_bounds__(384) h264_inter_kernel(uint8_t* __restrict__ d
     pred = ((8 - fx) * (8 - fy) * P[(long)ya * pr.cw + xa] + fx * (8 - fy) * P[(long)ya * pr.cw + xb] +
             (8 - fx) * fy * P[(long)yb * pr.cw + xa] + fx * fy * P[(long)yb * pr.cw + xb] + 32) >> 6;
   }
-  out[offset_of(po, mx, my, t)] = (uint8_t)clip255(pred + res_at(d, t));
+  out[offset_of(po, mx, my, t)] = (uint8_t)clip255(pred + res_at(d, t, rec[F_T8]));
 }
 
 // ------------------------------------------------------------- intra
 __device__ __forceinline__ int dc_of(int st, int sl, bool ta, bool la, int n4) {
   // n4 samples a side: both (sum + n4) >> log2(2 n4), one (sum + n4/2) >> log2(n4)
-  const int sh = n4 == 4 ? 3 : 5;
+  const int sh = n4 == 4 ? 3 : n4 == 8 ? 4 : 5;
   if (ta && la) return (st + sl + n4) >> sh;
   if (la) return (sl + n4 / 2) >> (sh - 1);
   if (ta) return (st + n4 / 2) >> (sh - 1);
   return 128;
 }
 
-// Intra4x4 sample (x, y): T[0] the corner, T[1..8] the row above; Lf[0] the
-// corner, Lf[1..4] the left column
-__device__ int pred4(const int* T, const int* Lf, bool ta, bool la, int mode, int x, int y) {
-#define P(i) T[clip3(0, 8, (i) + 1)]
-#define Q(i) Lf[clip3(0, 4, (i) + 1)]
+// Intra4x4 (N 4) or Intra8x8 (N 8, from filtered samples) sample (x, y):
+// T[0] the corner, T[1..2N] the row above; Lf[0] the corner, Lf[1..N] the
+// left column
+template <int N>
+__device__ int pred_nxn(const int* T, const int* Lf, bool ta, bool la, int mode, int x, int y) {
+#define P(i) T[clip3(0, 2 * N, (i) + 1)]
+#define Q(i) Lf[clip3(0, N, (i) + 1)]
   const int corner = (Q(0) + 2 * T[0] + P(0) + 2) >> 2;
   switch (mode) {
     case 0: return P(x);
     case 1: return Q(y);
-    case 2: return dc_of(P(0) + P(1) + P(2) + P(3), Q(0) + Q(1) + Q(2) + Q(3), ta, la, 4);
+    case 2: {
+      int st = 0, sl = 0;
+      for (int i = 0; i < N; ++i) {
+        st += P(i);
+        sl += Q(i);
+      }
+      return dc_of(st, sl, ta, la, N);
+    }
     case 3:
-      if (x == 3 && y == 3) return (P(6) + 3 * P(7) + 2) >> 2;
+      if (x == N - 1 && y == N - 1) return (P(2 * N - 2) + 3 * P(2 * N - 1) + 2) >> 2;
       return (P(x + y) + 2 * P(x + y + 1) + P(x + y + 2) + 2) >> 2;
     case 4: {
       const int dxy = x - y;
@@ -308,14 +374,14 @@ __device__ int pred4(const int* T, const int* Lf, bool ta, bool la, int mode, in
       if (z >= 0 && !(z & 1)) return (P(x - hy - 1) + P(x - hy) + 1) >> 1;
       if (z > 0) return (P(x - hy - 2) + 2 * P(x - hy - 1) + P(x - hy) + 2) >> 2;
       if (z == -1) return corner;
-      return (Q(y - 1) + 2 * Q(y - 2) + Q(y - 3) + 2) >> 2;
+      return (Q(y - 2 * x - 1) + 2 * Q(y - 2 * x - 2) + Q(y - 2 * x - 3) + 2) >> 2;
     }
     case 6: {
       const int z = 2 * y - x, hx = x >> 1;
       if (z >= 0 && !(z & 1)) return (Q(y - hx - 1) + Q(y - hx) + 1) >> 1;
       if (z > 0) return (Q(y - hx - 2) + 2 * Q(y - hx - 1) + Q(y - hx) + 2) >> 2;
       if (z == -1) return corner;
-      return (P(x - 1) + 2 * P(x - 2) + P(x - 3) + 2) >> 2;
+      return (P(x - 2 * y - 1) + 2 * P(x - 2 * y - 2) + P(x - 2 * y - 3) + 2) >> 2;
     }
     case 7: {
       const int hy = y >> 1;
@@ -324,14 +390,34 @@ __device__ int pred4(const int* T, const int* Lf, bool ta, bool la, int mode, in
     }
     default: {
       const int z = x + 2 * y, hx = x >> 1;
-      if (z < 5 && !(z & 1)) return (Q(y + hx) + Q(y + hx + 1) + 1) >> 1;
-      if (z < 5) return (Q(y + hx) + 2 * Q(y + hx + 1) + Q(y + hx + 2) + 2) >> 2;
-      if (z == 5) return (Q(2) + 3 * Q(3) + 2) >> 2;
-      return Q(3);
+      if (z < 2 * N - 3 && !(z & 1)) return (Q(y + hx) + Q(y + hx + 1) + 1) >> 1;
+      if (z < 2 * N - 3) return (Q(y + hx) + 2 * Q(y + hx + 1) + Q(y + hx + 2) + 2) >> 2;
+      if (z == 2 * N - 3) return (Q(N - 2) + 3 * Q(N - 1) + 2) >> 2;
+      return Q(N - 1);
     }
   }
 #undef P
 #undef Q
+}
+
+// 8.3.2.2.1: Intra8x8's reference samples T (corner, 16 above, the top-right
+// already substituted) and Lf (corner, 8 on the left) filtered in place, each
+// read only where available
+__device__ void filter8(int* T, int* Lf, bool ta, bool la, bool tla) {
+  int t[16], l[8];
+  for (int i = 0; i < 16; ++i) t[i] = T[i + 1];
+  for (int i = 0; i < 8; ++i) l[i] = Lf[i + 1];
+  const int c = T[0];
+  T[1] = tla ? (c + 2 * t[0] + t[1] + 2) >> 2 : (3 * t[0] + t[1] + 2) >> 2;
+  for (int i = 1; i < 15; ++i) T[i + 1] = (t[i - 1] + 2 * t[i] + t[i + 1] + 2) >> 2;
+  T[16] = (t[14] + 3 * t[15] + 2) >> 2;
+  Lf[1] = tla ? (c + 2 * l[0] + l[1] + 2) >> 2 : (3 * l[0] + l[1] + 2) >> 2;
+  for (int i = 1; i < 7; ++i) Lf[i + 1] = (l[i - 1] + 2 * l[i] + l[i + 1] + 2) >> 2;
+  Lf[8] = (l[6] + 3 * l[7] + 2) >> 2;
+  T[0] = Lf[0] = ta && la ? (t[0] + 2 * c + l[0] + 2) >> 2
+                 : ta     ? (3 * c + t[0] + 2) >> 2
+                 : la     ? (3 * c + l[0] + 2) >> 2
+                          : c;
 }
 
 // plane prediction of sample (x, y) of an n x n block (16: k 5; 8: k 34)
@@ -353,10 +439,12 @@ __device__ int plane_pred(const uint8_t* P, int stride, int x0, int y0, int n, i
 __global__ void __launch_bounds__(384) h264_intra_kernel(uint8_t* __restrict__ frame,
                                                          const int32_t* __restrict__ mbs,
                                                          const int16_t* __restrict__ levels,
+                                                         const int32_t* __restrict__ scales,
                                                          const int32_t* __restrict__ order,
                                                          int mb_w, int mb_h) {
   __shared__ int rec[FIELDS];
   __shared__ int d[24][16];
+  __shared__ int T8[17], L8[9];  // an Intra8x8 block's filtered reference samples
   const int mb = order[blockIdx.x], t = threadIdx.x;
   if (t < FIELDS) rec[t] = mbs[(long)mb * FIELDS + t];
   __syncthreads();
@@ -366,9 +454,9 @@ __global__ void __launch_bounds__(384) h264_intra_kernel(uint8_t* __restrict__ f
     frame[offset_of(p, mx, my, t)] = (uint8_t)levels[(long)rec[F_ROW] * LEVELS + t];
     return;
   }
-  residual(rec, levels, d, t);
-  const int av = rec[F_AVAIL];
-  const bool A = av & 1, B = av & 2, C = av & 4;
+  residual(rec, levels, scales, d, t);
+  const int av = rec[F_AVAIL], t8 = rec[F_T8];
+  const bool A = av & 1, B = av & 2, C = av & 4, D = av & 8;
   if (t >= 256) {  // chroma
     const int c = (t - 256) >> 6, q = (t - 256) & 63, x = q & 7, y = q >> 3;
     uint8_t* P = c ? p.v : p.u;
@@ -396,7 +484,7 @@ __global__ void __launch_bounds__(384) h264_intra_kernel(uint8_t* __restrict__ f
     } else {
       pred = plane_pred(P, p.cw, x0, y0, 8, 34, x, y);
     }
-    P[(long)(y0 + y) * p.cw + x0 + x] = (uint8_t)clip255(pred + res_at(d, t));
+    P[(long)(y0 + y) * p.cw + x0 + x] = (uint8_t)clip255(pred + res_at(d, t, t8));
   }
   const int x0 = 16 * mx, y0 = 16 * my;
   if (kind == K_I16) {
@@ -418,7 +506,34 @@ __global__ void __launch_bounds__(384) h264_intra_kernel(uint8_t* __restrict__ f
       } else {
         pred = plane_pred(p.y, p.lw, x0, y0, 16, 5, x, y);
       }
-      p.y[(long)(y0 + y) * p.lw + x0 + x] = (uint8_t)clip255(pred + res_at(d, t));
+      p.y[(long)(y0 + y) * p.lw + x0 + x] = (uint8_t)clip255(pred + res_at(d, t, t8));
+    }
+    return;
+  }
+  if (kind == K_I8) {  // Intra8x8, block by block
+    for (int b8 = 0; b8 < 4; ++b8) {
+      const int bx0 = x0 + 8 * (b8 & 1), by0 = y0 + 8 * (b8 >> 1);
+      const bool la = (b8 & 1) ? true : A, ta = (b8 >> 1) ? true : B;
+      if (t == 0) {
+        const bool tra = b8 == 0 ? B : b8 == 1 ? C : b8 == 2;
+        const bool tla = b8 == 0 ? D : b8 == 1 ? B : b8 == 2 ? A : true;
+        const int yt = max(by0 - 1, 0), xl = max(bx0 - 1, 0);
+        T8[0] = L8[0] = p.y[(long)yt * p.lw + xl];
+        for (int i = 0; i < 16; ++i) T8[i + 1] = p.y[(long)yt * p.lw + min(bx0 + i, p.lw - 1)];
+        if (!tra)
+          for (int i = 8; i < 16; ++i) T8[i + 1] = T8[8];
+        for (int i = 0; i < 8; ++i) L8[i + 1] = p.y[(long)(by0 + i) * p.lw + xl];
+        filter8(T8, L8, ta, la, tla);
+      }
+      __syncthreads();
+      if (t < 64) {
+        const int x = t & 7, y = t >> 3;
+        const int mode = (rec[F_MODES + (b8 >> 1)] >> (16 * (b8 & 1))) & 15;
+        const int pred = pred_nxn<8>(T8, L8, ta, la, mode, x, y);
+        p.y[(long)(by0 + y) * p.lw + bx0 + x] =
+            (uint8_t)clip255(pred + (&d[0][0])[64 * b8 + 8 * y + x]);
+      }
+      __syncthreads();
     }
     return;
   }
@@ -438,7 +553,7 @@ __global__ void __launch_bounds__(384) h264_intra_kernel(uint8_t* __restrict__ f
         for (int i = 4; i < 8; ++i) T[i + 1] = T[4];
       for (int i = 0; i < 4; ++i) Lf[i + 1] = p.y[(long)(by0 + i) * p.lw + xl];
       const int mode = (rec[F_MODES + (blk >> 3)] >> (4 * (blk & 7))) & 15;
-      const int pred = pred4(T, Lf, ta, la, mode, x, y);
+      const int pred = pred_nxn<4>(T, Lf, ta, la, mode, x, y);
       p.y[(long)(by0 + y) * p.lw + bx0 + x] =
           (uint8_t)clip255(pred + d[blk][4 * y + x]);
     }
@@ -533,14 +648,16 @@ __global__ void __launch_bounds__(32) h264_deblock_kernel(uint8_t* __restrict__ 
 
 // The P and skipped macroblocks ``list`` [n] of the picture in slot
 // ``slot`` of ``dpb`` ([slots, frame_bytes] uint8): ``mbs`` int32
-// [mb_w mb_h, 40] records, ``levels`` int16 [rows, 408].
+// [mb_w mb_h, 41] records, ``levels`` int16 [rows, 408], ``scales`` int32
+// [1344] the picture's LevelScale tables.
 extern "C" int moda_h264_inter(uint8_t* dpb, int64_t frame_bytes, int slot, const int32_t* mbs,
-                               const int16_t* levels, const int32_t* list, int n, int mb_w,
-                               int mb_h, cudaStream_t stream) {
-  if (n < 0 || mb_w < 1 || mb_h < 1 || slot < 0 || !dpb || !mbs)
+                               const int16_t* levels, const int32_t* scales, const int32_t* list,
+                               int n, int mb_w, int mb_h, cudaStream_t stream) {
+  if (n < 0 || mb_w < 1 || mb_h < 1 || slot < 0 || !dpb || !mbs || !scales)
     return (int)cudaErrorInvalidValue;
   if (n == 0) return 0;
-  h264_inter_kernel<<<n, 384, 0, stream>>>(dpb, frame_bytes, slot, mbs, levels, list, mb_w, mb_h);
+  h264_inter_kernel<<<n, 384, 0, stream>>>(dpb, frame_bytes, slot, mbs, levels, scales, list,
+                                           mb_w, mb_h);
   return (int)cudaGetLastError();
 }
 
@@ -548,15 +665,18 @@ extern "C" int moda_h264_inter(uint8_t* dpb, int64_t frame_bytes, int slot, cons
 // (``offsets`` [waves + 1], on the host): one launch a non-empty wavefront,
 // counted in ``*launched``.
 extern "C" int moda_h264_intra(uint8_t* frame, const int32_t* mbs, const int16_t* levels,
-                               const int32_t* order, const int32_t* offsets, int waves, int mb_w,
-                               int mb_h, cudaStream_t stream, int* launched) {
+                               const int32_t* scales, const int32_t* order,
+                               const int32_t* offsets, int waves, int mb_w, int mb_h,
+                               cudaStream_t stream, int* launched) {
   *launched = 0;
-  if (waves != mb_w + 2 * (mb_h - 1) || !frame || !mbs) return (int)cudaErrorInvalidValue;
+  if (waves != mb_w + 2 * (mb_h - 1) || !frame || !mbs || !scales)
+    return (int)cudaErrorInvalidValue;
   for (int w = 0; w < waves; ++w) {
     const int n = offsets[w + 1] - offsets[w];
     if (n < 0) return (int)cudaErrorInvalidValue;
     if (!n) continue;
-    h264_intra_kernel<<<n, 384, 0, stream>>>(frame, mbs, levels, order + offsets[w], mb_w, mb_h);
+    h264_intra_kernel<<<n, 384, 0, stream>>>(frame, mbs, levels, scales, order + offsets[w], mb_w,
+                                             mb_h);
     ++*launched;
     const cudaError_t e = cudaGetLastError();
     if (e != cudaSuccess) return (int)e;

@@ -119,6 +119,10 @@ def _declare(name: str, lib):
         u8p = ctypes.POINTER(ctypes.c_uint8)
         lib.h264_cabac_tables.restype = None
         lib.h264_cabac_tables.argtypes = [ctypes.POINTER(ctypes.c_int8), u8p, u8p]
+        lib.h264_scales.restype = None
+        lib.h264_scales.argtypes = [vp, i32p]
+        lib.h264_high_tables.restype = None
+        lib.h264_high_tables.argtypes = [u8p] * 6
     else:
         lib.rasterize.restype = None
         lib.rasterize.argtypes = [

@@ -1,9 +1,10 @@
 """H.264 (ISO/IEC 14496-10) video on the card: what FFmpeg's h264 decoder
 and swscale give cv2.VideoCapture for progressive 8-bit 4:2:0 streams with
 CAVLC or CABAC and I and P slices (the tool set of the Baseline profile, and
-of the Main profile without B slices or weighted prediction), bit for bit.
-The 8x8 transform (High profile), weighted prediction, B slices and the
-other tools native/h264.cpp names are refused.
+of the Main and High profiles without B slices or weighted prediction: High
+profile's 8x8 transform, Intra 8x8 prediction and scaling matrices
+included), bit for bit. Weighted prediction, B slices and the other tools
+native/h264.cpp names are refused.
 
 A sample (an access unit) goes through three steps:
 - the host parse (``native/h264.cpp``, through ctypes): parameter sets,
@@ -11,8 +12,10 @@ A sample (an access unit) goes through three steps:
   lists, the macroblock layer (CAVLC or CABAC, as the PPS says), motion
   vector and intra mode prediction and the loop filter's boundary
   strengths, into one record a
-  macroblock (``mbs``, fields ``F_*``) and the levels of each macroblock
-  with a residual (``levels``, layout ``L_*``);
+  macroblock (``mbs``, fields ``F_*``), the levels of each macroblock
+  with a residual (``levels``, layout ``L_*``) and the picture's LevelScale
+  tables (``scales``, layout at ``SCALES``: its scaling matrices times
+  normAdjust);
 - one copy of those arrays, with the picture's launch lists, to the device;
 - three kernels of ``csrc/h264.cu``, in this order, since intra prediction
   reads unfiltered neighbours: ``h264_inter`` (every P and skipped
@@ -45,19 +48,24 @@ import torch
 
 from moda_tpu_torch.preproc import m4v as M
 
-# macroblock kinds and the fields of a record (native/h264.cpp)
-K_I4, K_I16, K_PCM, K_P, K_SKIP = range(5)
+# macroblock kinds (intra ones first) and the fields of a record
+# (native/h264.cpp): F_MODES a 4x4 block's intra mode a nibble (an Intra 8x8
+# block's over its four 4x4 blocks), F_T8 transform_size_8x8_flag
+K_I4, K_I8, K_I16, K_PCM, K_P, K_SKIP = range(6)
 F_KIND, F_QP, F_CQP0, F_CQP1, F_M16, F_MC, F_AVAIL, F_ROW = range(8)
-F_MODES, F_BS, F_ALPHA, F_BETA, F_MV, F_REF, FIELDS = 8, 10, 18, 19, 20, 36, 40
-# a macroblock's row of levels: 16 luma blocks (raster in each), the
-# Intra16x16 DC (raster over the blocks), chroma DC (Cb, Cr), chroma AC
-# (Cb, Cr; 4 blocks each); an I_PCM macroblock's samples in the same row
+F_MODES, F_BS, F_ALPHA, F_BETA, F_MV, F_REF, F_T8, FIELDS = 8, 10, 18, 19, 20, 36, 40, 41
+# a macroblock's row of levels: 16 luma blocks (raster in each; with the
+# 8x8 transform four 8x8 blocks of 64, raster in each), the Intra16x16 DC
+# (raster over the blocks), chroma DC (Cb, Cr), chroma AC (Cb, Cr; 4 blocks
+# each); an I_PCM macroblock's samples in the same row
 L_DC, L_CDC, L_CAC, LEVELS = 256, 272, 280, 408
+# a picture's LevelScale tables: LevelScale4x4 [6 lists: Intra Y, Cb, Cr,
+# Inter Y, Cb, Cr][qP % 6][16 raster], then LevelScale8x8 [2: Intra Y,
+# Inter Y][qP % 6][64 raster]
+S_8X8 = 6 * 6 * 16
+SCALES = S_8X8 + 2 * 6 * 64
 BLK_X = [0, 1, 0, 1, 2, 3, 2, 3, 0, 1, 0, 1, 2, 3, 2, 3]
 BLK_Y = [0, 0, 1, 1, 0, 0, 1, 1, 2, 2, 3, 3, 2, 2, 3, 3]
-# normAdjust4x4 (8.5.9) of qP % 6 at positions (even, even), (odd, odd), other
-NORM = [[10, 16, 13], [11, 18, 14], [13, 20, 16], [14, 23, 18], [16, 25, 20], [18, 29, 23]]
-NORM0 = [v[0] for v in NORM]
 CHROMA_QP = list(range(30)) + [29, 30, 31, 32, 32, 33, 34, 34, 35, 35, 36, 36, 37, 37, 37, 38,
                                38, 38, 39, 39, 39, 39]
 # the loop filter's tables (8.7.2.2), by indexA / indexB, and tC0 by bS 1-3
@@ -130,6 +138,7 @@ class Picture:
     types: int           # 1: an I slice, 2: a P slice
     mbs: Optional[np.ndarray] = None     # int32 [nmb, FIELDS]
     levels: Optional[np.ndarray] = None  # int16 [rows, LEVELS]
+    scales: Optional[np.ndarray] = None  # int32 [SCALES]
 
 
 class Parser:
@@ -179,8 +188,13 @@ class Parser:
         self._update_geometry()
         if pic[0] < 0:
             return None
+        scales = None
+        if mbs is not None:
+            scales = np.empty(SCALES, np.int32)
+            self._lib.h264_scales(self._h, scales.ctypes.data_as(i32p))
         return Picture(int(pic[0]), bool(pic[1]), int(pic[2]), int(pic[3]), bool(pic[4]),
-                       int(pic[5]), int(pic[6]), mbs, None if levels is None else levels[:rows])
+                       int(pic[5]), int(pic[6]), mbs, None if levels is None else levels[:rows],
+                       scales)
 
     def _peek_geometry(self, data: bytes) -> Optional[Geometry]:
         """The geometry before the first picture, from the SPS its first
@@ -215,21 +229,27 @@ def cabac_tables() -> dict:
     return {"init": init, "range_lps": lps, "trans_lps": trans[0], "trans_mps": trans[1]}
 
 
+def high_tables() -> dict:
+    """High profile's tables as native/h264.cpp decodes with them: "zigzag8"
+    [64] (8x8 scan index -> raster position), "sig8" and "last8" [63]
+    (CABAC's 8x8 ctxIdxInc of significant_coeff_flag, frame coded, and of
+    last_significant_coeff_flag, by scan position), "default4" [2, 16] and
+    "default8" [2, 64] (Default_4x4/8x8_Intra, _Inter, raster), "norm4" [6,
+    3] and "norm8" [6, 6] (normAdjust's v by qP % 6), all uint8."""
+    from moda_tpu_torch import native
+
+    t = {"zigzag8": np.zeros(64, np.uint8), "ctx8": np.zeros(126, np.uint8),
+         "default4": np.zeros((2, 16), np.uint8), "default8": np.zeros((2, 64), np.uint8),
+         "norm4": np.zeros((6, 3), np.uint8), "norm8": np.zeros((6, 6), np.uint8)}
+    native._load("h264").h264_high_tables(
+        *(a.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)) for a in t.values()))
+    ctx8 = t.pop("ctx8")
+    return {**t, "sig8": ctx8[:63], "last8": ctx8[63:]}
+
+
 # ---------------------------------------------------------- plain versions
 # They index only through index_select, gather and scatter_: on the CPU,
 # PyTorch's general advanced indexing costs milliseconds a call.
-def _pos_scale() -> list:
-    out = []
-    for m in range(6):
-        row = []
-        for r in range(16):
-            i, j = r >> 2, r & 3
-            row.append(NORM[m][0 if (i | j) & 1 == 0 else 1 if i & j & 1 else 2])
-        out.append(row)
-    return out
-
-
-SCALE = _pos_scale()  # [qP % 6][raster position]
 # luma4x4BlkIdx of each 4x4 block (x, y), raster over the macroblock
 BLK_AT = [[0, 1, 4, 5], [2, 3, 6, 7], [8, 9, 12, 13], [10, 11, 14, 15]]
 # the 4x4 block of each luma sample (raster) and of each chroma sample
@@ -282,6 +302,29 @@ def _idct4(d: torch.Tensor) -> torch.Tensor:
     return ((h + 32) >> 6).reshape(*h.shape[:-2], 16)
 
 
+def _idct8_pass(x: torch.Tensor, dim: int) -> torch.Tensor:
+    """8.5.13.2's one-dimensional 8-point transform along ``dim``."""
+    d = x.unbind(dim)
+    a0, a4 = d[0] + d[4], d[0] - d[4]
+    a2, a6 = (d[2] >> 1) - d[6], d[2] + (d[6] >> 1)
+    b0, b2, b4, b6 = a0 + a6, a4 + a2, a4 - a2, a0 - a6
+    a1 = -d[3] + d[5] - d[7] - (d[7] >> 1)
+    a3 = d[1] + d[7] - d[3] - (d[3] >> 1)
+    a5 = -d[1] + d[7] + d[5] + (d[5] >> 1)
+    a7 = d[3] + d[5] + d[1] + (d[1] >> 1)
+    b1, b7 = a1 + (a7 >> 2), a7 - (a1 >> 2)
+    b3, b5 = a3 + (a5 >> 2), (a3 >> 2) - a5
+    return torch.stack([b0 + b7, b2 + b5, b4 + b3, b6 + b1, b6 - b1, b4 - b3, b2 - b5, b0 - b7],
+                       dim)
+
+
+def _idct8(d: torch.Tensor) -> torch.Tensor:
+    """8.5.13.2 on [..., 64] raster coefficients: rows, then columns, then
+    (x + 32) >> 6."""
+    h = _idct8_pass(_idct8_pass(d.view(*d.shape[:-1], 8, 8), -1), -2)
+    return ((h + 32) >> 6).reshape(*d.shape)
+
+
 def _hadamard4(x: torch.Tensor, dim: int) -> torch.Tensor:
     a, b, c, d = x.unbind(dim)
     return torch.stack([a + b + c + d, a + b - c - d, a - b - c + d, a - b + c - d], dim)
@@ -299,6 +342,9 @@ def _pixel_gather() -> list:
 
 
 PIXEL_GATHER = _pixel_gather()
+# each luma sample's index in the [4 blocks x 64] residual of the 8x8 transform
+PIXEL8_GATHER = [64 * (2 * (p // 128) + (p % 16) // 8) + 8 * ((p // 16) & 7) + (p & 7)
+                 for p in range(256)]
 DC_ORDER = [4 * y + x for x, y in zip(BLK_X, BLK_Y)]  # each block's Intra16x16 DC
 
 
@@ -310,11 +356,35 @@ def _rows(t: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     return t.index_select(0, idx.long())
 
 
-def residual_plain(rec: torch.Tensor, levels: torch.Tensor) -> torch.Tensor:
+def _dequant(c: torch.Tensor, ls: torch.Tensor, q6: torch.Tensor, bits: int) -> torch.Tensor:
+    """8.5.12.1 (``bits`` 4) and 8.5.13.1 (``bits`` 6): levels ``c`` times
+    their LevelScale ``ls``, scaled by 2^(qP / 6 - bits) with rounding below
+    it; ``q6`` broadcast against them."""
+    x = c * ls
+    up = (q6 - bits).clamp(min=0)
+    down = (bits - q6).clamp(min=0)
+    return torch.where(q6 >= bits, x << up, (x + ((1 << down) >> 1)) >> down)
+
+
+def luma_dc_scale(f: torch.Tensor, ls: torch.Tensor, q6: torch.Tensor) -> torch.Tensor:
+    """The Intra16x16 DC ``f`` (after the Hadamard) scaled by LevelScale4x4
+    ``ls`` of the Intra Y list at (0, 0), as cv2's libavcodec computes it:
+    its x86 h264_luma_dc_dequant_idct multiplies by qmul = ls << (qP / 6 +
+    2) in 16 bits, (f qmul + 128) >> 8, and a qmul above 32767 by qmul >> 7,
+    (f (qmul >> 7) + 1) >> 1. That is 8.5.10 exactly but where a scaling
+    list makes qmul exceed 32767 with low bits set (qP below 30)."""
+    qmul = ls << (q6 + 2)
+    return torch.where(qmul <= 32767, (f * qmul + 128) >> 8, (f * (qmul >> 7) + 1) >> 1)
+
+
+def residual_plain(rec: torch.Tensor, levels: torch.Tensor, scales: torch.Tensor) -> torch.Tensor:
     """The residual of macroblocks ``rec`` (int32 [n, FIELDS]): int32 [n,
-    384] (16x16 luma, 8x8 Cb, 8x8 Cr, raster): flat-scaled dequantisation,
-    the Intra16x16 DC Hadamard and the chroma DC 2x2 transform, the 4x4
-    inverse transform. An I_PCM macroblock's is meaningless."""
+    384] (16x16 luma, 8x8 Cb, 8x8 Cr, raster): dequantisation by the
+    picture's LevelScale tables ``scales`` (int32 [SCALES]; intra lists for
+    intra macroblocks, inter ones for P macroblocks), the Intra16x16 DC
+    Hadamard (``luma_dc_scale``) and the chroma DC 2x2 transform, the 4x4
+    inverse transform, or for luma with F_T8 the 8x8 one. An I_PCM
+    macroblock's is meaningless."""
     dev, n = rec.device, len(rec)
     row = rec[:, F_ROW]
     if len(levels):
@@ -322,31 +392,40 @@ def residual_plain(rec: torch.Tensor, levels: torch.Tensor) -> torch.Tensor:
     else:
         L = torch.zeros((n, LEVELS), dtype=torch.int32, device=dev)
     qp = rec[:, F_QP]
-    scale = _tab(SCALE, dev)
-    d = (L[:, :256].reshape(n, 16, 16) * _rows(scale, qp % 6)[:, None]) << (qp // 6)[:, None, None]
-    # Intra16x16: the DC of each block from the Hadamard of its levels (8.5.10)
-    f = _hadamard4(_hadamard4(L[:, L_DC:L_DC + 16].reshape(n, 4, 4), 1), 2).reshape(n, 16)
-    norm0 = _tab(NORM0, dev)
-    ls = (16 * _lut(norm0, qp % 6))[:, None]
+    inter = (rec[:, F_KIND] >= K_P).long()
+    ls4 = scales[:S_8X8].view(36, 16)        # [6 list + qP % 6, raster]
+    at4 = lambda lst, q: _rows(ls4, 6 * lst + q % 6)
     q6 = (qp // 6)[:, None]
-    dc = torch.where(q6 >= 6, (f * ls) << (q6 - 6).clamp(min=0),
-                     (f * ls + (1 << (5 - q6).clamp(min=0))) >> (6 - q6).clamp(min=0))
-    dc = _cols(dc, DC_ORDER)
+    d = _dequant(L[:, :256].reshape(n, 16, 16), at4(3 * inter, qp)[:, None], q6[:, :, None], 4)
+    # Intra16x16: the DC of each block from the Hadamard of its levels
+    # (8.5.10), scaled as FFmpeg's x86 luma_dc_dequant_idct scales it
+    f = _hadamard4(_hadamard4(L[:, L_DC:L_DC + 16].reshape(n, 4, 4), 1), 2).reshape(n, 16)
+    dc = _cols(luma_dc_scale(f, at4(0, qp)[:, :1], q6), DC_ORDER)
     d[:, :, 0] = torch.where((rec[:, F_KIND] == K_I16)[:, None], dc, d[:, :, 0])
     # chroma: the 2x2 DC transform (8.5.11), then each plane's AC
     blocks = [d]
     for c in range(2):
         qc = qp_chroma(qp, rec[:, F_CQP0 + c])
+        lsc = at4(3 * inter + 1 + c, qc)
         a, b, cc, dd = L[:, L_CDC + 4 * c:L_CDC + 4 * c + 4].unbind(1)
         fc = torch.stack([a + b + cc + dd, a - b + cc - dd, a + b - cc - dd, a - b - cc + dd], 1)
-        lsc = (16 * _lut(norm0, qc % 6))[:, None]
-        dcc = ((fc * lsc) << (qc // 6)[:, None]) >> 5
+        dcc = ((fc * lsc[:, :1]) << (qc // 6)[:, None]) >> 5
         ac = L[:, L_CAC + 64 * c:L_CAC + 64 * c + 64].reshape(n, 4, 16)
-        dac = (ac * _rows(scale, qc % 6)[:, None]) << (qc // 6)[:, None, None]
+        dac = _dequant(ac, lsc[:, None], (qc // 6)[:, None, None], 4)
         dac[:, :, 0] = dcc
         blocks.append(dac)
     r = _idct4(torch.cat(blocks, 1))  # [n, 24, 16]
-    return _cols(r.reshape(n, 384), PIXEL_GATHER)
+    out = _cols(r.reshape(n, 384), PIXEL_GATHER)
+    t8 = torch.nonzero(rec[:, F_T8])[:, 0]
+    if len(t8):  # luma of the 8x8 transform (8.5.13)
+        ls8 = scales[S_8X8:].view(12, 64)
+        q = _rows(qp, t8)
+        c8 = _rows(L, t8)[:, :256].reshape(-1, 4, 64)
+        d8 = _dequant(c8, _rows(ls8, 6 * _rows(inter, t8) + q % 6)[:, None],
+                      (q // 6)[:, None, None], 6)
+        luma = _cols(_idct8(d8).reshape(-1, 256), PIXEL8_GATHER)
+        out[:, :256] = out[:, :256].index_copy(0, t8, luma)
+    return out
 
 
 def _clip(x: torch.Tensor) -> torch.Tensor:
@@ -459,7 +538,7 @@ def _mb_offsets(mbi: torch.Tensor, g: Geometry) -> torch.Tensor:
 
 
 def inter_plain(dpb: torch.Tensor, slot: int, mbs: torch.Tensor, levels: torch.Tensor,
-                inter: torch.Tensor, g: Geometry) -> None:
+                scales: torch.Tensor, inter: torch.Tensor, g: Geometry) -> None:
     """What ``h264_inter`` computes, in PyTorch: the P and skipped
     macroblocks ``inter`` (int64 indices) of the picture in ``dpb[slot]``,
     predicted from the slots their records name, plus their residual,
@@ -467,15 +546,16 @@ def inter_plain(dpb: torch.Tensor, slot: int, mbs: torch.Tensor, levels: torch.T
     for k in range(0, len(inter), INTER_CHUNK):  # the 6x6 windows of a chunk at a time
         mbi = inter[k:k + INTER_CHUNK].long()
         rec = _rows(mbs, mbi)
-        out = _clip(_inter_pred(dpb, rec, mbi, g) + residual_plain(rec, levels))
+        out = _clip(_inter_pred(dpb, rec, mbi, g) + residual_plain(rec, levels, scales))
         _put(dpb[slot], _mb_offsets(mbi, g), out)
 
 
 def _intra_avail(rec: torch.Tensor):
-    """Whether the left, top and top-right macroblocks are available to
-    intra prediction (the corner's use is checked by the parse)."""
+    """Whether the left, top, top-right and top-left macroblocks are
+    available to intra prediction (Intra4x4's use of the corner is checked
+    by the parse; Intra8x8's filter reads it where it is available)."""
     a = rec[:, F_AVAIL]
-    return (a & 1) > 0, (a & 2) > 0, (a & 4) > 0
+    return (a & 1) > 0, (a & 2) > 0, (a & 4) > 0, (a & 8) > 0
 
 
 def _dc(top, left, ta, la, n4: int):
@@ -487,13 +567,14 @@ def _dc(top, left, ta, la, n4: int):
     return torch.where(ta & la, both, torch.where(la, lo, torch.where(ta, to, 128)))
 
 
-def _mode4_terms(mode: int, x: int, y: int):
-    """Intra4x4 mode ``mode``'s sample (x, y) (8.3.1.2.1-9) as ({sample:
-    weight}, rounding, shift) over the 13 neighbours: 0 the corner p[-1,
-    -1], 1 + i the row above p[i, -1] (i < 8), 9 + i the left column p[-1,
-    i]. DC (mode 2) depends on availability and is formed apart."""
+def _intra_terms(mode: int, x: int, y: int, n: int):
+    """Intra4x4 (``n`` 4, 8.3.1.2.1-9) or Intra8x8 (``n`` 8, 8.3.2.2.2-10)
+    mode ``mode``'s sample (x, y) as ({sample: weight}, rounding, shift)
+    over the 3n + 1 neighbours: 0 the corner p[-1, -1], 1 + i the row above
+    p[i, -1] (i < 2n), 1 + 2n + i the left column p[-1, i]. DC (mode 2)
+    depends on availability and is formed apart."""
     P = lambda i: 0 if i < 0 else 1 + i
-    Q = lambda i: 0 if i < 0 else 9 + i
+    Q = lambda i: 0 if i < 0 else 1 + 2 * n + i
 
     def f(*terms, add=0, sh=0):
         out = {}
@@ -510,8 +591,8 @@ def _mode4_terms(mode: int, x: int, y: int):
     if mode == 2:
         return f()
     if mode == 3:
-        if x == 3 and y == 3:
-            return f((1, P(6)), (3, P(7)), add=2, sh=2)
+        if x == n - 1 and y == n - 1:
+            return f((1, P(2 * n - 2)), (3, P(2 * n - 1)), add=2, sh=2)
         return three(P(x + y), P(x + y + 1), P(x + y + 2))
     if mode == 4:
         if x > y:
@@ -527,7 +608,7 @@ def _mode4_terms(mode: int, x: int, y: int):
             return three(P(x - hy - 2), P(x - hy - 1), P(x - hy))
         if z == -1:
             return three(Q(0), 0, P(0))
-        return three(Q(y - 1), Q(y - 2), Q(y - 3))
+        return three(Q(y - 2 * x - 1), Q(y - 2 * x - 2), Q(y - 2 * x - 3))
     if mode == 6:
         z, hx = 2 * y - x, x >> 1
         if z >= 0 and z % 2 == 0:
@@ -536,50 +617,67 @@ def _mode4_terms(mode: int, x: int, y: int):
             return three(Q(y - hx - 2), Q(y - hx - 1), Q(y - hx))
         if z == -1:
             return three(Q(0), 0, P(0))
-        return three(P(x - 1), P(x - 2), P(x - 3))
+        return three(P(x - 2 * y - 1), P(x - 2 * y - 2), P(x - 2 * y - 3))
     if mode == 7:
         hy = y >> 1
         if y % 2 == 0:
             return two(P(x + hy), P(x + hy + 1))
         return three(P(x + hy), P(x + hy + 1), P(x + hy + 2))
     z, hx = x + 2 * y, x >> 1
-    if z < 5 and z % 2 == 0:
+    if z < 2 * n - 3 and z % 2 == 0:
         return two(Q(y + hx), Q(y + hx + 1))
-    if z < 5:
+    if z < 2 * n - 3:
         return three(Q(y + hx), Q(y + hx + 1), Q(y + hx + 2))
-    if z == 5:
-        return f((1, Q(2)), (3, Q(3)), add=2, sh=2)
-    return f((1, Q(3)))
+    if z == 2 * n - 3:
+        return f((1, Q(n - 2)), (3, Q(n - 1)), add=2, sh=2)
+    return f((1, Q(n - 1)))
 
 
-def _mode4_tables():
-    w = [[[0] * 13 for _ in range(16)] for _ in range(9)]
-    add = [[0] * 16 for _ in range(9)]
-    sh = [[0] * 16 for _ in range(9)]
+def _mode_tables(n: int):
+    """[9, n * n, 3n + 1] weights, [9, n * n] roundings and shifts."""
+    w = [[[0] * (3 * n + 1) for _ in range(n * n)] for _ in range(9)]
+    add = [[0] * (n * n) for _ in range(9)]
+    sh = [[0] * (n * n) for _ in range(9)]
     for m in range(9):
-        for k in range(16):
-            terms, add[m][k], sh[m][k] = _mode4_terms(m, k % 4, k // 4)
+        for k in range(n * n):
+            terms, add[m][k], sh[m][k] = _intra_terms(m, k % n, k // n, n)
             for i, v in terms.items():
                 w[m][k][i] = v
     return w, add, sh
 
 
-MODE4_W, MODE4_ADD, MODE4_SHIFT = _mode4_tables()  # [9, 16, 13], [9, 16], [9, 16]
+MODE4_W, MODE4_ADD, MODE4_SHIFT = _mode_tables(4)  # [9, 16, 13], [9, 16], [9, 16]
+MODE8_W, MODE8_ADD, MODE8_SHIFT = _mode_tables(8)  # [9, 64, 25], [9, 64], [9, 64]
 
 
-def _pred4(t: torch.Tensor, l: torch.Tensor, tl: torch.Tensor, ta, la, mode: torch.Tensor):
-    """Intra4x4 prediction (8.3.1.2) of [n] blocks: ``t`` [n, 8] the row
-    above (the top-right already substituted), ``l`` [n, 4] the column on the
-    left, ``tl`` [n] the corner; [n, 16] raster."""
-    dev, n = t.device, len(mode)
-    nbr = torch.cat([tl[:, None], t, l], 1)  # [n, 13]
-    m = mode.long()
-    w = _tab(MODE4_W, dev).index_select(0, m)           # [n, 16, 13]
-    add = _tab(MODE4_ADD, dev).index_select(0, m)
-    sh = _tab(MODE4_SHIFT, dev).index_select(0, m)
+def _pred_nxn(t: torch.Tensor, l: torch.Tensor, tl: torch.Tensor, ta, la, mode: torch.Tensor):
+    """Intra4x4 (8.3.1.2) or Intra8x8 (8.3.2.2, from filtered samples)
+    prediction of [m] n x n blocks: ``t`` [m, 2n] the row above (the
+    top-right already substituted), ``l`` [m, n] the column on the left,
+    ``tl`` [m] the corner; [m, n * n] raster."""
+    dev, m, n = t.device, len(mode), l.shape[1]
+    tabs = (MODE4_W, MODE4_ADD, MODE4_SHIFT) if n == 4 else (MODE8_W, MODE8_ADD, MODE8_SHIFT)
+    nbr = torch.cat([tl[:, None], t, l], 1)  # [m, 3n + 1]
+    md = mode.long()
+    w, add, sh = (_tab(v, dev).index_select(0, md) for v in tabs)
     pred = ((w * nbr[:, None, :]).sum(-1) + add) >> sh
-    dc = _dc(t[:, :4], l, ta, la, 4)[:, None].expand(n, 16)
+    dc = _dc(t[:, :n], l, ta, la, n)[:, None].expand(m, n * n)
     return torch.where((mode == 2)[:, None], dc, pred)
+
+
+def _filter8(t, l, tl, ta, la, tla):
+    """8.3.2.2.1: Intra8x8's reference samples filtered: ``t`` [m, 16] (the
+    top-right substituted), ``l`` [m, 8], ``tl`` [m], each read only where
+    available (``ta``, ``la``, ``tla``)."""
+    smooth = lambda v: (v[:, :-2] + 2 * v[:, 1:-1] + v[:, 2:] + 2) >> 2
+    t0 = torch.where(tla, (tl + 2 * t[:, 0] + t[:, 1] + 2) >> 2, (3 * t[:, 0] + t[:, 1] + 2) >> 2)
+    tf = torch.cat([t0[:, None], smooth(t), ((t[:, 14] + 3 * t[:, 15] + 2) >> 2)[:, None]], 1)
+    l0 = torch.where(tla, (tl + 2 * l[:, 0] + l[:, 1] + 2) >> 2, (3 * l[:, 0] + l[:, 1] + 2) >> 2)
+    lf = torch.cat([l0[:, None], smooth(l), ((l[:, 6] + 3 * l[:, 7] + 2) >> 2)[:, None]], 1)
+    cf = torch.where(ta & la, (t[:, 0] + 2 * tl + l[:, 0] + 2) >> 2,
+                     torch.where(ta, (3 * tl + t[:, 0] + 2) >> 2,
+                                 torch.where(la, (3 * tl + l[:, 0] + 2) >> 2, tl)))
+    return tf, lf, cf
 
 
 def _plane(t, l, tl, n: int, k: int):
@@ -633,8 +731,11 @@ def _pred_chroma(t, l, tl, ta, la, mode):
 
 
 # Intra4x4's top-right 4x4 block inside the macroblock: decoded (1), not (0),
-# or the macroblock above (2) / above-right (3)
+# or the macroblock above (2) / above-right (3); Intra8x8's of each 8x8 block
 TOP_RIGHT = [2, 2, 1, 0, 2, 3, 1, 0, 1, 1, 1, 0, 1, 0, 1, 0]
+TOP_RIGHT8 = [2, 3, 1, 0]
+# Intra8x8's corner p[-1, -1]: in macroblock D (4), B (2), A (5), or decoded (1)
+CORNER8 = [4, 2, 5, 1]
 
 
 def _wavefronts(select: np.ndarray, mb_w: int):
@@ -665,12 +766,12 @@ def _edges(g: Geometry, mx: torch.Tensor, my: torch.Tensor, c: int, n: int):
 
 
 def intra_plain(frame: torch.Tensor, mbs: torch.Tensor, levels: torch.Tensor,
-                order: torch.Tensor, offsets: np.ndarray, g: Geometry) -> None:
+                scales: torch.Tensor, order: torch.Tensor, offsets: np.ndarray,
+                g: Geometry) -> None:
     """What ``h264_intra`` computes, in PyTorch: the intra macroblocks of the
     padded ``frame``, wavefront by wavefront (``order``/``offsets`` from
-    ``plan``): I_PCM samples, Intra16x16 and chroma prediction, and
-    Intra4x4 block by block, each plus its residual, clipped."""
-    dev = frame.device
+    ``plan``): I_PCM samples, Intra16x16 and chroma prediction, and Intra4x4
+    and Intra8x8 block by block, each plus its residual, clipped."""
     W = 16 * g.mb_w
     for w in range(len(offsets) - 1):
         if offsets[w + 1] == offsets[w]:
@@ -688,9 +789,9 @@ def intra_plain(frame: torch.Tensor, mbs: torch.Tensor, levels: torch.Tensor,
         mbi = mbi_all.index_select(0, keep)
         rec = _rows(mbs, mbi)
         kind = rec[:, F_KIND]
-        res = residual_plain(rec, levels)
+        res = residual_plain(rec, levels, scales)
         mx, my = mbi % g.mb_w, mbi // g.mb_w
-        A, B, C = _intra_avail(rec)
+        A, B, C, D = _intra_avail(rec)
         for c in (1, 2):  # chroma
             top, left, corner, block = _edges(g, mx, my, c, 8)
             pred = _pred_chroma(_get(frame, top), _get(frame, left), _get(frame, corner), B, A,
@@ -704,32 +805,49 @@ def intra_plain(frame: torch.Tensor, mbs: torch.Tensor, levels: torch.Tensor,
                            B.index_select(0, i16), A.index_select(0, i16),
                            rec[:, F_M16].index_select(0, i16))
             _put(frame, block, _clip(pred + _rows(res, i16)[:, :256]))
-        i4 = torch.nonzero(kind == K_I4)[:, 0]
-        if not len(i4):
-            continue
-        rec4, res4 = _rows(rec, i4), _rows(res, i4)[:, :256].reshape(-1, 16, 16)
-        a4, b4, c4 = A.index_select(0, i4), B.index_select(0, i4), C.index_select(0, i4)
-        mx4, my4 = mx.index_select(0, i4), my.index_select(0, i4)
-        modes = torch.stack([(rec4[:, F_MODES + (b >> 3)] >> (4 * (b & 7))) & 15
-                             for b in range(16)], 1)
-        k4, k8, q = (torch.arange(n, device=dev) for n in (4, 8, 16))
-        for blk in range(16):  # block by block in decoding order
-            bx, by = BLK_X[blk], BLK_Y[blk]
-            x0, y0 = 16 * mx4 + 4 * bx, 16 * my4 + 4 * by
-            # the corner's availability is not needed: the parse refused a
-            # mode that reads it where it is not available
-            la = a4 if bx == 0 else torch.ones_like(a4)
-            ta = b4 if by == 0 else torch.ones_like(b4)
-            tr = TOP_RIGHT[blk]
-            tra = b4 if tr == 2 else c4 if tr == 3 else torch.full_like(a4, bool(tr))
-            yt, xl = (y0 - 1).clamp(min=0), (x0 - 1).clamp(min=0)
-            t = _get(frame, yt[:, None] * W + (x0[:, None] + k8).clamp(max=W - 1))
-            t = torch.where(tra[:, None] | (k8 < 4), t, t[:, 3:4])
-            lft = _get(frame, (y0[:, None] + k4) * W + xl[:, None])
-            tl = _get(frame, yt * W + xl)
-            pred = _pred4(t, lft, tl, ta, la, modes[:, blk])
-            out = _clip(pred + res4[:, 4 * by:4 * by + 4, 4 * bx:4 * bx + 4].reshape(-1, 16))
-            _put(frame, (y0[:, None] + q // 4) * W + x0[:, None] + q % 4, out)
+        for kk, n in ((K_I4, 4), (K_I8, 8)):
+            sel = torch.nonzero(kind == kk)[:, 0]
+            if len(sel):
+                _intra_nxn(frame, _rows(rec, sel), _rows(res, sel)[:, :256],
+                           *(v.index_select(0, sel) for v in (mx, my, A, B, C, D)), n, W)
+
+
+def _intra_nxn(frame, rec, res, mx, my, A, B, C, D, n: int, W: int) -> None:
+    """Intra4x4 (``n`` 4) or Intra8x8 (``n`` 8) macroblocks of a wavefront,
+    block by block in decoding order, each block predicted from the samples
+    the earlier ones wrote and its residual added: ``res`` their luma
+    residual [m, 256] (raster), ``A``-``D`` the neighbours' availability."""
+    dev = frame.device
+    modes = torch.stack([(rec[:, F_MODES + (b >> 3)] >> (4 * (b & 7))) & 15
+                         for b in range(16)], 1)
+    k1, k2, q = (torch.arange(v, device=dev) for v in (n, 2 * n, n * n))
+    res = res.reshape(-1, 16, 16)
+    true = torch.ones_like(A)
+    for blk in range(16 // (n * n // 16)):  # block by block in decoding order
+        if n == 4:
+            bx, by, tr = BLK_X[blk], BLK_Y[blk], TOP_RIGHT[blk]
+        else:
+            bx, by, tr = 2 * (blk & 1), 2 * (blk >> 1), TOP_RIGHT8[blk]
+        x0, y0 = 16 * mx + 4 * bx, 16 * my + 4 * by
+        la = A if bx == 0 else true
+        ta = B if by == 0 else true
+        tra = B if tr == 2 else C if tr == 3 else torch.full_like(A, bool(tr))
+        yt, xl = (y0 - 1).clamp(min=0), (x0 - 1).clamp(min=0)
+        t = _get(frame, yt[:, None] * W + (x0[:, None] + k2).clamp(max=W - 1))
+        t = torch.where(tra[:, None] | (k2 < n), t, t[:, n - 1:n])
+        lft = _get(frame, (y0[:, None] + k1) * W + xl[:, None])
+        tl = _get(frame, yt * W + xl)
+        mode = modes[:, blk * (n * n // 16)]
+        if n == 8:
+            # the corner's availability is needed by the filter alone
+            c8 = CORNER8[blk]
+            tla = D if c8 == 4 else B if c8 == 2 else A if c8 == 5 else true
+            t, lft, tl = _filter8(t, lft, tl, ta, la, tla)
+        # an Intra4x4 mode that reads the corner where it is not available
+        # was refused by the parse
+        pred = _pred_nxn(t, lft, tl, ta, la, mode)
+        out = _clip(pred + res[:, 4 * by:4 * by + n, 4 * bx:4 * bx + n].reshape(-1, n * n))
+        _put(frame, (y0[:, None] + q // n) * W + x0[:, None] + q % n, out)
 
 
 def _filter(p: torch.Tensor, q: torch.Tensor, bs: torch.Tensor, qpav: torch.Tensor,
@@ -873,9 +991,9 @@ def build_library() -> ctypes.CDLL:
             so.with_suffix(".log").write_text(res.stderr)
         lib = ctypes.CDLL(str(so))
         vp, i = ctypes.c_void_p, ctypes.c_int
-        lib.moda_h264_inter.argtypes = [vp, ctypes.c_int64, i, vp, vp, vp, i, i, i, vp]
+        lib.moda_h264_inter.argtypes = [vp, ctypes.c_int64, i, vp, vp, vp, vp, i, i, i, vp]
         lib.moda_h264_inter.restype = i
-        lib.moda_h264_intra.argtypes = [vp, vp, vp, vp, vp, i, i, i, vp,
+        lib.moda_h264_intra.argtypes = [vp, vp, vp, vp, vp, vp, i, i, i, vp,
                                         ctypes.POINTER(ctypes.c_int)]
         lib.moda_h264_intra.restype = i
         lib.moda_h264_deblock.argtypes = [vp, vp, vp, vp, i, i, i, vp,
@@ -902,17 +1020,24 @@ def _need(t: torch.Tensor, dtype, what: str):
         raise ValueError(f"{what}: a contiguous {dtype} CUDA tensor, got {t.dtype} on {t.device}")
 
 
+def _need_scales(scales: torch.Tensor, what: str):
+    _need(scales, torch.int32, f"{what}: the LevelScale tables")
+    if scales.numel() != SCALES:
+        raise ValueError(f"{what}: {scales.numel()} LevelScale entries, not {SCALES}")
+
+
 def inter(dpb: torch.Tensor, slot: int, mbs: torch.Tensor, levels: torch.Tensor,
-          inter_mbs: torch.Tensor, g: Geometry) -> None:
+          scales: torch.Tensor, inter_mbs: torch.Tensor, g: Geometry) -> None:
     """The P and skipped macroblocks into ``dpb[slot]``: the kernel
     h264_inter on CUDA tensors, ``inter_plain`` on CPU ones."""
     if dpb.device.type == "cpu":
-        return inter_plain(dpb, slot, mbs, levels, inter_mbs.long(), g)
+        return inter_plain(dpb, slot, mbs, levels, scales, inter_mbs.long(), g)
     if not len(inter_mbs):
         return
     for t, dt, w in ((dpb, torch.uint8, "the picture buffer"), (mbs, torch.int32, "mbs"),
                      (levels, torch.int16, "levels"), (inter_mbs, torch.int32, "the list")):
         _need(t, dt, f"h264_inter: {w}")
+    _need_scales(scales, "h264_inter")
     if dpb.shape != (g.slots, g.frame_bytes) or mbs.shape != (g.mb_w * g.mb_h, FIELDS) or \
             not 0 <= slot < g.slots:
         raise ValueError(f"h264_inter: buffer {tuple(dpb.shape)}, records {tuple(mbs.shape)}, "
@@ -920,23 +1045,24 @@ def inter(dpb: torch.Tensor, slot: int, mbs: torch.Tensor, levels: torch.Tensor,
     lib = build_library()
     stream = torch.cuda.current_stream(dpb.device).cuda_stream
     _check(lib.moda_h264_inter(dpb.data_ptr(), g.frame_bytes, slot, mbs.data_ptr(),
-                               levels.data_ptr(), inter_mbs.data_ptr(), len(inter_mbs), g.mb_w,
-                               g.mb_h, stream), "h264_inter")
+                               levels.data_ptr(), scales.data_ptr(), inter_mbs.data_ptr(),
+                               len(inter_mbs), g.mb_w, g.mb_h, stream), "h264_inter")
     launches["h264_inter"] += 1
 
 
-def intra(frame: torch.Tensor, mbs: torch.Tensor, levels: torch.Tensor, order: torch.Tensor,
-          offsets: np.ndarray, g: Geometry) -> None:
+def intra(frame: torch.Tensor, mbs: torch.Tensor, levels: torch.Tensor, scales: torch.Tensor,
+          order: torch.Tensor, offsets: np.ndarray, g: Geometry) -> None:
     """The intra macroblocks of ``frame``, wavefront by wavefront: the
     kernel h264_intra (one launch a non-empty wavefront) on CUDA tensors,
     ``intra_plain`` on CPU ones."""
     if frame.device.type == "cpu":
-        return intra_plain(frame, mbs, levels, order, offsets, g)
+        return intra_plain(frame, mbs, levels, scales, order, offsets, g)
     if not len(order):
         return
     for t, dt, w in ((frame, torch.uint8, "the frame"), (mbs, torch.int32, "mbs"),
                      (levels, torch.int16, "levels"), (order, torch.int32, "the order")):
         _need(t, dt, f"h264_intra: {w}")
+    _need_scales(scales, "h264_intra")
     if frame.numel() != g.frame_bytes or len(offsets) != g.waves + 1:
         raise ValueError(f"h264_intra: frame of {frame.numel()} bytes, {len(offsets)} offsets "
                          f"for {g}")
@@ -945,8 +1071,8 @@ def intra(frame: torch.Tensor, mbs: torch.Tensor, levels: torch.Tensor, order: t
     n = ctypes.c_int(0)
     stream = torch.cuda.current_stream(frame.device).cuda_stream
     _check(lib.moda_h264_intra(frame.data_ptr(), mbs.data_ptr(), levels.data_ptr(),
-                               order.data_ptr(), off.ctypes.data, g.waves, g.mb_w, g.mb_h,
-                               stream, ctypes.byref(n)), "h264_intra")
+                               scales.data_ptr(), order.data_ptr(), off.ctypes.data, g.waves,
+                               g.mb_w, g.mb_h, stream, ctypes.byref(n)), "h264_intra")
     launches["h264_intra"] += n.value
 
 
@@ -978,11 +1104,12 @@ def deblock(frame: torch.Tensor, mbs: torch.Tensor, order: torch.Tensor, offsets
 # ----------------------------------------------------------- the decoder
 @dataclass
 class Work:
-    """One picture on the device: its records and levels, and the kernels'
-    launch lists (the inter macroblocks; the intra and filtered ones by
-    wavefront)."""
+    """One picture on the device: its records, levels and LevelScale tables,
+    and the kernels' launch lists (the inter macroblocks; the intra and
+    filtered ones by wavefront)."""
     mbs: torch.Tensor
     levels: torch.Tensor
+    scales: torch.Tensor
     inter: torch.Tensor
     intra: torch.Tensor
     intra_offsets: np.ndarray
@@ -1009,12 +1136,13 @@ def picture_steps(work: Work, slot: int, g: Geometry):
     the loop filter."""
     def inter_step(dpb, plain=False):
         if plain:
-            return inter_plain(dpb, slot, work.mbs, work.levels, work.inter.long(), g)
-        inter(dpb, slot, work.mbs, work.levels, work.inter, g)
+            return inter_plain(dpb, slot, work.mbs, work.levels, work.scales, work.inter.long(),
+                               g)
+        inter(dpb, slot, work.mbs, work.levels, work.scales, work.inter, g)
 
     def intra_step(dpb, plain=False):
-        (intra_plain if plain else intra)(dpb[slot], work.mbs, work.levels, work.intra,
-                                          work.intra_offsets, g)
+        (intra_plain if plain else intra)(dpb[slot], work.mbs, work.levels, work.scales,
+                                          work.intra, work.intra_offsets, g)
 
     def deblock_step(dpb, plain=False):
         (deblock_plain if plain else deblock)(dpb[slot], work.mbs, work.deblock,
@@ -1029,7 +1157,8 @@ def to_device(pic: Picture, g: Geometry, device) -> Work:
     host-to-device copy."""
     inter_mbs, (iorder, ioff), (dorder, doff) = plan(pic, g)
     parts = [pic.mbs.reshape(-1).view(np.uint8), pic.levels.reshape(-1).view(np.uint8),
-             inter_mbs.view(np.uint8), iorder.view(np.uint8), dorder.view(np.uint8)]
+             pic.scales.view(np.uint8), inter_mbs.view(np.uint8), iorder.view(np.uint8),
+             dorder.view(np.uint8)]
     host = np.empty(sum(p.nbytes for p in parts) + 4 * len(parts), np.uint8)
     pos, spans = 0, []
     for p in parts:
@@ -1041,8 +1170,8 @@ def to_device(pic: Picture, g: Geometry, device) -> Work:
         buf = buf.pin_memory().to(device, non_blocking=True)
     v = [buf[a:b] for a, b in spans]
     return Work(v[0].view(torch.int32).view(-1, FIELDS), v[1].view(torch.int16).view(-1, LEVELS),
-                v[2].view(torch.int32), v[3].view(torch.int32), ioff, v[4].view(torch.int32),
-                doff)
+                v[2].view(torch.int32), v[3].view(torch.int32), v[4].view(torch.int32), ioff,
+                v[5].view(torch.int32), doff)
 
 
 class H264Decoder:

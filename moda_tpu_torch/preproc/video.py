@@ -236,10 +236,11 @@ def require_supported(video: Video) -> None:
             "port decodes Motion JPEG (AVI MJPG/mjpg, QuickTime jpeg/mjpa, MP4 mp4v with "
             "objectTypeIndication 0x6C), MPEG-4 Part 2 (MP4 mp4v with objectTypeIndication "
             "0x20, AVI FMP4, XVID, DIVX, DX50 and FFmpeg's other mpeg4 fourccs) and H.264 in "
-            "MP4/MOV (avc1, avc3) as Baseline- and Main-profile streams without B slices hold "
-            "it: progressive 8-bit 4:2:0, CAVLC or CABAC, I and P slices (no B slices, 8x8 "
-            "transform, weighted prediction, interlace or FMO); H.264 in AVI, HEVC, MS-MPEG-4 "
-            "(DIV3, MP42, MP43), MPEG-1/2 and the rest are refused")
+            "MP4/MOV (avc1, avc3) as Baseline-, Main- and High-profile streams without B "
+            "slices hold it: progressive 8-bit 4:2:0, CAVLC or CABAC, I and P slices, the 8x8 "
+            "transform, Intra 8x8 and scaling matrices (no B slices, weighted prediction, "
+            "interlace or FMO); H.264 in AVI, HEVC, MS-MPEG-4 (DIV3, MP42, MP43), MPEG-1/2 and "
+            "the rest are refused")
 
 
 def standalone_jpeg(data: bytes) -> bytes:

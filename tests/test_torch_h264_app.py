@@ -1,9 +1,10 @@
 """H.264 input end to end on the CPU: the committed H.264 goldens
-(tests/goldens, tests/torch_video.py::H264_FIXTURES: the 1080p CABAC clip,
-the small CAVLC and CABAC tool mixes) against cv2's recorded readings and
-the port's decoder, extract_frames on the 1080p CABAC golden, and an H.264
-clip from tests/torch_h264.py's natural-content encoder through both
-packages' extract_frames and preproc_app.
+(tests/goldens, tests/torch_video.py::H264_FIXTURES: the 1080p High-profile
+CABAC clip, the small CAVLC, CABAC and High tool mixes) against cv2's
+recorded readings and the port's decoder, extract_frames on the 1080p High
+golden, and H.264 clips from tests/torch_h264.py's natural-content encoder
+(Main and High profile) through both packages' extract_frames and
+preproc_app.
 
 The JAX package decodes with cv2.VideoCapture and re-encodes each kept
 frame as a quality-95 JPEG; the port stores VideoCapture's frame bit-equal
@@ -68,9 +69,10 @@ def test_committed_h264_goldens_match_cv2_and_the_port(name, tmp_path):
 
 
 def test_extract_frames_stores_the_1080p_cabac_goldens_frames(tmp_path):
-    """extract_frames (device "cpu") on the 1080p CABAC golden at --fps 5,
-    as chip_smoke.py's phase 17 runs preproc_app on the card: pictures 0, 6
-    and 12 stored as PNGs whose pixels are cv2's recorded frames."""
+    """extract_frames (device "cpu") on the 1080p golden (High profile,
+    CABAC) at --fps 5, as chip_smoke.py's phase 17 runs preproc_app on the
+    card: pictures 0, 6 and 12 stored as PNGs whose pixels are cv2's
+    recorded frames."""
     name = V.H264_FIXTURES[0][0]
     with open(os.path.join(GOLDENS, "video_readings.json")) as f:
         want = json.load(f)[name]
@@ -98,23 +100,39 @@ def natural(tmp_path_factory):
     return path, frames
 
 
-def test_extract_frames_matches_the_jax_packages(natural, tmp_path):
+@pytest.fixture(scope="module")
+def natural_high(tmp_path_factory):
+    """The same scene coded at High profile (the 8x8 transform, Intra 8x8)
+    and cv2's frames of it."""
+    d = tmp_path_factory.mktemp("h264_natural_high")
+    seq, samples = H.natural_stream(V.scene(10, 48, 64, seed=1), qp=24, deblock_last=3,
+                                    high=True)
+    path = str(d / "clip.mp4")
+    H.write_mp4(path, seq, samples, fps=30)
+    (frames, logs), = H.cv2_read([path], str(d))
+    assert logs == [] and len(frames) == 10
+    return path, frames
+
+
+def test_extract_frames_matches_the_jax_packages(natural, natural_high, tmp_path):
     """The port's extract_frames (device "cpu") against the JAX package's at
-    --fps 10: the same names and kept indices; the port's frames 8-bit RGB
-    PNGs of VideoCapture's, the JAX package's JPEGs within the gates."""
-    path, vc = natural
-    j = JP.extract_frames(path, str(tmp_path / "j"), fps=10)
-    t = TP.extract_frames(path, str(tmp_path / "t"), fps=10, device="cpu")
-    kept = V.kept_indices(len(vc), 30.0, 10)
-    names = ["%05d.jpg" % k for k in range(len(kept))]
-    assert [os.path.basename(p) for p in t] == [os.path.basename(p) for p in j] == names
-    errs = []
-    for p, q, i in zip(t, j, kept):
-        with open(p, "rb") as f:
-            assert f.read(8) == b"\x89PNG\r\n\x1a\n"
-        np.testing.assert_array_equal(IO.imread(p)[..., ::-1], vc[i])
-        errs.append(np.abs(cv2.imread(q).astype(int) - vc[i].astype(int)))
-    assert np.mean([e.mean() for e in errs]) <= JPEG_MEAN and max(e.max() for e in errs) <= JPEG_MAX
+    --fps 10, on the natural clip at Main and at High profile: the same
+    names and kept indices; the port's frames 8-bit RGB PNGs of
+    VideoCapture's, the JAX package's JPEGs within the gates."""
+    for tag, (path, vc) in (("main", natural), ("high", natural_high)):
+        j = JP.extract_frames(path, str(tmp_path / tag / "j"), fps=10)
+        t = TP.extract_frames(path, str(tmp_path / tag / "t"), fps=10, device="cpu")
+        kept = V.kept_indices(len(vc), 30.0, 10)
+        names = ["%05d.jpg" % k for k in range(len(kept))]
+        assert [os.path.basename(p) for p in t] == [os.path.basename(p) for p in j] == names
+        errs = []
+        for p, q, i in zip(t, j, kept):
+            with open(p, "rb") as f:
+                assert f.read(8) == b"\x89PNG\r\n\x1a\n"
+            np.testing.assert_array_equal(IO.imread(p)[..., ::-1], vc[i])
+            errs.append(np.abs(cv2.imread(q).astype(int) - vc[i].astype(int)))
+        assert np.mean([e.mean() for e in errs]) <= JPEG_MEAN, tag
+        assert max(e.max() for e in errs) <= JPEG_MAX, tag
 
 
 def _files(root, pattern):

@@ -180,11 +180,11 @@ def _edited(k_at, **edit):
 
 
 # (case, random_stream arguments, what the message names); the CABAC
-# refusal of tests/test_torch_h264.py before CABAC was decoded became these
+# refusal of tests/test_torch_h264.py before CABAC was decoded became these,
+# and the 8x8 transform left them when it was decoded
+# (tests/test_torch_h264_high.py)
 REFUSALS = [
     ("cabac_init_idc_3", dict(edit=_edited(2, cabac_init_idc=3)), "sample 2: cabac_init_idc 3"),
-    ("cabac_transform_8x8", dict(seq_args={"pps_extra": {"transform_8x8_mode": 1}}),
-     "8x8 transform"),
     ("cabac_weighted_prediction", dict(seq_args={"pps_extra": {"weighted_pred": 1}}),
      "weighted prediction"),
     ("cabac_b_slice", dict(edit=_edited(2, slice_type_code=1)), "sample 2: a B slice"),

@@ -567,6 +567,20 @@ def test_h264_kernels_match_plain(cuda_device, case):
     assert launches["h264_intra"] >= sum(name == "h264_intra" for _, name in ran)
 
 
+@pytest.mark.parametrize("entropy", ["cavlc", "cabac"])
+@pytest.mark.parametrize("case", ["intra_8x8", "p_partitions_8x8", "constrained_intra_8x8",
+                                  "lists_pps_falls_back_to_sps", "lists_explicit_sps"])
+def test_h264_kernels_match_plain_at_high_profile(cuda_device, case, entropy):
+    """The three H.264 kernels against their plain versions on the writer's
+    High-profile streams (the 8x8 transform in I and P macroblocks, Intra
+    8x8, scaling lists), picture by picture and step by step: bit-equal."""
+    H = _h264_writer()
+    seq, samples = H.random_stream(seed=7, entropy=entropy, **H.high_case(case, 7))
+    ran, launches = _h264_stepwise([H.sample_bytes(s) for s in samples], H.avcc(seq), cuda_device)
+    assert {name for _, name in ran} >= {"h264_intra", "h264_deblock"}
+    assert launches["h264_inter"] == sum(name == "h264_inter" for _, name in ran)
+
+
 @pytest.mark.parametrize("width,height,left,top,matrix", [(1920, 1080, 0, 0, 0),
                                                           (70, 38, 64, 2, 1), (30, 18, 0, 6, 0)])
 def test_yuv420_to_bgr_with_a_crop_matches_plain(cuda_device, width, height, left, top, matrix):
@@ -585,7 +599,7 @@ def test_yuv420_to_bgr_with_a_crop_matches_plain(cuda_device, width, height, lef
 
 
 @pytest.mark.parametrize("name", ["clip_h264_small.mp4", "clip_h264_cabac_small.mp4",
-                                  "clip_h264_1080p_cabac.mp4"])
+                                  "clip_h264_high_small.mp4", "clip_h264_1080p_high.mp4"])
 def test_h264_decoder_matches_cv2_on_the_goldens(cuda_device, name):
     """H264Decoder on the card over every sample of a committed clip: each
     picture's SHA-256 equals cv2.VideoCapture's recorded one

@@ -1,7 +1,8 @@
 """Test helpers for the port's H.264 decoder (moda_tpu_torch/preproc/h264.py):
 a writer of H.264 (ISO/IEC 14496-10) streams in the syntax the port decodes
-(progressive 8-bit 4:2:0, CAVLC or CABAC, I and P slices), their MP4
-muxing, and cv2's reading of them with avcodec's log.
+(progressive 8-bit 4:2:0, CAVLC or CABAC, I and P slices, at High profile
+the 8x8 transform, Intra 8x8 and scaling lists), their MP4 muxing, and
+cv2's reading of them with avcodec's log.
 
 The writer has two modes, each of which writes either entropy coder
 (``Sequence(..., entropy="cabac")``) from the same macroblock decisions:
@@ -9,14 +10,17 @@ The writer has two modes, each of which writes either entropy coder
 - ``random_stream``: random valid syntax from a seed. It draws macroblock
   types, sub-macroblock types, intra modes (only those whose neighbours are
   available under the slice and constrained_intra_pred_flag rules), coded
-  block patterns, levels (escapes included; every level kept inside the
-  16-bit range a conforming stream keeps its transform in), QP deltas, mvds,
-  reference indices, skip runs, slices, deblocking settings, memory
-  management operations and reference list modifications.
+  block patterns, the transform size, levels (escapes included; every level
+  kept inside the 16-bit range a conforming stream keeps its transform in,
+  under the stream's scaling lists), QP deltas, mvds, reference indices,
+  skip runs, slices, deblocking settings, memory management operations and
+  reference list modifications; the SPS's and PPS's scaling lists come from
+  ``scaling_specs``.
 - ``natural_stream``: a small real encoder for ``tests/torch_video.py::
-  scene`` frames: I_16x16 (DC, V, H) pictures and P_L0_16x16 pictures with
-  one global vector a reference plus the quantised residual, reconstructed
-  as it goes, with the loop filter off.
+  scene`` frames: I_16x16 (DC, V, H) pictures (at High profile Intra 4x4,
+  8x8 or 16x16 by cost) and P_L0_16x16 pictures with one global vector a
+  reference plus the quantised residual (at High profile by the 4x4 or 8x8
+  transform), reconstructed as it goes, with the loop filter off.
 
 A stream counts as valid only if cv2 decodes it with no error line from
 avcodec (``cv2_read``: OPENCV_FFMPEG_DEBUG in a subprocess): FFmpeg would
@@ -79,7 +83,9 @@ MF = [[13107, 5243, 8066], [11916, 4660, 7490], [10082, 4194, 6554], [9362, 3647
 CHROMA_QP = list(range(30)) + [29, 30, 31, 32, 32, 33, 34, 34, 35, 35, 36, 36, 37, 37, 37, 38,
                                38, 38, 39, 39, 39, 39]
 P_TYPES = {"P16x16": 0, "P16x8": 1, "P8x16": 2, "P8x8": 3, "P8x8ref0": 4}
-INTRA = ("I4", "I16", "PCM")
+# "I8" is I_NxN with transform_size_8x8_flag (Intra 8x8)
+INTRA = ("I4", "I8", "I16", "PCM")
+NXN = ("I4", "I8")
 # sub-macroblock types: (partitions, width, height) in 4x4 units
 SUB_PARTS = [(1, 2, 2), (2, 2, 1), (2, 1, 2), (4, 1, 1)]
 MB_PARTS = {"P16x16": (1, 4, 4), "P16x8": (2, 4, 2), "P8x16": (2, 2, 4)}
@@ -95,11 +101,51 @@ def _pos_class(r: int) -> int:
 
 
 POS_CLASS = np.array([_pos_class(r) for r in range(16)])
+# zig-zag scan index -> raster position (8 * row + column) in an 8x8 block
+ZIGZAG8 = [0, 1, 8, 16, 9, 2, 3, 10, 17, 24, 32, 25, 18, 11, 4, 5, 12, 19, 26, 33, 40, 48, 41,
+           34, 27, 20, 13, 6, 7, 14, 21, 28, 35, 42, 49, 56, 57, 50, 43, 36, 29, 22, 15, 23, 30,
+           37, 44, 51, 58, 59, 52, 45, 38, 31, 39, 46, 53, 60, 61, 54, 47, 55, 62, 63]
+# normAdjust8x8 (8.5.13.1): v[qP % 6] for the six position classes
+NORM8 = [[20, 18, 32, 19, 25, 24], [22, 19, 35, 21, 28, 26], [26, 23, 42, 24, 33, 31],
+         [28, 25, 45, 26, 35, 33], [32, 28, 51, 30, 40, 38], [36, 32, 58, 34, 46, 43]]
 
 
-def level_scale(qp: int) -> np.ndarray:
-    """[16] normAdjust4x4 of qP % 6 by raster position."""
-    return np.array(NORM[qp % 6])[POS_CLASS]
+def _pos_class8(r: int) -> int:
+    i, j = r >> 3, r & 7
+    if i % 4 == 0 and j % 4 == 0:
+        return 0
+    if i % 2 and j % 2:
+        return 1
+    if i % 4 == 2 and j % 4 == 2:
+        return 2
+    if (i % 4 == 0 and j % 2) or (i % 2 and j % 4 == 0):
+        return 3
+    if (i % 4 == 0 and j % 4 == 2) or (i % 4 == 2 and j % 4 == 0):
+        return 4
+    return 5
+
+
+POS_CLASS8 = np.array([_pos_class8(r) for r in range(64)])
+FLAT4, FLAT8 = np.full(16, 16), np.full(64, 16)
+
+
+def level_scale(qp: int, w=None) -> np.ndarray:
+    """[16] LevelScale4x4 of qP % 6 by raster position: the weights ``w``
+    (raster; Flat_16 if None) times normAdjust4x4."""
+    return (FLAT4 if w is None else np.asarray(w)) * np.array(NORM[qp % 6])[POS_CLASS]
+
+
+def level_scale8(qp: int, w=None) -> np.ndarray:
+    """[64] LevelScale8x8 of qP % 6 by raster position."""
+    return (FLAT8 if w is None else np.asarray(w)) * np.array(NORM8[qp % 6])[POS_CLASS8]
+
+
+def dequant(levels: np.ndarray, ls: np.ndarray, qp: int, bits: int) -> np.ndarray:
+    """8.5.12.1 (``bits`` 4) and 8.5.13.1 (``bits`` 6): levels times their
+    LevelScale, scaled by 2^(qP / 6 - bits), rounded below 1."""
+    x = levels.astype(np.int64) * ls
+    q6 = qp // 6
+    return x << (q6 - bits) if q6 >= bits else (x + (1 << (bits - q6 - 1))) >> (bits - q6)
 
 
 # ------------------------------------------------------------- bit writer
@@ -164,34 +210,68 @@ def idct_checked(d: np.ndarray) -> np.ndarray:
     return ((h + 32) >> 6).reshape(*h.shape[:-2], 16), ok
 
 
-def luma_dc(levels: np.ndarray, qp: int) -> np.ndarray:
+def idct8_checked(d: np.ndarray):
+    """The 8x8 inverse transform (8.5.13.2: rows, then columns) of [..., 64]
+    scaled coefficients in raster order, as int64 [..., 64] residuals; also
+    whether every intermediate of both passes stays in the 16-bit range."""
+    d = d.reshape(*d.shape[:-1], 8, 8).astype(np.int64)
+    stages = [d]
+
+    def one(x, axis):
+        v = np.moveaxis(x, axis, -1)
+        v = [v[..., k] for k in range(8)]
+        a0, a4 = v[0] + v[4], v[0] - v[4]
+        a2, a6 = (v[2] >> 1) - v[6], v[2] + (v[6] >> 1)
+        b0, b2, b4, b6 = a0 + a6, a4 + a2, a4 - a2, a0 - a6
+        a1 = -v[3] + v[5] - v[7] - (v[7] >> 1)
+        a3 = v[1] + v[7] - v[3] - (v[3] >> 1)
+        a5 = -v[1] + v[7] + v[5] + (v[5] >> 1)
+        a7 = v[3] + v[5] + v[1] + (v[1] >> 1)
+        b1, b7, b3, b5 = a1 + (a7 >> 2), a7 - (a1 >> 2), a3 + (a5 >> 2), (a3 >> 2) - a5
+        stages.extend([a0, a4, a2, a6, b0, b2, b4, b6, a1, a3, a5, a7, b1, b3, b5, b7])
+        out = np.stack([b0 + b7, b2 + b5, b4 + b3, b6 + b1, b6 - b1, b4 - b3, b2 - b5, b0 - b7], -1)
+        stages.append(out)
+        return np.moveaxis(out, -1, axis)
+
+    h = one(one(d, -1), -2)
+    ok = all(np.abs(a).max(initial=0) <= RANGE - 32 for a in stages)
+    return ((h + 32) >> 6).reshape(*h.shape[:-2], 64), ok
+
+
+def luma_dc(levels: np.ndarray, qp: int, w0: int = 16) -> np.ndarray:
     """Intra16x16 DC: [16] levels (raster over the 4x4 blocks) -> the [16]
-    dcY values (8.5.10)."""
+    dcY values (8.5.10); ``w0`` the Intra Y list's weight at (0, 0)."""
     c = levels.reshape(4, 4).astype(np.int64)
     H = np.array([[1, 1, 1, 1], [1, 1, -1, -1], [1, -1, -1, 1], [1, -1, 1, -1]])
     f = H @ c @ H
-    ls = 16 * NORM[qp % 6][0]
+    ls = w0 * NORM[qp % 6][0]
     if qp >= 36:
         return ((f * ls) << (qp // 6 - 6)).reshape(16)
     return ((f * ls + (1 << (5 - qp // 6))) >> (6 - qp // 6)).reshape(16)
 
 
-def chroma_dc(levels: np.ndarray, qp: int) -> np.ndarray:
-    """4:2:0 chroma DC: [4] levels -> the [4] dcC values (8.5.11)."""
+def chroma_dc(levels: np.ndarray, qp: int, w0: int = 16) -> np.ndarray:
+    """4:2:0 chroma DC: [4] levels -> the [4] dcC values (8.5.11); ``w0``
+    the plane's list's weight at (0, 0)."""
     c = np.asarray(levels, np.int64).reshape(2, 2)
     H = np.array([[1, 1], [1, -1]])
     f = H @ c @ H
-    return (((f * 16 * NORM[qp % 6][0]) << (qp // 6)) >> 5).reshape(4)
+    return (((f * w0 * NORM[qp % 6][0]) << (qp // 6)) >> 5).reshape(4)
 
 
-def residual_blocks(levels: np.ndarray, qp: int, dc=None):
+def residual_blocks(levels: np.ndarray, qp: int, dc=None, w=None):
     """[n, 16] raster levels of 4x4 blocks at ``qp`` -> ([n, 16] residuals,
     in range); ``dc`` [n]: their DC values already scaled (Intra16x16,
-    chroma)."""
-    d = (levels.astype(np.int64) * level_scale(qp)) << (qp // 6)
+    chroma); ``w`` the list's weights (raster; flat if None)."""
+    d = dequant(levels, level_scale(qp, w), qp, 4)
     if dc is not None:
         d[:, 0] = dc
     return idct_checked(d)
+
+
+def residual_blocks8(levels: np.ndarray, qp: int, w=None):
+    """[n, 64] raster levels of 8x8 blocks -> ([n, 64] residuals, in range)."""
+    return idct8_checked(dequant(levels, level_scale8(qp, w), qp, 6))
 
 
 # ------------------------------------------------------------------ CAVLC
@@ -450,6 +530,88 @@ def cabac_coverage_expected() -> set:
     return out
 
 
+# --------------------------------------------------------- scaling lists
+@functools.cache
+def _high_tables() -> dict:
+    from moda_tpu_torch.preproc import h264 as D
+
+    return {k: v.astype(np.int64) for k, v in D.high_tables().items()}
+
+
+def _list_raster(spec, size: int, dflt, fallback) -> np.ndarray:
+    """The weightScale (raster) a scaling list ``spec`` gives: None (absent)
+    the fall-back list, "default" (useDefaultScalingMatrixFlag) the default
+    one, else its values in scan order."""
+    if spec is None:
+        return np.array(fallback)
+    if isinstance(spec, str):
+        return np.array(dflt)
+    out = np.zeros(size, np.int64)
+    out[np.array(ZIGZAG if size == 16 else ZIGZAG8)] = spec
+    return out
+
+
+def resolve_lists(specs, n8: int, fb4, fb8):
+    """([6, 16], [n8, 64]) weightScale of 6 + n8 list specs, an absent list
+    falling back (Table 7-2) to the previous one of its kind or to ``fb4``
+    (Intra Y, Inter Y) / ``fb8``."""
+    T = _high_tables()
+    w4 = []
+    for i in range(6):
+        w4.append(_list_raster(specs[i], 16, T["default4"][i // 3],
+                               fb4[i // 3] if i % 3 == 0 else w4[i - 1]))
+    w8 = [_list_raster(specs[6 + i], 64, T["default8"][i], fb8[i]) for i in range(n8)]
+    return np.array(w4), np.array(w8).reshape(n8, 64)
+
+
+def write_scaling_list(w: BitWriter, spec) -> None:
+    """The present flag and scaling_list() (7.3.2.1.1.1) of ``spec``: a
+    repeated tail of values is left to nextScale 0."""
+    w.u(1, int(spec is not None))
+    if spec is None:
+        return
+    if isinstance(spec, str):
+        w.se(-8)  # nextScale 0 at j 0: useDefaultScalingMatrixFlag
+        return
+    vals = [int(v) for v in spec]
+    k = len(vals)
+    while k > 1 and vals[k - 1] == vals[k - 2]:
+        k -= 1
+    last = 8
+    for j, v in enumerate(vals):
+        target = 0 if j == k else v
+        w.se((target - last + 128) % 256 - 128)
+        if j == k:
+            COVERAGE[("scaling_list_tail",)] += 1
+            return
+        last = v
+
+
+SCALING_CASES = ("values", "default", "absent")
+
+
+def scaling_specs(rng, pattern: str) -> list:
+    """The list specs of ``pattern``, a letter a list: "v" values drawn
+    from 1-255 (half of them with a repeated tail), "d" the default flag,
+    "a" absent."""
+    out = []
+    for i, case in enumerate(pattern):
+        if case == "v":
+            size = 16 if i < 6 else 64
+            v = rng.integers(1, 256, size)
+            if rng.random() < 0.5:
+                k = int(rng.integers(1, size))
+                v[k:] = v[k - 1]
+            out.append([int(a) for a in v])
+        else:
+            out.append("default" if case == "d" else None)
+    return out
+
+
+def _case(spec, absent: str) -> str:
+    return absent if spec is None else "default" if isinstance(spec, str) else "values"
+
+
 # ---------------------------------------------------------------- streams
 class Sequence:
     """One coded video sequence: its SPS and PPS (``entropy`` "cavlc" or
@@ -470,6 +632,7 @@ class Sequence:
         self.cabac_rng = np.random.default_rng([seed, 264])
         self.width, self.height = width, height
         self.sps_extra, self.pps_extra = sps_extra or {}, pps_extra or {}
+        self._high_fields(chroma_qp_offset)
         # the coded picture: the cropped one plus its left and top crop
         self.mb_w = (width + self.sps_extra.get("crop_left", 0) + 15) // 16
         self.mb_h = (height + self.sps_extra.get("crop_top", 0) + 15) // 16
@@ -496,6 +659,42 @@ class Sequence:
         self.poc1_offset = 0  # FrameNumOffset of POC type 1 and 2
         self.prev_fn = 0
 
+    def _high_fields(self, cqp: int):
+        """High profile's fields as the decoder reads them: the SPS's lists
+        (sps_extra "scaling_lists": 8 specs, or "seq_scaling_matrix_present"
+        with none present), the PPS's extension (pps_extra
+        "transform_8x8_mode", "scaling_lists" or "pic_scaling_matrix_present",
+        "second_chroma_qp_offset"), which FFmpeg skips for a constrained
+        Baseline, Main or Extended SPS; so ``t8`` (transform_8x8_mode_flag),
+        ``cqp`` (the Cb and Cr offsets), ``w4`` [6, 16] and ``w8`` [2, 64]
+        (the picture-level weightScale, raster)."""
+        x, y = self.sps_extra, self.pps_extra
+        prof = x.get("profile", 66)
+        self.sps_specs = x.get("scaling_lists",
+                               [None] * 8 if x.get("seq_scaling_matrix_present") else None)
+        T = _high_tables()
+        flat4, flat8 = np.full((6, 16), 16), np.full((2, 64), 16)
+        sw4, sw8 = (resolve_lists(self.sps_specs, 2, T["default4"], T["default8"])
+                    if self.sps_specs is not None else (flat4, flat8))
+        self.pps_ext = any(k in y for k in ("transform_8x8_mode", "pic_scaling_matrix_present",
+                                            "scaling_lists", "second_chroma_qp_offset"))
+        t8 = int(y.get("transform_8x8_mode", 0))
+        self.pps_specs = y.get("scaling_lists", [None] * (6 + 2 * t8)
+                               if y.get("pic_scaling_matrix_present") else None)
+        cons = x.get("constraints", 0xC0 if prof == 66 else 0)
+        self.pps_read = read = self.pps_ext and not (prof in (66, 77, 88) and cons & 0xE0)
+        self.cqp_offset = cqp
+        self.cqp = (cqp, y.get("second_chroma_qp_offset", cqp) if read else cqp)
+        self.t8 = bool(t8) and read
+        self.w4, self.w8 = sw4, sw8
+        if read and self.pps_specs is not None:
+            scaled = self.sps_specs is not None
+            fb4 = [sw4[0], sw4[3]] if scaled else T["default4"]
+            fb8 = sw8 if scaled else T["default8"]
+            self.w4, w8 = resolve_lists(self.pps_specs, 2 * t8, fb4, fb8)
+            if t8:
+                self.w8 = w8
+
     # parameter sets
     def sps(self) -> bytes:
         x = self.sps_extra
@@ -513,10 +712,10 @@ class Sequence:
             w.ue(x.get("bit_depth_luma_minus8", 0))
             w.ue(x.get("bit_depth_chroma_minus8", 0))
             w.u(1, 0)  # qpprime_y_zero_transform_bypass_flag
-            w.u(1, x.get("seq_scaling_matrix_present", 0))
-            if x.get("seq_scaling_matrix_present", 0):
-                for _ in range(8):
-                    w.u(1, 0)
+            w.u(1, int(self.sps_specs is not None))
+            for i, spec in enumerate(self.sps_specs or ()):
+                write_scaling_list(w, spec)
+                COVERAGE[("scaling_list", self.entropy, "sps", i, _case(spec, "absent"))] += 1
         w.ue(self.log2_fn - 4)
         w.ue(self.poc_type)
         if self.poc_type == 0:
@@ -587,13 +786,17 @@ class Sequence:
         w.u(1, 1)  # deblocking_filter_control_present_flag
         w.u(1, int(self.constrained))
         w.u(1, x.get("redundant_pic_cnt_present", 0))
-        if "transform_8x8_mode" in x or "pic_scaling_matrix_present" in x:
+        if self.pps_ext:
             w.u(1, x.get("transform_8x8_mode", 0))
-            w.u(1, x.get("pic_scaling_matrix_present", 0))
-            if x.get("pic_scaling_matrix_present", 0):
-                for _ in range(6 + 2 * x.get("transform_8x8_mode", 0)):
-                    w.u(1, 0)
-            w.se(self.cqp_offset)
+            w.u(1, int(self.pps_specs is not None))
+            absent = "absent_B" if self.sps_specs is not None else "absent_A"
+            for i, spec in enumerate(self.pps_specs or ()):
+                write_scaling_list(w, spec)
+                if self.pps_read:
+                    COVERAGE[("scaling_list", self.entropy, "pps", i, _case(spec, absent))] += 1
+            if self.pps_read and self.pps_specs is None and self.sps_specs is not None:
+                COVERAGE[("scaling_matrix", self.entropy, "pps_takes_sps")] += 1
+            w.se(x.get("second_chroma_qp_offset", self.cqp_offset))
         return nal(3, 8, w.trailing())
 
     # reference marking
@@ -751,7 +954,8 @@ class Picture:
         self.kind = [None] * n
         self.tc = np.zeros((n, 16), int)        # luma 4x4 blocks' TotalCoeff
         self.tcc = np.zeros((n, 2, 4), int)     # chroma AC blocks'
-        self.modes = np.full((n, 16), 2)        # Intra4x4PredMode
+        self.modes = np.full((n, 16), 2)        # Intra4x4PredMode (Intra 8x8: over its 4x4s)
+        self.t8 = np.zeros(n, bool)             # transform_size_8x8_flag
         self.mv = np.zeros((n, 2), int)         # natural mode: one vector a macroblock
         self.refidx = np.full(n, -1)
         # what CABAC's context index increments read of a macroblock
@@ -786,6 +990,9 @@ class Picture:
 
     def nc_luma(self, mb, blk):
         a, b = self._block_nb(mb, blk, -1, 0), self._block_nb(mb, blk, 0, -1)
+        for nb, side in ((a, "A"), (b, "B")):
+            if nb is not None and nb[0] != mb and self.t8[nb[0]] != self.t8[mb]:
+                COVERAGE[("nc_mixed", side, int(self.t8[mb]), int(self.t8[nb[0]]))] += 1
         na = None if a is None else self._count(*a)
         nb = None if b is None else self._count(*b)
         return _nc(na, nb)
@@ -804,7 +1011,11 @@ class Picture:
             nb = None if n is None else self._count(n, 2 + bx, c)
         return _nc(na, nb)
 
-    def pred_mode4(self, mb, blk):
+    def pred_mode4(self, mb, blk, size: int = 4, count: bool = True):
+        """Intra4x4PredMode's prediction of block ``blk``, or (``size`` 8)
+        Intra8x8PredMode's of the 8x8 block whose first 4x4 block it is: the
+        4x4 blocks left of and above it (an Intra 8x8 macroblock holds its
+        modes over its 4x4 blocks). ``count``: a written block (COVERAGE)."""
         out = []
         for dx, dy in ((-1, 0), (0, -1)):
             x, y = BLK_X[blk] + dx, BLK_Y[blk] + dy
@@ -814,7 +1025,9 @@ class Picture:
             n = self.avail(mb, -1 if x < 0 else 0, -1 if y < 0 else 0, True)
             if n is None:
                 return 2
-            out.append(self.modes[n, BLK_AT[(x % 4, y % 4)]] if self.kind[n] == "I4" else 2)
+            if count and self.kind[n] in NXN and self.kind[n] != ("I4" if size == 4 else "I8"):
+                COVERAGE[("mode_pred_mixed", size, self.kind[n], "A" if dx else "B")] += 1
+            out.append(self.modes[n, BLK_AT[(x % 4, y % 4)]] if self.kind[n] in NXN else 2)
         return min(out)
 
     # slices
@@ -926,18 +1139,19 @@ class Picture:
             self.tcc[mb] = 16
             return qp
         cbp_l, cbp_c = s.get("cbp_l", 0), s.get("cbp_c", 0)
-        if kind == "I4":
+        t8 = bool(s.get("t8", False))
+        if kind in NXN:
             w.ue(off)
-            COVERAGE[("mb_type", "I4")] += 1
-            for blk in range(16):
-                m, pm = s["modes"][blk], self.pred_mode4(mb, blk)
-                COVERAGE[("intra4x4", m)] += 1
+            COVERAGE[("mb_type", kind)] += 1
+            if self.seq.t8:
+                w.u(1, int(kind == "I8"))
+            self.t8[mb] = kind == "I8"
+            for blk, m, pm in self._nxn_modes(mb, s):
                 if m == pm:
                     w.u(1, 1)
                 else:
                     w.u(1, 0)
                     w.u(3, m if m < pm else m - 1)
-                self.modes[mb, blk] = m
             w.ue(s["chroma_mode"])
             COVERAGE[("intra_chroma", s["chroma_mode"])] += 1
         elif kind == "I16":
@@ -970,7 +1184,9 @@ class Picture:
                     w.se(my)
         if kind != "I16":
             cbp = cbp_l | cbp_c << 4
-            w.ue(INTRA_CBP_CODE[cbp] if kind == "I4" else INTER_CBP_CODE[cbp])
+            w.ue(INTRA_CBP_CODE[cbp] if kind in NXN else INTER_CBP_CODE[cbp])
+            if self._t8_flag(mb, s):
+                w.u(1, int(t8))
         self.tc[mb] = 0
         self.tcc[mb] = 0
         if cbp_l or cbp_c or kind == "I16":
@@ -981,9 +1197,13 @@ class Picture:
             if kind == "I16":
                 write_block(w, self.nc_luma(mb, 0), L["dc"], 16)
             for blk in range(16):
-                if cbp_l >> (blk // 4) & 1:
+                if not cbp_l >> (blk // 4) & 1:
+                    continue
+                if self.t8[mb]:  # coefficient 4 i + k of an 8x8 block: the k-th block's i-th
+                    co = L["luma8"][blk // 4][blk % 4::4]
+                else:
                     co = L["luma"][blk]
-                    self.tc[mb, blk] = write_block(w, self.nc_luma(mb, blk), co, len(co))
+                self.tc[mb, blk] = write_block(w, self.nc_luma(mb, blk), co, len(co))
             if cbp_c:
                 for c in range(2):
                     write_block(w, -1, L["cdc"][c], 4)
@@ -993,6 +1213,39 @@ class Picture:
                         self.tcc[mb, c, b] = write_block(w, self.nc_chroma(mb, c, b),
                                                          L["cac"][c][b], 15)
         return qp
+
+    def _nxn_modes(self, mb, s):
+        """(block, mode, predicted mode) of an I_NxN macroblock's 16 4x4 or
+        4 8x8 blocks in decoding order, its modes recorded as it goes."""
+        size = 8 if s["kind"] == "I8" else 4
+        for k, m in enumerate(s["modes"]):
+            blk = 4 * k if size == 8 else k
+            pm = self.pred_mode4(mb, blk, size)
+            COVERAGE[("intra4x4" if size == 4 else "intra8x8", m)] += 1
+            if size == 8:
+                a, b, c, d = self.intra_avail(mb)
+                tr = (b, c, True, False)[k]
+                COVERAGE[("intra8x8_at", m, k, int(tr))] += 1
+                # the reference filter's cases (8.3.2.2.1): the corner's
+                # rule by the top and left samples' availability
+                ta, la, tla = k >= 2 or b, k & 1 or a, (d, b, a, True)[k]
+                COVERAGE[("intra8x8_refs", int(bool(ta)), int(bool(la)), int(bool(tla)))] += 1
+            self.modes[mb, blk:blk + (4 if size == 8 else 1)] = m
+            yield blk, m, pm
+
+    def _t8_flag(self, mb, s) -> bool:
+        """Whether an inter macroblock carries transform_size_8x8_flag (7.3.5):
+        luma coefficients and no partition below 8x8; records the flag."""
+        kind = s["kind"]
+        if kind not in P_TYPES:
+            return False
+        small = kind not in MB_PARTS and any(s["subs"])
+        has = self.seq.t8 and s.get("cbp_l", 0) > 0 and not small
+        assert has or not s.get("t8"), s
+        self.t8[mb] = bool(s.get("t8")) and has
+        if self.t8[mb]:
+            COVERAGE[("transform_8x8", "P", kind)] += 1
+        return has
 
     # CABAC (9.3.2, 9.3.3.1): each syntax element's binarisation, with the
     # context index increments the decoder derives from the same neighbours
@@ -1014,7 +1267,7 @@ class Picture:
         17-20 as a P slice's suffix; bin 1 the terminate bin."""
         COVERAGE[("cabac_mb_type", "I" if islice else "P", t)] += 1
         if islice:
-            inc = sum(n is not None and self.kind[n] != "I4"
+            inc = sum(n is not None and self.kind[n] not in NXN
                       for n in (self.avail(mb, -1, 0), self.avail(mb, 0, -1)))
             e.decision(3 + inc, int(t != 0))
         else:
@@ -1077,6 +1330,11 @@ class Picture:
                 return int(self.tcc[n, c, 2 * (y % 2) + x % 2] != 0)
         else:
             n, b = self._nb4(mb, BLK_X[idx] + dx, BLK_Y[idx] + dy)
+            if n is not None and self.kind[n] != "PCM" and n != mb and self.t8[n]:
+                # a neighbour 8x8 block: its flag is inferred 1 where coded
+                bit = int(self.cbp[n] >> (b // 4) & 1)
+                COVERAGE[("cbf_from_8x8", "A" if dx else "B", bit)] += 1
+                return bit
             if n is not None and self.kind[n] != "PCM":
                 return int(self.tc[n, b] != 0)
         if n is None:
@@ -1094,17 +1352,27 @@ class Picture:
         nonzero coefficients."""
         maxn = len(coeffs)
         nz = [i for i, c in enumerate(coeffs) if c]
-        inc = self._cbf_term(mb, cat, idx, -1, 0) + 2 * self._cbf_term(mb, cat, idx, 0, -1)
-        e.decision(85 + CBF_OFF[cat] + inc, int(bool(nz)))
-        if not nz:
-            return 0
+        if cat == 5:  # no coded_block_flag: a coded 8x8 block has a coefficient
+            assert nz
+            T = _high_tables()
+            sig = [402 + int(v) for v in T["sig8"]]
+            lst = [417 + int(v) for v in T["last8"]]
+            base = 426
+        else:
+            inc = self._cbf_term(mb, cat, idx, -1, 0) + 2 * self._cbf_term(mb, cat, idx, 0, -1)
+            e.decision(85 + CBF_OFF[cat] + inc, int(bool(nz)))
+            if not nz:
+                return 0
+            k = [min(i, 2) if cat == 3 else i for i in range(maxn - 1)]
+            sig = [105 + SIG_OFF[cat] + v for v in k]
+            lst = [166 + SIG_OFF[cat] + v for v in k]
+            base = 227 + ABS_OFF[cat]
         last = nz[-1]
         for i in range(min(last + 1, maxn - 1)):
-            k = min(i, 2) if cat == 3 else i
-            e.decision(105 + SIG_OFF[cat] + k, int(coeffs[i] != 0))
+            e.decision(sig[i], int(coeffs[i] != 0))
             if coeffs[i]:
-                e.decision(166 + SIG_OFF[cat] + k, int(i == last))
-        base, eq1, gt1 = 227 + ABS_OFF[cat], 0, 0
+                e.decision(lst[i], int(i == last))
+        eq1, gt1 = 0, 0
         for i in reversed(nz):
             v = abs(coeffs[i]) - 1
             e.decision(base + (0 if gt1 else min(4, 1 + eq1)), int(v > 0))
@@ -1129,12 +1397,16 @@ class Picture:
         self.kind[mb] = kind
         a, b = self.avail(mb, -1, 0), self.avail(mb, 0, -1)
         cbp_l, cbp_c = s.get("cbp_l", 0), s.get("cbp_c", 0)
+        t8_inc = sum(n is not None and bool(self.t8[n]) for n in (a, b))
         if kind in INTRA:
             if typ == "P":
                 e.decision(14, 1)
-            t = 0 if kind == "I4" else 25 if kind == "PCM" else \
+            t = 0 if kind in NXN else 25 if kind == "PCM" else \
                 1 + s["mode16"] + 4 * cbp_c + (12 if cbp_l else 0)
             self._intra_type_cabac(e, mb, t, typ == "I")
+            if kind in NXN and self.seq.t8:
+                e.decision(399 + t8_inc, int(kind == "I8"))
+            self.t8[mb] = kind == "I8"
         else:
             assert kind in P_TYPES and kind != "P8x8ref0", kind
             COVERAGE[("cabac_mb_type", "P", kind)] += 1
@@ -1155,20 +1427,17 @@ class Picture:
             self.tc[mb] = 16
             self.tcc[mb] = 16
             return qp
-        if kind == "I4":
-            for blk in range(16):
-                m, pm = s["modes"][blk], self.pred_mode4(mb, blk)
-                COVERAGE[("intra4x4", m)] += 1
+        if kind in NXN:
+            for blk, m, pm in self._nxn_modes(mb, s):
                 e.decision(68, int(m == pm))
                 if m != pm:
                     rem = m if m < pm else m - 1
                     for k in range(3):
                         e.decision(69, (rem >> k) & 1)
-                self.modes[mb, blk] = m
         if kind in INTRA:
             mc = s["chroma_mode"]
             COVERAGE[("intra_chroma", mc)] += 1
-            inc = sum(n is not None and self.kind[n] in ("I4", "I16") and self.cmode[n] != 0
+            inc = sum(n is not None and self.kind[n] in ("I4", "I8", "I16") and self.cmode[n] != 0
                       for n in (a, b))
             e.decision(64 + inc, int(mc > 0))
             if mc:
@@ -1228,6 +1497,8 @@ class Picture:
             e.decision(77 + chroma(a, 0) + 2 * chroma(b, 0), int(cbp_c > 0))
             if cbp_c:
                 e.decision(81 + chroma(a, 1) + 2 * chroma(b, 1), int(cbp_c == 2))
+            if self._t8_flag(mb, s):
+                e.decision(399 + t8_inc, int(self.t8[mb]))
         self.cbp[mb] = cbp_l | cbp_c << 4
         if cbp_l or cbp_c or kind == "I16":
             dq = s.get("qp_delta", 0)
@@ -1244,7 +1515,13 @@ class Picture:
             if kind == "I16":
                 self.cbf_dc[mb, 0] = int(self._block_cabac(e, mb, 0, 0, L["dc"]) > 0)
             for blk in range(16):
-                if cbp_l >> (blk // 4) & 1:
+                if not cbp_l >> (blk // 4) & 1:
+                    continue
+                if self.t8[mb]:
+                    if blk % 4 == 0:
+                        self.tc[mb, blk:blk + 4] = self._block_cabac(e, mb, 5, blk // 4,
+                                                                     L["luma8"][blk // 4])
+                else:
                     self.tc[mb, blk] = self._block_cabac(e, mb, 1 if kind == "I16" else 2, blk,
                                                          L["luma"][blk])
             if cbp_c:
@@ -1307,15 +1584,19 @@ def _rand_coeffs(rng, maxn: int, big: float) -> list:
     return out
 
 
-def _fit(coeffs: list, scan_to_raster, qp: int, dc=None) -> list:
+def _fit(coeffs: list, scan_to_raster, qp: int, dc=None, w=None) -> list:
     """The coefficients scaled down (then thinned) until the block's
-    transform stays in the 16-bit range (a conforming stream's bound)."""
+    transform stays in the 16-bit range (a conforming stream's bound); a
+    block of 64 is an 8x8 one. ``w`` the list's weights (flat if None)."""
     co = list(coeffs)
     while True:
-        lv = np.zeros(16, np.int64)
+        lv = np.zeros(64 if len(co) == 64 else 16, np.int64)
         for k, c in enumerate(co):
             lv[scan_to_raster[k]] = c
-        _, ok = residual_blocks(lv[None], qp, None if dc is None else np.array([dc]))
+        if len(co) == 64:
+            _, ok = residual_blocks8(lv[None], qp, w)
+        else:
+            _, ok = residual_blocks(lv[None], qp, None if dc is None else np.array([dc]), w)
         if ok:
             return co
         nz = [k for k, c in enumerate(co) if c]
@@ -1327,11 +1608,17 @@ def _fit(coeffs: list, scan_to_raster, qp: int, dc=None) -> list:
             co[nz[-1]] = 0
 
 
-def random_levels(rng, kind: str, cbp_l: int, cbp_c: int, qp: int, cqp_offset: int,
-                  big: float) -> dict:
-    """A macroblock's levels for ``kind``, in range at ``qp``."""
+def random_levels(rng, kind: str, cbp_l: int, cbp_c: int, qp: int, cqp, big: float,
+                  t8: bool = False, w4=None, w8=None) -> dict:
+    """A macroblock's levels for ``kind``, in range at ``qp``: ``cqp`` the
+    chroma QP offset (or the Cb and Cr ones), ``t8`` luma as 8x8 blocks
+    ("luma8", scan order: four 4x4 draws interleaved, as CAVLC codes them),
+    ``w4`` [6, 16] and ``w8`` [2, 64] the weightScale lists (flat if None)."""
+    cqp = (cqp, cqp) if isinstance(cqp, int) else cqp
+    inter = int(kind in P_TYPES)
+    wl = lambda i: None if w4 is None else w4[3 * inter + i]
     luma_scan = ZIGZAG if kind != "I16" else ZIGZAG[1:]
-    out = {"luma": [None] * 16}
+    out = {"luma": [None] * 16, "luma8": [None] * 4}
     dcv = [None] * 16
     if kind == "I16":
         dc = _rand_coeffs(rng, 16, big)
@@ -1339,32 +1626,41 @@ def random_levels(rng, kind: str, cbp_l: int, cbp_c: int, qp: int, cqp_offset: i
             raster = np.zeros(16, np.int64)
             for k, c in enumerate(dc):
                 raster[ZIGZAG[k]] = c
-            dcy = luma_dc(raster, qp)
+            dcy = luma_dc(raster, qp, 16 if w4 is None else int(w4[0][0]))
             if np.abs(dcy).max() <= RANGE // 4:
                 break
             dc = [int(c / 2) for c in dc]  # toward zero: -1 // 2 stays -1
         out["dc"] = dc
         # dcY is in raster order over the blocks (row, column of 4x4 blocks)
         dcv = [int(dcy[4 * BLK_Y[b] + BLK_X[b]]) for b in range(16)]
-    for blk in range(16):
+    for b8 in range(4 if t8 else 0):
+        if cbp_l >> b8 & 1:
+            co = [0] * 64
+            for i4 in range(4):
+                co[i4::4] = _rand_coeffs(rng, 16, big)
+            if rng.random() < 0.1:  # a DC alone, as smooth content gives
+                co = [co[0] or 1] + [0] * 63
+            out["luma8"][b8] = _fit(co, ZIGZAG8, qp, None, None if w8 is None else w8[inter])
+    for blk in range(0 if t8 else 16):
         if cbp_l >> (blk // 4) & 1:
             co = _rand_coeffs(rng, len(luma_scan), big)
-            out["luma"][blk] = _fit(co, luma_scan, qp, dcv[blk])
-    qpc = CHROMA_QP[min(max(qp + cqp_offset, 0), 51)]
+            out["luma"][blk] = _fit(co, luma_scan, qp, dcv[blk], wl(0))
     out["cdc"] = [[0] * 4, [0] * 4]
     out["cac"] = [[[0] * 15 for _ in range(4)] for _ in range(2)]
     if cbp_c:
         for c in range(2):
+            qpc = CHROMA_QP[min(max(qp + cqp[c], 0), 51)]
+            w0 = 16 if w4 is None else int(wl(1 + c)[0])
             while True:
                 d = _rand_coeffs(rng, 4, big)
-                if np.abs(chroma_dc(d, qpc)).max() <= RANGE // 4:
+                if np.abs(chroma_dc(d, qpc, w0)).max() <= RANGE // 4:
                     break
             out["cdc"][c] = d
-            dcc = chroma_dc(d, qpc)
+            dcc = chroma_dc(d, qpc, w0)
             if cbp_c == 2:
                 for b in range(4):
                     out["cac"][c][b] = _fit(_rand_coeffs(rng, 15, big), ZIGZAG[1:], qpc,
-                                            int(dcc[b]))
+                                            int(dcc[b]), wl(1 + c))
     return out
 
 
@@ -1373,6 +1669,10 @@ def _allowed4(blk, a, b, d):
     left, top = x > 0 or a, y > 0 or b
     tl = (x > 0 and y > 0) or (x == 0 and y > 0 and a) or (x > 0 and y == 0 and b) or \
         (x == 0 and y == 0 and d)
+    return _allowed_modes(top, left, tl)
+
+
+def _allowed_modes(top, left, tl) -> list:
     modes = [2]
     if top:
         modes += [0, 3, 7]
@@ -1381,6 +1681,13 @@ def _allowed4(blk, a, b, d):
     if top and left and tl:
         modes += [4, 5, 6]
     return modes
+
+
+def _allowed8(b8, a, b, d):
+    """Intra8x8 modes of 8x8 block ``b8`` whose samples are available."""
+    left, top = (b8 & 1) or a, b8 >= 2 or b
+    tl = b8 == 3 or (b8 == 0 and d) or (b8 == 1 and b) or (b8 == 2 and a)
+    return _allowed_modes(top, left, tl)
 
 
 def _allowed16(a, b, d):
@@ -1403,8 +1710,11 @@ class RandomMB:
 
     def __init__(self, rng, weights: dict, big: float = 0.05, mvd_scale: int = 8,
                  far_mvd: float = 0.05, qp_walk: int = 3, pcm: float = 1.0,
-                 qp_ends: float = 0.0):
+                 qp_ends: float = 0.0, t8_share: float = 0.5):
         self.rng, self.weights, self.big = rng, weights, big
+        # with the 8x8 transform: the share of eligible inter macroblocks
+        # that use it (and of P_8x8 ones drawn with 8x8 sub-partitions alone)
+        self.t8_share = t8_share
         self.mvd_scale, self.far_mvd, self.qp_walk = mvd_scale, far_mvd, qp_walk
         self.qp_ends = qp_ends  # the share of mb_qp_delta drawn as -26 or +25
         self.force_pcm = set()  # macroblocks coded I_PCM whatever is drawn
@@ -1416,8 +1726,8 @@ class RandomMB:
         return tuple(int(v) for v in rng.integers(-self.mvd_scale, self.mvd_scale + 1, 2))
 
     def __call__(self, pic: Picture, mb: int, qp: int) -> dict:
-        rng, typ = self.rng, pic.cur_type
-        kinds = [k for k in self.weights if typ == "P" or k in INTRA]
+        rng, typ, seq = self.rng, pic.cur_type, pic.seq
+        kinds = [k for k in self.weights if (typ == "P" or k in INTRA) and (k != "I8" or seq.t8)]
         p = np.array([self.weights[k] for k in kinds], float)
         kind = kinds[rng.choice(len(kinds), p=p / p.sum())]
         # P_8x8ref0 has no CABAC binarisation: P_8x8 with every ref_idx 0
@@ -1435,6 +1745,8 @@ class RandomMB:
             return s
         if kind == "I4":
             s["modes"] = [int(rng.choice(_allowed4(blk, a, b, d))) for blk in range(16)]
+        if kind == "I8":
+            s["modes"] = [int(rng.choice(_allowed8(b8, a, b, d))) for b8 in range(4)]
         m16, mc = _allowed16(a, b, d)
         if kind in INTRA:
             s["chroma_mode"] = int(rng.choice(mc))
@@ -1450,10 +1762,15 @@ class RandomMB:
             s["mvds"] = [self._mvd() for _ in range(n)]
         elif kind in ("P8x8", "P8x8ref0"):
             s["subs"] = [int(v) for v in rng.integers(0, 4, 4)]
+            if seq.t8 and rng.random() < self.t8_share:
+                s["subs"] = [0] * 4
             s["refs"] = [int(rng.integers(0, max(pic.num_ref, 1))) for _ in range(4)]
             if ref0:
                 s["refs"] = [0] * 4
             s["mvds"] = [self._mvd() for t in s["subs"] for _ in range(SUB_PARTS[t][0])]
+        t8 = kind == "I8"
+        if seq.t8 and kind in P_TYPES and s["cbp_l"] and not any(s.get("subs", ())):
+            t8 = s["t8"] = bool(rng.random() < self.t8_share)
         if s["cbp_l"] or s["cbp_c"] or kind == "I16":
             dq = int(rng.integers(-self.qp_walk, self.qp_walk + 1))
             if rng.random() < 0.03:
@@ -1462,8 +1779,15 @@ class RandomMB:
                 dq = -26 if rng.random() < 0.5 else 25
             s["qp_delta"] = dq
             nqp = (qp + dq + 52) % 52
-            s["levels"] = random_levels(rng, kind, s["cbp_l"], s["cbp_c"], nqp,
-                                        pic.seq.cqp_offset, self.big)
+            s["levels"] = L = random_levels(rng, kind, s["cbp_l"], s["cbp_c"], nqp, seq.cqp,
+                                            self.big, t8, seq.w4, seq.w8)
+            # an 8x8 block whose levels came out all zero is not coded (CABAC
+            # has no syntax for a coded one without a coefficient)
+            for b8 in range(4 if t8 else 0):
+                if L["luma8"][b8] is not None and not any(L["luma8"][b8]):
+                    s["cbp_l"] &= ~(1 << b8)
+            if kind in P_TYPES and not s["cbp_l"]:
+                s.pop("t8", None)
         return s
 
 
@@ -1610,14 +1934,63 @@ def _raster_to_scan(lv: np.ndarray, first: int = 0) -> list:
     return [int(lv[ZIGZAG[k]]) for k in range(first, 16)]
 
 
+def _idct8_float_pass() -> np.ndarray:
+    """[8, 8] the 8-point inverse transform of 8.5.13.2 without its shifts'
+    rounding (x >> k read as x / 2^k)."""
+    T = np.zeros((8, 8))
+    for k in range(8):
+        d = np.eye(8)[k]
+        a0, a4, a2, a6 = d[0] + d[4], d[0] - d[4], d[2] / 2 - d[6], d[2] + d[6] / 2
+        b0, b2, b4, b6 = a0 + a6, a4 + a2, a4 - a2, a0 - a6
+        a1 = -d[3] + d[5] - d[7] - d[7] / 2
+        a3 = d[1] + d[7] - d[3] - d[3] / 2
+        a5 = -d[1] + d[7] + d[5] + d[5] / 2
+        a7 = d[3] + d[5] + d[1] + d[1] / 2
+        b1, b7, b3, b5 = a1 + a7 / 4, a7 - a1 / 4, a3 + a5 / 4, a3 / 4 - a5
+        T[:, k] = [b0 + b7, b2 + b5, b4 + b3, b6 + b1, b6 - b1, b4 - b3, b2 - b5, b0 - b7]
+    return T
+
+
+# [64, 64]: the dequantised coefficients (raster) whose 8x8 inverse transform
+# (rows, then columns, then / 64) is a residual (raster)
+FWD8 = np.linalg.inv(np.kron(_idct8_float_pass(), _idct8_float_pass()) / 64)
+
+
+def _quant8(x: np.ndarray, qp: int, intra: bool) -> np.ndarray:
+    """[..., 64] raster residuals -> 8x8 levels (flat lists), rounding with
+    the dead zone of 1/3 (intra) or 1/6 (inter)."""
+    step = level_scale8(qp) * 2.0 ** (qp // 6) / 64
+    c = (x.reshape(*x.shape[:-1], 64) @ FWD8.T) / step
+    return (np.sign(c) * np.floor(np.abs(c) + (1 / 3 if intra else 1 / 6))).astype(np.int64)
+
+
+def _filter8_ref(t, l, c, ta, la, tla):
+    """8.3.2.2.1 on numpy rows: (top [16], left [8], corner) filtered."""
+    t, l = np.asarray(t, np.int64), np.asarray(l, np.int64)
+    mid = lambda v: (v[:-2] + 2 * v[1:-1] + v[2:] + 2) >> 2
+    tf = np.concatenate([[(c + 2 * t[0] + t[1] + 2) >> 2 if tla else (3 * t[0] + t[1] + 2) >> 2],
+                         mid(t), [(t[14] + 3 * t[15] + 2) >> 2]])
+    lf = np.concatenate([[(c + 2 * l[0] + l[1] + 2) >> 2 if tla else (3 * l[0] + l[1] + 2) >> 2],
+                         mid(l), [(l[6] + 3 * l[7] + 2) >> 2]])
+    cf = (t[0] + 2 * c + l[0] + 2) >> 2 if ta and la else (3 * c + t[0] + 2) >> 2 if ta else \
+        (3 * c + l[0] + 2) >> 2 if la else c
+    return tf, lf, cf
+
+
 class NaturalEncoder:
     """``choose`` of the natural mode: codes ``frame`` (YUV planes) at one
     QP, I_16x16 in I pictures and P_L0_16x16 in P pictures, keeping the
-    reconstruction (``recon``) as the decoder forms it."""
+    reconstruction (``recon``) as the decoder forms it. With ``high`` (High
+    profile, flat lists) an I macroblock is Intra 16x16, 4x4 or 8x8 and a P
+    macroblock's residual takes the 4x4 or the 8x8 transform, whichever
+    costs less (the sum of absolute differences to the source plus LAMBDA
+    per estimated bit)."""
 
-    def __init__(self, qp: int):
+    def __init__(self, qp: int, high: bool = False):
         self.qp = qp
         self.recon = None
+        self.high = high
+        self.lam = 0.92 * 2 ** ((qp - 12) / 6)
 
     def start(self, planes, refs, vectors):
         """The next picture: its source ``planes``, the reference
@@ -1714,6 +2087,23 @@ class NaturalEncoder:
         preds[2] = np.full((16, 16), dc, np.int64)
         mode = min(preds, key=lambda m: np.abs(src - preds[m]).sum())
         pred = preds[mode]
+        luma = self._i16(pred, mode, src, qp)
+        if self.high:
+            cands = [luma, self._nxn(pic, mb, x, y, qp, 4, src), self._nxn(pic, mb, x, y, qp, 8, src)]
+            luma = min(cands, key=lambda c: c["cost"])
+            pic.modes[mb] = luma["modes16"]
+        self.recon[0][16 * y:16 * y + 16, 16 * x:16 * x + 16] = luma.pop("recon")
+        luma.pop("cost")
+        luma.pop("modes16")
+        pu, pv = self._chroma_dc_pred(pic, x, y, a, b)
+        cs, cbp_c, rec = self._chroma_levels(pu, pv, x, y, qpc, True)
+        for c in range(2):
+            self.recon[1 + c][8 * y:8 * y + 8, 8 * x:8 * x + 8] = rec[c]
+        luma["levels"].update(cs)
+        return {**luma, "chroma_mode": 0, "cbp_c": cbp_c, "qp_delta": 0}
+
+    def _i16(self, pred, mode, src, qp) -> dict:
+        """Intra 16x16 coding of the macroblock from prediction ``pred``."""
         w = _fwd(_blocks(src - pred, 4).reshape(16, 4, 4)).reshape(16, 16)
         # the DC of the 16 blocks (raster order of blocks)
         Hd = np.array([[1, 1, 1, 1], [1, 1, -1, -1], [1, -1, -1, 1], [1, -1, 1, -1]])
@@ -1728,20 +2118,92 @@ class NaturalEncoder:
             ac[:] = 0
         dcy = luma_dc(dcl, qp)  # raster over blocks = our block raster order
         res, _ = residual_blocks(ac, qp, dcy)
-        self.recon[0][16 * y:16 * y + 16, 16 * x:16 * x + 16] = \
-            np.clip(pred + _unblocks(res, 4), 0, 255)
-        pu, pv = self._chroma_dc_pred(pic, x, y, a, b)
-        cs, cbp_c, rec = self._chroma_levels(pu, pv, x, y, qpc, True)
-        for c in range(2):
-            self.recon[1 + c][8 * y:8 * y + 8, 8 * x:8 * x + 8] = rec[c]
+        recon = np.clip(pred + _unblocks(res, 4), 0, 255)
         luma = [None] * 16
         for blk in range(16):
             r = 4 * BLK_Y[blk] + BLK_X[blk]  # this block's row in raster order of blocks
             luma[blk] = _raster_to_scan(ac[r], 1)
         dc_scan = [int(dcl[ZIGZAG[k]]) for k in range(16)]
-        return {"kind": "I16", "mode16": int(mode), "chroma_mode": 0, "cbp_l": cbp_l,
-                "cbp_c": cbp_c, "qp_delta": 0,
-                "levels": {"luma": luma, "dc": dc_scan, **cs}}
+        bits = 5 * (np.count_nonzero(ac) + np.count_nonzero(dcl)) + 2
+        return {"kind": "I16", "mode16": int(mode), "cbp_l": cbp_l, "recon": recon,
+                "levels": {"luma": luma, "dc": dc_scan}, "modes16": np.full(16, 2),
+                "cost": np.abs(src - recon).sum() + self.lam * bits}
+
+    def _nxn(self, pic, mb, x, y, qp, n, src) -> dict:
+        """Intra 4x4 (``n`` 4) or 8x8 coding of the macroblock, block by
+        block in decoding order, each block's mode the one closest to the
+        source (a mode other than the predicted one costing its rest)."""
+        from moda_tpu_torch.preproc import h264 as D
+
+        Y = self.recon[0]
+        H, W = Y.shape
+        a, b, c, d = pic.intra_avail(mb)
+        rec = np.zeros((16, 16), np.int64)
+        x0, y0 = 16 * x, 16 * y
+        tabs = [np.array(t) for t in ((D.MODE4_W, D.MODE4_ADD, D.MODE4_SHIFT) if n == 4 else
+                                      (D.MODE8_W, D.MODE8_ADD, D.MODE8_SHIFT))]
+
+        def at(px, py):  # a sample relative to the macroblock: its own reconstruction inside
+            if 0 <= px < 16 and 0 <= py < 16:
+                return rec[py, px]
+            return Y[min(max(y0 + py, 0), H - 1), min(max(x0 + px, 0), W - 1)]
+        modes, levels, cost = [], [], 0.0
+        saved = pic.modes[mb].copy()
+        for k in range(16 if n == 4 else 4):
+            if n == 4:
+                bx, by, tr = 4 * BLK_X[k], 4 * BLK_Y[k], D.TOP_RIGHT[k]
+                tra = b if tr == 2 else c if tr == 3 else bool(tr)
+                blk = k
+            else:
+                bx, by, tra, blk = 8 * (k & 1), 8 * (k >> 1), (b, c, True, False)[k], 4 * k
+            la, ta = bx > 0 or a, by > 0 or b
+            tla = (bx > 0 and by > 0) or (bx == 0 and by > 0 and a) or \
+                (bx > 0 and by == 0 and b) or (bx == 0 and by == 0 and d)
+            top = np.array([at(bx + i, by - 1) for i in range(2 * n)])
+            if not tra:
+                top[n:] = top[n - 1]
+            left = np.array([at(bx - 1, by + i) for i in range(n)])
+            corner = at(bx - 1, by - 1)
+            if n == 8:
+                top, left, corner = _filter8_ref(top, left, corner, ta, la, tla)
+            nbr = np.concatenate([[corner], top, left])
+            allowed = _allowed_modes(ta, la, tla)
+            preds = (tabs[0][allowed] @ nbr + tabs[1][allowed]) >> tabs[2][allowed]
+            st, sl = top[:n].sum(), left.sum()
+            sh = {4: 3, 8: 4}[n]
+            dc = ((st + sl + n) >> sh if ta and la else (sl + n // 2) >> (sh - 1) if la else
+                  (st + n // 2) >> (sh - 1) if ta else 128)
+            preds[allowed.index(2)] = dc
+            sb = src[by:by + n, bx:bx + n].reshape(-1)
+            pm = pic.pred_mode4(mb, blk, n, count=False)
+            costs = np.abs(sb[None] - preds).sum(1) + self.lam * np.where(
+                np.array(allowed) == pm, 1, 4)
+            j = int(np.argmin(costs))
+            m, pred = allowed[j], preds[j]
+            if n == 4:
+                lv = _quant(_fwd((sb - pred).reshape(4, 4)).reshape(16), qp, True)
+                res = residual_blocks(lv[None], qp)[0][0]
+            else:
+                lv = _quant8(sb - pred, qp, True)
+                res = residual_blocks8(lv[None], qp)[0][0]
+            r = np.clip(pred + res, 0, 255)
+            rec[by:by + n, bx:bx + n] = r.reshape(n, n)
+            pic.modes[mb, blk:blk + n * n // 16] = m
+            modes.append(m)
+            levels.append(lv)
+            cost += np.abs(sb - r).sum() + self.lam * (5 * np.count_nonzero(lv) +
+                                                       (1 if m == pm else 4))
+        out_modes = pic.modes[mb].copy()
+        pic.modes[mb] = saved
+        group = 4 if n == 4 else 1  # blocks an 8x8 block holds
+        cbp_l = sum(1 << g for g in range(4)
+                    if any(np.any(levels[i]) for i in range(g * group, (g + 1) * group)))
+        if n == 4:
+            lv = {"luma": [_raster_to_scan(v) for v in levels]}
+        else:
+            lv = {"luma8": [[int(v[ZIGZAG8[k]]) for k in range(64)] for v in levels]}
+        return {"kind": "I4" if n == 4 else "I8", "modes": modes, "cbp_l": cbp_l, "recon": rec,
+                "levels": lv, "modes16": out_modes, "cost": cost}
 
     def _inter(self, pic, mb, x, y, qp, qpc):
         # the reference whose global vector predicts this macroblock best
@@ -1766,18 +2228,30 @@ class NaturalEncoder:
             if not cbp_l >> (blk // 4) & 1:
                 lv[4 * BLK_Y[blk] + BLK_X[blk]] = 0
         res, _ = residual_blocks(lv, qp)
-        self.recon[0][16 * y:16 * y + 16, 16 * x:16 * x + 16] = \
-            np.clip(pred[0] + _unblocks(res, 4), 0, 255)
+        recon = np.clip(pred[0] + _unblocks(res, 4), 0, 255)
+        luma = {"luma": [_raster_to_scan(lv[4 * BLK_Y[blk] + BLK_X[blk]]) for blk in range(16)]}
+        t8 = False
+        if self.high:
+            # the 8x8 transform of the same residual, where it costs less
+            r8 = (src - pred[0]).reshape(2, 8, 2, 8).transpose(0, 2, 1, 3).reshape(4, 64)
+            lv8 = _quant8(r8, qp, False)
+            rec8 = np.clip(pred[0] + residual_blocks8(lv8, qp)[0].reshape(2, 2, 8, 8)
+                           .transpose(0, 2, 1, 3).reshape(16, 16), 0, 255)
+            cost = lambda r, nz: np.abs(src - r).sum() + self.lam * 5 * nz
+            if lv8.any() and cost(rec8, np.count_nonzero(lv8)) < cost(recon, np.count_nonzero(lv)):
+                t8, recon = True, rec8
+                cbp_l = sum(1 << g for g in range(4) if lv8[g].any())
+                luma = {"luma8": [[int(v[ZIGZAG8[k]]) for k in range(64)] for v in lv8]}
+        self.recon[0][16 * y:16 * y + 16, 16 * x:16 * x + 16] = recon
         cs, cbp_c, rec = self._chroma_levels(pred[1], pred[2], x, y, qpc, False)
         for c in range(2):
             self.recon[1 + c][8 * y:8 * y + 8, 8 * x:8 * x + 8] = rec[c]
         mvp = _mvp16(pic, mb, r)
         pic.mv[mb], pic.refidx[mb] = mv, r
-        luma = [_raster_to_scan(lv[4 * BLK_Y[blk] + BLK_X[blk]]) for blk in range(16)]
         return {"kind": "P16x16", "refs": [r],
                 "mvds": [(int(mv[0] - mvp[0]), int(mv[1] - mvp[1]))],
-                "cbp_l": cbp_l, "cbp_c": cbp_c, "qp_delta": 0,
-                "levels": {"luma": luma, **cs}}
+                "cbp_l": cbp_l, "cbp_c": cbp_c, "qp_delta": 0, "t8": t8,
+                "levels": {**luma, **cs}}
 
 
 def _shifted(plane, x0, y0, n):
@@ -1807,17 +2281,21 @@ def _mvp16(pic: Picture, mb: int, ref: int):
 
 
 def natural_stream(frames: list, qp: int = 28, refs: int = 2, gop: int = 0,
-                   search: int = 6, deblock_last: int = 0, entropy: str = "cavlc") -> tuple:
+                   search: int = 6, deblock_last: int = 0, entropy: str = "cavlc",
+                   high: bool = False) -> tuple:
     """(Sequence, [sample NAL lists]) coding ``frames`` (BGR uint8): an IDR,
     then P pictures each predicted from up to ``refs`` references by one
     global vector each (the even-pixel shift that best matches the
     reference's reconstruction). ``gop`` > 0 starts a new IDR every ``gop``
     pictures. The loop filter is off (the encoder reconstructs without it),
     but for the last ``deblock_last`` pictures: no picture references them,
-    so the filter changes no prediction. ``entropy`` picks the coder."""
+    so the filter changes no prediction. ``entropy`` picks the coder;
+    ``high`` codes at High profile (x264's defaults: the 8x8 transform and
+    Intra 8x8 on, flat scaling lists)."""
     h, w = frames[0].shape[:2]
-    seq = Sequence(w, h, max_refs=refs, qp=qp, num_ref_default=1, entropy=entropy)
-    enc = NaturalEncoder(qp)
+    extra = dict(sps_extra={"profile": 100}, pps_extra={"transform_8x8_mode": 1}) if high else {}
+    seq = Sequence(w, h, max_refs=refs, qp=qp, num_ref_default=1, entropy=entropy, **extra)
+    enc = NaturalEncoder(qp, high)
     recons, samples = [], []
     for k, f in enumerate(frames):
         idr = k == 0 or (gop and k % gop == 0)
@@ -1967,3 +2445,97 @@ CASES = {
                                            idr_every=12, p_every=1,
                                            seq_args={"log2_max_frame_num": 4}),
 }
+
+
+# High profile's tool mixes (tests/test_torch_h264_high.py): each CASES-like
+# mix with the 8x8 transform on (Intra 8x8 among the intra types, the flag
+# on every inter macroblock that may carry it) and a Cr QP offset apart from
+# Cb's, then each scaling-list case. ``high_case`` gives random_stream's
+# arguments.
+HIGH_WEIGHTS = {"I4": 2, "I8": 3, "I16": 2, "PCM": 0.3, "P16x16": 2, "P16x8": 2, "P8x16": 2,
+                "P8x8": 2, "P8x8ref0": 1, "SKIP": 2}
+HIGH_CASES = {
+    "intra_8x8": dict(width=64, height=48, pictures=3, weights={"I4": 2, "I8": 4, "I16": 2,
+                                                                   "PCM": 0.3}, slices=2),
+    "p_partitions_8x8": dict(width=96, height=64, pictures=6, max_refs=3,
+                             weights={"P16x16": 1, "P16x8": 1, "P8x16": 1, "P8x8": 3,
+                                      "P8x8ref0": 1, "I4": 0.5, "I8": 1, "I16": 0.5}),
+    "constrained_intra_8x8": dict(width=80, height=64, pictures=4, slices=2,
+                                  weights={"I4": 2, "I8": 6, "I16": 1, "PCM": 0.3, "P16x16": 2,
+                                           "P8x8": 1, "SKIP": 2},
+                                  seq_args={"constrained_intra": True}),
+    "slices_deblocking_8x8": dict(width=96, height=80, pictures=4, slices=5, deblock=DEBLOCKS),
+    "level_escapes_8x8": dict(width=64, height=48, pictures=3, big=0.5, qp_walk=1, slice_qp=4,
+                              seq_args={"qp": 4}),
+    "qp_51_8x8": dict(width=48, height=48, pictures=3, qp_walk=0, slice_qp=51,
+                      seq_args={"qp": 51}),
+}
+# the scaling-list cases: (SPS lists, PPS lists) as scaling_specs patterns,
+# or None for no lists
+SCALING_CASES_HIGH = {
+    "lists_default_by_flag": ("dddddddd", "dddddddd"),
+    "lists_explicit_sps": ("vavavava", None),
+    "lists_explicit_pps": (None, "vvvvavvv"),
+    "lists_pps_falls_back_to_sps": ("vvvvvvvv", "avavavav"),
+    "lists_pps_falls_back_to_sps_2": ("dvdvdvdv", "vavavava"),
+    "lists_pps_takes_sps": ("avavavav", None),
+}
+
+
+def high_case(name: str, seed: int = 0) -> dict:
+    """random_stream's arguments of a High case (HIGH_CASES or
+    SCALING_CASES_HIGH), the lists drawn from ``seed``."""
+    if name in HIGH_CASES:
+        args = {"weights": HIGH_WEIGHTS, **HIGH_CASES[name]}
+        sps, pps = None, None
+    else:
+        args = dict(width=64, height=48, pictures=4, max_refs=2, weights=HIGH_WEIGHTS,
+                    slice_qp=20)
+        sps, pps = SCALING_CASES_HIGH[name]
+    rng = np.random.default_rng([seed, 8])
+    sx = {"profile": 100}
+    px = {"transform_8x8_mode": 1, "second_chroma_qp_offset": 4}
+    if sps is not None:
+        sx["scaling_lists"] = scaling_specs(rng, sps)
+    if pps is not None:
+        px["scaling_lists"] = scaling_specs(rng, pps)
+    seq_args = dict(args.pop("seq_args", {}))
+    seq_args.update(sps_extra=sx, pps_extra=px, chroma_qp_offset=-2)
+    return {**args, "seq_args": seq_args}
+
+
+def high_coverage_expected(coders=("cavlc", "cabac")) -> set:
+    """What the High streams of both coders reach together: contexts
+    399-435 (transform_size_8x8_flag, ctxBlockCat 5's significance map and
+    levels) under each table with both bin values; every Intra 8x8 mode at
+    every 8x8 block position with each availability of its top-right
+    samples that can occur (block 0's from B, block 1's from C, block 2's
+    from block 1, block 3's never), and every availability of the top,
+    left and corner samples the reference filter reads; the 8x8 transform
+    in I_NxN and in every
+    inter macroblock type that may carry it; mixed 4x4/8x8 neighbours on
+    both sides for nC (CAVLC), coded_block_flag (CABAC, both cbp bits) and
+    Intra 8x8/4x4 mode prediction; the level escape of an 8x8 block; and
+    every scaling-list case of both parameter sets under both coders. The
+    field-coded contexts 436-459 are unreachable in frame coding."""
+    out = {("cabac", t, c, b) for t in CABAC_TAGS for c in range(399, 436) for b in (0, 1)}
+    top = (0, 3, 4, 5, 6, 7)  # the modes that read the row above
+    for m in range(9):
+        out |= {("intra8x8_at", m, 0, 1), ("intra8x8_at", m, 1, 0), ("intra8x8_at", m, 1, 1),
+                ("intra8x8_at", m, 2, 1), ("intra8x8_at", m, 3, 0)}
+        if m not in top:
+            out.add(("intra8x8_at", m, 0, 0))
+    out |= {("mb_type", "I8")} | {("transform_8x8", "P", k) for k in P_TYPES}
+    out |= {("nc_mixed", s, c, 1 - c) for s in "AB" for c in (0, 1)}
+    out |= {("cbf_from_8x8", s, b) for s in "AB" for b in (0, 1)}
+    out |= {("mode_pred_mixed", size, k, s) for s in "AB" for size, k in ((4, "I8"), (8, "I4"))}
+    out |= {("cabac_level_escape", 5), ("scaling_list_tail",)}
+    # the reference filter's availability cases (top, left, corner); the
+    # corner without the top sample needs constrained intra prediction
+    out |= {("intra8x8_refs", t, l, c) for t in (0, 1) for l in (0, 1) for c in (0, 1)}
+    for e in coders:
+        out |= {("scaling_list", e, "sps", i, c) for i in range(8) for c in SCALING_CASES}
+        out |= {("scaling_list", e, "pps", i, c) for i in range(8)
+                for c in ("values", "default", "absent_B")}
+        out |= {("scaling_list", e, "pps", 4, "absent_A"), ("scaling_matrix", e, "pps_takes_sps")}
+    return out

@@ -8,7 +8,7 @@ chip_smoke.py fixtures under tests/goldens/.
 
     python -m tests.torch_video tests/goldens   # rebuild the fixtures
     python -m tests.torch_video tests/goldens clip_div3.avi  # rebuild these alone
-    python -m tests.torch_video tests/goldens clip_h264_1080p_cabac.mp4 clip_h264_cabac_small.mp4
+    python -m tests.torch_video tests/goldens clip_h264_1080p_high.mp4 clip_h264_high_small.mp4
 
 cv2 is the oracle here and only here: the port reads no clip through it.
 """
@@ -40,11 +40,15 @@ FIXTURES = (("clip_1080p.mov", "MJPG", 30.0, 15, 1080, 1920),
 # type, 3 references with memory management operations and list
 # modifications, 3 slices with the three deblocking settings and offsets,
 # 120 x 72 cropped from 128 x 80; under CABAC also I_PCM first, mid-row and
-# last in every slice, each P slice drawing its cabac_init_idc). The 1080p
-# clip is coded at 1088 rows, cropped.
-H264_FIXTURES = (("clip_h264_1080p_cabac.mp4", 30, 15, 1080, 1920, "natural", "cabac"),
+# last in every slice, each P slice drawing its cabac_init_idc). "_high":
+# at High profile, the 8x8 transform and Intra 8x8 on: the natural clip
+# with flat lists (x264's default), the random mix with explicit SPS and PPS
+# scaling lists and a Cr QP offset apart from Cb's. The 1080p clip is coded
+# at 1088 rows, cropped.
+H264_FIXTURES = (("clip_h264_1080p_high.mp4", 30, 15, 1080, 1920, "natural_high", "cabac"),
                  ("clip_h264_small.mp4", 30, 12, 72, 120, "random", "cavlc"),
-                 ("clip_h264_cabac_small.mp4", 30, 12, 72, 120, "random", "cabac"))
+                 ("clip_h264_cabac_small.mp4", 30, 12, 72, 120, "random", "cabac"),
+                 ("clip_h264_high_small.mp4", 30, 12, 72, 120, "random_high", "cabac"))
 # an MS-MPEG-4 v3 clip ('DIV3' AVI, FFmpeg's msmpeg4v3): the codec refusal on the card
 REFUSED_FIXTURE = ("clip_div3.avi", "DIV3", 30.0, 3, 64, 96)
 ROTATION_MATRIX = {0: (1, 0, 0, 1), 90: (0, 1, -1, 0), 180: (-1, 0, 0, -1), 270: (0, -1, 1, 0)}
@@ -215,14 +219,23 @@ def write_h264(path: str, fps: int, n: int, h: int, w: int, mode: str, entropy: 
     no avcodec error or warning."""
     from tests import torch_h264 as H
 
-    if mode == "natural":
+    high = mode.endswith("_high")
+    if mode.startswith("natural"):
         seq, samples = H.natural_stream(scene(n, h, w, seed=seed), qp=35, refs=2,
-                                        deblock_last=3, entropy=entropy)
+                                        deblock_last=3, entropy=entropy, high=high)
     else:
+        extra = {}
+        if high:
+            rng = np.random.default_rng(seed)
+            extra = dict(weights=H.HIGH_WEIGHTS, seq_args=dict(
+                chroma_qp_offset=-2,
+                sps_extra={"profile": 100, "scaling_lists": H.scaling_specs(rng, "vdvavdva")},
+                pps_extra={"transform_8x8_mode": 1, "second_chroma_qp_offset": 3,
+                           "scaling_lists": H.scaling_specs(rng, "avvdvavv")}))
         seq, samples = H.random_stream(w, h, n, seed=seed, max_refs=3, mmco=True,
                                        modify=True, slices=3, deblock=H.DEBLOCKS,
                                        nonref=0.2, big=0.05, entropy=entropy,
-                                       pcm_places=entropy == "cabac")
+                                       pcm_places=entropy == "cabac", **extra)
     H.write_mp4(path, seq, samples, fps=fps)
     with tempfile.TemporaryDirectory() as tmp:
         (frames, logs), = H.cv2_read([path], tmp)
