@@ -113,13 +113,17 @@ Phases:
    1080p clip (DIS on the card; checks in its docstring);
 17. H.264 video (``run_h264``): the kernels h264_inter, h264_intra and
    h264_deblock (registers and spills printed) held against their plain
-   versions on the card at every picture of tests/goldens' three small H.264
-   clips (CAVLC, CABAC, High profile with scaling lists) and at the 1080p
-   High-profile clip's IDR and last two P pictures, and timed; the port's
-   decoder's frames of all four against cv2's recorded digests, decode time
-   a frame split into the host parse and the kernels; then
-   ``preproc_app.main --input`` the 1080p High clip (DIS on the card; the
-   launches as each picture's launch lists say; checks in its docstring).
+   versions on the card at every picture of tests/goldens' five small H.264
+   clips (CAVLC, CABAC, High profile with scaling lists, B slices with
+   explicit weights under each coder) and at the 1080p High-profile clip's
+   IDR, first weighted P picture, first B-ref, first non-reference B
+   picture and last two pictures, and timed; the port's decoder's frames of
+   all six, in output order, against cv2's recorded digests, decode time a
+   picture split into the host parse and the kernels; then
+   ``preproc_app.main --input`` the 1080p High clip (x264's default
+   structure: IBBP with a B-ref, weighted P, implicit bi-prediction; DIS on
+   the card; the stored frames in output order; the launches as each
+   picture's launch lists say; checks in its docstring).
 The main-path launch counts of phases 5, 6, 8, 9, 10, 13, 14, 15, 16 and 17
 go into the kernel JSON's ``launches``; the dis cases of phases 3 and 4 are
 phase 9's.
@@ -4217,8 +4221,8 @@ def run_mpeg4(results: list, card: str, tmp: str) -> dict:
 # and High profile in CABAC with SPS and PPS scaling lists), with each
 # one's entropy coder
 H264_CLIPS = ("clip_h264_1080p_high.mp4", "clip_h264_small.mp4", "clip_h264_cabac_small.mp4",
-              "clip_h264_high_small.mp4")
-H264_CODERS = {"clip_h264_small.mp4": "CAVLC"}  # the others CABAC
+              "clip_h264_high_small.mp4", "clip_h264_b_small.mp4", "clip_h264_b_cabac_small.mp4")
+H264_CODERS = {"clip_h264_small.mp4": "CAVLC", "clip_h264_b_small.mp4": "CAVLC"}  # the others CABAC
 H264_APP_FPS = 5  # the app's --fps on the 1080p clip: pictures 0, 6 and 12, 6 DIS calls
 H264_KERNELS = ("h264_inter", "h264_intra", "h264_deblock")
 
@@ -4226,18 +4230,44 @@ H264_KERNELS = ("h264_inter", "h264_intra", "h264_deblock")
 def h264_bytes(D, work, g) -> dict:
     """The bytes each kernel must move for one picture (each input read once,
     each output written once): h264_inter reads its macroblocks' records and
-    levels, the picture's LevelScale tables and the 384 reference samples
-    each predicts from, and writes 384 samples each; h264_intra reads its
-    records, levels, the tables and the 71 neighbour samples each predicts
+    levels, the picture's LevelScale tables and its slices' weight tables,
+    and the reference samples each 4x4 block predicts from in each list it
+    uses (16 luma and 2 x 4 chroma: both windows of a bi-predicted block),
+    and writes 384 samples a macroblock; h264_intra reads its records,
+    levels, the LevelScale tables and the 71 neighbour samples each predicts
     from (luma 16 + 16 + 1 + 4, chroma 2 x 17), and writes 384 each;
     h264_deblock reads its records and the 384 samples of each filtered
     macroblock and writes them."""
     rec, tables = D.FIELDS * 4, D.SCALES * 4
     rows = lambda mbi: int((work.mbs[mbi.long(), D.F_ROW] >= 0).sum()) * D.LEVELS * 2
     n_inter, n_intra, n_db = len(work.inter), len(work.intra), len(work.deblock)
-    return {"h264_inter": n_inter * (rec + 2 * 384) + rows(work.inter) + tables,
+    recs = work.mbs[work.inter.long()]
+    uses = sum(int((D._bytes16(recs, f) != D.UNUSED).sum()) for f in (D.F_REF, D.F_REF1))
+    return {"h264_inter": n_inter * (rec + 384) + 24 * uses + rows(work.inter) + tables
+            + work.weights.numel() * 4,
             "h264_intra": n_intra * (rec + 71 + 384) + rows(work.intra) + tables,
             "h264_deblock": n_db * (rec + 2 * 384)}
+
+
+def h264_kind(pic) -> str:
+    """A picture's kind as phase 17 prints it: IDR, I, P, B-ref or B."""
+    if pic.idr:
+        return "IDR"
+    if pic.types & 4:
+        return "B-ref" if pic.ref else "B"
+    return "P" if pic.types & 2 else "I"
+
+
+def h264_pictures(path: str) -> list:
+    """The kinds of a clip's pictures in decoding order (a headers-only
+    parse)."""
+    from moda_tpu_torch.preproc import h264 as D
+    from moda_tpu_torch.preproc import video as VI
+
+    clip = VI.open_video(path)
+    parser = D.Parser(clip.config)
+    return [h264_kind(p) for p in (clip.h264(parser, i, headers_only=True)
+                                   for i in range(len(clip))) if p is not None]
 
 
 def h264_held_to_plain(path: str, compare: set, time_at: dict, fail: list) -> dict:
@@ -4296,7 +4326,7 @@ def h264_held_to_plain(path: str, compare: set, time_at: dict, fail: list) -> di
                      "plain_ms": plain_ms if held else
                      cuda_time(lambda: (reset(), plain(scratch)), iters=1, warmup=0) - reset_ms,
                      "bytes": h264_bytes(D, w, g)[name], "mbs": n,
-                     "picture": i, "idr": pic.idr}
+                     "picture": i, "kind": h264_kind(pic)}
                 r["timing"][name] = t
                 del scratch
     torch.cuda.synchronize()
@@ -4320,18 +4350,20 @@ def run_h264(results: list, card: str, tmp: str) -> dict:
     (a) ptxas's registers and spills of the three kernels;
     (b) every kernel step against its plain version on the same inputs on
         the card (``h264_held_to_plain``: every byte equal) at every picture
-        of the three small goldens (tests/goldens, the writer's random tool
-        mixes: CAVLC, CABAC, High profile with scaling lists) and at the
-        1080p High golden's IDR and its
-        last two P pictures (with the loop filter on); h264_intra timed at
-        the IDR,
-        h264_inter and h264_deblock at the last P picture, each beside its
-        plain version and its bound (``h264_bytes`` at the card's rate; no
-        PyTorch call computes these functions: no library time);
+        of the five small goldens (tests/goldens, the writer's random tool
+        mixes: CAVLC, CABAC, High profile with scaling lists, B slices with
+        explicit weights in both coders) and at the 1080p High golden's IDR,
+        first weighted P picture, first B-ref, first non-reference B picture
+        and last two pictures (with the loop filter on); h264_intra timed at
+        the IDR, h264_inter at the first non-reference B picture and
+        h264_deblock at the last picture, each beside its plain version and
+        its bound (``h264_bytes`` at the card's rate; no PyTorch call
+        computes these functions: no library time);
         yuv420_to_bgr with the 1080p crop held against its plain version;
-    (c) ``H264Decoder.decode`` over every sample of the four goldens: each
-        frame's SHA-256 against cv2.VideoCapture's recorded one, the decode
-        time a frame (host clock to a sync) split into the host parse
+    (c) ``H264Decoder.decode`` over every sample of the six goldens, then
+        its ``flush``: each frame in output order, its SHA-256 against
+        cv2.VideoCapture's recorded one, the decode time a picture (host
+        clock to a sync) split into the host parse
         (``Parser.parse``, host clock; CABAC's or CAVLC's, as the golden's
         PPS says) and each kernel's device time (events around each wrapper
         call);
@@ -4370,18 +4402,22 @@ def run_h264(results: list, card: str, tmp: str) -> dict:
     for line in out["ptxas"]:
         print(f"[h264] {line}", flush=True)
 
-    # (b) the kernels against their plain versions, then timed
+    # (b) the kernels against their plain versions, then timed: at the 1080p
+    # clip's IDR, first weighted P picture, first B-ref and first
+    # non-reference B picture, and its last two pictures (the loop filter on)
     big, *smalls = (os.path.join(GOLDENS, n) for n in H264_CLIPS)
-    n_big = recorded[H264_CLIPS[0]]["frames"]
-    last = n_big - 1
-    held_big = h264_held_to_plain(big, {0, last - 1, last},
-                                  {0: ("h264_intra",), last: ("h264_inter", "h264_deblock")},
-                                  fail)
+    kinds = h264_pictures(big)
+    last = len(kinds) - 1
+    first = {k: kinds.index(k) for k in ("P", "B-ref", "B")}
+    print(f"[h264] 1080p clip in decoding order: {' '.join(kinds)}", flush=True)
+    held_big = h264_held_to_plain(big, {0, *first.values(), last - 1, last},
+                                  {0: ("h264_intra",), first["B"]: ("h264_inter",),
+                                   last: ("h264_deblock",)}, fail)
     held_small = [h264_held_to_plain(p, None, {}, fail) for p in smalls]
     timing = held_big["timing"]
     for k in H264_KERNELS:
         t = timing[k]
-        print(f"[h264] 1080p picture {t['picture']} ({'IDR' if t['idr'] else 'P'}, {t['mbs']} "
+        print(f"[h264] 1080p picture {t['picture']} ({t['kind']}, {t['mbs']} "
               f"macroblocks): {k} {t['ms']:.4f} ms (plain {t['plain_ms']:.2f} ms, bound "
               f"{t['bytes'] / PEAK_BYTES * 1e3:.4f} ms by {t['bytes'] / 1e6:.2f} MB) ({card})",
               flush=True)
@@ -4438,22 +4474,23 @@ def run_h264(results: list, card: str, tmp: str) -> dict:
                        (D, "deblock", evented(D.deblock, "h264_deblock")),
                        (M, "yuv420_to_bgr", evented(M.yuv420_to_bgr, "yuv420_to_bgr")),
                        (D.Parser, "parse", timed_parse)]):
-            for i in range(len(clip)):
+            for i in range(len(clip) + 1):  # every sample, then the flush
                 t0 = time.perf_counter()
-                bgr = dec.decode(clip.sample(i))
+                bgrs = [dec.decode(clip.sample(i))] if i < len(clip) else dec.flush()
                 torch.cuda.synchronize()
                 wall += time.perf_counter() - t0
-                digests.append(hashlib.sha256(bgr.cpu().numpy().tobytes()).hexdigest())
+                digests += [hashlib.sha256(bgr.cpu().numpy().tobytes()).hexdigest()
+                            for bgr in bgrs if bgr is not None]
         n, ref = len(clip), recorded[name]["all_pixels_sha256"]
         dev = {k: sum(s.elapsed_time(e) for kk, s, e in events if kk == k) / n
                for k in H264_KERNELS + ("yuv420_to_bgr",)}
         if digests != ref:
-            fail.append(f"{name}: {sum(a != b for a, b in zip(digests, ref))} of {n} decoded "
-                        "frames differ from cv2's")
+            fail.append(f"{name}: {sum(a != b for a, b in zip(digests, ref))} of {len(ref)} "
+                        f"frames differ from cv2's ({len(digests)} decoded)")
         d = {"frames": n, "ms": wall / n * 1e3, "parse_ms": sum(parses) / n * 1e3,
              "device_ms": dev}
         out["decode"][name] = d
-        print(f"[h264] {name}: {n} frames decoded on the card, digests "
+        print(f"[h264] {name}: {n} pictures decoded on the card, in output order digests "
               f"{'equal' if digests == ref else 'DIFFER from'} cv2's; {d['ms']:.2f} ms a frame "
               f"(host clock to a sync): host parse ({H264_CODERS.get(name, 'CABAC')}) "
               f"{d['parse_ms']:.2f} ms, device "

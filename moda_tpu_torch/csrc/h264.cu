@@ -10,8 +10,9 @@
 // A picture runs them in this order, since intra prediction reads the
 // unfiltered picture:
 //
-// h264_inter: every P and skipped macroblock of the picture in one launch,
-// one CTA a macroblock, 384 threads (256 luma samples, 64 Cb, 64 Cr). The
+// h264_inter: every P, B and skipped macroblock of the picture in one
+// launch, one CTA a macroblock, 384 threads (256 luma samples, 64 Cb, 64
+// Cr). The
 // CTA dequantises its levels by the picture's LevelScale tables (its
 // scaling matrices times normAdjust by qP % 6, 8.5.9: one int32 table a
 // picture from the host parse, read through the cache; the intra lists for
@@ -23,13 +24,15 @@
 // with transform_size_8x8_flag, the luma 8x8 one 32 threads a pass (4
 // blocks x 8 rows, then x 8 columns; the odd terms' shifts by 1 and 2 inside
 // each pass, (x + 32) >> 6 after both), chroma staying 4x4. Then each
-// thread predicts its sample from the reference slot its 4x4 block names:
-// luma by
-// the 6-tap half-sample filter (the centre from the unrounded
-// intermediates) and the quarter-sample averages, chroma by the 1/8-sample
-// bilinear, coordinates clamped to the coded picture; and writes the clipped
-// sum. The reference slots are other frames of the buffer than the one
-// written.
+// thread predicts its sample from each list its 4x4 block uses (a vector
+// and a reference slot a list): luma by the 6-tap half-sample filter (the
+// centre from the unrounded intermediates) and the quarter-sample
+// averages, chroma by the 1/8-sample bilinear, coordinates clamped to the
+// coded picture; combines the two (or weights the one) as its slice's
+// weight table says, in 8.4.2.3's integers (the default average, explicit
+// weights and offsets by ref_idx, implicit weights by the ref_idx pair),
+// clipped; and writes the clipped sum with the residual. The reference
+// slots are other frames of the buffer than the one written.
 //
 // h264_intra: the intra macroblocks, one launch a wavefront x + 2y (a
 // macroblock needs its left, top-left, top and top-right neighbours done),
@@ -66,8 +69,14 @@ enum { K_I4 = 0, K_I8 = 1, K_I16 = 2, K_PCM = 3, K_P = 4, K_SKIP = 5 };
 enum {
   F_KIND = 0, F_QP = 1, F_CQP0 = 2, F_CQP1 = 3, F_M16 = 4, F_MC = 5, F_AVAIL = 6, F_ROW = 7,
   F_MODES = 8, F_BS = 10, F_ALPHA = 18, F_BETA = 19, F_MV = 20, F_REF = 36, F_T8 = 40,
-  FIELDS = 41
+  F_MV1 = 41, F_REF1 = 57, F_RIDX = 61, F_RIDX1 = 65, F_SLICE = 69, FIELDS = 70
 };
+// a slice's weight table (preproc/h264.py W_*): mode (0 default, 1
+// explicit, 2 implicit), logWD of luma and chroma, the explicit
+// [list][ref_idx][Y, Cb, Cr][w, o], the implicit w0 [refIdxL0][refIdxL1]
+enum { W_MODE = 0, W_LOGWD = 1, W_EXPLICIT = 3, W_IMPLICIT = 3 + 2 * 32 * 3 * 2,
+       WT = W_IMPLICIT + 32 * 32 };
+constexpr int UNUSED = 0xFF;
 constexpr int L_DC = 256, L_CDC = 272, L_CAC = 280, LEVELS = 408;
 // the LevelScale tables: [6 lists][qP % 6][16], then [2 lists][qP % 6][64]
 constexpr int S_8X8 = 6 * 6 * 16;
@@ -259,10 +268,57 @@ __device__ __forceinline__ int tap6(int a, int b, int c, int d, int e, int f) {
   return a - 5 * b + 20 * c + 20 * d - 5 * e + f;
 }
 
+// sample t's prediction (t < 256 luma raster, else Cb, Cr) of macroblock
+// (mx, my) from the frame ``pr`` by vector (vx, vy)
+__device__ int predict(const Planes& pr, int mx, int my, int t, int vx, int vy) {
+  if (t < 256) {
+    const int xi = 16 * mx + (t & 15) + (vx >> 2), yi = 16 * my + (t >> 4) + (vy >> 2);
+    int w[6][6];
+    for (int r = 0; r < 6; ++r) {
+      const int yy = clip3(0, pr.lh - 1, yi + r - 2);
+      for (int c = 0; c < 6; ++c) w[r][c] = pr.y[(long)yy * pr.lw + clip3(0, pr.lw - 1, xi + c - 2)];
+    }
+    int b1[6], h1[6];
+    for (int r = 0; r < 6; ++r) b1[r] = tap6(w[r][0], w[r][1], w[r][2], w[r][3], w[r][4], w[r][5]);
+    for (int c = 0; c < 6; ++c) h1[c] = tap6(w[0][c], w[1][c], w[2][c], w[3][c], w[4][c], w[5][c]);
+    const int G = w[2][2], H = w[2][3], M = w[3][2];
+    const int b = clip255((b1[2] + 16) >> 5), s = clip255((b1[3] + 16) >> 5);
+    const int h = clip255((h1[2] + 16) >> 5), m = clip255((h1[3] + 16) >> 5);
+    const int j = clip255((tap6(b1[0], b1[1], b1[2], b1[3], b1[4], b1[5]) + 512) >> 10);
+    switch (4 * (vy & 3) + (vx & 3)) {
+      case 0: return G;
+      case 1: return (G + b + 1) >> 1;
+      case 2: return b;
+      case 3: return (b + H + 1) >> 1;
+      case 4: return (G + h + 1) >> 1;
+      case 5: return (b + h + 1) >> 1;
+      case 6: return (b + j + 1) >> 1;
+      case 7: return (b + m + 1) >> 1;
+      case 8: return h;
+      case 9: return (h + j + 1) >> 1;
+      case 10: return j;
+      case 11: return (j + m + 1) >> 1;
+      case 12: return (h + M + 1) >> 1;
+      case 13: return (h + s + 1) >> 1;
+      case 14: return (j + s + 1) >> 1;
+      default: return (m + s + 1) >> 1;
+    }
+  }
+  const int c = (t - 256) >> 6, q = (t - 256) & 63;
+  const uint8_t* P = c ? pr.v : pr.u;
+  const int x0 = 8 * mx + (q & 7) + (vx >> 3), y0 = 8 * my + (q >> 3) + (vy >> 3);
+  const int fx = vx & 7, fy = vy & 7;
+  const int xa = clip3(0, pr.cw - 1, x0), xb = clip3(0, pr.cw - 1, x0 + 1);
+  const int ya = clip3(0, pr.ch - 1, y0), yb = clip3(0, pr.ch - 1, y0 + 1);
+  return ((8 - fx) * (8 - fy) * P[(long)ya * pr.cw + xa] + fx * (8 - fy) * P[(long)ya * pr.cw + xb] +
+          (8 - fx) * fy * P[(long)yb * pr.cw + xa] + fx * fy * P[(long)yb * pr.cw + xb] + 32) >> 6;
+}
+
 __global__ void __launch_bounds__(384) h264_inter_kernel(uint8_t* __restrict__ dpb, long frame_bytes,
                                                          int slot, const int32_t* __restrict__ mbs,
                                                          const int16_t* __restrict__ levels,
                                                          const int32_t* __restrict__ scales,
+                                                         const int32_t* __restrict__ weights,
                                                          const int32_t* __restrict__ list,
                                                          int mb_w, int mb_h) {
   __shared__ int rec[FIELDS];
@@ -281,52 +337,41 @@ __global__ void __launch_bounds__(384) h264_inter_kernel(uint8_t* __restrict__ d
     const int q = (t - 256) & 63;
     blk = kBlkAt[q >> 4][(q & 7) >> 1];
   }
-  const int packed = rec[F_MV + blk];
-  const int vx = (int)(int16_t)(packed & 0xFFFF), vy = packed >> 16;
-  const int ref = (rec[F_REF + (blk >> 2)] >> (8 * (blk & 3))) & 0xFF;
-  const Planes pr = planes(dpb + (long)ref * frame_bytes, mb_w, mb_h);
-  int pred;
-  if (t < 256) {
-    const int xi = 16 * mx + (t & 15) + (vx >> 2), yi = 16 * my + (t >> 4) + (vy >> 2);
-    int w[6][6];
-    for (int r = 0; r < 6; ++r) {
-      const int yy = clip3(0, pr.lh - 1, yi + r - 2);
-      for (int c = 0; c < 6; ++c) w[r][c] = pr.y[(long)yy * pr.lw + clip3(0, pr.lw - 1, xi + c - 2)];
+  const int comp = t < 256 ? 0 : 1 + ((t - 256) >> 6);
+  int p[2], ref[2], used[2];
+  for (int l = 0; l < 2; ++l) {
+    const int sl = (rec[(l ? F_REF1 : F_REF) + (blk >> 2)] >> (8 * (blk & 3))) & 0xFF;
+    ref[l] = (rec[(l ? F_RIDX1 : F_RIDX) + (blk >> 2)] >> (8 * (blk & 3))) & 31;
+    used[l] = sl != UNUSED;
+    p[l] = 0;
+    if (used[l]) {
+      const int packed = rec[(l ? F_MV1 : F_MV) + blk];
+      p[l] = predict(planes(dpb + (long)sl * frame_bytes, mb_w, mb_h), mx, my, t,
+                     (int)(int16_t)(packed & 0xFFFF), packed >> 16);
     }
-    int b1[6], h1[6];
-    for (int r = 0; r < 6; ++r) b1[r] = tap6(w[r][0], w[r][1], w[r][2], w[r][3], w[r][4], w[r][5]);
-    for (int c = 0; c < 6; ++c) h1[c] = tap6(w[0][c], w[1][c], w[2][c], w[3][c], w[4][c], w[5][c]);
-    const int G = w[2][2], H = w[2][3], M = w[3][2];
-    const int b = clip255((b1[2] + 16) >> 5), s = clip255((b1[3] + 16) >> 5);
-    const int h = clip255((h1[2] + 16) >> 5), m = clip255((h1[3] + 16) >> 5);
-    const int j = clip255((tap6(b1[0], b1[1], b1[2], b1[3], b1[4], b1[5]) + 512) >> 10);
-    switch (4 * (vy & 3) + (vx & 3)) {
-      case 0: pred = G; break;
-      case 1: pred = (G + b + 1) >> 1; break;
-      case 2: pred = b; break;
-      case 3: pred = (b + H + 1) >> 1; break;
-      case 4: pred = (G + h + 1) >> 1; break;
-      case 5: pred = (b + h + 1) >> 1; break;
-      case 6: pred = (b + j + 1) >> 1; break;
-      case 7: pred = (b + m + 1) >> 1; break;
-      case 8: pred = h; break;
-      case 9: pred = (h + j + 1) >> 1; break;
-      case 10: pred = j; break;
-      case 11: pred = (j + m + 1) >> 1; break;
-      case 12: pred = (h + M + 1) >> 1; break;
-      case 13: pred = (h + s + 1) >> 1; break;
-      case 14: pred = (j + s + 1) >> 1; break;
-      default: pred = (m + s + 1) >> 1; break;
+  }
+  // 8.4.2.3: the weighted sample prediction
+  const int32_t* wt = weights + (long)rec[F_SLICE] * WT;
+  const int mode = wt[W_MODE], lw = wt[W_LOGWD + (comp > 0)];
+  auto w_of = [&](int l, int k) { return wt[W_EXPLICIT + ((32 * l + ref[l]) * 3 + comp) * 2 + k]; };
+  int pred;
+  if (used[0] && used[1]) {
+    if (mode == 0) {
+      pred = (p[0] + p[1] + 1) >> 1;
+    } else if (mode == 1) {
+      pred = clip255(((p[0] * w_of(0, 0) + p[1] * w_of(1, 0) + (1 << lw)) >> (lw + 1)) +
+                     ((w_of(0, 1) + w_of(1, 1) + 1) >> 1));
+    } else {
+      const int w0 = wt[W_IMPLICIT + 32 * ref[0] + ref[1]];
+      pred = clip255((p[0] * w0 + p[1] * (64 - w0) + 32) >> 6);
     }
   } else {
-    const int c = (t - 256) >> 6, q = (t - 256) & 63;
-    const uint8_t* P = c ? pr.v : pr.u;
-    const int x0 = 8 * mx + (q & 7) + (vx >> 3), y0 = 8 * my + (q >> 3) + (vy >> 3);
-    const int fx = vx & 7, fy = vy & 7;
-    const int xa = clip3(0, pr.cw - 1, x0), xb = clip3(0, pr.cw - 1, x0 + 1);
-    const int ya = clip3(0, pr.ch - 1, y0), yb = clip3(0, pr.ch - 1, y0 + 1);
-    pred = ((8 - fx) * (8 - fy) * P[(long)ya * pr.cw + xa] + fx * (8 - fy) * P[(long)ya * pr.cw + xb] +
-            (8 - fx) * fy * P[(long)yb * pr.cw + xa] + fx * fy * P[(long)yb * pr.cw + xb] + 32) >> 6;
+    const int l = used[0] ? 0 : 1;
+    pred = p[l];
+    if (mode == 1) {
+      const int w = w_of(l, 0), o = w_of(l, 1);
+      pred = clip255(lw > 0 ? ((pred * w + (1 << (lw - 1))) >> lw) + o : pred * w + o);
+    }
   }
   out[offset_of(po, mx, my, t)] = (uint8_t)clip255(pred + res_at(d, t, rec[F_T8]));
 }
@@ -646,18 +691,21 @@ __global__ void __launch_bounds__(32) h264_deblock_kernel(uint8_t* __restrict__ 
 
 }  // namespace
 
-// The P and skipped macroblocks ``list`` [n] of the picture in slot
+// The P, B and skipped macroblocks ``list`` [n] of the picture in slot
 // ``slot`` of ``dpb`` ([slots, frame_bytes] uint8): ``mbs`` int32
-// [mb_w mb_h, 41] records, ``levels`` int16 [rows, 408], ``scales`` int32
-// [1344] the picture's LevelScale tables.
+// [mb_w mb_h, 70] records, ``levels`` int16 [rows, 408], ``scales`` int32
+// [1344] the picture's LevelScale tables, ``weights`` int32 [slices, 1411]
+// its slices' weight tables.
 extern "C" int moda_h264_inter(uint8_t* dpb, int64_t frame_bytes, int slot, const int32_t* mbs,
-                               const int16_t* levels, const int32_t* scales, const int32_t* list,
-                               int n, int mb_w, int mb_h, cudaStream_t stream) {
-  if (n < 0 || mb_w < 1 || mb_h < 1 || slot < 0 || !dpb || !mbs || !scales)
+                               const int16_t* levels, const int32_t* scales,
+                               const int32_t* weights, int slices, const int32_t* list, int n,
+                               int mb_w, int mb_h, cudaStream_t stream) {
+  if (n < 0 || mb_w < 1 || mb_h < 1 || slot < 0 || !dpb || !mbs || !scales || !weights ||
+      slices < 1)
     return (int)cudaErrorInvalidValue;
   if (n == 0) return 0;
-  h264_inter_kernel<<<n, 384, 0, stream>>>(dpb, frame_bytes, slot, mbs, levels, scales, list,
-                                           mb_w, mb_h);
+  h264_inter_kernel<<<n, 384, 0, stream>>>(dpb, frame_bytes, slot, mbs, levels, scales, weights,
+                                           list, mb_w, mb_h);
   return (int)cudaGetLastError();
 }
 

@@ -121,6 +121,12 @@ def _declare(name: str, lib):
         lib.h264_cabac_tables.argtypes = [ctypes.POINTER(ctypes.c_int8), u8p, u8p]
         lib.h264_scales.restype = None
         lib.h264_scales.argtypes = [vp, i32p]
+        lib.h264_weights.restype = ctypes.c_int
+        lib.h264_weights.argtypes = [vp, i32p]
+        lib.h264_set_delay.restype = None
+        lib.h264_set_delay.argtypes = [vp, ctypes.c_int]
+        lib.h264_flush.restype = ctypes.c_int
+        lib.h264_flush.argtypes = [vp, i32p, ctypes.c_int]
         lib.h264_high_tables.restype = None
         lib.h264_high_tables.argtypes = [u8p] * 6
     else:

@@ -1,26 +1,29 @@
 """H.264 (ISO/IEC 14496-10) video on the card: what FFmpeg's h264 decoder
 and swscale give cv2.VideoCapture for progressive 8-bit 4:2:0 streams with
-CAVLC or CABAC and I and P slices (the tool set of the Baseline profile, and
-of the Main and High profiles without B slices or weighted prediction: High
-profile's 8x8 transform, Intra 8x8 prediction and scaling matrices
-included), bit for bit. Weighted prediction, B slices and the other tools
-native/h264.cpp names are refused.
+CAVLC or CABAC and I, P and B slices (the tool set of the Baseline, Main and
+High profiles in frame coding: B slices with spatial and temporal direct
+prediction, weighted prediction explicit and implicit, High profile's 8x8
+transform, Intra 8x8 prediction and scaling matrices), bit for bit, in
+FFmpeg's output order. The other tools native/h264.cpp names are refused.
 
 A sample (an access unit) goes through three steps:
 - the host parse (``native/h264.cpp``, through ctypes): parameter sets,
   slice headers, order counts, the decoded picture buffer's marking and
   lists, the macroblock layer (CAVLC or CABAC, as the PPS says), motion
-  vector and intra mode prediction and the loop filter's boundary
-  strengths, into one record a
-  macroblock (``mbs``, fields ``F_*``), the levels of each macroblock
-  with a residual (``levels``, layout ``L_*``) and the picture's LevelScale
-  tables (``scales``, layout at ``SCALES``: its scaling matrices times
-  normAdjust);
+  vector prediction (direct prediction included), intra mode prediction
+  and the loop filter's boundary strengths, into one record a macroblock
+  (``mbs``, fields ``F_*``), the levels of each macroblock with a residual
+  (``levels``, layout ``L_*``), the picture's LevelScale tables
+  (``scales``, layout at ``SCALES``: its scaling matrices times
+  normAdjust) and one weighted prediction table a slice (``weights``,
+  layout ``W_*``); and FFmpeg's output order: which picture leaves the
+  reorder buffer after this one;
 - one copy of those arrays, with the picture's launch lists, to the device;
 - three kernels of ``csrc/h264.cu``, in this order, since intra prediction
-  reads unfiltered neighbours: ``h264_inter`` (every P and skipped
+  reads unfiltered neighbours: ``h264_inter`` (every P, B and skipped
   macroblock at once: the 6-tap luma and bilinear chroma prediction from
-  the reference slots, the residual), ``h264_intra`` (the intra
+  the reference slots of one or both lists, combined as the slice's weight
+  table says, the residual), ``h264_intra`` (the intra
   macroblocks, one launch a wavefront x + 2y of macroblocks) and
   ``h264_deblock`` (the loop filter, one launch a wavefront); then
   preproc/m4v.py's ``yuv420_to_bgr`` for a picture that is kept.
@@ -48,12 +51,26 @@ import torch
 
 from moda_tpu_torch.preproc import m4v as M
 
-# macroblock kinds (intra ones first) and the fields of a record
+# macroblock kinds (intra ones first; K_P a coded inter macroblock of a P or
+# B slice, K_SKIP P_Skip or B_Skip) and the fields of a record
 # (native/h264.cpp): F_MODES a 4x4 block's intra mode a nibble (an Intra 8x8
-# block's over its four 4x4 blocks), F_T8 transform_size_8x8_flag
+# block's over its four 4x4 blocks), F_T8 transform_size_8x8_flag; per 4x4
+# block F_MV/F_MV1 the list 0/1 vector (x low 16 bits, y high), F_REF/F_REF1
+# the slot it predicts from (a byte a block, 0xFF: the list is not used),
+# F_RIDX/F_RIDX1 its ref_idx (a byte a block), F_SLICE the slice whose
+# weight table they index
 K_I4, K_I8, K_I16, K_PCM, K_P, K_SKIP = range(6)
 F_KIND, F_QP, F_CQP0, F_CQP1, F_M16, F_MC, F_AVAIL, F_ROW = range(8)
-F_MODES, F_BS, F_ALPHA, F_BETA, F_MV, F_REF, F_T8, FIELDS = 8, 10, 18, 19, 20, 36, 40, 41
+F_MODES, F_BS, F_ALPHA, F_BETA, F_MV, F_REF, F_T8 = 8, 10, 18, 19, 20, 36, 40
+F_MV1, F_REF1, F_RIDX, F_RIDX1, F_SLICE, FIELDS = 41, 57, 61, 65, 69, 70
+# a slice's weighted prediction table (8.4.2.3): W_MODE 0 the default
+# average, 1 explicit, 2 implicit; logWD of luma, then chroma; the explicit
+# weight and offset [list][ref_idx][Y, Cb, Cr][w, o]; the implicit w0
+# [refIdxL0][refIdxL1] (w1 = 64 - w0, logWD 5, no offsets)
+W_MODE, W_LOGWD, W_EXPLICIT = 0, 1, 3
+W_IMPLICIT = W_EXPLICIT + 2 * 32 * 3 * 2
+WT = W_IMPLICIT + 32 * 32
+UNUSED = 0xFF  # a list's slot byte where the block does not use it
 # a macroblock's row of levels: 16 luma blocks (raster in each; with the
 # 8x8 transform four 8x8 blocks of 64, raster in each), the Intra16x16 DC
 # (raster over the blocks), chroma DC (Cb, Cr), chroma AC (Cb, Cr; 4 blocks
@@ -83,8 +100,10 @@ TC0 = [[0, 0, 0]] * 17 + [
 # v -> G, v -> R) of the colour matrices the parser passes: BT.601, BT.709
 COEFFS = ((M.UB_MUL, M.UG_MUL, M.VG_MUL, M.VR_MUL), (17305, -1747, -4366, 14686))
 
-# macroblocks a step of inter_plain (its windows take ~10 kB a macroblock)
+# macroblocks a step of inter_plain (its windows take ~10 kB a macroblock a
+# list)
 INTER_CHUNK = 2048
+MAX_SLOTS = 33  # native/h264.cpp's decoded picture buffer at its largest
 # launches of each kernel through its wrapper since the last reset
 launches = {"h264_inter": 0, "h264_intra": 0, "h264_deblock": 0}
 
@@ -104,7 +123,7 @@ class Geometry:
     height: int
     left: int
     top: int
-    slots: int
+    slots: int           # references, the current picture, pictures waiting for output
     matrix: int
 
     @property
@@ -135,10 +154,12 @@ class Picture:
     frame_num: int
     ref: bool
     slices: int
-    types: int           # 1: an I slice, 2: a P slice
+    types: int           # 1: an I slice, 2: a P slice, 4: a B slice
+    out: int = -1        # the slot of the picture output after this one (-1: none)
     mbs: Optional[np.ndarray] = None     # int32 [nmb, FIELDS]
     levels: Optional[np.ndarray] = None  # int16 [rows, LEVELS]
     scales: Optional[np.ndarray] = None  # int32 [SCALES]
+    weights: Optional[np.ndarray] = None  # int32 [slices, WT]
 
 
 class Parser:
@@ -188,13 +209,27 @@ class Parser:
         self._update_geometry()
         if pic[0] < 0:
             return None
-        scales = None
+        scales = weights = None
         if mbs is not None:
             scales = np.empty(SCALES, np.int32)
             self._lib.h264_scales(self._h, scales.ctypes.data_as(i32p))
+            weights = np.empty((int(pic[5]), WT), np.int32)
+            self._lib.h264_weights(self._h, weights.ctypes.data_as(i32p))
         return Picture(int(pic[0]), bool(pic[1]), int(pic[2]), int(pic[3]), bool(pic[4]),
-                       int(pic[5]), int(pic[6]), mbs, None if levels is None else levels[:rows],
-                       scales)
+                       int(pic[5]), int(pic[6]), int(pic[7]), mbs,
+                       None if levels is None else levels[:rows], scales, weights)
+
+    def set_delay(self, delay: int) -> None:
+        """The reorder delay to start from (before the first picture)."""
+        self._lib.h264_set_delay(self._h, int(delay))
+
+    def flush(self) -> list:
+        """The end of the stream: the slots of the pictures still waiting
+        for output, in output order."""
+        out = np.zeros(MAX_SLOTS, np.int32)
+        n = self._lib.h264_flush(self._h, out.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)),
+                                 len(out))
+        return out[:n].tolist()
 
     def _peek_geometry(self, data: bytes) -> Optional[Geometry]:
         """The geometry before the first picture, from the SPS its first
@@ -432,14 +467,21 @@ def _clip(x: torch.Tensor) -> torch.Tensor:
     return x.clamp(0, 255)
 
 
-def _unpack_mv(rec: torch.Tensor):
-    """(mvx, mvy, slot) [n, 16] of each 4x4 block."""
-    v = rec[:, F_MV:F_MV + 16]
+def _bytes16(rec: torch.Tensor, f: int) -> torch.Tensor:
+    """The 16 bytes (one a 4x4 block) of fields f..f + 3, [n, 16]."""
+    r = rec[:, f:f + 4]
+    return torch.stack([(r >> (8 * k)) & 0xFF for k in range(4)], -1).reshape(len(rec), 16)
+
+
+def _unpack_mv(rec: torch.Tensor, lst: int = 0):
+    """(mvx, mvy, slot, ref_idx) [n, 16] of each 4x4 block in list ``lst``
+    (slot UNUSED where the block does not use the list)."""
+    f = F_MV1 if lst else F_MV
+    v = rec[:, f:f + 16]
     mx = ((v & 0xFFFF) ^ 0x8000) - 0x8000
     my = v >> 16
-    r = rec[:, F_REF:F_REF + 4]
-    slot = torch.stack([(r >> (8 * k)) & 0xFF for k in range(4)], -1).reshape(len(rec), 16)
-    return mx, my, slot
+    return (mx, my, _bytes16(rec, F_REF1 if lst else F_REF),
+            _bytes16(rec, F_RIDX1 if lst else F_RIDX))
 
 
 TAPS = (1, -5, 20, 20, -5, 1)
@@ -469,12 +511,12 @@ def _half_planes(Y: torch.Tensor):
     return b1, h1, j1
 
 
-def _inter_pred(dpb: torch.Tensor, rec: torch.Tensor, mbi: torch.Tensor, g: Geometry):
-    """The inter prediction of macroblocks ``mbi`` [n] with records ``rec``:
-    int32 [n, 384]."""
-    dev = rec.device
+def _inter_pred(dpb: torch.Tensor, mx: torch.Tensor, my: torch.Tensor, slot: torch.Tensor,
+                mbi: torch.Tensor, g: Geometry):
+    """The prediction of macroblocks ``mbi`` [n] from one list: each 4x4
+    block's vector (``mx``, ``my``) and slot [n, 16]: int32 [n, 384]."""
+    dev = mx.device
     W, H = 16 * g.mb_w, 16 * g.mb_h
-    mx, my, slot = _unpack_mv(rec)
     frames = dpb.view(-1)
     fb = g.frame_bytes
     mbx, mby = (mbi % g.mb_w)[:, None], (mbi // g.mb_w)[:, None]
@@ -537,16 +579,72 @@ def _mb_offsets(mbi: torch.Tensor, g: Geometry) -> torch.Tensor:
     return torch.cat([luma, g.luma + ch, g.luma + g.luma // 4 + ch], 1)
 
 
+# each sample's 4x4 block (luma, Cb, Cr) and plane (0 Y, 1 Cb, 2 Cr)
+SAMPLE_BLK = LUMA_BLK + CHROMA_BLK * 2
+SAMPLE_COMP = [0] * 256 + [1] * 64 + [2] * 64
+
+
+def weighted(p0: torch.Tensor, p1: torch.Tensor, use0: torch.Tensor, use1: torch.Tensor,
+             r0: torch.Tensor, r1: torch.Tensor, comp: torch.Tensor,
+             wt: torch.Tensor) -> torch.Tensor:
+    """8.4.2.3's weighted sample prediction of samples [n, m] from their
+    list 0 and list 1 predictions ``p0``, ``p1`` (where ``use0``/``use1``),
+    ref_idx ``r0``, ``r1``, plane ``comp`` (0 Y, 1 Cb, 2 Cr) and their
+    slice's weight table ``wt`` [n, WT] (W_*), in integers: the default
+    (a + b + 1) >> 1; explicit and implicit bi-prediction ((a w0 + b w1 +
+    2^logWD) >> (logWD + 1)) + ((o0 + o1 + 1) >> 1); explicit one-list
+    ((a w + 2^(logWD - 1)) >> logWD) + o (a w + o at logWD 0); each
+    clipped. A one-list block is not weighted in the default and implicit
+    modes."""
+    r0, r1 = r0 & 31, r1 & 31
+    at = lambda idx: wt.gather(1, idx.long())
+    mode = wt[:, W_MODE:W_MODE + 1]
+    lw = at(W_LOGWD + (comp > 0).int().expand_as(r0))
+    ex = lambda lst, r, k: at(W_EXPLICIT + ((32 * lst + r) * 3 + comp) * 2 + k)
+    w0, o0, w1, o1 = ex(0, r0, 0), ex(0, r0, 1), ex(1, r1, 0), ex(1, r1, 1)
+    one = torch.ones_like(lw)
+    ebi = ((p0 * w0 + p1 * w1 + (one << lw)) >> (lw + 1)) + ((o0 + o1 + 1) >> 1)
+    iw0 = at(W_IMPLICIT + 32 * r0 + r1)
+    ibi = (p0 * iw0 + p1 * (64 - iw0) + 32) >> 6
+    bi = torch.where(mode == 0, (p0 + p1 + 1) >> 1, torch.where(mode == 1, ebi, ibi))
+    pu = torch.where(use0, p0, p1)
+    wu, ou = torch.where(use0, w0, w1), torch.where(use0, o0, o1)
+    eu = torch.where(lw > 0, ((pu * wu + (one << (lw - 1).clamp(min=0))) >> lw) + ou,
+                     pu * wu + ou)
+    uni = torch.where(mode == 1, eu, pu)
+    return _clip(torch.where(use0 & use1, bi, uni))
+
+
 def inter_plain(dpb: torch.Tensor, slot: int, mbs: torch.Tensor, levels: torch.Tensor,
-                scales: torch.Tensor, inter: torch.Tensor, g: Geometry) -> None:
-    """What ``h264_inter`` computes, in PyTorch: the P and skipped
+                scales: torch.Tensor, weights: torch.Tensor, inter: torch.Tensor,
+                g: Geometry) -> None:
+    """What ``h264_inter`` computes, in PyTorch: the P, B and skipped
     macroblocks ``inter`` (int64 indices) of the picture in ``dpb[slot]``,
-    predicted from the slots their records name, plus their residual,
-    clipped."""
+    each 4x4 block predicted from the slots its record names in one or both
+    lists, combined by ``weighted`` under its slice's table of ``weights``
+    [slices, WT], plus the residual, clipped."""
     for k in range(0, len(inter), INTER_CHUNK):  # the 6x6 windows of a chunk at a time
         mbi = inter[k:k + INTER_CHUNK].long()
         rec = _rows(mbs, mbi)
-        out = _clip(_inter_pred(dpb, rec, mbi, g) + residual_plain(rec, levels, scales))
+        mx0, my0, s0, r0 = _unpack_mv(rec, 0)
+        mx1, my1, s1, r1 = _unpack_mv(rec, 1)
+        u0, u1 = s0 != UNUSED, s1 != UNUSED
+        wt = _rows(weights, rec[:, F_SLICE])
+        if bool(u1.any()):
+            # both lists in one call (the half-sample planes once a slot); a
+            # list's unused blocks read the other list's slot (masked below)
+            both = _inter_pred(dpb, torch.cat([mx0, mx1]), torch.cat([my0, my1]),
+                               torch.cat([torch.where(u0, s0, s1), torch.where(u1, s1, s0)]),
+                               torch.cat([mbi, mbi]), g)
+            p0, p1 = both[:len(mbi)], both[len(mbi):]
+        else:  # list 0 alone (P macroblocks)
+            p0 = p1 = _inter_pred(dpb, mx0, my0, s0, mbi, g)
+        pred = p0
+        if bool(u1.any()) or bool((wt[:, W_MODE] == 1).any()):
+            pick = lambda t: _cols(t, SAMPLE_BLK)
+            pred = weighted(p0, p1, pick(u0), pick(u1), pick(r0), pick(r1),
+                            _tab(SAMPLE_COMP, rec.device)[None], wt)
+        out = _clip(pred + residual_plain(rec, levels, scales))
         _put(dpb[slot], _mb_offsets(mbi, g), out)
 
 
@@ -991,7 +1089,8 @@ def build_library() -> ctypes.CDLL:
             so.with_suffix(".log").write_text(res.stderr)
         lib = ctypes.CDLL(str(so))
         vp, i = ctypes.c_void_p, ctypes.c_int
-        lib.moda_h264_inter.argtypes = [vp, ctypes.c_int64, i, vp, vp, vp, vp, i, i, i, vp]
+        lib.moda_h264_inter.argtypes = [vp, ctypes.c_int64, i, vp, vp, vp, vp, i, vp, i, i, i,
+                                        vp]
         lib.moda_h264_inter.restype = i
         lib.moda_h264_intra.argtypes = [vp, vp, vp, vp, vp, vp, i, i, i, vp,
                                         ctypes.POINTER(ctypes.c_int)]
@@ -1027,17 +1126,21 @@ def _need_scales(scales: torch.Tensor, what: str):
 
 
 def inter(dpb: torch.Tensor, slot: int, mbs: torch.Tensor, levels: torch.Tensor,
-          scales: torch.Tensor, inter_mbs: torch.Tensor, g: Geometry) -> None:
-    """The P and skipped macroblocks into ``dpb[slot]``: the kernel
+          scales: torch.Tensor, weights: torch.Tensor, inter_mbs: torch.Tensor,
+          g: Geometry) -> None:
+    """The P, B and skipped macroblocks into ``dpb[slot]``: the kernel
     h264_inter on CUDA tensors, ``inter_plain`` on CPU ones."""
     if dpb.device.type == "cpu":
-        return inter_plain(dpb, slot, mbs, levels, scales, inter_mbs.long(), g)
+        return inter_plain(dpb, slot, mbs, levels, scales, weights, inter_mbs.long(), g)
     if not len(inter_mbs):
         return
     for t, dt, w in ((dpb, torch.uint8, "the picture buffer"), (mbs, torch.int32, "mbs"),
-                     (levels, torch.int16, "levels"), (inter_mbs, torch.int32, "the list")):
+                     (levels, torch.int16, "levels"), (inter_mbs, torch.int32, "the list"),
+                     (weights, torch.int32, "the weight tables")):
         _need(t, dt, f"h264_inter: {w}")
     _need_scales(scales, "h264_inter")
+    if weights.dim() != 2 or weights.shape[1] != WT:
+        raise ValueError(f"h264_inter: weight tables {tuple(weights.shape)}, not [slices, {WT}]")
     if dpb.shape != (g.slots, g.frame_bytes) or mbs.shape != (g.mb_w * g.mb_h, FIELDS) or \
             not 0 <= slot < g.slots:
         raise ValueError(f"h264_inter: buffer {tuple(dpb.shape)}, records {tuple(mbs.shape)}, "
@@ -1045,8 +1148,9 @@ def inter(dpb: torch.Tensor, slot: int, mbs: torch.Tensor, levels: torch.Tensor,
     lib = build_library()
     stream = torch.cuda.current_stream(dpb.device).cuda_stream
     _check(lib.moda_h264_inter(dpb.data_ptr(), g.frame_bytes, slot, mbs.data_ptr(),
-                               levels.data_ptr(), scales.data_ptr(), inter_mbs.data_ptr(),
-                               len(inter_mbs), g.mb_w, g.mb_h, stream), "h264_inter")
+                               levels.data_ptr(), scales.data_ptr(), weights.data_ptr(),
+                               len(weights), inter_mbs.data_ptr(), len(inter_mbs), g.mb_w,
+                               g.mb_h, stream), "h264_inter")
     launches["h264_inter"] += 1
 
 
@@ -1104,12 +1208,13 @@ def deblock(frame: torch.Tensor, mbs: torch.Tensor, order: torch.Tensor, offsets
 # ----------------------------------------------------------- the decoder
 @dataclass
 class Work:
-    """One picture on the device: its records, levels and LevelScale tables,
-    and the kernels' launch lists (the inter macroblocks; the intra and
-    filtered ones by wavefront)."""
+    """One picture on the device: its records, levels, LevelScale and weight
+    tables, and the kernels' launch lists (the inter macroblocks; the intra
+    and filtered ones by wavefront)."""
     mbs: torch.Tensor
     levels: torch.Tensor
     scales: torch.Tensor
+    weights: torch.Tensor
     inter: torch.Tensor
     intra: torch.Tensor
     intra_offsets: np.ndarray
@@ -1136,9 +1241,9 @@ def picture_steps(work: Work, slot: int, g: Geometry):
     the loop filter."""
     def inter_step(dpb, plain=False):
         if plain:
-            return inter_plain(dpb, slot, work.mbs, work.levels, work.scales, work.inter.long(),
-                               g)
-        inter(dpb, slot, work.mbs, work.levels, work.scales, work.inter, g)
+            return inter_plain(dpb, slot, work.mbs, work.levels, work.scales, work.weights,
+                               work.inter.long(), g)
+        inter(dpb, slot, work.mbs, work.levels, work.scales, work.weights, work.inter, g)
 
     def intra_step(dpb, plain=False):
         (intra_plain if plain else intra)(dpb[slot], work.mbs, work.levels, work.scales,
@@ -1157,8 +1262,8 @@ def to_device(pic: Picture, g: Geometry, device) -> Work:
     host-to-device copy."""
     inter_mbs, (iorder, ioff), (dorder, doff) = plan(pic, g)
     parts = [pic.mbs.reshape(-1).view(np.uint8), pic.levels.reshape(-1).view(np.uint8),
-             pic.scales.view(np.uint8), inter_mbs.view(np.uint8), iorder.view(np.uint8),
-             dorder.view(np.uint8)]
+             pic.scales.view(np.uint8), pic.weights.reshape(-1).view(np.uint8),
+             inter_mbs.view(np.uint8), iorder.view(np.uint8), dorder.view(np.uint8)]
     host = np.empty(sum(p.nbytes for p in parts) + 4 * len(parts), np.uint8)
     pos, spans = 0, []
     for p in parts:
@@ -1170,20 +1275,24 @@ def to_device(pic: Picture, g: Geometry, device) -> Work:
         buf = buf.pin_memory().to(device, non_blocking=True)
     v = [buf[a:b] for a, b in spans]
     return Work(v[0].view(torch.int32).view(-1, FIELDS), v[1].view(torch.int16).view(-1, LEVELS),
-                v[2].view(torch.int32), v[3].view(torch.int32), v[4].view(torch.int32), ioff,
-                v[5].view(torch.int32), doff)
+                v[2].view(torch.int32), v[3].view(torch.int32).view(-1, WT),
+                v[4].view(torch.int32), v[5].view(torch.int32), ioff, v[6].view(torch.int32), doff)
 
 
 class H264Decoder:
     """Decodes a track's samples in decode order on ``device`` (the card
     unless the caller asks for the CPU), holding the decoded picture buffer
-    there.
+    there, and gives the pictures in FFmpeg's output order, from the
+    reorder delay the container gives its decoder (``Video.reorder_delay``).
 
     ``video`` is a preproc/video.py ``Video`` (its ``config`` holds the
-    avcC). ``decode(sample)`` returns the picture as uint8 [height, width,
-    3] BGR on the device, what cv2.VideoCapture reads, or None for a sample
-    without a picture. ``advance`` and ``picture`` are its two halves, for a
-    caller that keeps only some pictures."""
+    avcC). ``decode(sample)`` returns the next picture in output order as
+    uint8 [height, width, 3] BGR on the device, what cv2.VideoCapture's next
+    read gives, or None where none leaves the reorder buffer; ``flush()``
+    returns the rest at the end of the stream. ``advance`` and ``picture``
+    are the decoding-order halves, for a caller that keeps only some
+    pictures: ``advance`` reconstructs a parsed picture, ``picture(slot)``
+    converts the one in a slot (the last decoded one by default)."""
 
     def __init__(self, video, device=None):
         from moda_tpu_torch.runtime import resolve_device
@@ -1193,6 +1302,7 @@ class H264Decoder:
             self.parser = Parser(video.config)
         except ValueError as e:
             raise ValueError(f"{video.path}: {e}") from None
+        self.parser.set_delay(video.reorder_delay)
         self.dpb: Optional[torch.Tensor] = None
         self.cur: Optional[int] = None
 
@@ -1214,10 +1324,19 @@ class H264Decoder:
         self.cur = pic.slot
         return True
 
-    def picture(self) -> torch.Tensor:
-        """The last picture, uint8 [height, width, 3] BGR on the device."""
+    def picture(self, slot: Optional[int] = None) -> torch.Tensor:
+        """The picture in ``slot`` (the last decoded one if None), uint8
+        [height, width, 3] BGR on the device."""
         g = self.geometry
-        return M.yuv420_to_bgr(self.dpb[self.cur], g.m4v, g.left, g.top, COEFFS[g.matrix])
+        s = self.cur if slot is None else slot
+        return M.yuv420_to_bgr(self.dpb[s], g.m4v, g.left, g.top, COEFFS[g.matrix])
 
     def decode(self, sample: bytes) -> Optional[torch.Tensor]:
-        return self.picture() if self.advance(self.parser.parse(sample)) else None
+        pic = self.parser.parse(sample)
+        self.advance(pic)
+        return None if pic is None or pic.out < 0 else self.picture(pic.out)
+
+    def flush(self) -> list:
+        """The pictures still waiting at the end of the stream, in output
+        order (a list of uint8 [height, width, 3] BGR)."""
+        return [self.picture(s) for s in self.parser.flush()]

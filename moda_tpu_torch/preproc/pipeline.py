@@ -112,9 +112,10 @@ def _extract_mpeg4(clip, out_dir: str, step: int, device) -> List[str]:
 def _extract_h264(clip, out_dir: str, step: int, device) -> List[str]:
     """extract_frames for an H.264 track: every sample's parameter sets and
     slice headers read first by a parser of their own (every refusal raises
-    there), then each sample parsed whole and decoded in order, and every
-    step-th picture converted and stored. A sample without a picture is no
-    frame."""
+    there), then each sample parsed whole and decoded in order, the pictures
+    taken in FFmpeg's output order (what cv2.VideoCapture reads, the rest
+    flushed at the end of the track), and every step-th of them converted
+    and stored. A sample without a picture is no frame."""
     from moda_tpu_torch.preproc.h264 import H264Decoder, Parser
     from moda_tpu_torch.preproc.video import ROT90_K
 
@@ -125,14 +126,25 @@ def _extract_h264(clip, out_dir: str, step: int, device) -> List[str]:
         raise ValueError(f"{clip.path}: {e}") from None
     coded = [i for i in range(len(clip)) if clip.h264(scan, i, headers_only=True) is not None]
     os.makedirs(out_dir, exist_ok=True)
-    paths = []
-    for n, i in enumerate(coded):
-        dec.advance(clip.h264(dec.parser, i))
-        if n % step == 0:
+    paths, shown = [], [0]
+
+    def show(slot: int) -> None:
+        # the picture leaves the reorder buffer now: its slot may take the
+        # next picture, so it is converted before that one is decoded
+        if shown[0] % step == 0:
             p = os.path.join(out_dir, "%05d.jpg" % len(paths))
-            rgb = dec.picture().cpu().numpy()[..., ::-1]
+            rgb = dec.picture(slot).cpu().numpy()[..., ::-1]
             save_png(p, np.ascontiguousarray(np.rot90(rgb, ROT90_K[clip.rotation])))
             paths.append(p)
+        shown[0] += 1
+
+    for i in coded:
+        pic = clip.h264(dec.parser, i)
+        dec.advance(pic)
+        if pic.out >= 0:
+            show(pic.out)
+    for slot in dec.parser.flush():
+        show(slot)
     return paths
 
 

@@ -17,11 +17,14 @@ gives what that call sees:
   moov before or after mdat, the first track whose mdia/hdlr is 'vide',
   the rate from mdhd's timescale and stts (timescale x samples / summed
   durations, FFmpeg's mov demuxer's avg_frame_rate), stsc/stsz/stz2/
-  stco/co64, and tkhd's display matrix (0/90/180/270 degrees, as cv2
-  rounds it). An identity edit list is honoured; a non-identity elst, a
-  fragmented file (moov/mvex, moof), a movie matrix that is not the
-  identity and a track matrix that is not a right-angle rotation raise
-  ValueError naming the box.
+  stco/co64, ctts (composition offsets, version 0 or 1), and tkhd's
+  display matrix (0/90/180/270 degrees, as cv2 rounds it). An identity
+  edit list is honoured, and so is the one FFmpeg's mov muxer writes for a
+  track whose samples are reordered (one entry from the earliest
+  composition time, at rate 1, over the whole media: cv2 drops no frame for
+  it); any other elst, a fragmented file (moov/mvex, moof), a movie matrix
+  that is not the identity and a track matrix that is not a right-angle
+  rotation raise ValueError naming the box.
 - AVI: 'RIFF AVI ', hdrl/strl (strh dwRate / dwScale, strf's
   BITMAPINFOHEADER), the first 'vids' stream's '##dc'/'##db' chunks walked
   in 'movi' (LIST 'rec ' included, even-size padding; idx1 is not read, its
@@ -39,9 +42,11 @@ gives what that call sees:
   them; ``Video.frame(i)`` decodes from the last I-VOP up to sample i.
 - H.264: MP4/MOV 'avc1' and 'avc3' (``config``: the avcC, whose
   parameter sets 'avc3' may also carry in its samples). preproc/h264.py
-  decodes the Baseline tool set (CAVLC, I and P slices, progressive 8-bit
-  4:2:0) and refuses the rest by name; ``Video.frame(i)`` decodes every
-  sample up to i. H.264 in AVI is refused.
+  decodes the Baseline, Main and High tool sets in frame coding (CAVLC or
+  CABAC, I, P and B slices, weighted prediction, the 8x8 transform and
+  scaling matrices, progressive 8-bit 4:2:0) and refuses the rest by name;
+  ``Video.frame(i)`` decodes samples until the i-th picture in output
+  order, cv2's i-th read. H.264 in AVI is refused.
   MS-MPEG-4 (DIV3, MP42, MP43), MPEG-1/2, HEVC and the rest are refused.
 """
 from __future__ import annotations
@@ -56,6 +61,7 @@ import numpy as np
 
 from moda_tpu_torch.data import imageio as IO
 
+REORDER_WINDOW = 16  # FFmpeg's MAX_REORDER_DELAY
 MJPEG_OTI = 0x6C  # ISO/IEC 14496-1 objectTypeIndication of Motion JPEG (ISO 10918-1)
 MPEG4_OTI = 0x20  # objectTypeIndication of MPEG-4 Part 2 visual (ISO/IEC 14496-2)
 AVI_MJPEG = ("MJPG", "mjpg")
@@ -118,9 +124,26 @@ class Video:
     sizes: np.ndarray           # int64 [N]
     config: bytes = b""         # an 'mp4v' entry's esds DecoderSpecificInfo (the VOL),
     #                             an 'avc1'/'avc3' entry's avcC
+    cts: Optional[np.ndarray] = None  # int64 [N] composition offsets (ctts), or None
+    dts: Optional[np.ndarray] = None  # int64 [N] decoding times (stts), with a ctts
 
     def __len__(self) -> int:
         return len(self.sizes)
+
+    @property
+    def reorder_delay(self) -> int:
+        """The reorder delay cv2's H.264 decoder starts from: FFmpeg's mov
+        demuxer's estimate from the composition times (mov_estimate_video
+        _delay: the most earlier samples, of the last 16, composed after a
+        sample), which the stream's probe, ending at the first decoded
+        frame, leaves as it is; 0 without a ctts."""
+        if self.cts is None or self.kind != "h264":
+            return 0
+        pts = self.dts + self.cts
+        delay = 0
+        for k in range(len(pts)):
+            delay = max(delay, int((pts[max(k - REORDER_WINDOW, 0):k] > pts[k]).sum()))
+        return min(delay, REORDER_WINDOW)
 
     @property
     def fps(self) -> float:
@@ -173,25 +196,34 @@ class Video:
         return data
 
     def frame(self, i: int, device=None) -> np.ndarray:
-        """Sample i decoded, uint8 [H, W, 3] RGB, turned by the track's
+        """Frame i decoded, uint8 [H, W, 3] RGB, turned by the track's
         rotation as cv2.VideoCapture turns it. Motion JPEG decodes on the
         host; MPEG-4 Part 2 on ``device`` (the card unless the caller asks
-        for the CPU), from the last I-VOP up to sample i; H.264 there too,
-        from the first sample up to i."""
+        for the CPU), sample i from the last I-VOP on; H.264 there too, the
+        i-th picture in output order (cv2's i-th read) from the first
+        sample on."""
         require_supported(self)
         if self.kind == "mjpeg":
             rgb = IO.decode_jpeg(self.jpeg(i))
         elif self.kind == "h264":
             from moda_tpu_torch.preproc.h264 import H264Decoder
 
-            # every sample up to i: a picture may reference any picture since
-            # the last IDR, and the ones before it cost time only
-            dec, shown = H264Decoder(self, device), False
-            for j in range(i + 1):
-                shown = dec.advance(self.h264(dec.parser, j))
-            if not shown:
-                raise ValueError(f"{self.path}: sample {i} holds no picture")
-            rgb = dec.picture().cpu().numpy()[..., ::-1]
+            # every sample until the i-th output: a picture may reference
+            # any picture since the last IDR, and the ones before it cost
+            # time only
+            dec, out = H264Decoder(self, device), []
+            for j in range(len(self)):
+                pic = self.h264(dec.parser, j)
+                dec.advance(pic)
+                if pic is not None and pic.out >= 0:
+                    out.append(pic.out)
+                if len(out) > i:
+                    break
+            else:
+                out += dec.parser.flush()
+            if len(out) <= i:
+                raise ValueError(f"{self.path}: frame {i} of {len(out)}")
+            rgb = dec.picture(out[i]).cpu().numpy()[..., ::-1]
         else:
             from moda_tpu_torch.preproc.m4v import VOP_I, VOP_NOT_CODED, Mpeg4Decoder
 
@@ -236,9 +268,9 @@ def require_supported(video: Video) -> None:
             "port decodes Motion JPEG (AVI MJPG/mjpg, QuickTime jpeg/mjpa, MP4 mp4v with "
             "objectTypeIndication 0x6C), MPEG-4 Part 2 (MP4 mp4v with objectTypeIndication "
             "0x20, AVI FMP4, XVID, DIVX, DX50 and FFmpeg's other mpeg4 fourccs) and H.264 in "
-            "MP4/MOV (avc1, avc3) as Baseline-, Main- and High-profile streams without B "
-            "slices hold it: progressive 8-bit 4:2:0, CAVLC or CABAC, I and P slices, the 8x8 "
-            "transform, Intra 8x8 and scaling matrices (no B slices, weighted prediction, "
+            "MP4/MOV (avc1, avc3) as Baseline-, Main- and High-profile streams hold it in "
+            "frame coding: progressive 8-bit 4:2:0, CAVLC or CABAC, I, P and B slices, "
+            "weighted prediction, the 8x8 transform, Intra 8x8 and scaling matrices (no "
             "interlace or FMO); H.264 in AVI, HEVC, MS-MPEG-4 (DIV3, MP42, MP43), MPEG-1/2 and "
             "the rest are refused")
 
@@ -456,11 +488,27 @@ def _video_track(buf: bytes, trak: dict, mdia: dict, movie_ts: int, path: str,
     rate = Fraction(timescale * frames, duration) if timescale and frames and duration > 0 \
         else Fraction(0)
 
+    # composition offsets (ctts): the earliest composition time is where
+    # FFmpeg's mov muxer starts the edit list of a reordered track
+    cts = None
+    if b"ctts" in stbl:
+        b, _ = stbl[b"ctts"]
+        runs = np.frombuffer(buf, ">u4", 2 * struct.unpack_from(">I", buf, b + 4)[0],
+                             b + 8).reshape(-1, 2).astype(np.int64)
+        off = runs[:, 1] if buf[b] == 0 else runs[:, 1].astype(np.uint32).view(np.int32)
+        cts = np.repeat(off.astype(np.int64), runs[:, 0])
+        if len(cts) != n:
+            raise ValueError(f"{stbl_w}: ctts holds {len(cts)} samples, stsz {n}")
     if b"edts" in trak:
-        _check_elst(buf, trak[b"edts"], duration, timescale, movie_ts, f"{where}/edts")
+        dts = np.concatenate([[0], np.cumsum(np.repeat(stts[:, 1], stts[:, 0]))])[:n]
+        first_ct = int((dts + cts).min()) if cts is not None and n else 0
+        _check_elst(buf, trak[b"edts"], duration, timescale, movie_ts, first_ct,
+                    f"{where}/edts")
+    dts = np.concatenate([[0], np.cumsum(np.repeat(stts[:, 1], stts[:, 0]))])[:n] \
+        if cts is not None else None
     return Video(path, container, fourcc.decode("latin-1"), oti, width, height,
                  (rate.numerator, rate.denominator), rotation, offsets.astype(np.int64), sizes,
-                 config)
+                 config, cts, dts)
 
 
 def _esds(buf: bytes, pos: int, where: str) -> Tuple[int, bytes]:
@@ -496,9 +544,10 @@ def _esds(buf: bytes, pos: int, where: str) -> Tuple[int, bytes]:
 
 
 def _check_elst(buf: bytes, edts, duration: int, timescale: int, movie_ts: int,
-                where: str) -> None:
-    """ValueError unless the edit list maps the whole media once, from its
-    first sample, at rate 1 (or is empty)."""
+                first_ct: int, where: str) -> None:
+    """ValueError unless the edit list maps the whole media once, at rate 1,
+    from its first sample or (FFmpeg's mov muxer, for reordered samples)
+    from its earliest composition time ``first_ct`` (or is empty)."""
     eb, _ = _need(_children(buf, *edts, where), b"elst", where)
     v, n = buf[eb], struct.unpack_from(">I", buf, eb + 4)[0]
     if n == 0:
@@ -508,8 +557,10 @@ def _check_elst(buf: bytes, edts, duration: int, timescale: int, movie_ts: int,
     seg, media_time, rate_int, rate_frac = entries[0]
     # the segment covers the media to within one tick of the movie's timescale
     # (0: the whole media)
-    whole = seg == 0 or timescale == 0 or (seg + 1) * timescale > duration * movie_ts
-    if n != 1 or media_time != 0 or (rate_int, rate_frac) != (1, 0) or not whole:
+    media = duration - (media_time if media_time == first_ct else 0)
+    whole = seg == 0 or timescale == 0 or (seg + 1) * timescale > media * movie_ts
+    if n != 1 or media_time not in (0, first_ct) or (rate_int, rate_frac) != (1, 0) or \
+            not whole:
         raise ValueError(f"{where}/elst: an edit list other than the identity (entries "
                          f"{entries}, media duration {duration} at timescale {timescale}): "
                          "not read")

@@ -82,8 +82,9 @@ def _decode(path):
     clip = TV.open_video(path)
     assert clip.kind == "h264"
     dec = D.H264Decoder(clip, "cpu")
-    return [f.numpy() for f in map(dec.decode, map(clip.sample, range(len(clip))))
-            if f is not None]
+    got = [f.numpy() for f in map(dec.decode, map(clip.sample, range(len(clip))))
+           if f is not None]
+    return got + [f.numpy() for f in dec.flush()]
 
 
 @pytest.mark.parametrize("name", list(H.CASES) + list(EXTRAS))
@@ -155,9 +156,10 @@ def _edited(k_at, **edit):
 
 # (case, random_stream arguments, what the message names); the 8x8
 # transform and the scaling matrices left this list when they were decoded
-# (their fixtures: tests/test_torch_h264_high.py)
+# (their fixtures: tests/test_torch_h264_high.py), and so did B slices,
+# weighted prediction and an output order other than the decoding order
+# (LIFTED below; tests/test_torch_h264_bslices.py)
 REFUSALS = [
-    ("b_slice", dict(edit=_edited(2, slice_type_code=1)), "sample 2: a B slice"),
     ("sp_slice", dict(edit=_edited(2, slice_type_code=3)), "sample 2: an SP slice"),
     ("si_slice", dict(edit=_edited(2, slice_type_code=4)), "sample 2: an SI slice"),
     ("interlace", dict(seq_args={"sps_extra": {"frame_mbs_only": 0}}), "interlace"),
@@ -166,8 +168,14 @@ REFUSALS = [
     ("redundant_pictures", dict(seq_args={"pps_extra": {"redundant_pic_cnt_present": 1}}),
      "redundant pictures"),
     ("data_partitioning", dict(partition_nal=2), "sample 2: data partitioning"),
-    ("weighted_prediction", dict(seq_args={"pps_extra": {"weighted_pred": 1}}),
-     "weighted prediction"),
+    ("weighted_bipred_idc_3", dict(seq_args={"pps_extra": {"weighted_bipred_idc": 3}}),
+     "weighted_bipred_idc 3"),
+    # explicit bi-prediction at logWD 7 with the default weights (128 + 128,
+    # beyond 8.4.2.3's bound): cv2's x86 libavcodec takes them as 8-bit
+    ("bi_weights_8bit", dict(bframes=1, weights=H.B_WEIGHTS,
+                             seq_args={"pps_extra": {"weighted_bipred_idc": 1}},
+                             edit=_edited(2, weights=(7, 7, [[], []]))),
+     "sample 2: bi-prediction weights 128 and 128"),
     ("bit_depth_10", dict(seq_args={"sps_extra": {"profile": 110, "bit_depth_luma_minus8": 2}}),
      "bit depth 10"),
     ("chroma_422", dict(seq_args={"sps_extra": {"profile": 122, "chroma_format_idc": 2}}),
@@ -180,7 +188,6 @@ REFUSALS = [
      "gaps in frame_num"),
     ("first_picture_not_idr", dict(first_idr=False), "sample 0: a first picture that is not "
                                                      "an IDR"),
-    ("poc_order", dict(edit=_edited(2, hdr={"poc_lsb": 1})), "sample 2: picture order count"),
     ("mmco_5", dict(max_refs=2, edit=_edited(2, mmco=[(5,)])),
      "sample 2: memory_management_control_operation 5"),
     ("full_range", dict(seq_args={"full_range": 1}), "video_full_range_flag 1"),
@@ -203,6 +210,31 @@ def test_refused_tools_raise_before_anything_is_written(tmp_path, case, args, ma
     with pytest.raises(ValueError, match=match):
         TP.extract_frames(path, str(tmp_path / "t"), device="cpu")
     assert not os.path.exists(tmp_path / "t")
+
+
+# the refusals this decoder lifted, each now a stream of its tool (of the
+# refusal cases' size and seed) held to cv2: B slices, weighted prediction
+# in P slices, and POCs out of decoding order (B pictures after their
+# anchor)
+LIFTED = {
+    "b_slice": dict(bframes=1, weights=H.B_WEIGHTS),
+    "weighted_prediction": dict(seq_args={"pps_extra": {"weighted_pred": 1}}),
+    "poc_order": dict(bframes=2, weights=H.B_WEIGHTS, max_refs=2),
+}
+
+
+@pytest.mark.parametrize("case", list(LIFTED))
+def test_lifted_refusals_decode_bit_equal_to_videocapture(tmp_path, case):
+    """Each tool whose refusal was lifted decodes as cv2 does: the same
+    frames, as many, in the same order, each bit-equal (no avcodec error or
+    warning line)."""
+    seq, samples = H.random_stream(seed=SEED, width=48, height=32, pictures=4, **LIFTED[case])
+    path = str(tmp_path / f"{case}.mp4")
+    H.write_mp4(path, seq, samples)
+    (want, logs), = H.cv2_read([path], str(tmp_path))
+    assert logs == [] and len(want) == 4
+    got = _decode(path)
+    assert len(got) == len(want) and all(np.array_equal(a, b) for a, b in zip(got, want))
 
 
 def test_h264_in_avi_is_refused_by_name(tmp_path):

@@ -93,7 +93,7 @@ def test_frames_bit_equal_to_videocapture(streams, name):
     assert clip.kind == "h264"
     dec = D.H264Decoder(clip, "cpu")
     got = [f.numpy() for f in map(dec.decode, map(clip.sample, range(len(clip))))
-           if f is not None]
+           if f is not None] + [f.numpy() for f in dec.flush()]
     assert len(got) == len(want) > 0
     for i, (a, b) in enumerate(zip(got, want)):
         assert a.shape == b.shape and np.array_equal(a, b), (name, i)
@@ -182,13 +182,34 @@ def _edited(k_at, **edit):
 # (case, random_stream arguments, what the message names); the CABAC
 # refusal of tests/test_torch_h264.py before CABAC was decoded became these,
 # and the 8x8 transform left them when it was decoded
-# (tests/test_torch_h264_high.py)
+# (tests/test_torch_h264_high.py), B slices and weighted prediction when
+# they were (LIFTED below; tests/test_torch_h264_bslices.py)
 REFUSALS = [
     ("cabac_init_idc_3", dict(edit=_edited(2, cabac_init_idc=3)), "sample 2: cabac_init_idc 3"),
-    ("cabac_weighted_prediction", dict(seq_args={"pps_extra": {"weighted_pred": 1}}),
-     "weighted prediction"),
-    ("cabac_b_slice", dict(edit=_edited(2, slice_type_code=1)), "sample 2: a B slice"),
 ]
+# the refusals this decoder lifted, each now a CABAC stream of its tool (of
+# the refusal cases' size and seed) held to cv2
+LIFTED = {
+    "cabac_weighted_prediction": dict(seq_args={"pps_extra": {"weighted_pred": 1}}),
+    "cabac_b_slice": dict(bframes=1, weights=H.B_WEIGHTS),
+}
+
+
+@pytest.mark.parametrize("case", list(LIFTED))
+def test_lifted_refusals_decode_bit_equal_to_videocapture(tmp_path, case):
+    """Each tool whose refusal was lifted decodes as cv2 does on a CABAC
+    stream: the same frames, as many, in the same order, each bit-equal."""
+    seq, samples = H.random_stream(seed=SEED, width=48, height=32, pictures=4,
+                                   entropy="cabac", **LIFTED[case])
+    path = str(tmp_path / f"{case}.mp4")
+    H.write_mp4(path, seq, samples)
+    (want, logs), = H.cv2_read([path], str(tmp_path))
+    assert logs == [] and len(want) == 4
+    clip = TV.open_video(path)
+    dec = D.H264Decoder(clip, "cpu")
+    got = [f.numpy() for f in map(dec.decode, map(clip.sample, range(len(clip))))
+           if f is not None] + [f.numpy() for f in dec.flush()]
+    assert len(got) == len(want) and all(np.array_equal(a, b) for a, b in zip(got, want))
 
 
 @pytest.mark.parametrize("case,args,match", REFUSALS, ids=[c for c, _, _ in REFUSALS])

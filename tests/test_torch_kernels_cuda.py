@@ -581,6 +581,22 @@ def test_h264_kernels_match_plain_at_high_profile(cuda_device, case, entropy):
     assert launches["h264_inter"] == sum(name == "h264_inter" for _, name in ran)
 
 
+@pytest.mark.parametrize("entropy", ["cavlc", "cabac"])
+@pytest.mark.parametrize("case", ["b_partitions", "b_temporal_direct", "b_pyramid_implicit",
+                                  "b_explicit_weights", "b_no_direct_inference", "b_high_8x8",
+                                  "p_weighted"])
+def test_h264_kernels_match_plain_on_b_slices(cuda_device, case, entropy):
+    """The three H.264 kernels against their plain versions on the writer's
+    B-slice and weighted-prediction streams (bi-prediction under the
+    default, explicit and implicit weights, direct prediction, explicit
+    weights in P slices), picture by picture and step by step: bit-equal."""
+    H = _h264_writer()
+    seq, samples = H.random_stream(seed=7, entropy=entropy, **H.b_case(case))
+    ran, launches = _h264_stepwise([H.sample_bytes(s) for s in samples], H.avcc(seq), cuda_device)
+    assert {name for _, name in ran} >= {"h264_inter", "h264_intra", "h264_deblock"}
+    assert launches["h264_inter"] == sum(name == "h264_inter" for _, name in ran)
+
+
 @pytest.mark.parametrize("width,height,left,top,matrix", [(1920, 1080, 0, 0, 0),
                                                           (70, 38, 64, 2, 1), (30, 18, 0, 6, 0)])
 def test_yuv420_to_bgr_with_a_crop_matches_plain(cuda_device, width, height, left, top, matrix):
@@ -599,7 +615,8 @@ def test_yuv420_to_bgr_with_a_crop_matches_plain(cuda_device, width, height, lef
 
 
 @pytest.mark.parametrize("name", ["clip_h264_small.mp4", "clip_h264_cabac_small.mp4",
-                                  "clip_h264_high_small.mp4", "clip_h264_1080p_high.mp4"])
+                                  "clip_h264_high_small.mp4", "clip_h264_1080p_high.mp4",
+                                  "clip_h264_b_small.mp4", "clip_h264_b_cabac_small.mp4"])
 def test_h264_decoder_matches_cv2_on_the_goldens(cuda_device, name):
     """H264Decoder on the card over every sample of a committed clip: each
     picture's SHA-256 equals cv2.VideoCapture's recorded one
@@ -616,6 +633,6 @@ def test_h264_decoder_matches_cv2_on_the_goldens(cuda_device, name):
         want = json.load(f)[name]["all_pixels_sha256"]
     clip = open_video(os.path.join(goldens, name))
     dec = D.H264Decoder(clip, cuda_device)
-    got = [hashlib.sha256(dec.decode(clip.sample(i)).cpu().numpy().tobytes()).hexdigest()
-           for i in range(len(clip))]
+    frames = [f for f in map(dec.decode, map(clip.sample, range(len(clip)))) if f is not None]
+    got = [hashlib.sha256(f.cpu().numpy().tobytes()).hexdigest() for f in frames + dec.flush()]
     assert got == want

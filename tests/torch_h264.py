@@ -1,8 +1,10 @@
 """Test helpers for the port's H.264 decoder (moda_tpu_torch/preproc/h264.py):
 a writer of H.264 (ISO/IEC 14496-10) streams in the syntax the port decodes
-(progressive 8-bit 4:2:0, CAVLC or CABAC, I and P slices, at High profile
-the 8x8 transform, Intra 8x8 and scaling lists), their MP4 muxing, and
-cv2's reading of them with avcodec's log.
+(progressive 8-bit 4:2:0, CAVLC or CABAC, I, P and B slices with weighted
+prediction, at High profile the 8x8 transform, Intra 8x8 and scaling
+lists), their MP4 muxing (with the ctts and edit list FFmpeg's mov muxer
+writes for reordered pictures), and cv2's reading of them with avcodec's
+log.
 
 The writer has two modes, each of which writes either entropy coder
 (``Sequence(..., entropy="cabac")``) from the same macroblock decisions:
@@ -15,12 +17,18 @@ The writer has two modes, each of which writes either entropy coder
   under the stream's scaling lists), QP deltas, mvds, reference indices,
   skip runs, slices, deblocking settings, memory management operations and
   reference list modifications; the SPS's and PPS's scaling lists come from
-  ``scaling_specs``.
+  ``scaling_specs``; with ``bframes``, B pictures between P anchors (every
+  B macroblock and sub-macroblock type, B-refs, both direct modes, both
+  lists' sizes and modifications, pred_weight_table), the syntax alone:
+  the writer never derives a B block's motion.
 - ``natural_stream``: a small real encoder for ``tests/torch_video.py::
   scene`` frames: I_16x16 (DC, V, H) pictures (at High profile Intra 4x4,
   8x8 or 16x16 by cost) and P_L0_16x16 pictures with one global vector a
   reference plus the quantised residual (at High profile by the 4x4 or 8x8
-  transform), reconstructed as it goes, with the loop filter off.
+  transform), reconstructed as it goes, with the loop filter off; with
+  ``bframes``, x264's default structure (B pictures of B_L0/L1/Bi_16x16
+  under implicit weights or B_Skip by spatial direct, a B-ref, weighted
+  P).
 
 A stream counts as valid only if cv2 decodes it with no error line from
 avcodec (``cv2_read``: OPENCV_FFMPEG_DEBUG in a subprocess): FFmpeg would
@@ -89,6 +97,27 @@ NXN = ("I4", "I8")
 # sub-macroblock types: (partitions, width, height) in 4x4 units
 SUB_PARTS = [(1, 2, 2), (2, 2, 1), (2, 1, 2), (4, 1, 1)]
 MB_PARTS = {"P16x16": (1, 4, 4), "P16x8": (2, 4, 2), "P8x16": (2, 2, 4)}
+# B slices' inter types ("BDIRECT" B_Direct_16x16; "SKIP" in a B slice is
+# B_Skip): a partition's lists 1 L0, 2 L1, 3 both; mb_type 4-21's list
+# pairs (Table 7-14, a pair for the 16x8 and the 8x16 type); each
+# sub_mb_type's lists (0: B_Direct_8x8) and SUB_PARTS shape (Table 7-18)
+B_TYPES = ("BDIRECT", "B16x16", "B16x8", "B8x16", "B8x8")
+B_PARTS = {"B16x16": (1, 4, 4), "B16x8": (2, 4, 2), "B8x16": (2, 2, 4)}
+B_PAIRS = [(1, 1), (2, 2), (1, 2), (2, 1), (1, 3), (2, 3), (3, 1), (3, 2), (3, 3)]
+B_SUB = [(0, 0), (1, 0), (2, 0), (3, 0), (1, 1), (1, 2), (2, 1), (2, 2), (3, 1), (3, 2),
+         (1, 3), (2, 3), (3, 3)]
+INTER = tuple(P_TYPES) + B_TYPES  # coded inter macroblocks
+
+
+def b_mb_type(kind: str, preds) -> int:
+    """A B macroblock's mb_type (Table 7-14)."""
+    if kind == "BDIRECT":
+        return 0
+    if kind == "B8x8":
+        return 22
+    if kind == "B16x16":
+        return preds[0]
+    return 4 + 2 * B_PAIRS.index(tuple(preds)) + (kind == "B8x16")
 # the most a conforming stream lets the transform's values reach (8-bit: 2^15)
 RANGE = 32767
 
@@ -650,7 +679,15 @@ class Sequence:
         self.poc1_cycle = [2]
         self.poc1_nonref = 0
         self.num_ref_default = num_ref_default
-        # reference marking: {"fn", "lt" (LongTermFrameIdx or None)}
+        # B slices: list 1's default size, weighted_pred_flag,
+        # weighted_bipred_idc, direct_8x8_inference_flag, the VUI's
+        # max_num_reorder_frames (None: no bitstream_restriction)
+        self.num_ref_default1 = self.pps_extra.get("num_ref_idx_l1_default", 1)
+        self.weighted = int(self.pps_extra.get("weighted_pred", 0))
+        self.bipred = int(self.pps_extra.get("weighted_bipred_idc", 0))
+        self.direct8x8 = int(self.sps_extra.get("direct_8x8_inference", 1))
+        self.reorder = self.sps_extra.get("reorder")
+        # reference marking: {"fn", "lt" (LongTermFrameIdx or None), "poc"}
         self.refs = []
         self.max_lt = -1  # MaxLongTermFrameIdx; -1: "no long-term frame indices"
         self.prev_ref_fn = 0
@@ -734,7 +771,7 @@ class Sequence:
         w.u(1, x.get("frame_mbs_only", 1))
         if not x.get("frame_mbs_only", 1):
             w.u(1, 0)  # mb_adaptive_frame_field_flag
-        w.u(1, 1)  # direct_8x8_inference_flag
+        w.u(1, int(self.direct8x8))
         left, top = x.get("crop_left", 0), x.get("crop_top", 0)
         crop = (16 * self.mb_w - self.width - left, 16 * self.mb_h - self.height - top)
         if crop != (0, 0) or left or top:
@@ -745,21 +782,40 @@ class Sequence:
             w.ue(crop[1] // 2)
         else:
             w.u(1, 0)
-        vui = self.full_range is not None or self.matrix is not None
+        colour = self.full_range is not None or self.matrix is not None
+        vui = colour or self.reorder is not None
         w.u(1, int(vui))
         if vui:
             w.u(1, 0)  # aspect_ratio_info_present_flag
             w.u(1, 0)  # overscan_info_present_flag
-            w.u(1, 1)  # video_signal_type_present_flag
-            w.u(3, 5)
-            w.u(1, int(bool(self.full_range)))
-            w.u(1, int(self.matrix is not None))
-            if self.matrix is not None:
-                w.u(8, self.matrix)
-                w.u(8, self.matrix)
-                w.u(8, self.matrix)
-            for _ in range(6):  # chroma loc, timing, nal/vcl hrd, pic_struct, restriction
+            w.u(1, int(colour))  # video_signal_type_present_flag
+            if colour:
+                w.u(3, 5)
+                w.u(1, int(bool(self.full_range)))
+                w.u(1, int(self.matrix is not None))
+                if self.matrix is not None:
+                    w.u(8, self.matrix)
+                    w.u(8, self.matrix)
+                    w.u(8, self.matrix)
+            w.u(1, 0)  # chroma_loc_info_present_flag
+            timing = self.reorder is not None
+            w.u(1, int(timing))  # timing_info_present_flag, as x264 writes it
+            if timing:
+                w.u(32, 1)
+                w.u(32, 60)
+                w.u(1, 1)
+            for _ in range(3):  # nal/vcl hrd, pic_struct
                 w.u(1, 0)
+            w.u(1, int(self.reorder is not None))  # bitstream_restriction_flag
+            if self.reorder is not None:
+                COVERAGE[("vui_reorder", self.entropy, self.reorder)] += 1
+                w.u(1, 1)  # motion_vectors_over_pic_boundaries_flag
+                w.ue(0)
+                w.ue(0)
+                w.ue(16)
+                w.ue(16)
+                w.ue(self.reorder)  # max_num_reorder_frames
+                w.ue(max(self.max_refs, 1) + self.reorder)  # max_dec_frame_buffering
         return nal(3, 7, w.trailing())
 
     def pps(self) -> bytes:
@@ -777,9 +833,9 @@ class Sequence:
             for _ in range(self.nmb):
                 w.u(1, 0)
         w.ue(self.num_ref_default - 1)
-        w.ue(0)
-        w.u(1, x.get("weighted_pred", 0))
-        w.u(2, x.get("weighted_bipred_idc", 0))
+        w.ue(self.num_ref_default1 - 1)
+        w.u(1, self.weighted)
+        w.u(2, self.bipred)
         w.se(self.qp - 26)
         w.se(0)
         w.se(self.cqp_offset)
@@ -808,9 +864,24 @@ class Sequence:
         longs = sorted((r for r in self.refs if r["lt"] is not None), key=lambda r: r["lt"])
         return shorts + longs
 
-    def begin(self, idr: bool, ref: bool):
-        """Sets frame_num and POC for the next picture; returns its header
-        fields."""
+    def b_lists(self):
+        """A B slice's initial lists (8.2.4.2.3): short-term references by
+        POC before the current picture (descending), then after it
+        (ascending), list 1 the other way round, long-term ones after; list
+        1's first two swapped where it equals list 0."""
+        shorts = [r for r in self.refs if r["lt"] is None]
+        before = sorted((r for r in shorts if r["poc"] <= self.poc), key=lambda r: -r["poc"])
+        after = sorted((r for r in shorts if r["poc"] > self.poc), key=lambda r: r["poc"])
+        longs = sorted((r for r in self.refs if r["lt"] is not None), key=lambda r: r["lt"])
+        l0, l1 = before + after + longs, after + before + longs
+        if len(l1) > 1 and l0 == l1:
+            l1[0], l1[1] = l1[1], l1[0]
+        return l0, l1
+
+    def begin(self, idr: bool, ref: bool, display: int = None):
+        """Sets frame_num and POC for the next picture (POC type 0: twice
+        ``display``, its place in output order since the IDR, where given;
+        else in decoding order); returns its header fields."""
         if idr:
             self.refs, self.max_lt = [], -1
             self.frame_num, self.n_since_idr, self.poc1_offset = 0, 0, 0
@@ -822,8 +893,9 @@ class Sequence:
             self.n_since_idr += 1
         self.prev_fn = self.frame_num
         hdr = {"idr": idr, "ref": ref, "frame_num": self.frame_num}
+        self.poc = 2 * (self.n_since_idr if display is None else display)
         if self.poc_type == 0:
-            hdr["poc_lsb"] = (2 * self.n_since_idr) % (1 << self.log2_poc)
+            hdr["poc_lsb"] = self.poc % (1 << self.log2_poc)
         elif self.poc_type == 1 and not self.poc1_zero:
             # a non-reference picture shares its expected count with the
             # reference before it: one more keeps the output order
@@ -836,7 +908,7 @@ class Sequence:
         if not hdr["ref"]:
             return
         self.prev_ref_fn = self.frame_num
-        cur = {"fn": self.frame_num, "lt": None}
+        cur = {"fn": self.frame_num, "lt": None, "poc": self.poc}
         if hdr["idr"]:
             if long_term_idr:
                 cur["lt"], self.max_lt = 0, 0
@@ -907,7 +979,7 @@ class Sequence:
             ops.append((1, self.frame_num - self.pic_num(r) - 1))
         # replay to keep the buffer within max_refs
         saved = ([dict(r) for r in self.refs], self.max_lt)
-        cur = {"fn": self.frame_num, "lt": None}
+        cur = {"fn": self.frame_num, "lt": None, "poc": self.poc}
         for op in ops:
             self.apply_mmco(op, cur)
         n = len(self.refs) + (1 if cur["lt"] is None or
@@ -956,14 +1028,16 @@ class Picture:
         self.tcc = np.zeros((n, 2, 4), int)     # chroma AC blocks'
         self.modes = np.full((n, 16), 2)        # Intra4x4PredMode (Intra 8x8: over its 4x4s)
         self.t8 = np.zeros(n, bool)             # transform_size_8x8_flag
-        self.mv = np.zeros((n, 2), int)         # natural mode: one vector a macroblock
-        self.refidx = np.full(n, -1)
+        self.mv = np.zeros((n, 2, 2), int)      # natural mode: a vector a list a macroblock
+        self.refidx = np.full((n, 2), -1)       # ... and its ref_idx (-1: list not used)
         # what CABAC's context index increments read of a macroblock
         self.cbp = np.zeros(n, int)             # luma bits | chroma << 4
         self.cmode = np.zeros(n, int)           # intra_chroma_pred_mode
         self.cbf_dc = np.zeros((n, 3), int)     # coded_block_flag: Intra16x16 DC, Cb DC, Cr DC
-        self.ref4 = np.zeros((n, 16), int)      # ref_idx of each 4x4 block
-        self.amvd = np.zeros((n, 16, 2), int)   # absMvdComp of each 4x4 block
+        self.ref4 = np.full((n, 2, 16), -1)     # ref_idx of each 4x4 block, per list
+        self.amvd = np.zeros((n, 2, 16, 2), int)  # absMvdComp of each 4x4 block, per list
+        self.direct = np.zeros((n, 16), bool)   # a direct-predicted 4x4 block
+        self.direct16 = np.zeros(n, bool)       # B_Skip or B_Direct_16x16
         self.dq = np.zeros(n, int)              # mb_qp_delta
         self.nals = []
 
@@ -1033,15 +1107,21 @@ class Picture:
     # slices
     def slice(self, first: int, count: int, typ: str, choose, qp=None, deblock=(0, 0, 0),
               num_ref=None, modifications=(), mmco=None, long_term_idr=False,
-              slice_type_code=None, cabac_init_idc=None):
+              slice_type_code=None, cabac_init_idc=None, num_ref1=None, modifications1=(),
+              direct_spatial=True, weights=None):
         """Writes one slice of ``count`` macroblocks from ``first``;
         ``choose(pic, mb, qp)`` gives each macroblock's syntax (a dict).
-        A CABAC P slice draws its cabac_init_idc unless given one."""
+        A CABAC P or B slice draws its cabac_init_idc unless given one. A B
+        slice has list 1's size and modifications besides list 0's, and
+        direct_spatial_mv_pred_flag; ``weights`` is the pred_weight_table
+        of a P slice under weighted_pred_flag or a B slice under
+        weighted_bipred_idc 1: (luma logWD, chroma logWD, [list][ref_idx]
+        (luma (w, o) or None, chroma ((w, o), (w, o)) or None))."""
         seq, hdr = self.seq, self.hdr
         self.slice_id += 1
         w = BitWriter()
         w.ue(first)
-        w.ue(slice_type_code if slice_type_code is not None else (0 if typ == "P" else 2))
+        w.ue(slice_type_code if slice_type_code is not None else {"P": 0, "B": 1, "I": 2}[typ])
         w.ue(0)
         w.u(seq.log2_fn, hdr["frame_num"])
         if hdr["idr"]:
@@ -1050,19 +1130,30 @@ class Picture:
             w.u(seq.log2_poc, hdr["poc_lsb"])
         elif seq.poc_type == 1 and not seq.poc1_zero:
             w.se(hdr["delta_poc0"])
-        self.num_ref = 0
-        if typ == "P":
+        self.num_ref = self.num_ref1 = 0
+        if typ == "B":
+            w.u(1, int(direct_spatial))
+            COVERAGE[("b_direct", seq.entropy, "spatial" if direct_spatial else "temporal")] += 1
+        if typ in ("P", "B"):
             nref = num_ref or seq.num_ref_default
-            self.num_ref = nref
-            w.u(1, int(nref != seq.num_ref_default))
-            if nref != seq.num_ref_default:
+            nref1 = (num_ref1 or seq.num_ref_default1) if typ == "B" else 0
+            self.num_ref, self.num_ref1 = nref, nref1
+            override = nref != seq.num_ref_default or (typ == "B" and nref1 != seq.num_ref_default1)
+            w.u(1, int(override))
+            if override:
                 w.ue(nref - 1)
-            w.u(1, int(bool(modifications)))
-            if modifications:
-                for idc, v in modifications:
-                    w.ue(idc)
-                    w.ue(v)
-                w.ue(3)
+                if typ == "B":
+                    w.ue(nref1 - 1)
+            for lst, mods in enumerate((modifications, modifications1)[:1 + (typ == "B")]):
+                w.u(1, int(bool(mods)))
+                if mods:
+                    COVERAGE[("list_modification", typ, lst)] += 1
+                    for idc, v in mods:
+                        w.ue(idc)
+                        w.ue(v)
+                    w.ue(3)
+        if (typ == "P" and seq.weighted) or (typ == "B" and seq.bipred == 1):
+            self._write_weights(w, weights, typ)
         if hdr["ref"]:
             if hdr["idr"]:
                 w.u(1, 0)
@@ -1076,7 +1167,7 @@ class Picture:
                             w.ue(a)
                     w.ue(0)
         cabac = seq.entropy == "cabac"
-        if cabac and typ == "P":
+        if cabac and typ != "I":
             if cabac_init_idc is None:
                 cabac_init_idc = int(seq.cabac_rng.integers(0, 3))
             w.ue(cabac_init_idc)
@@ -1096,16 +1187,15 @@ class Picture:
             for mb in range(first, first + count):
                 self.slice_of[mb] = self.slice_id
                 spec = choose(self, mb, qp)
-                if typ == "P":
+                skip = False
+                if typ != "I":
                     skip = spec["kind"] == "SKIP"
                     a, b = self.avail(mb, -1, 0), self.avail(mb, 0, -1)
                     inc = sum(n is not None and self.kind[n] != "SKIP" for n in (a, b))
-                    e.decision(11 + inc, int(skip))
+                    e.decision((24 if typ == "B" else 11) + inc, int(skip))
                     if skip:
-                        self.kind[mb] = "SKIP"
-                        self.ref4[mb] = 0
-                        COVERAGE[("mb_type", "SKIP")] += 1
-                if typ != "P" or not skip:
+                        self._skipped(mb, typ)
+                if not skip:
                     qp = self.write_mb_cabac(e, mb, spec, qp, typ)
                 e.terminate(int(mb == first + count - 1))  # end_of_slice_flag
             self.nals.append(nal(2 if hdr["ref"] else 0, nal_type, w.aligned()))
@@ -1114,12 +1204,11 @@ class Picture:
         for mb in range(first, first + count):
             self.slice_of[mb] = self.slice_id
             spec = choose(self, mb, qp)
-            if typ == "P" and spec["kind"] == "SKIP":
-                self.kind[mb] = "SKIP"
-                COVERAGE[("mb_type", "SKIP")] += 1
+            if typ != "I" and spec["kind"] == "SKIP":
+                self._skipped(mb, typ)
                 skip += 1
                 continue
-            if typ == "P":
+            if typ != "I":
                 w.ue(skip)
                 skip = 0
             qp = self.write_mb(w, mb, spec, qp, typ)
@@ -1127,10 +1216,90 @@ class Picture:
             w.ue(skip)
         self.nals.append(nal(2 if hdr["ref"] else 0, nal_type, w.trailing()))
 
+    def _skipped(self, mb: int, typ: str):
+        """P_Skip (list 0's ref_idx 0) or B_Skip (direct)."""
+        self.kind[mb] = "SKIP"
+        if typ == "B":
+            self.direct[mb] = self.direct16[mb] = True
+            COVERAGE[("b_mb_type", "SKIP")] += 1
+        else:
+            self.ref4[mb, 0] = 0
+            COVERAGE[("mb_type", "SKIP")] += 1
+
+    def _write_weights(self, w: BitWriter, weights, typ: str):
+        """pred_weight_table (7.3.3.2): ``weights`` as ``slice`` takes it
+        (None: the logWDs 0 and no flag set)."""
+        lw, cw, tabs = weights if weights is not None else (0, 0, [[], []])
+        w.ue(lw)
+        w.ue(cw)
+        for lst in range(2 if typ == "B" else 1):
+            for i in range(self.num_ref1 if lst else self.num_ref):
+                luma, chroma = tabs[lst][i] if i < len(tabs[lst]) else (None, None)
+                w.u(1, int(luma is not None))
+                if luma is not None:
+                    w.se(luma[0])
+                    w.se(luma[1])
+                w.u(1, int(chroma is not None))
+                if chroma is not None:
+                    for wo in chroma:
+                        w.se(wo[0])
+                        w.se(wo[1])
+                COVERAGE[("pred_weight", typ, lst, luma is not None, chroma is not None)] += 1
+
+    def _b_parts(self, s: dict):
+        """A B macroblock's partitions in decoding order: (x, y, w, h, lists,
+        sub-macroblock or -1); a direct sub-macroblock as one entry with
+        lists 0."""
+        kind = s["kind"]
+        if kind in B_PARTS:
+            n, pw, ph = B_PARTS[kind]
+            return [(2 * p if kind == "B8x16" else 0, 2 * p if kind == "B16x8" else 0, pw, ph,
+                     s["preds"][p], -1) for p in range(n)]
+        out = []
+        for i, t in enumerate(s["subs"]):
+            lists, shape = B_SUB[t]
+            np_, sw, sh = SUB_PARTS[shape]
+            for k in range(np_ if lists else 1):
+                dx = (k & 1) if shape in (2, 3) else 0
+                dy = k if shape == 1 else (k >> 1) if shape == 3 else 0
+                out.append((2 * (i % 2) + dx, 2 * (i // 2) + dy, sw, sh, lists, i))
+        return out
+
+    def _b_syntax(self, mb: int, s: dict):
+        """The ref_idx (per list: (x, y, blocks, value)) and mvds (per list:
+        (x, y, blocks, (mx, my))) of a B macroblock in syntax order, the
+        direct blocks marked."""
+        parts = self._b_parts(s) if s["kind"] != "BDIRECT" else []
+        if s["kind"] == "BDIRECT":
+            self.direct[mb] = self.direct16[mb] = True
+        refs, mvds = [[], []], [[], []]
+        k_mvd = [0, 0]
+        seen = [set(), set()]
+        for (x, y, pw, ph, lists, sub) in parts:
+            if not lists:
+                for j in range(2):
+                    for i in range(2):
+                        self.direct[mb, BLK_AT[(x + i, y + j)]] = True
+                continue
+            blocks = [BLK_AT[(i, j)] for j in range(y, y + ph) for i in range(x, x + pw)]
+            for lst in range(2):
+                if not lists >> lst & 1:
+                    continue
+                unit = sub if sub >= 0 else (x, y)
+                if unit not in seen[lst]:
+                    seen[lst].add(unit)
+                    rb = blocks if sub < 0 else [BLK_AT[(2 * (sub % 2) + i, 2 * (sub // 2) + j)]
+                                                 for j in range(2) for i in range(2)]
+                    ref = s["refs"][lst][len(refs[lst])]
+                    refs[lst].append((x, y, rb, ref))
+                mvds[lst].append((x, y, blocks, s["mvds"][lst][k_mvd[lst]]))
+                k_mvd[lst] += 1
+        return refs, mvds
+
     def write_mb(self, w: BitWriter, mb: int, s: dict, qp: int, typ: str) -> int:
         kind = s["kind"]
         self.kind[mb] = kind
-        off = 5 if typ == "P" else 0
+        off = {"P": 5, "B": 23, "I": 0}[typ]
         if kind == "PCM":
             w.ue(off + 25)
             COVERAGE[("mb_type", "PCM")] += 1
@@ -1160,6 +1329,24 @@ class Picture:
             COVERAGE[("mb_type", "I16", s["mode16"], cbp_c, cbp_l)] += 1
             w.ue(s["chroma_mode"])
             COVERAGE[("intra_chroma", s["chroma_mode"])] += 1
+        elif kind in B_TYPES:
+            t = b_mb_type(kind, s.get("preds"))
+            w.ue(t)
+            COVERAGE[("b_mb_type", t)] += 1
+            for st in s.get("subs", ()) if kind == "B8x8" else ():
+                w.ue(st)
+                COVERAGE[("b_sub_mb_type", st)] += 1
+            refs, mvds = self._b_syntax(mb, s)
+            for lst in range(2):
+                nref = self.num_ref1 if lst else self.num_ref
+                for x, y, blocks, r in refs[lst]:
+                    if nref > 1:
+                        w.te(nref - 1, r)
+                    self.ref4[mb, lst, blocks] = r
+            for lst in range(2):
+                for x, y, blocks, (mx, my) in mvds[lst]:
+                    w.se(mx)
+                    w.se(my)
         else:
             w.ue(P_TYPES[kind])
             COVERAGE[("mb_type", kind)] += 1
@@ -1235,11 +1422,19 @@ class Picture:
 
     def _t8_flag(self, mb, s) -> bool:
         """Whether an inter macroblock carries transform_size_8x8_flag (7.3.5):
-        luma coefficients and no partition below 8x8; records the flag."""
+        luma coefficients and no partition below 8x8 (a direct one counting
+        as 8x8 under direct_8x8_inference_flag, B_Direct_16x16 only under
+        it); records the flag."""
         kind = s["kind"]
-        if kind not in P_TYPES:
+        if kind not in INTER:
             return False
-        small = kind not in MB_PARTS and any(s["subs"])
+        d8 = self.seq.direct8x8
+        if kind in P_TYPES:
+            small = kind not in MB_PARTS and any(s["subs"])
+        elif kind == "B8x8":
+            small = any(B_SUB[t][1] or (not B_SUB[t][0] and not d8) for t in s["subs"])
+        else:
+            small = kind == "BDIRECT" and not d8
         has = self.seq.t8 and s.get("cbp_l", 0) > 0 and not small
         assert has or not s.get("t8"), s
         self.t8[mb] = bool(s.get("t8")) and has
@@ -1261,46 +1456,104 @@ class Picture:
             n = mb
         return n, BLK_AT[(x % 4, y % 4)]
 
-    def _intra_type_cabac(self, e, mb, t: int, islice: bool):
+    def _intra_type_cabac(self, e, mb, t: int, typ: str):
         """An I mb_type (0 I_NxN, 1-24 I_16x16, 25 I_PCM): contexts 3-10 in
         an I slice (bin 0 by whether A and B are coded other than I_NxN),
-        17-20 as a P slice's suffix; bin 1 the terminate bin."""
-        COVERAGE[("cabac_mb_type", "I" if islice else "P", t)] += 1
+        17-20 as a P slice's suffix, 32-35 as a B slice's; bin 1 the
+        terminate bin."""
+        COVERAGE[("cabac_mb_type", typ, t)] += 1
+        islice, base = typ == "I", 17 if typ == "P" else 32
         if islice:
             inc = sum(n is not None and self.kind[n] not in NXN
                       for n in (self.avail(mb, -1, 0), self.avail(mb, 0, -1)))
             e.decision(3 + inc, int(t != 0))
         else:
-            e.decision(17, int(t != 0))
+            e.decision(base, int(t != 0))
         if t == 0:
             return
         e.terminate(int(t == 25))
         if t == 25:
             return
         mode, cc, cl = (t - 1) % 4, (t - 1) // 4 % 3, int(t >= 13)
-        e.decision(6 if islice else 18, cl)
-        e.decision(7 if islice else 19, int(cc > 0))
+        e.decision(6 if islice else base + 1, cl)
+        e.decision(7 if islice else base + 2, int(cc > 0))
         if cc:
-            e.decision(8 if islice else 19, int(cc == 2))
-        e.decision(9 if islice else 20, mode >> 1)
-        e.decision(10 if islice else 20, mode & 1)
+            e.decision(8 if islice else base + 2, int(cc == 2))
+        e.decision(9 if islice else base + 3, mode >> 1)
+        e.decision(10 if islice else base + 3, mode & 1)
 
-    def _ref_cabac(self, e, mb, x, y, r: int):
-        """ref_idx (U) of the partition at (x, y): bin 0 by whether A's and
-        B's refIdx exceed 0 (an inter, not skipped macroblock)."""
+    def _b_type_cabac(self, e, mb, t: int):
+        """A B mb_type (Table 9-37): bin 0 by whether A and B are coded
+        other than B_Skip and B_Direct_16x16 (27-29), then contexts 30-32 as
+        FFmpeg's decode_cabac_mb_type_b reads them; t 23 + an I type."""
+        inc = sum(n is not None and not self.direct16[n]
+                  for n in (self.avail(mb, -1, 0), self.avail(mb, 0, -1)))
+        COVERAGE[("cabac_b_mb_type", min(t, 23))] += 1
+        e.decision(27 + inc, int(t != 0))
+        if t == 0:
+            return
+        e.decision(30, int(t > 2))
+        if t <= 2:
+            e.decision(32, t - 1)
+            return
+        if t >= 23:
+            bits, extra = 13, None
+        elif t <= 10:
+            bits, extra = t - 3, None
+        elif t == 11:
+            bits, extra = 14, None
+        elif t == 22:
+            bits, extra = 15, None
+        else:
+            bits, extra = (t + 4) >> 1, (t + 4) & 1
+        for k, ctx in zip((3, 2, 1, 0), (31, 32, 32, 32)):
+            e.decision(ctx, bits >> k & 1)
+        if extra is not None:
+            e.decision(32, extra)
+        if t >= 23:
+            self._intra_type_cabac(e, mb, t - 23, "B")
+
+    def _b_sub_cabac(self, e, t: int):
+        """A B sub_mb_type (Table 9-38), contexts 36-39."""
+        COVERAGE[("cabac_b_sub_mb_type", t)] += 1
+        e.decision(36, int(t != 0))
+        if t == 0:
+            return
+        e.decision(37, int(t >= 3))
+        if t < 3:
+            e.decision(39, t - 1)
+            return
+        big = t >= 7
+        e.decision(38, int(big))
+        if t >= 11:
+            e.decision(39, 1)
+            e.decision(39, t - 11)
+            return
+        if big:
+            e.decision(39, 0)
+        v = t - (7 if big else 3)
+        e.decision(39, v >> 1)
+        e.decision(39, v & 1)
+
+    def _ref_cabac(self, e, mb, x, y, r: int, lst: int = 0):
+        """ref_idx (U) in list ``lst`` of the partition at (x, y): bin 0 by
+        whether A's and B's refIdx exceed 0 (a coded inter macroblock's
+        block that is not direct-predicted)."""
         def term(dx, dy):
             n, b = self._nb4(mb, x + dx, y + dy)
-            return int(n is not None and self.kind[n] in P_TYPES and self.ref4[n, b] > 0)
+            return int(n is not None and self.kind[n] in INTER and not self.direct[n, b]
+                       and self.ref4[n, lst, b] > 0)
         e.decision(54 + term(-1, 0) + 2 * term(0, -1), int(r > 0))
         for k in range(1, r + 1):
             e.decision(58 if k == 1 else 59, int(k < r))
         COVERAGE[("cabac_ref_idx", min(r, 2))] += 1
 
-    def _mvd_cabac(self, e, mb, x, y, comp: int, v: int):
-        """mvd (UEG3, signed, prefix of 9) of the partition at (x, y): bin 0
-        by absMvdComp of A plus B against 3 and 32."""
+    def _mvd_cabac(self, e, mb, x, y, comp: int, v: int, lst: int = 0):
+        """mvd (UEG3, signed, prefix of 9) in list ``lst`` of the partition
+        at (x, y): bin 0 by absMvdComp of A plus B against 3 and 32."""
         (na, ba), (nb, bb) = self._nb4(mb, x - 1, y), self._nb4(mb, x, y - 1)
-        s = sum(0 if n is None else int(self.amvd[n, b, comp]) for n, b in ((na, ba), (nb, bb)))
+        s = sum(0 if n is None else int(self.amvd[n, lst, b, comp])
+                for n, b in ((na, ba), (nb, bb)))
         base, a = 47 if comp else 40, abs(v)
         e.decision(base + (0 if s < 3 else 2 if s > 32 else 1), int(a > 0))
         if not a:
@@ -1399,14 +1652,19 @@ class Picture:
         cbp_l, cbp_c = s.get("cbp_l", 0), s.get("cbp_c", 0)
         t8_inc = sum(n is not None and bool(self.t8[n]) for n in (a, b))
         if kind in INTRA:
-            if typ == "P":
-                e.decision(14, 1)
             t = 0 if kind in NXN else 25 if kind == "PCM" else \
                 1 + s["mode16"] + 4 * cbp_c + (12 if cbp_l else 0)
-            self._intra_type_cabac(e, mb, t, typ == "I")
+            if typ == "P":
+                e.decision(14, 1)
+            if typ == "B":
+                self._b_type_cabac(e, mb, 23 + t)
+            else:
+                self._intra_type_cabac(e, mb, t, typ)
             if kind in NXN and self.seq.t8:
                 e.decision(399 + t8_inc, int(kind == "I8"))
             self.t8[mb] = kind == "I8"
+        elif kind in B_TYPES:
+            self._b_type_cabac(e, mb, b_mb_type(kind, s.get("preds")))
         else:
             assert kind in P_TYPES and kind != "P8x8ref0", kind
             COVERAGE[("cabac_mb_type", "P", kind)] += 1
@@ -1445,6 +1703,21 @@ class Picture:
                 if mc > 1:
                     e.decision(67, int(mc > 2))
             self.cmode[mb] = mc
+        elif kind in B_TYPES:
+            for st in s.get("subs", ()) if kind == "B8x8" else ():
+                self._b_sub_cabac(e, st)
+            refs, mvds = self._b_syntax(mb, s)
+            for lst in range(2):
+                nref = self.num_ref1 if lst else self.num_ref
+                for x, y, blocks, r in refs[lst]:
+                    if nref > 1:
+                        self._ref_cabac(e, mb, x, y, r, lst)
+                    self.ref4[mb, lst, blocks] = r
+            for lst in range(2):
+                for x, y, blocks, mvd in mvds[lst]:
+                    for comp in range(2):
+                        self._mvd_cabac(e, mb, x, y, comp, mvd[comp], lst)
+                        self.amvd[mb, lst, blocks, comp] = min(abs(mvd[comp]), 64)
         else:
             nref = self.num_ref
             if kind in MB_PARTS:
@@ -1475,13 +1748,13 @@ class Picture:
                     self._ref_cabac(e, mb, x, y, r)
                 for j in range(y, y + ph):
                     for i in range(x, x + pw):
-                        self.ref4[mb, BLK_AT[(i, j)]] = r
+                        self.ref4[mb, 0, BLK_AT[(i, j)]] = r
             for (x, y, pw, ph), mvd in zip(mvd_parts, s["mvds"]):
                 for comp in range(2):
                     self._mvd_cabac(e, mb, x, y, comp, mvd[comp])
                     for j in range(y, y + ph):
                         for i in range(x, x + pw):
-                            self.amvd[mb, BLK_AT[(i, j)], comp] = min(abs(mvd[comp]), 64)
+                            self.amvd[mb, 0, BLK_AT[(i, j)], comp] = min(abs(mvd[comp]), 64)
         if kind != "I16":
             # coded_block_pattern: a neighbour's luma 8x8 counts as coded when
             # not available or I_PCM; its chroma as coded only when I_PCM
@@ -1615,7 +1888,7 @@ def random_levels(rng, kind: str, cbp_l: int, cbp_c: int, qp: int, cqp, big: flo
     ("luma8", scan order: four 4x4 draws interleaved, as CAVLC codes them),
     ``w4`` [6, 16] and ``w8`` [2, 64] the weightScale lists (flat if None)."""
     cqp = (cqp, cqp) if isinstance(cqp, int) else cqp
-    inter = int(kind in P_TYPES)
+    inter = int(kind in INTER)
     wl = lambda i: None if w4 is None else w4[3 * inter + i]
     luma_scan = ZIGZAG if kind != "I16" else ZIGZAG[1:]
     out = {"luma": [None] * 16, "luma8": [None] * 4}
@@ -1727,7 +2000,9 @@ class RandomMB:
 
     def __call__(self, pic: Picture, mb: int, qp: int) -> dict:
         rng, typ, seq = self.rng, pic.cur_type, pic.seq
-        kinds = [k for k in self.weights if (typ == "P" or k in INTRA) and (k != "I8" or seq.t8)]
+        allowed = {"I": INTRA, "P": INTRA + tuple(P_TYPES) + ("SKIP",),
+                   "B": INTRA + B_TYPES + ("SKIP",)}[typ]
+        kinds = [k for k in self.weights if k in allowed and (k != "I8" or seq.t8)]
         p = np.array([self.weights[k] for k in kinds], float)
         kind = kinds[rng.choice(len(kinds), p=p / p.sum())]
         # P_8x8ref0 has no CABAC binarisation: P_8x8 with every ref_idx 0
@@ -1768,8 +2043,10 @@ class RandomMB:
             if ref0:
                 s["refs"] = [0] * 4
             s["mvds"] = [self._mvd() for t in s["subs"] for _ in range(SUB_PARTS[t][0])]
+        elif kind in B_TYPES:
+            self._b_motion(pic, s)
         t8 = kind == "I8"
-        if seq.t8 and kind in P_TYPES and s["cbp_l"] and not any(s.get("subs", ())):
+        if seq.t8 and kind in INTER and s["cbp_l"] and self._t8_ok(s, seq):
             t8 = s["t8"] = bool(rng.random() < self.t8_share)
         if s["cbp_l"] or s["cbp_c"] or kind == "I16":
             dq = int(rng.integers(-self.qp_walk, self.qp_walk + 1))
@@ -1786,9 +2063,43 @@ class RandomMB:
             for b8 in range(4 if t8 else 0):
                 if L["luma8"][b8] is not None and not any(L["luma8"][b8]):
                     s["cbp_l"] &= ~(1 << b8)
-            if kind in P_TYPES and not s["cbp_l"]:
+            if kind in INTER and not s["cbp_l"]:
                 s.pop("t8", None)
         return s
+
+    @staticmethod
+    def _t8_ok(s: dict, seq) -> bool:
+        """No partition below 8x8 (Picture._t8_flag's rule)."""
+        kind = s["kind"]
+        if kind == "B8x8":
+            return all(not B_SUB[t][1] and (B_SUB[t][0] or seq.direct8x8) for t in s["subs"])
+        if kind == "BDIRECT":
+            return bool(seq.direct8x8)
+        return not any(s.get("subs", ()))
+
+    def _b_motion(self, pic, s: dict):
+        """A B macroblock's partitions' lists (or sub-types), ref_idx per
+        list (one a partition or sub-macroblock using the list) and mvds per
+        list (one a partition or sub-partition using it)."""
+        rng, kind = self.rng, s["kind"]
+        if kind == "BDIRECT":
+            return
+        if kind == "B16x16":
+            s["preds"] = [int(rng.integers(1, 4))]
+            units = [(s["preds"][0], 1)]
+        elif kind in B_PARTS:
+            s["preds"] = list(B_PAIRS[int(rng.integers(0, 9))])
+            units = [(p, 1) for p in s["preds"]]
+        else:
+            s["subs"] = [int(v) for v in rng.integers(0, 13, 4)]
+            if pic.seq.t8 and rng.random() < self.t8_share:
+                s["subs"] = [int(v) for v in rng.integers(0, 4, 4)]  # 8x8 or direct
+            units = [(B_SUB[t][0], SUB_PARTS[B_SUB[t][1]][0]) for t in s["subs"]]
+        nref = (pic.num_ref, pic.num_ref1)
+        s["refs"] = [[int(rng.integers(0, max(nref[lst], 1))) for p, _ in units if p >> lst & 1]
+                     for lst in range(2)]
+        s["mvds"] = [[self._mvd() for p, n in units if p >> lst & 1 for _ in range(n)]
+                     for lst in range(2)]
 
 
 def random_stream(width: int, height: int, pictures: int, seed: int = 0, *,
@@ -1799,7 +2110,8 @@ def random_stream(width: int, height: int, pictures: int, seed: int = 0, *,
                   qp_walk: int = 3, seq_args=None, slice_qp=None, edit=None,
                   first_idr: bool = True, reverse_slices: int = -1,
                   partition_nal: int = -1, entropy: str = "cavlc", pcm_places: bool = False,
-                  qp_ends: float = 0.0) -> tuple:
+                  qp_ends: float = 0.0, bframes: int = 0, pyramid: bool = False,
+                  direct: str = "spatial") -> tuple:
     """(Sequence, [sample NAL lists]) of a random stream: picture 0 an IDR,
     then P pictures (every ``p_every``-th, the others I), ``slices``
     slices a picture (each drawing its deblocking setting from
@@ -1816,13 +2128,25 @@ def random_stream(width: int, height: int, pictures: int, seed: int = 0, *,
     ``entropy`` picks the coder; the draws, and so the pictures, are the
     same for both. ``pcm_places`` codes I_PCM at each slice's first and
     last macroblock and one mid-row; ``qp_ends`` is the share of
-    mb_qp_delta drawn at -26 or +25."""
+    mb_qp_delta drawn at -26 or +25.
+
+    ``bframes`` > 0 codes ``bframes`` B pictures between P anchors (POC
+    type 0, in output order; an IDR every ``idr_every`` pictures of output
+    order), with ``pyramid`` the middle one of each run a reference, each B
+    slice's direct mode "spatial", "temporal" or "mixed" (drawn), its lists'
+    sizes drawn and, with ``modify``, both lists modified. Under
+    weighted_pred_flag (P) or weighted_bipred_idc 1 (B) every slice draws
+    its pred_weight_table."""
     seq = Sequence(width, height, seed=seed, max_refs=max_refs, entropy=entropy,
                    **(seq_args or {}))
     rng = seq.rng
     weights = weights or {"I4": 3, "I16": 3, "PCM": 0.3, "P16x16": 2, "P16x8": 2, "P8x16": 2,
                           "P8x8": 2, "P8x8ref0": 1, "SKIP": 3}
     choose = RandomMB(rng, weights, big, mvd_scale, far_mvd, qp_walk, qp_ends=qp_ends)
+    if bframes:
+        return seq, _random_b_pictures(seq, choose, pictures, bframes, pyramid, direct,
+                                       idr_every, slices, deblock, mmco, modify, slice_qp,
+                                       edit)
     samples, prev_ref = [], True
     for k in range(pictures):
         idr = (k == 0 and first_idr) or (idr_every and k % idr_every == 0)
@@ -1855,14 +2179,122 @@ def random_stream(width: int, height: int, pictures: int, seed: int = 0, *,
             if pcm_places:
                 mid = [m for m in range(s0, s1) if 0 < m % seq.mb_w < seq.mb_w - 1]
                 choose.force_pcm = {s0, s1 - 1} | set(mid[len(mid) // 2:][:1])
+            wts = random_weights(rng, "P", (nref, 0)) if typ == "P" and seq.weighted else None
             pic.slice(s0, s1 - s0, typ, choose, qp=qp, deblock=db, num_ref=nref,
                       modifications=mods, **{"mmco": ops, "long_term_idr": long_term_idr,
-                                             **extra})
+                                             "weights": wts, **extra})
         seq.mark(hdr, ops, long_term_idr)
         if k == partition_nal:
             pic.nals.append(nal(2, 2, b"\x88\x84\x21\xa0"))
         samples.append(pic.nals)
     return seq, samples
+
+
+def random_weights(rng, typ: str, nrefs) -> tuple:
+    """A pred_weight_table as Picture.slice takes it: logWDs 0-7, each
+    reference's luma and chroma weights present or not, near 2^logWD or
+    (now and then) anywhere in -128..127, offsets small or large. A B
+    slice's keep every pair's sum within 8.4.2.3's bound for explicit
+    bi-prediction (-128..128): logWDs 0-6, weights in -64..64."""
+    top = 7 if typ == "P" else 6
+    lw, cw = int(rng.integers(0, top + 1)), int(rng.integers(0, top + 1))
+    lo, hi = (-128, 127) if typ == "P" else (-64, 64)
+
+    def one(denom):
+        if rng.random() < 0.15:
+            w = int(rng.integers(lo, hi + 1))
+        else:
+            w = int(np.clip((1 << denom) + rng.integers(-(1 << denom) // 2 - 1,
+                                                       (1 << denom) // 2 + 2), lo, hi))
+        o = int(rng.integers(-128, 128)) if rng.random() < 0.15 else int(rng.integers(-12, 13))
+        return (w, o)
+    tabs = []
+    for lst in range(2 if typ == "B" else 1):
+        tabs.append([(one(lw) if rng.random() < 0.6 else None,
+                      (one(cw), one(cw)) if rng.random() < 0.5 else None)
+                     for _ in range(nrefs[lst])])
+    if typ == "P":
+        tabs.append([])
+    return lw, cw, tabs
+
+
+def b_schedule(pictures: int, bframes: int, pyramid: bool, idr_every: int = 0) -> list:
+    """Decoding order of ``pictures`` in output order with ``bframes`` B
+    pictures between anchors: [(place in output order since the IDR, type
+    "I"/"P"/"B", reference, IDR)]. Each IDR period closes with an anchor;
+    with ``pyramid`` the middle B picture of each run (of two or more) is a
+    reference, decoded before the others."""
+    out, start = [], 0
+    while start < pictures:
+        end = min(start + idr_every, pictures) if idr_every else pictures
+        out.append((0, "I", True, True))
+        prev = start
+        while prev < end - 1:
+            a = min(prev + bframes + 1, end - 1)
+            out.append((a - start, "P", True, False))
+            mids = list(range(prev + 1, a))
+            if pyramid and len(mids) >= 2:
+                m = mids[len(mids) // 2]
+                out.append((m - start, "B", True, False))
+                mids.remove(m)
+            out += [(d - start, "B", False, False) for d in mids]
+            prev = a
+        start = end
+    return out
+
+
+def _random_b_pictures(seq: Sequence, choose, pictures: int, bframes: int, pyramid: bool,
+                       direct: str, idr_every: int, slices: int, deblock, mmco: bool,
+                       modify: bool, slice_qp, edit) -> list:
+    """random_stream's pictures with B slices (its arguments)."""
+    rng, samples = seq.rng, []
+    order = b_schedule(pictures, bframes, pyramid, idr_every)
+    # each sample's place in output order over the whole stream
+    seq.display, base = [], 0
+    for disp, typ, ref, idr in order:
+        base = len(seq.display) if idr else base
+        seq.display.append(base + disp)
+    for k, (disp, typ, ref, idr) in enumerate(order):
+        hdr = seq.begin(idr, ref, display=disp)
+        hdr["idr_pic_id"] = k % 3
+        extra = edit(k, hdr) if edit else {}
+        pic = Picture(seq, hdr)
+        pic.cur_type = typ
+        ops = seq.random_mmco() if (mmco and ref and not idr) else None
+        cuts = sorted(set([0, seq.nmb] + [int(v) for v in
+                                          rng.integers(1, seq.nmb, slices - 1)])) \
+            if slices > 1 and seq.nmb > slices else [0, seq.nmb]
+        l0, l1 = seq.b_lists()
+        for s0, s1 in zip(cuts, cuts[1:]):
+            db = deblock[int(rng.integers(len(deblock)))]
+            opts = {}
+            # under implicit weights list 0 holds the earlier pictures alone
+            # and list 1 the later ones, so that no weight reaches 128 (cv2's
+            # libavcodec takes bi-prediction weights as 8-bit)
+            implicit = typ == "B" and seq.bipred == 2
+            before = sum(r["poc"] < seq.poc for r in l0)
+            mod_ok = modify and not implicit
+            if typ in ("P", "B"):
+                n0 = len(seq.refs) if typ == "P" else before if implicit else len(l0)
+                opts["num_ref"] = int(rng.integers(1, n0 + 1))
+                if mod_ok and rng.random() < 0.7:
+                    opts["modifications"] = _random_modifications(seq, rng, opts["num_ref"])
+            if typ == "B":
+                n1 = len(l1) - before if implicit else len(l1)
+                opts["num_ref1"] = int(rng.integers(1, n1 + 1))
+                if mod_ok and rng.random() < 0.7:
+                    opts["modifications1"] = _random_modifications(seq, rng, opts["num_ref1"])
+                opts["direct_spatial"] = direct == "spatial" or (direct == "mixed" and
+                                                                 rng.random() < 0.5)
+            if (typ == "P" and seq.weighted) or (typ == "B" and seq.bipred == 1):
+                opts["weights"] = random_weights(rng, typ, (opts["num_ref"],
+                                                            opts.get("num_ref1", 0)))
+            qp = slice_qp if slice_qp is not None else int(seq.qp + rng.integers(-4, 5))
+            pic.slice(s0, s1 - s0, typ, choose, qp=qp, deblock=db, mmco=ops,
+                      **{**opts, **extra})
+        seq.mark(hdr, ops)
+        samples.append(pic.nals)
+    return samples
 
 
 def _random_modifications(seq: Sequence, rng, nref: int) -> list:
@@ -1992,12 +2424,17 @@ class NaturalEncoder:
         self.high = high
         self.lam = 0.92 * 2 ** ((qp - 12) / 6)
 
-    def start(self, planes, refs, vectors):
+    def start(self, planes, refs, vectors, weights=None, lists=None, col=None, w0=32):
         """The next picture: its source ``planes``, the reference
         reconstructions by ref_idx, and each reference's global vector
-        (integer luma pixels, even)."""
+        (integer luma pixels, even). A P picture's ``weights``: ref_idx 0's
+        explicit luma weight (logWD 6), or None. A B picture's ``lists``:
+        (list 0, list 1) of (reconstruction, vector), its colocated
+        picture's motion ``col`` (refidx, mv, intra per macroblock) and the
+        implicit weight ``w0`` of the two ref_idx 0."""
         self.src = planes
         self.refs, self.vectors = refs, vectors
+        self.weight, self.lists, self.col, self.w0 = weights, lists, col, w0
         self.recon = [np.zeros_like(p) for p in planes]
 
     def __call__(self, pic: Picture, mb: int, qp: int) -> dict:
@@ -2005,6 +2442,8 @@ class NaturalEncoder:
         qpc = CHROMA_QP[min(max(qp + pic.seq.cqp_offset, 0), 51)]
         if pic.cur_type == "I":
             return self._intra(pic, mb, x, y, qp, qpc)
+        if pic.cur_type == "B":
+            return self._inter_b(pic, mb, x, y, qp, qpc)
         return self._inter(pic, mb, x, y, qp, qpc)
 
     def _chroma_levels(self, pred_u, pred_v, x, y, qpc, intra):
@@ -2209,14 +2648,62 @@ class NaturalEncoder:
         # the reference whose global vector predicts this macroblock best
         best = None
         for r, (R, (vx, vy)) in enumerate(zip(self.refs, self.vectors)):
-            pred = [_shifted(R[0], 16 * x + vx, 16 * y + vy, 16),
-                    _shifted(R[1], 8 * x + vx // 2, 8 * y + vy // 2, 8),
-                    _shifted(R[2], 8 * x + vx // 2, 8 * y + vy // 2, 8)]
+            pred = _block_pred(R, x, y, vx, vy)
+            if r == 0 and self.weight is not None:  # explicit weighted prediction
+                pred = [np.clip(((p * self.weight + 32) >> 6), 0, 255) for p in pred]
             src = self.src[0][16 * y:16 * y + 16, 16 * x:16 * x + 16]
             cost = np.abs(src - pred[0]).sum() + 64 * r
             if best is None or cost < best[0]:
                 best = (cost, r, pred, (4 * vx, 4 * vy))
         _, r, pred, mv = best
+        spec = self._residual(x, y, qp, qpc, pred)
+        mvp = _mvp16(pic, mb, r, 0)
+        pic.mv[mb, 0], pic.refidx[mb, 0] = mv, r
+        return {"kind": "P16x16", "refs": [r],
+                "mvds": [(int(mv[0] - mvp[0]), int(mv[1] - mvp[1]))], **spec}
+
+    def _inter_b(self, pic, mb, x, y, qp, qpc):
+        """A B macroblock: list 0's or list 1's ref_idx 0 by its global
+        vector, both under the implicit weights, or B_Skip where spatial
+        direct prediction (8.4.1.2.2, its colocated block the same
+        macroblock of list 1's ref_idx 0) predicts as well."""
+        src = self.src[0][16 * y:16 * y + 16, 16 * x:16 * x + 16]
+        one = [_block_pred(R, x, y, vx, vy) for R, (vx, vy) in (self.lists[0][0], self.lists[1][0])]
+        both = [(a * self.w0 + b * (64 - self.w0) + 32) >> 6 for a, b in zip(*one)]
+        mvs = [(4 * v[0], 4 * v[1]) for _, v in (self.lists[0][0], self.lists[1][0])]
+        cands = [(np.abs(src - p[0]).sum() + self.lam * bits, preds, p)
+                 for preds, p, bits in ((1, one[0], 8), (2, one[1], 8), (3, both, 14))]
+        cost, preds, pred = min(cands, key=lambda c: c[0])
+        # B_Skip: spatial direct's motion, no residual
+        refs, dmv = _spatial_direct16(pic, mb, self.col[0][mb], self.col[1][mb], self.col[2][mb])
+        if all(r <= 0 for r in refs):
+            planes = [_block_pred(self.lists[k][0][0], x, y, dmv[k][0] // 4, dmv[k][1] // 4)
+                      if refs[k] == 0 else None for k in range(2)]
+            skip = planes[0] if refs[1] < 0 else planes[1] if refs[0] < 0 else \
+                [(a * self.w0 + b * (64 - self.w0) + 32) >> 6 for a, b in zip(*planes)]
+            if all(v % 8 == 0 for m in dmv for v in m) and \
+                    np.abs(src - skip[0]).sum() <= cost - self.lam * 6:
+                self.recon[0][16 * y:16 * y + 16, 16 * x:16 * x + 16] = skip[0]
+                for c in range(2):
+                    self.recon[1 + c][8 * y:8 * y + 8, 8 * x:8 * x + 8] = skip[1 + c]
+                pic.refidx[mb], pic.mv[mb] = refs, dmv
+                return {"kind": "SKIP"}
+        spec = self._residual(x, y, qp, qpc, pred)
+        refs, mvds = [[], []], [[], []]
+        for k in range(2):
+            pic.refidx[mb, k] = 0 if preds >> k & 1 else -1
+            pic.mv[mb, k] = mvs[k] if preds >> k & 1 else (0, 0)
+        for k in range(2):
+            if preds >> k & 1:
+                mvp = _mvp16(pic, mb, 0, k)
+                refs[k].append(0)
+                mvds[k].append((int(mvs[k][0] - mvp[0]), int(mvs[k][1] - mvp[1])))
+        return {"kind": "B16x16", "preds": [preds], "refs": refs, "mvds": mvds, **spec}
+
+    def _residual(self, x, y, qp, qpc, pred) -> dict:
+        """An inter macroblock's residual from prediction planes ``pred``
+        (Y 16x16, Cb, Cr 8x8), by the 4x4 or (High) the 8x8 transform,
+        whichever costs less; its reconstruction kept."""
         src = self.src[0][16 * y:16 * y + 16, 16 * x:16 * x + 16]
         w = _fwd(_blocks(src - pred[0], 4).reshape(16, 4, 4)).reshape(16, 16)
         lv = _quant(w, qp, False)
@@ -2246,12 +2733,43 @@ class NaturalEncoder:
         cs, cbp_c, rec = self._chroma_levels(pred[1], pred[2], x, y, qpc, False)
         for c in range(2):
             self.recon[1 + c][8 * y:8 * y + 8, 8 * x:8 * x + 8] = rec[c]
-        mvp = _mvp16(pic, mb, r)
-        pic.mv[mb], pic.refidx[mb] = mv, r
-        return {"kind": "P16x16", "refs": [r],
-                "mvds": [(int(mv[0] - mvp[0]), int(mv[1] - mvp[1]))],
-                "cbp_l": cbp_l, "cbp_c": cbp_c, "qp_delta": 0, "t8": t8,
+        return {"cbp_l": cbp_l, "cbp_c": cbp_c, "qp_delta": 0, "t8": t8,
                 "levels": {**luma, **cs}}
+
+
+def _block_pred(R, x, y, vx, vy):
+    """Macroblock (x, y)'s prediction planes from reconstruction R by the
+    even integer luma vector (vx, vy)."""
+    return [_shifted(R[0], 16 * x + vx, 16 * y + vy, 16),
+            _shifted(R[1], 8 * x + vx // 2, 8 * y + vy // 2, 8),
+            _shifted(R[2], 8 * x + vx // 2, 8 * y + vy // 2, 8)]
+
+
+def _spatial_direct16(pic: Picture, mb: int, col_ref, col_mv, col_intra):
+    """Spatial direct prediction (8.4.1.2.2) of a macroblock whose
+    neighbours and colocated macroblock move as one (16x16): per list its
+    ref_idx (MinPositive of A, B and C, C replaced by D) and vector (the
+    median prediction, 0 at ref_idx 0 where the colocated block is still:
+    ref_idx 0 and each component within 1)."""
+    def nb(dx, dy, k):
+        n = pic.avail(mb, dx, dy)
+        return -1 if n is None else int(pic.refidx[n, k])
+    mp = lambda a, b: min(a, b) if a >= 0 and b >= 0 else max(a, b)
+    refs = []
+    for k in range(2):
+        c = nb(1, -1, k) if pic.avail(mb, 1, -1) is not None else nb(-1, -1, k)
+        refs.append(mp(nb(-1, 0, k), mp(nb(0, -1, k), c)))
+    if refs[0] < 0 and refs[1] < 0:
+        return [0, 0], [(0, 0), (0, 0)]
+    lst = 0 if col_ref[0] >= 0 else 1
+    still = not col_intra and col_ref[lst] == 0 and all(abs(v) <= 1 for v in col_mv[lst])
+    mvs = []
+    for k in range(2):
+        if refs[k] < 0 or (refs[k] == 0 and still):
+            mvs.append((0, 0))
+        else:
+            mvs.append(tuple(int(v) for v in _mvp16(pic, mb, refs[k], k)))
+    return refs, mvs
 
 
 def _shifted(plane, x0, y0, n):
@@ -2262,12 +2780,12 @@ def _shifted(plane, x0, y0, n):
     return plane[ys[:, None], xs[None, :]]
 
 
-def _mvp16(pic: Picture, mb: int, ref: int):
-    """The 16x16 partition's motion vector prediction (8.4.1.3) in a
-    picture of P_L0_16x16 macroblocks."""
+def _mvp16(pic: Picture, mb: int, ref: int, lst: int = 0):
+    """The 16x16 partition's motion vector prediction (8.4.1.3) in list
+    ``lst`` in a picture of 16x16 macroblocks."""
     def nb(dx, dy):
         n = pic.avail(mb, dx, dy)
-        return None if n is None else (int(pic.refidx[n]), tuple(pic.mv[n]))
+        return None if n is None else (int(pic.refidx[n, lst]), tuple(pic.mv[n, lst]))
     A, B, C = nb(-1, 0), nb(0, -1), nb(1, -1)
     if C is None:
         C = nb(-1, -1)
@@ -2282,7 +2800,7 @@ def _mvp16(pic: Picture, mb: int, ref: int):
 
 def natural_stream(frames: list, qp: int = 28, refs: int = 2, gop: int = 0,
                    search: int = 6, deblock_last: int = 0, entropy: str = "cavlc",
-                   high: bool = False) -> tuple:
+                   high: bool = False, bframes: int = 0) -> tuple:
     """(Sequence, [sample NAL lists]) coding ``frames`` (BGR uint8): an IDR,
     then P pictures each predicted from up to ``refs`` references by one
     global vector each (the even-pixel shift that best matches the
@@ -2291,30 +2809,85 @@ def natural_stream(frames: list, qp: int = 28, refs: int = 2, gop: int = 0,
     but for the last ``deblock_last`` pictures: no picture references them,
     so the filter changes no prediction. ``entropy`` picks the coder;
     ``high`` codes at High profile (x264's defaults: the 8x8 transform and
-    Intra 8x8 on, flat scaling lists)."""
+    Intra 8x8 on, flat scaling lists).
+
+    ``bframes`` > 0 gives x264's default structure besides: ``bframes`` B
+    pictures between P anchors, the middle one a reference (b_pyramid
+    normal), weighted_pred_flag with ref_idx 0's luma weight (logWD 6) from
+    the mean brightness, weighted_bipred_idc 2 (implicit), spatial direct
+    (B_Skip where it predicts as well), the VUI's max_num_reorder_frames,
+    the loop filter on in the last ``deblock_last`` non-reference pictures;
+    the samples in decoding order (``seq.display`` their places in output
+    order)."""
     h, w = frames[0].shape[:2]
-    extra = dict(sps_extra={"profile": 100}, pps_extra={"transform_8x8_mode": 1}) if high else {}
-    seq = Sequence(w, h, max_refs=refs, qp=qp, num_ref_default=1, entropy=entropy, **extra)
+    sx, px = ({"profile": 100}, {"transform_8x8_mode": 1}) if high else ({}, {})
+    if bframes:
+        sx = {**sx, "profile": sx.get("profile", 77), "reorder": 2 if bframes > 1 else 1}
+        px = {**px, "weighted_pred": 1, "weighted_bipred_idc": 2}
+    seq = Sequence(w, h, max_refs=refs, qp=qp, num_ref_default=1, entropy=entropy,
+                   sps_extra=sx, pps_extra=px, log2_max_poc_lsb=8 if bframes else 5)
     enc = NaturalEncoder(qp, high)
-    recons, samples = [], []
-    for k, f in enumerate(frames):
-        idr = k == 0 or (gop and k % gop == 0)
-        hdr = seq.begin(idr, True)
+    if bframes:
+        order = b_schedule(len(frames), bframes, True)
+        seq.display = [d for d, _, _, _ in order]
+    else:
+        order = [(k, "I" if k == 0 or (gop and k % gop == 0) else "P", True,
+                  k == 0 or bool(gop and k % gop == 0)) for k in range(len(frames))]
+    nonref = [k for k, e in enumerate(order) if not e[2]]
+    last = set(nonref[-deblock_last:] if bframes and deblock_last else
+               range(len(order) - deblock_last, len(order)))
+    dpb, samples = [], []  # dpb: the references (POC, reconstruction, motion), decoding order
+    for k, (disp, typ, ref, idr) in enumerate(order):
+        hdr = seq.begin(idr, ref, display=disp if bframes else None)
         pic = Picture(seq, hdr)
-        pic.cur_type = "I" if idr else "P"
-        planes = bgr_to_yuv420(f, seq.mb_w, seq.mb_h)
+        pic.cur_type = typ
+        planes = bgr_to_yuv420(frames[disp], seq.mb_w, seq.mb_h)
         if idr:
-            recons = []
-        order = list(reversed(recons))[:refs]  # ref_idx 0: the latest
-        vecs = [_global_vector(planes[0], R[0], search) for R in order]
-        enc.start(planes, order, vecs)
-        filtered = k >= len(frames) - deblock_last
-        pic.slice(0, seq.nmb, pic.cur_type, enc, qp=qp,
-                  deblock=(0, 0, 0) if filtered else (1, 0, 0), num_ref=len(order) or None)
+            dpb = []
+        opts = {}
+        if typ == "B":
+            past = sorted((e for e in dpb if e[0] < seq.poc), key=lambda e: -e[0])
+            future = sorted((e for e in dpb if e[0] > seq.poc), key=lambda e: e[0])
+            lists = [[(e[1], _global_vector(planes[0], e[1][0], search)) for e in lst]
+                     for lst in (past, future)]
+            w0 = _implicit_w0(seq.poc, past[0][0], future[0][0])
+            enc.start(planes, [], [], lists=lists, col=future[0][2], w0=w0)
+            opts = dict(num_ref=1, num_ref1=1)
+        else:
+            recons = [e[1] for e in reversed(dpb)][:refs]  # ref_idx 0: the latest
+            vecs = [_global_vector(planes[0], R[0], search) for R in recons]
+            wt = None
+            if typ == "P" and seq.weighted:
+                wt = int(np.clip(round(64 * planes[0].mean() / max(recons[0][0].mean(), 1)), 0,
+                                 127))
+                opts["weights"] = (6, 0, [[((wt, 0) if wt != 64 else None, None)] +
+                                          [(None, None)] * (len(recons) - 1), []])
+                COVERAGE[("natural_weighted_p", wt != 64)] += 1
+                wt = wt if wt != 64 else None
+            enc.start(planes, recons, vecs, weights=wt)
+            opts["num_ref"] = len(recons) or None
+        filtered = k in last
+        pic.slice(0, seq.nmb, typ, enc, qp=qp, deblock=(0, 0, 0) if filtered else (1, 0, 0),
+                  **opts)
         seq.mark(hdr)
-        recons = (recons + [enc.recon])[-refs:]
+        if ref:
+            motion = (pic.refidx.copy(), pic.mv.copy(),
+                      np.array([kd in INTRA for kd in pic.kind]))
+            dpb = (dpb + [(seq.poc, enc.recon, motion)])[-refs:]
         samples.append(pic.nals)
     return seq, samples
+
+
+def _implicit_w0(poc: int, poc0: int, poc1: int) -> int:
+    """8.4.2.3.1's implicit w0 of two short-term references."""
+    clip = lambda v: min(max(v, -128), 127)
+    td = clip(poc1 - poc0)
+    if not td:
+        return 32
+    tb = clip(poc - poc0)
+    tx = int((16384 + abs(td) // 2) / td)
+    dsf = (tb * tx + 32) >> 8
+    return 64 - dsf if -64 <= dsf <= 128 else 32
 
 
 def _global_vector(src, ref, search):
@@ -2347,16 +2920,27 @@ def sample_bytes(nals: list) -> bytes:
 
 
 def write_mp4(path: str, seq: Sequence, samples: list, fps: int = 30, avc3: bool = False,
-              config: bytes = None) -> None:
+              config: bytes = None, ctts: bool = True) -> None:
     """An MP4 of the stream: an 'avc1' entry with the parameter sets in its
-    avcC, or 'avc3' with them in the first sample."""
+    avcC, or 'avc3' with them in the first sample. A stream whose pictures
+    are reordered (``seq.display``: each sample's place in output order)
+    gets, with ``ctts``, what FFmpeg's mov muxer writes for it: a ctts (each
+    sample's composition offset) and an edit list from the earliest
+    composition time over the media; without, neither."""
     from tests.torch_video import write_isobmff
 
     if avc3:
         samples = [[seq.sps(), seq.pps()] + samples[0]] + samples[1:]
+    display = getattr(seq, "display", None)
+    extra = {}
+    if display is not None and ctts:
+        shift = max(k - d for k, d in enumerate(display))
+        extra["ctts"] = [d + shift - k for k, d in enumerate(display)]
+        extra["elst"] = ((None, shift, 1),)
+        COVERAGE[("mp4_ctts_elst",)] += 1
     write_isobmff(path, [sample_bytes(s) for s in samples], seq.height, seq.width,
                   timescale=fps, fourcc=b"avc3" if avc3 else b"avc1", brand=b"isom", chunk_samples=1,
-                  avcc=avcc(seq) if config is None else config)
+                  avcc=avcc(seq) if config is None else config, **extra)
 
 
 _READER = r"""
@@ -2445,6 +3029,72 @@ CASES = {
                                            idr_every=12, p_every=1,
                                            seq_args={"log2_max_frame_num": 4}),
 }
+
+
+# B slices and weighted prediction (tests/test_torch_h264_bslices.py):
+# random_stream's arguments, each case one tool mix, written with either
+# coder. B_WEIGHTS draws every B macroblock type (B_8x8 with every sub-type)
+# beside a few intra and P ones.
+B_WEIGHTS = {"BDIRECT": 2, "B16x16": 2, "B16x8": 2, "B8x16": 2, "B8x8": 4, "SKIP": 2, "I4": 0.4,
+             "I16": 0.4, "PCM": 0.1, "P16x16": 2, "P16x8": 1, "P8x16": 1, "P8x8": 1}
+B_CASES = {
+    "b_partitions": dict(width=64, height=48, pictures=7, bframes=2, max_refs=2),
+    "b_temporal_direct": dict(width=64, height=48, pictures=9, bframes=3, pyramid=True,
+                              max_refs=3, direct="temporal"),
+    "b_pyramid_implicit": dict(width=64, height=48, pictures=9, bframes=3, pyramid=True,
+                               max_refs=3, direct="mixed",
+                               seq_args={"pps_extra": {"weighted_bipred_idc": 2},
+                                         "sps_extra": {"reorder": 2}}),
+    "b_explicit_weights": dict(width=64, height=48, pictures=7, bframes=2, max_refs=3,
+                               direct="mixed",
+                               seq_args={"pps_extra": {"weighted_bipred_idc": 1,
+                                                       "weighted_pred": 1}}),
+    "b_lists_slices": dict(width=80, height=48, pictures=9, bframes=2, max_refs=3, slices=3,
+                           modify=True, direct="mixed", deblock=DEBLOCKS),
+    "b_temporal_slices": dict(width=80, height=48, pictures=10, bframes=2, pyramid=True,
+                              max_refs=3, slices=2, modify=True, direct="temporal"),
+    "b_no_direct_inference": dict(width=64, height=48, pictures=7, bframes=2, max_refs=2,
+                                  direct="mixed",
+                                  seq_args={"sps_extra": {"direct_8x8_inference": 0}}),
+    "b_high_8x8": dict(width=64, height=48, pictures=7, bframes=2, max_refs=2, direct="mixed",
+                       seq_args={"sps_extra": {"profile": 100},
+                                 "pps_extra": {"transform_8x8_mode": 1,
+                                               "weighted_bipred_idc": 2}}),
+    "b_reorder_without_restriction": dict(width=48, height=32, pictures=14, bframes=3,
+                                          pyramid=True, max_refs=3, idr_every=9),
+    "p_weighted": dict(width=64, height=48, pictures=5, max_refs=2,
+                       seq_args={"pps_extra": {"weighted_pred": 1}}),
+}
+
+
+def b_case(name: str) -> dict:
+    """random_stream's arguments of a B_CASES case."""
+    args = {"weights": {**B_WEIGHTS, "I8": 1} if "high" in name else B_WEIGHTS,
+            **B_CASES[name]}
+    seq_args = dict(args.pop("seq_args", {}))
+    seq_args.setdefault("log2_max_poc_lsb", 8)
+    return {**args, "seq_args": seq_args}
+
+
+def b_coverage_expected() -> set:
+    """What the B streams of both coders reach together: every B mb_type
+    and sub_mb_type under each coder (B_Skip too), CABAC's B contexts 24-39
+    under each cabac_init_idc with both bin values, every B binarisation
+    leaf, both direct modes, explicit weights with and without each flag in
+    P and B slices, list 1's modification, the VUI's
+    max_num_reorder_frames, and the MP4's ctts and edit list."""
+    out = {("cabac", t, c, b) for t in CABAC_TAGS[1:] for c in range(24, 40) for b in (0, 1)}
+    out |= {("b_mb_type", t) for t in list(range(23)) + ["SKIP"]}
+    out |= {("b_sub_mb_type", t) for t in range(13)}
+    out |= {("cabac_b_mb_type", t) for t in range(24)}
+    out |= {("cabac_b_sub_mb_type", t) for t in range(13)}
+    for e in ("cavlc", "cabac"):
+        out |= {("b_direct", e, m) for m in ("spatial", "temporal")}
+        out.add(("vui_reorder", e, 2))
+    out |= {("pred_weight", typ, lst, lum, chro) for typ, lists in (("P", (0,)), ("B", (0, 1)))
+            for lst in lists for lum in (False, True) for chro in (False, True)}
+    out |= {("list_modification", "B", 1), ("mp4_ctts_elst",)}
+    return out
 
 
 # High profile's tool mixes (tests/test_torch_h264_high.py): each CASES-like

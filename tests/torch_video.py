@@ -8,7 +8,8 @@ chip_smoke.py fixtures under tests/goldens/.
 
     python -m tests.torch_video tests/goldens   # rebuild the fixtures
     python -m tests.torch_video tests/goldens clip_div3.avi  # rebuild these alone
-    python -m tests.torch_video tests/goldens clip_h264_1080p_high.mp4 clip_h264_high_small.mp4
+    python -m tests.torch_video tests/goldens clip_h264_1080p_high.mp4 clip_h264_b_small.mp4 \
+        clip_h264_b_cabac_small.mp4
 
 cv2 is the oracle here and only here: the port reads no clip through it.
 """
@@ -43,12 +44,19 @@ FIXTURES = (("clip_1080p.mov", "MJPG", 30.0, 15, 1080, 1920),
 # last in every slice, each P slice drawing its cabac_init_idc). "_high":
 # at High profile, the 8x8 transform and Intra 8x8 on: the natural clip
 # with flat lists (x264's default), the random mix with explicit SPS and PPS
-# scaling lists and a Cr QP offset apart from Cb's. The 1080p clip is coded
-# at 1088 rows, cropped.
-H264_FIXTURES = (("clip_h264_1080p_high.mp4", 30, 15, 1080, 1920, "natural_high", "cabac"),
+# scaling lists and a Cr QP offset apart from Cb's. "_b": x264's default
+# structure, the natural clip (its scene fading out 3 % a frame) coded as
+# IBBP with a B-ref, weighted P, implicit bi-prediction and spatial direct
+# (B_Skip), the VUI's max_num_reorder_frames 2, the MP4's ctts and edit
+# list; the random mix with every B type, B-refs, explicit weights in P and
+# B slices, spatial and temporal direct, list modifications, 2 slices. The
+# 1080p clip is coded at 1088 rows, cropped.
+H264_FIXTURES = (("clip_h264_1080p_high.mp4", 30, 15, 1080, 1920, "natural_high_b", "cabac"),
                  ("clip_h264_small.mp4", 30, 12, 72, 120, "random", "cavlc"),
                  ("clip_h264_cabac_small.mp4", 30, 12, 72, 120, "random", "cabac"),
-                 ("clip_h264_high_small.mp4", 30, 12, 72, 120, "random_high", "cabac"))
+                 ("clip_h264_high_small.mp4", 30, 12, 72, 120, "random_high", "cabac"),
+                 ("clip_h264_b_small.mp4", 30, 10, 48, 80, "random_b", "cavlc"),
+                 ("clip_h264_b_cabac_small.mp4", 30, 10, 48, 80, "random_b", "cabac"))
 # an MS-MPEG-4 v3 clip ('DIV3' AVI, FFmpeg's msmpeg4v3): the codec refusal on the card
 REFUSED_FIXTURE = ("clip_div3.avi", "DIV3", 30.0, 3, 64, 96)
 ROTATION_MATRIX = {0: (1, 0, 0, 1), 90: (0, 1, -1, 0), 180: (-1, 0, 0, -1), 270: (0, -1, 1, 0)}
@@ -219,10 +227,23 @@ def write_h264(path: str, fps: int, n: int, h: int, w: int, mode: str, entropy: 
     no avcodec error or warning."""
     from tests import torch_h264 as H
 
-    high = mode.endswith("_high")
-    if mode.startswith("natural"):
+    high = "_high" in mode
+    if mode == "natural_high_b":
+        frames = [np.clip(f * (1 - 0.03 * k), 0, 255).astype(np.uint8)
+                  for k, f in enumerate(scene(n, h, w, seed=seed))]
+        seq, samples = H.natural_stream(frames, qp=35, refs=3, deblock_last=3, entropy=entropy,
+                                        high=True, bframes=3)
+    elif mode.startswith("natural"):
         seq, samples = H.natural_stream(scene(n, h, w, seed=seed), qp=35, refs=2,
                                         deblock_last=3, entropy=entropy, high=high)
+    elif mode == "random_b":
+        seq, samples = H.random_stream(w, h, n, seed=seed, max_refs=3, bframes=2, pyramid=True,
+                                       direct="mixed", slices=2, deblock=H.DEBLOCKS,
+                                       modify=True, weights=H.B_WEIGHTS, entropy=entropy,
+                                       seq_args={"pps_extra": {"weighted_bipred_idc": 1,
+                                                               "weighted_pred": 1},
+                                                 "sps_extra": {"reorder": 2},
+                                                 "log2_max_poc_lsb": 8})
     else:
         extra = {}
         if high:
@@ -336,7 +357,7 @@ def write_isobmff(path: str, samples: list, h: int, w: int, timescale: int = 30,
                   moov_first: bool = False, co64: bool = False, large_mdat: bool = False,
                   rotation: int = 0, elst=((None, 0, 1),), chunk_samples: int = 3,
                   fragmented: bool = False, stz2: bool = False, config: bytes = b"",
-                  avcc: bytes = b"") -> None:
+                  avcc: bytes = b"", ctts=None) -> None:
     """An MP4/MOV of ``samples`` (one video track, ``fourcc`` sample entry;
     ``oti`` adds an esds with that objectTypeIndication, ``config`` its
     DecoderSpecificInfo; ``avcc`` adds an avcC box, the
@@ -345,7 +366,8 @@ def write_isobmff(path: str, samples: list, h: int, w: int, timescale: int = 30,
     samples a chunk (the last chunk takes the rest). ``elst``: (segment
     duration or None for the whole track, media_time, rate) entries, or
     None for no edts; ``rotation`` sets tkhd's matrix; ``fragmented`` adds
-    moov/mvex; ``stz2`` writes the sizes as a 16-bit stz2."""
+    moov/mvex; ``stz2`` writes the sizes as a 16-bit stz2; ``ctts`` (one
+    composition offset a sample) adds a version 0 ctts."""
     n = len(samples)
     durs = [durations] * n if isinstance(durations, int) else list(durations)
     total = sum(durs)
@@ -386,7 +408,17 @@ def write_isobmff(path: str, samples: list, h: int, w: int, timescale: int = 30,
         else:
             stco = _full(b"stco", 0, 0, struct.pack(">I", len(chunk_offsets)),
                          *(struct.pack(">I", o) for o in chunk_offsets))
-        stbl = _box(b"stbl", stsd, stts, stsc_b, stsz, stco)
+        ctts_b = []
+        if ctts is not None:
+            runs = []
+            for c in ctts:
+                if runs and runs[-1][1] == c:
+                    runs[-1][0] += 1
+                else:
+                    runs.append([1, c])
+            ctts_b = [_full(b"ctts", 0, 0, struct.pack(">I", len(runs)),
+                            *(struct.pack(">II", k, c) for k, c in runs))]
+        stbl = _box(b"stbl", stsd, stts, *ctts_b, stsc_b, stsz, stco)
         dinf = _box(b"dinf", _full(b"dref", 0, 0, struct.pack(">I", 1), _full(b"url ", 0, 1)))
         minf = _box(b"minf", _full(b"vmhd", 0, 1, b"\0" * 8), dinf, stbl)
         hdlr = _full(b"hdlr", 0, 0, b"\0" * 4, b"vide", b"\0" * 12, b"VideoHandler\0")
