@@ -342,6 +342,39 @@ def case_nets(name: str) -> list:
             for D, W, in_dir, out, raw, use_ct, use_cd in specs]
 
 
+def case_layout(name: str):
+    """Case ``name``'s launch layout (``fused_mlp.launch_layout``) on the
+    CPU, as ``nerf_mlp_fused`` builds it: the "embedded" input carries the
+    dir code per point in x's last columns."""
+    from moda_tpu_torch.ops import fused_mlp as FM
+
+    _, _, S, ct, cd, _, layout = KERNEL_CASES[name][:7]
+    nets = case_nets(name)
+    if layout == "embedded":
+        (mod, use_ct, _), = nets
+        return FM.launch_layout([(mod, use_ct, True)], 63, ct, cd, S)
+    return FM.launch_layout(nets, 63, ct, cd, S, emb=(3, 10, True))
+
+
+def smem_line(FM, kname: str, name: str, lay) -> str:
+    """Kernel ``kname``'s shared memory and CTAs per SM at case ``name``, as
+    the wrapper recorded them at its launch; exits if
+    ``fused_mlp.block_smem_bytes`` disagrees with the C layout."""
+    smem, ctas = footprint(FM, kname, name)
+    want = FM.block_smem_bytes(lay, kname.startswith("K2"))
+    if want != smem:
+        raise SystemExit(f"{name}: {kname}'s shared memory {smem} B != block_smem_bytes {want} B")
+    return f"{kname} {smem} B ({ctas} CTAs/SM)"
+
+
+def digest(tensors) -> str:
+    """sha256 of the tensors' bytes, in order (16 hex digits)."""
+    h = hashlib.sha256()
+    for t in tensors:
+        h.update(t.detach().contiguous().cpu().numpy().tobytes())
+    return h.hexdigest()[:16]
+
+
 def build_case(name: str, gen, dev):
     """Case ``name``'s nets (random weights) and inputs from ``gen``:
     (mods [(module, use_ct, use_cd)], x, ct code, cd code, window, legacy)."""
@@ -458,11 +491,14 @@ def check_kernels(results: list, profile: bool = False):
             return max_abs_out, max_abs_grad
 
         err_out, err_grad = compare("K1/K2", outs_k, grads_k)
+        lay = case_layout(name)
         print(f"[kernels] {name}: shared memory " + ", ".join(
-            "{} {} B ({} CTAs/SM)".format(k, *footprint(FM, k, name))
-            for k in (("K1",) if fwd_only else ("K1", "K2"))) +
+            smem_line(FM, k, name, lay) for k in (("K1",) if fwd_only else ("K1", "K2"))) +
             f" at BM_F={FM.BM_F}, BM_B={FM.BM_B}", flush=True)
         if name == DETERMINISM_CASE:
+            # to hold K1 and K2 bit for bit against another build in one call
+            print(f"[kernels] {name}: sha256 K1 outputs {digest(outs_k)}, K2 dx "
+                  f"{digest(grads_k[:1])}", flush=True)
             outs_k2, grads_k2 = values(True)
             torch.cuda.synchronize()
             same = all(torch.equal(a, b) for a, b in zip(outs_k + grads_k, outs_k2 + grads_k2)
@@ -490,6 +526,8 @@ def check_kernels(results: list, profile: bool = False):
                   f"{max(dg):.3e})", flush=True)
             if not same_out or max(dg) > tol_grad:
                 raise SystemExit(f"K1s/K2s disagree with K1/K2 in {name}")
+            print(f"[kernels] {name}: shared memory " +
+                  ", ".join(smem_line(FM, k, name, lay) for k in ("K1s", "K2s")), flush=True)
 
         # ---- timing (forward, and forward + backward)
         def fwd(kernel):

@@ -20,11 +20,16 @@
 //   activations are rounded to bf16 exactly where the TPU kernel rounds them
 //   (at each product input). Bound on the H100: tensor-core operations (the
 //   trunk at 262,144 points is ~0.37 TFLOP against ~25 MB of inputs and
-//   outputs). Measured on an H100 80GB HBM3 at 700 W: 3.98 ms at the trunk
-//   site (262,144 points), ~9% of that bound, with two CTAs of 8 warps per
-//   SM (128 registers, 103 KB of shared memory for the trunk launch). What
-//   holds it back: each warp waits on the weight fragments it fetches from
-//   L2, four at a time, with nothing in flight across layers.
+//   outputs). Measured on an NVIDIA H100 80GB HBM3 at 700 W: 3.96-3.98 ms
+//   at the trunk site (262,144 points), ~9% of that bound, with two CTAs of
+//   8 warps per SM (128 registers, 103 KB of shared memory for the trunk
+//   launch). Each warp loads its B fragments from L2 with
+//   wmma::load_matrix_sync, four at a time (KU), nothing in flight across
+//   layers. A ring in shared memory that copied the weights ahead of the
+//   products across layers (cp.async or cp.async.bulk onto mbarriers) was
+//   20-45% slower at every site: two CTAs per SM leave room for only two
+//   16-row stages at the trunk, and the ring's bookkeeping cost more than
+//   the latency it hid (PERF.md section 6).
 // K2 (fmlp_bwd_kernel + fmlp_dw_kernel + fmlp_reduce_kernel): persistent
 //   CTAs walk blocks of BM_B points. Each block recomputes the forward,
 //   writes every layer's bf16 input activation (A) and bf16 pre-activation
@@ -61,8 +66,14 @@
 //   replaced 4.8. Of the block kernel's time, the
 //   recomputed forward takes ~7 and the input-gradient products and their
 //   epilogues ~7.4: inferred from K2 - K2s (K2s skips the recompute), not
-//   read from a per-phase profile. The same weight
-//   latency as K1's holds the block kernel back. BM_B = 32 keeps it at 118
+//   read from a per-phase profile. The block kernel read 14.06-14.14 ms
+//   at the trunk on that card later; with no weight traffic at all (B
+//   fragments from a fixed shared tile, a measurement only) it read 9.42,
+//   so the weight loads hold about a third of it and the epilogues, the
+//   recompute, the per-product barriers and the embed the rest. A weight
+//   ring in shared memory was 3.5-34% slower at every backward site (KC_B
+//   32 rows a stage; 64 rows -1% at the trunk, +9% at vis; PERF.md
+//   section 6). BM_B = 32 keeps it at 118
 //   registers and 91 KB, two CTAs per SM; at 64 rows it needs 204 registers
 //   (one CTA per SM) and narrow nets leave half the warps without a column
 //   tile: it was slower at every backward site but the smallest (the

@@ -467,12 +467,44 @@ def bwd_geometry(n: int, S: int, bm: int = BM_B) -> BwdGeometry:
     return BwdGeometry(nblocks, nblocks * bm, rows_slot, spb, nblocks * spb, max(S // bm, 1))
 
 
+# ------------------------------------------------- block kernels' footprint
+# Row padding of the bf16 and fp32 tiles and the warps of a CTA
+# (csrc/fused_mlp.cu PADH, PADF, NWARPS). The H100's shared memory: a
+# multiprocessor's, the reserve a CTA (cudaDevAttrReservedSharedMemoryPerBlock),
+# a CTA's opt-in maximum. REG_CTAS: the CTAs of 256 threads that a
+# multiprocessor's 65,536 registers hold at 86-128 registers a thread (K1 and
+# K2 are kept at or under 128).
+PADH, PADF, NWARPS = 8, 4, 8
+SM_SMEM, CTA_RESERVED, BLOCK_SMEM_MAX, REG_CTAS = 233472, 1024, 232448, 2
+
+
+def block_smem_bytes(lay: "_Layout", bwd: bool) -> int:
+    """Shared-memory bytes of K1's (or K2's) block kernel at a launch of
+    ``lay``, as csrc/fused_mlp.cu::smem_layout lays them out."""
+    bm = BM_B if bwd else BM_F
+    a0 = lay.nets[0]["arch"]
+    fc = a0.emb[0] * a0.emb[1] if a0.emb else 0
+    h = max(lay.hw, lay.dsw) if bwd else lay.hw
+    # xe, ct, cd, h0, h1, the warps' fp32 staging tiles, outs
+    regions = [bm * (lay.xp + PADH) * 2, bm * (lay.ctp + PADH) * 2, bm * (lay.cdp + PADH) * 2,
+               bm * (h + PADH) * 2, bm * (h + PADH) * 2, NWARPS * 16 * (16 + PADF) * 4,
+               bm * lay.outw * 4]
+    if bwd:  # ds2, dt, dcd, bacc, wacc
+        regions += [bm * (16 + PADH) * 2, bm * (lay.xp + lay.ctp) * 4, bm * lay.cdp * 4,
+                    lay.total_bias * 4, 2 * fc * 4 + 4]
+    return sum((b + 127) // 128 * 128 for b in regions)
+
+
+def ctas_per_sm(smem: int) -> int:
+    """Resident CTAs per multiprocessor of K1 or K2 at ``smem`` bytes a CTA."""
+    return min(REG_CTAS, SM_SMEM // (smem + CTA_RESERVED))
+
+
 # ------------------------------------------------------------- dW GEMM plan
 # output tile (rows of kin x columns of nout), points per ring stage,
 # columns of a TMA box, consumer warps of a CTA: csrc/fused_mlp.cu DW_TM,
 # DW_TN, DW_KC, DW_BOX and DW_WARPS. A warp owns a 64 x 32 block of a tile.
 DW_TM, DW_TN, DW_KC, DW_BOX, DW_WARPS = 128, 128, 128, 64, 8
-DW_SMEM = 232448  # shared memory a block can have on the H100
 DW_MIN_POINTS = 512  # least points of an item: four ring stages, and enough that
                      # its fp32 partial is at most 1/8 of the operand bytes it reads
 DW_WAVES = 4         # items per resident CTA, so the block scheduler can even them out
@@ -519,8 +551,7 @@ def dw_task_shapes(nets, in_x: int, ct: int = 0, cd: int = 0, S: int = 1,
     of nets [(NeRFMLP, use_ct, use_cd)] (arguments as ``launch_archs``), in
     the padded widths of _Layout; a is the first task that reads the same A
     stack."""
-    archs, weights = launch_archs(nets, in_x, ct, cd, S, emb=emb)
-    lay = _Layout(weights, archs)
+    lay = launch_layout(nets, in_x, ct, cd, S, emb=emb)
     first = {}
     return [(lay.nets[i]["layers"][li]["kin"], lay.nets[i]["layers"][li]["nout"],
              first.setdefault((i, a), j)) for j, (i, li, a) in enumerate(dw_tasks(lay))]
@@ -537,7 +568,7 @@ def dw_stages(ba: int, bd: int) -> int:
     """Ring stages of the dW GEMM: as many as fit in a block's shared memory
     (csrc/fused_mlp.cu::dw_smem_bytes), at most 8."""
     stage = (ba + bd) * DW_KC * DW_BOX * 2
-    return min(8, (DW_SMEM - 1024) // (stage + 16))
+    return min(8, (BLOCK_SMEM_MAX - 1024) // (stage + 16))
 
 
 def dw_kslices(mw: int, nw: int) -> int:
@@ -869,6 +900,15 @@ def launch_archs(nets, in_x: int, ct: int, cd: int, S: int, need_dx: bool = True
                           sigmoid=not mod.raw_feat, emb=emb, drop_sigma=mod.raw_feat))
         weights += mod.flat_weights()
     return tuple(archs), weights
+
+
+def launch_layout(nets, in_x: int, ct: int = 0, cd: int = 0, S: int = 1,
+                  emb: Optional[Tuple[int, int, bool]] = None) -> _Layout:
+    """The padded weights and geometry of a launch of nets [(NeRFMLP,
+    use_ct, use_cd)] (arguments as ``launch_archs``), as the wrapper lays
+    them out; ``block_smem_bytes`` and ``dw_task_shapes`` read it."""
+    archs, weights = launch_archs(nets, in_x, ct, cd, S, emb=emb)
+    return _Layout(weights, archs)
 
 
 def nerf_mlp_fused(nets, x: torch.Tensor, *, code_trunk=None, code_dir=None,

@@ -432,3 +432,27 @@ def test_dw_constants_match_cuda_source():
     assert TFM.dw_boxes([(352, 128), (256, 16)]) == (2, 2)
     assert TFM.dw_stages(*TFM.dw_boxes([(256, 256)])) == 3
     assert TFM.dw_stages(*TFM.dw_boxes([(192, 64), (64, 64)])) == 4
+
+
+def test_footprint_constants_match_cuda_source():
+    """The row padding and warps that block_smem_bytes counts with are the
+    kernel's."""
+    defines = {k: int(v) for k, v in re.findall(r"#define (\w+) (\d+)\s", _CU)}
+    assert (defines["PADH"], defines["PADF"], defines["NTHREADS"] // 32) == (
+        TFM.PADH, TFM.PADF, TFM.NWARPS)
+
+
+@pytest.mark.parametrize("kernel", ["K1", "K2"])
+@pytest.mark.parametrize("name", sorted(CASES))
+def test_block_footprint_fits_the_h100(name, kernel):
+    """K1's and K2's shared memory at the widths of each case (the launch as
+    nerf_mlp_fused lays it out): under the H100's opt-in maximum, at two
+    CTAs per multiprocessor."""
+    specs, _, S, ct, cd, _ = CASES[name]
+    nets = [(TNeRFMLP(D=D, W=W, in_channels_xyz=63 + (ct if use_ct else 0),
+                      in_channels_dir=in_dir, out_channels=out, raw_feat=raw), use_ct, use_cd)
+            for D, W, in_dir, out, raw, use_ct, use_cd in specs]
+    lay = TFM.launch_layout(nets, 63, ct, cd, S, emb=(3, 10, True))
+    smem = TFM.block_smem_bytes(lay, kernel == "K2")
+    assert smem <= TFM.BLOCK_SMEM_MAX
+    assert TFM.ctas_per_sm(smem) == 2

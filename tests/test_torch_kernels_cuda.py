@@ -166,10 +166,18 @@ SITE_NETS = {128: ([(8, 256, 27 + 64, 3, False, False, True), (5, 128, 0, 16, Tr
 
 
 def _site(cuda_device, S, R, seed):
+    specs, ct, cd = SITE_NETS[S]
+    return _nets_run(cuda_device, specs, ct, cd, S, R, seed)
+
+
+def _nets_run(cuda_device, specs, ct, cd, S, R, seed):
+    """run(kernel) -> (outputs, gradients of every leaf) of nets ``specs``
+    [(D, W, in_dir, out, raw_feat, use_ct, use_cd)] in one launch on R rays
+    of S points, raw xyz embedded in the launch, seeded inputs and
+    cotangents."""
     from moda_tpu_torch.fields.nets import NeRFMLP, reset_denses
     from moda_tpu_torch.ops import fused_mlp as FM
 
-    specs, ct, cd = SITE_NETS[S]
     gen = torch.Generator().manual_seed(seed)
     mods = []
     for D, W, in_dir, out, raw, use_ct, use_cd in specs:
@@ -207,6 +215,45 @@ def test_kernel_matches_plain_at_block_edges(cuda_device, S):
     R = 3 * FM.BM_B + 17 if S == 1 else 3
     assert S > 1 or (R * S) % FM.BM_B
     run = _site(cuda_device, S, R, seed=3)
+    before = dict(FM.launches)
+    ko, kg = run(True)
+    torch.cuda.synchronize()
+    assert FM.launches["fwd"] == before["fwd"] + 1 and FM.launches["bwd"] == before["bwd"] + 1
+    po, pg = run(False)
+    for a, b in zip(ko, po):
+        assert float((a - b).norm() / b.norm()) <= 1e-2
+    for a, b in zip(kg, pg):
+        assert float((a - b).norm() / (b.norm() + 1e-12)) <= 2e-2
+
+
+# one net a case at the edges of block_gemm's products (csrc/fused_mlp.cu):
+# (D, W, in_dir, out, raw_feat, use_ct, use_cd), ct, cd, S
+PRODUCT_EDGES = {
+    # the 16-wide sigma head (ds2) and a 16-wide rgb head: products whose K
+    # (16) is below a warp's four-fragment step
+    "sigma_and_rgb16_heads": ((5, 128, 0, 16, False, False, False), 0, 0, 1),
+    # a 96-wide dir code (91 padded): the dir layer's second K-segment
+    "dir_code_96": ((5, 128, 91, 3, False, False, True), 0, 91, 128),
+    # W 256 with that code: the dir layer's backward is 352 columns wide
+    # (22 tiles over 8 warps), the skip layer's 320 (64 + 256)
+    "dir_352_skip_320": ((8, 256, 91, 3, False, False, True), 0, 91, 128),
+    # a per-ray trunk code (ct > 0): layer 0's and the skip layer's second
+    # K-segment, and the skip layer's backward 320 columns (64 + 128 + 128)
+    "trunk_code": ((5, 128, 0, 3, True, True, False), 128, 0, 64),
+    # W 64: four column tiles, half the warps without one
+    "w64": ((5, 64, 0, 25, True, True, False), 128, 0, 64),
+}
+
+
+@pytest.mark.parametrize("case", sorted(PRODUCT_EDGES))
+def test_kernel_matches_plain_at_product_edges(cuda_device, case):
+    """K1 and K2 against the plain version where products have partial
+    steps, segments and column tiles, at phase 3's tolerances (outputs 1e-2,
+    gradients 2e-2)."""
+    from moda_tpu_torch.ops import fused_mlp as FM
+
+    spec, ct, cd, S = PRODUCT_EDGES[case]
+    run = _nets_run(cuda_device, [spec], ct, cd, S, 3 if S > 1 else 5 * FM.BM_B + 9, seed=5)
     before = dict(FM.launches)
     ko, kg = run(True)
     torch.cuda.synchronize()
